@@ -1,9 +1,10 @@
 """Device resolution shared by every entry point of the port.
 
-Entry points (``ServeEngine``, ``init_model``, the serve CLI) run on
-``cuda`` unless the caller asks for the CPU. Without a CUDA device they
-raise instead of carrying on on the CPU: a run that silently left the
-card would report CPU numbers under a GPU's name.
+Entry points (``ServeEngine``, ``Trainer``, ``init_model``, the serve
+and train CLIs) run on ``cuda`` unless the caller asks for the CPU.
+Without a CUDA device they raise instead of carrying on on the CPU: a
+run that silently left the card would report CPU numbers under a GPU's
+name.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Step builders — the serving half of :mod:`repro.launch.steps`:
-top-k/top-p masking, per-slot sampling and the paged serve step.
+"""Step functions — port of :mod:`repro.launch.steps`: the train step
+(gradients, microbatch accumulation, optimizer), top-k/top-p masking,
+per-slot sampling and the paged serve step.
 
 The JAX package traces these into one jitted call; the port runs them
 eagerly on the tensors' device. Host inputs (numpy slot arrays) are
@@ -13,8 +14,51 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import prng
+from repro_torch.models import transformer
+from repro_torch.optim import optimizers
+from repro_torch.tree import leaves_with_paths, unflatten
 
 _MASKED = -1e30          # matches the attention-mask convention
+
+
+def make_train_fn(rcfg: RunConfig):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics). Params and optimizer state are updated in place
+    (:func:`repro_torch.optim.optimizers.apply_updates`). Gradient
+    accumulation over ``rcfg.microbatches`` bounds the live MGRIT state
+    memory (a loop where the reference scans)."""
+    mode = "lp" if rcfg.mgrit.enabled else "serial"
+    nmb = rcfg.microbatches
+
+    def value_and_grad(params, batch):
+        paths, leaves = zip(*leaves_with_paths(params))
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss, diag = transformer.loss_fn(unflatten(zip(paths, leaves)),
+                                         batch, rcfg, mode=mode)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), diag, paths, grads
+
+    def train_step(params, opt_state, batch):
+        if nmb > 1:
+            lsum, g_acc = 0.0, None
+            for i in range(nmb):
+                b_i = {k: a.reshape(nmb, a.shape[0] // nmb, *a.shape[1:])[i]
+                       for k, a in batch.items()}
+                l, diag, paths, grads = value_and_grad(params, b_i)
+                grads = [g.float() for g in grads]
+                g_acc = grads if g_acc is None else \
+                    [a + g for a, g in zip(g_acc, grads)]
+                lsum = lsum + l
+            grads = [g / nmb for g in g_acc]
+            lval = lsum / nmb
+        else:
+            lval, diag, paths, grads = value_and_grad(params, batch)
+        params, opt_state, om = optimizers.apply_updates(
+            rcfg.optimizer, params, unflatten(zip(paths, grads)), opt_state)
+        metrics = {"loss": lval, "fwd_norms": diag["fwd_norms"], **om}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def apply_top_k_top_p(logits, k, p):

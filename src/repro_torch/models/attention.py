@@ -1,6 +1,8 @@
-"""Grouped-query attention with RoPE and qk-norm over a paged KV cache.
+"""Grouped-query attention with RoPE and qk-norm: full-sequence (training)
+and over a paged KV cache (serving).
 
-Port of the serving half of :mod:`repro.models.attention`. Layouts are
+Port of :mod:`repro.models.attention` without its contiguous KV cache and
+cross-attention (encoder-decoder models come in a later slice). Layouts are
 the reference's: activations (B, S, D), q/k/v after projection
 (B, S, H, hd), page pools (L, n_pages, page_size, Hkv, hd).
 
@@ -87,6 +89,81 @@ def dot_attention(q, k, v, *, causal: bool, q_offset=0,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqs,bshk->bqhgk", probs.to(v.dtype), v)
     return out.reshape(B, Sq, H, hd)
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_block: int = 512,
+                      k_block: int = 512):
+    """Flash-style online-softmax attention in plain PyTorch (a double
+    loop over query and key blocks). Memory is O(Sq*Ck + Sk) per head
+    instead of O(Sq*Sk). Same shapes as :func:`dot_attention`."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = hd ** -0.5
+    q_block = min(q_block, Sq)
+    k_block = min(k_block, Sk)
+    # fold gqa groups: (B, Hkv, g, Sq, hd)
+    qh = q.reshape(B, Sq, Hkv, g, hd).permute(0, 2, 3, 1, 4) * scale
+    kh = k.permute(0, 2, 1, 3)                       # (B, Hkv, Sk, hd)
+    vh = v.permute(0, 2, 1, 3)
+    outs = []
+    for q0 in range(0, Sq - Sq % q_block, q_block):
+        qi = qh[:, :, :, q0:q0 + q_block].float()
+        qpos = q0 + torch.arange(q_block, device=q.device)
+        m = torch.full((B, Hkv, g, q_block), -float("inf"),
+                       device=q.device)
+        l = torch.zeros((B, Hkv, g, q_block), device=q.device)
+        acc = torch.zeros((B, Hkv, g, q_block, hd), device=q.device)
+        for k0 in range(0, Sk - Sk % k_block, k_block):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qi,
+                             kh[:, :, k0:k0 + k_block].float())
+            if causal:
+                kpos = k0 + torch.arange(k_block, device=q.device)
+                mask = qpos[:, None] >= kpos[None, :]
+                s = torch.where(mask, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vh[:, :, k0:k0 + k_block].float())
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30))
+                    .to(v.dtype))
+    out = torch.cat(outs, dim=3)                     # (B, Hkv, g, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+ATTN_CHUNK_THRESHOLD = 8192
+
+
+def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
+                    rope=None):
+    """Self-attention without a cache (training / full-sequence forward).
+
+    x: (B, S, D). rope: precomputed (cos, sin), shared across layers.
+    On the card the attention core is the flash kernel
+    (:func:`repro_torch.kernels.ops.flash_attention`, the counterpart of
+    the reference's ``use_pallas=True``); on the CPU it takes the
+    reference's dense / chunked branches. Returns (B, S, D).
+    """
+    dt = torch_dtype(cfg.dtype)
+    x = x.to(dt)
+    q, k, v = _project_qkv(params, x, None, cfg)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    S = q.shape[1]
+    if q.is_cuda:
+        out = kops.flash_attention(q, k, v, causal=causal)
+    elif S >= (cfg.attn_chunk or ATTN_CHUNK_THRESHOLD) and S % 512 == 0:
+        out = chunked_attention(q, k, v, causal=causal)
+    else:
+        out = dot_attention(q, k, v, causal=causal)
+    h, hd, d = params["wo"].shape
+    return out.reshape(*out.shape[:2], h * hd) \
+        @ params["wo"].to(dt).reshape(h * hd, d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Pre-LN transformer blocks in neural-ODE form (paper Eq. 1).
 
-Port of the ``attn_mlp`` half of :mod:`repro.models.blocks`: one layer is
+Port of the ``attn_mlp`` kind of :mod:`repro.models.blocks`: one layer is
 the forward-Euler step ``Z_{n+1} = Z_n + gate * F(Z_n)`` with
 ``F = phi1(X) + phi2(X + phi1(X))``, phi1 = SA o LN, phi2 = MLP o LN.
 Block params are homogeneous within a kind, so they stack over the
@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import init_attention, paged_attention_apply
+from repro_torch.models.attention import (attention_apply, init_attention,
+                                          paged_attention_apply)
 from repro_torch.models.layers import init_norm, norm_apply
 from repro_torch.models.mlp import init_mlp, mlp_apply
 
@@ -50,6 +51,29 @@ def attn_block_F(params, z, a, cfg: ModelConfig, *, kind: str):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h_in = norm_apply(params["ln2"], z + a, cfg)
     return a + mlp_apply(params["mlp"], h_in, cfg)
+
+
+def block_F(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
+            rope=None):
+    """Evaluate the ODE right-hand side F(t, z) of one block."""
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    a = attention_apply(params["attn"], norm_apply(params["ln1"], z, cfg),
+                        cfg, causal=causal, rope=rope)
+    return attn_block_F(params, z, a, cfg, kind=kind)
+
+
+def block_step(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
+               h: float = 1.0, gate=None, rope=None):
+    """One Euler step Phi(z) = z + h*gate*F(z). ``gate`` (0/1) marks padded
+    identity layers used for layer-parallel divisibility padding. The
+    step sizes in use (1, 1/16 and their cf multiples) are exact in bf16,
+    so scaling by the Python float equals the reference's cast-then-
+    multiply."""
+    f = block_F(params, z, cfg, kind=kind, causal=causal, rope=rope)
+    if gate is None:
+        return z + h * f
+    return z + (h * gate.to(z.dtype)) * f
 
 
 def paged_attn_block(params, z, cfg: ModelConfig, *, kind: str, rope,

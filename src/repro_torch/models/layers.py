@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -35,26 +36,25 @@ def init_norm(cfg: ModelConfig, dim: Optional[int] = None, *, lead=(),
     return p
 
 
-def norm_apply(params, x, cfg: ModelConfig, eps: float = 1e-6):
-    dtype = x.dtype
+def norm_apply(params, x, cfg: ModelConfig):
+    """LayerNorm or RMSNorm (eps 1e-6) in float32, cast back to x's dtype.
+    RMSNorm is exactly the RMSNorm kernel's function, so it goes through
+    :func:`repro_torch.kernels.ops.rmsnorm` (the kernel on the card);
+    LayerNorm has no TPU kernel and stays plain PyTorch."""
+    if cfg.norm != "layernorm":
+        return kops.rmsnorm(x, params["scale"])
     x32 = x.float()
-    if cfg.norm == "layernorm":
-        mu = x32.mean(-1, keepdim=True)
-        # jnp.var is the population variance
-        var = x32.var(-1, keepdim=True, unbiased=False)
-        y = (x32 - mu) * torch.rsqrt(var + eps)
-        y = y * params["scale"].float() + params["bias"].float()
-    else:  # rmsnorm
-        ms = x32.square().mean(-1, keepdim=True)
-        y = x32 * torch.rsqrt(ms + eps) * params["scale"].float()
-    return y.to(dtype)
+    mu = x32.mean(-1, keepdim=True)
+    # jnp.var is the population variance
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + 1e-6)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
-    """Bare RMSNorm used for qk-norm (per-head)."""
-    x32 = x.float()
-    ms = x32.square().mean(-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+def rms_norm(x, scale):
+    """Bare RMSNorm used for qk-norm (per-head), through the kernel."""
+    return kops.rmsnorm(x, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""The decoder model around the layer stack — the serving half.
+"""The decoder model around the layer stack: training and serving.
 
 Port of :mod:`repro.models.transformer` for the decoder family with
 ``attn_mlp`` blocks. Params use the JAX pytree's key paths: ``embed``
 (``tok``, ``out``), ``final_norm``, ``open`` / ``close`` (serial buffer
 stacks) and ``mid`` (``params`` stack + ``gate``) — the ParallelNet's
 layers, padded with gate-0 identity layers to the MGRIT divisibility.
-Serving runs every stacked layer in order, padded ones included.
-Training (``forward`` / ``lm_loss`` under MGRIT) is a later slice.
+Training runs the buffers serially and the ParallelNet through
+:func:`repro_torch.core.lp.lp_forward` (MGRIT forward, MGRIT adjoint
+backward); serving runs every stacked layer in order, padded ones
+included. The encoder-decoder, SSM and hybrid families come in later
+slices.
 """
 from __future__ import annotations
 
@@ -16,12 +19,16 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import MGRITConfig, ModelConfig, RunConfig
+from repro_torch.core import mgrit
+from repro_torch.core.lp import LPStatic, lp_forward
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.blocks import block_kind, init_block, paged_attn_block
+from repro_torch.models.blocks import (block_kind, block_step, init_block,
+                                       paged_attn_block)
 from repro_torch.models.layers import (embed_tokens, init_embedding,
                                        init_norm, norm_apply, rope_freqs,
                                        torch_dtype, unembed)
+from repro_torch.tree import leaves_with_paths
 
 # ---------------------------------------------------------------------------
 # Depth bookkeeping (pad_depth / make_gates: own copies of repro.core.lp's)
@@ -120,6 +127,85 @@ def serving_params(params, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# Forward (train)
+# ---------------------------------------------------------------------------
+
+
+def _rope_for(cfg: ModelConfig, seq: int, device):
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    return rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, pos)
+
+
+def _serial_buffer(stacked, z, cfg: ModelConfig, *, kind, causal, rope):
+    """Exact serial buffer layers (paper App. B, Delta-t = 1), normal
+    autograd."""
+    if stacked is None:
+        return z
+    for p in mgrit.slots(stacked):
+        z = block_step(p, z, cfg, kind=kind, causal=causal, h=1.0,
+                       rope=rope)
+    return z
+
+
+def _trunk(params_mid, z, rcfg: RunConfig, *, kind, causal, rope,
+           mode: str):
+    """The ParallelNet: MGRIT layer-parallel or exact serial trunk."""
+    cfg, mg = rcfg.model, rcfg.mgrit
+    if mode == "serial" or not mg.enabled:
+        mg = dataclasses.replace(mg, fwd_iters=0, bwd_iters=0)
+    static = LPStatic(cfg=cfg, mgrit=mg, kind=kind, causal=causal)
+    return lp_forward(static, params_mid, z, {"rope": rope})
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """Token embeddings, with the vision frontend stub prepended."""
+    x = embed_tokens(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "vision" and "mm_embeds" in batch:
+        x = torch.cat([batch["mm_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
+    """Returns (logits, diagnostics). batch: tokens (B, S) [+ mm_embeds]."""
+    cfg = rcfg.model
+    kind = block_kind(cfg)
+    if cfg.family != "decoder":
+        later = ("the SSM and hybrid slice (ROADMAP Queue 1)"
+                 if cfg.family in ("ssm", "hybrid") else
+                 "the remaining-families slice (ROADMAP Queue 1)")
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: the port trains "
+            f"decoder models; it comes with {later}")
+    z = _embed_inputs(params, batch, cfg)
+    rope = _rope_for(cfg, z.shape[1], z.device)
+    z = _serial_buffer(params.get("open"), z, cfg, kind=kind, causal=True,
+                       rope=rope)
+    z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=True,
+                      rope=rope, mode=mode)
+    z = _serial_buffer(params.get("close"), z, cfg, kind=kind, causal=True,
+                       rope=rope)
+    z = norm_apply(params["final_norm"], z, cfg)
+    logits = unembed(params["embed"], z, cfg)
+    return logits, {"fwd_norms": norms}
+
+
+def lm_loss(logits, labels):
+    """Mean token cross-entropy in float32."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
+def loss_fn(params, batch, rcfg: RunConfig, mode: str = "lp"):
+    logits, diagnostics = forward(params, batch, rcfg, mode=mode)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:  # vlm: mm positions carry no loss
+        logits = logits[:, -labels.shape[1]:]
+    return lm_loss(logits, labels), diagnostics
+
+
+# ---------------------------------------------------------------------------
 # Paged serving
 # ---------------------------------------------------------------------------
 
@@ -141,27 +227,12 @@ def _all_layers_stacked(params) -> Tuple[List[Dict[str, Any]], torch.Tensor]:
             gate = None
         if stack is None:
             continue
-        n = _leading_dim(stack)
-        layers.extend(_index_tree(stack, i) for i in range(n))
+        n = len(layers)
+        layers.extend(mgrit.slots(stack))
         gates.append(gate if gate is not None else torch.ones(
-            n, dtype=torch.float32, device=_any_leaf(stack).device))
+            len(layers) - n, dtype=torch.float32,
+            device=leaves_with_paths(stack)[0][1].device))
     return layers, torch.cat(gates)
-
-
-def _any_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree
-
-
-def _leading_dim(tree) -> int:
-    return _any_leaf(tree).shape[0]
-
-
-def _index_tree(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def stacked_layer_depth(rcfg: RunConfig) -> int:

@@ -49,3 +49,23 @@ def test_no_source_file_imports_jax_or_repro():
                 if top in ("jax", "jaxlib", "repro"):
                     offenders.append(f"{path.relative_to(ROOT)}: {n}")
     assert not offenders, offenders
+
+
+def test_module_list_covers_both_slices():
+    """The walk above reaches the serving and the training modules (a
+    package directory without ``__init__.py`` would drop out of it)."""
+    names = {name for _, name in modules()}
+    for mod in ("repro_torch.serve.engine", "repro_torch.kernels.sampling",
+                "repro_torch.kernels.paged_attention",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.rmsnorm", "repro_torch.core.mgrit",
+                "repro_torch.core.lp", "repro_torch.core.adaptive",
+                "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
+                "repro_torch.launch.train", "repro_torch.train.trainer",
+                "repro_torch.tree"):
+        assert mod in names, mod
+    for path, _ in modules():
+        pkg = path.parent
+        while pkg != PKG.parent:
+            assert (pkg / "__init__.py").exists(), pkg
+            pkg = pkg.parent
