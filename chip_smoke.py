@@ -4,26 +4,30 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` for ``sm_90a`` and holds each against its plain PyTorch version
-(the training kernels forward and backward, in float32 and bf16, at the
-training and serve shapes, with a bit-repeatability check of every
-backward). Then it drives the port's
-two paths, each with the launch counters set to 0 just before and read
-just after: it serves ``qwen3_1p7b`` at full width (random weights from a
-seed) through ``ServeEngine`` and compares one fused step with the
-gathered plain path; it checks the training gradients at full width and
-reduced depth (kernel path vs plain path vs direct autograd), then trains
-full-width, full-depth ``qwen3_1p7b`` for three MGRIT steps through
+``nvcc`` for ``sm_90a`` and holds each against its plain PyTorch version:
+paged attention at qwen3_1p7b's and zamba2_1p2b's head shapes, the
+sampling mask, the paged SSM update at falcon_mamba_7b's and
+zamba2_1p2b's full-width rows (both product orders), and the training
+kernels forward and backward, in float32 and bf16, at the training and
+serve shapes, with a bit-repeatability check of every backward. Then it
+drives the port's paths, each with the launch counters set to 0 just
+before and read just after: it serves ``qwen3_1p7b``, then
+``falcon_mamba_7b`` and ``zamba2_1p2b``, each at full width and full
+depth (random weights from a seed) through ``ServeEngine``, compares one
+fused step with the gathered plain path and profiles a decode wave; it
+checks the training gradients at full width and reduced depth (kernel
+path vs plain path vs direct autograd), then trains full-width,
+full-depth ``qwen3_1p7b`` for three MGRIT steps through
 ``Trainer.train`` (adaptive probe at step 2) and profiles one MGRIT and
-one serial step. Last it times each kernel beside its plain version, a
-library yardstick and its bound, and holds the flash kernels against the
-plain version at the training shape. Imports ``repro_torch``, torch and
-numpy only. Exits non-zero, before printing any result, when no CUDA
-device is available or the repository's ``src`` is missing; exits
-non-zero on any mismatch. The last line is
-``{"ok": true, "device": {...}}``; the lines before it are the launch
-counts, the card's name and power limit, and one JSON object with every
-kernel's numbers.
+one serial step. It times each kernel beside its plain version, a
+library yardstick where one PyTorch call computes the same function,
+and its bound, and holds the flash kernels against the plain version at
+the training shape. Imports ``repro_torch``, torch and numpy only. Exits
+non-zero, before printing any result, when no CUDA device is available
+or the repository's ``src`` is missing; exits non-zero on any mismatch.
+The last line is ``{"ok": true, "device": {...}}``; the lines before it
+are the launch counts, the card's name and power limit, and one JSON
+object with every kernel's numbers.
 """
 from __future__ import annotations
 
@@ -52,6 +56,20 @@ FLASH_OUT_BF16 = (1e-3, 1e-2)   # bf16 out, per element: atol + rtol|plain|
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 GRAD_REL = 1e-4                 # per leaf, x max|leaf| (float32)
 TRAIN_B, TRAIN_S = 2, 4096      # train_4k's sequence, its batch cut to 2
+PEAK_F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
+DECODE_LENS = [287, 301, 150, 64]   # contexts of the profiled decode wave
+# paged SSM update: rows and d_state of falcon-mamba-7b (mamba1, "dbx")
+# and zamba2-1.2b (mamba2, 64 heads x headdim 64, "dxb"); the kernel vs
+# plain tolerance is relative to max|plain| (FMA contraction and the
+# card's expf over up to 256 sequential float32 steps)
+SSM_ROWS = {"dbx": (8192, 16), "dxb": (4096, 64)}
+SSM_TOL = 1e-5
+# (S, lengths, n_new): a decode step crossing a page boundary (16), one
+# reading and rewriting its mid-page (31), an empty slot and an idle one;
+# 64- and 256-token prefill chunks from 0, mid-page, idle and late slots
+SSM_CASES = ((1, [16, 31, 0, 300], [1, 1, 1, 0]),
+             (64, [0, 37, 200, 448], [64, 50, 0, 64]),
+             (256, [0, 37, 200, 256], [256, 200, 0, 256]))
 # (rows, width) the RMSNorm kernel sees: training ln / qk-norm rows; a
 # decode wave's ln, q-norm and k-norm rows; a 512-token prefill bucket's
 RMS_SHAPES = ((8192, 2048), (8192 * H, HD),
@@ -93,17 +111,50 @@ def time_ms(fn, iters: int = 20, flush=None) -> float:
     return total / iters
 
 
-def attn_case(gen, B, S, lengths, dtype, n_slot_pages, poison):
+def dev_us(e) -> float:
+    """Device time (us) of a profiler ``key_averages()`` row."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, kernel: str, iters: int, flush) -> float:
+    """Mean device time (ms) of the ``kernel`` launches one ``fn()``
+    makes, from ``torch.profiler`` over ``iters`` calls with the L2
+    flushed before each: the kernel alone, without the host time of its
+    wrapper, which CUDA events around a call include whenever the host
+    is the slower side."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and kernel in e.key]
+    count = sum(e.count for e in rows)
+    if not count:
+        fail(f"the profiler saw no {kernel} launch")
+    return sum(dev_us(e) for e in rows) / count / 1e3
+
+
+def attn_case(gen, B, S, lengths, dtype, n_slot_pages, poison, heads=None):
     """Pools with per-slot random page tables; rows past each slot's last
-    visible key hold ``poison`` (they must not move a bit)."""
+    visible key hold ``poison`` (they must not move a bit). ``heads`` is
+    (H, Hkv, hd), qwen3_1p7b's by default."""
     import torch
     dev = "cuda"
+    h, hkv, hd = heads or (H, HKV, HD)
     n_pages = 1 + B * n_slot_pages
-    q = (torch.randn((B, S, H, HD), generator=gen, device=dev) * 0.5) \
+    q = (torch.randn((B, S, h, hd), generator=gen, device=dev) * 0.5) \
         .to(dtype)
-    pk = (torch.randn((n_pages, PAGE, HKV, HD), generator=gen, device=dev)
+    pk = (torch.randn((n_pages, PAGE, hkv, hd), generator=gen, device=dev)
           * 0.5).to(dtype)
-    pv = (torch.randn((n_pages, PAGE, HKV, HD), generator=gen, device=dev)
+    pv = (torch.randn((n_pages, PAGE, hkv, hd), generator=gen, device=dev)
           * 0.5).to(dtype)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     table = perm.reshape(B, n_slot_pages).to(torch.int32)
@@ -113,8 +164,8 @@ def attn_case(gen, B, S, lengths, dtype, n_slot_pages, poison):
         rows = (table[b].long()[:, None] * PAGE
                 + torch.arange(PAGE, device=dev)).reshape(-1)
         dead = rows[last + 1:]
-        pk.view(-1, HKV, HD)[dead] = poison
-        pv.view(-1, HKV, HD)[dead] = poison
+        pk.view(-1, hkv, hd)[dead] = poison
+        pv.view(-1, hkv, hd)[dead] = poison
     return q, pk, pv, table, lens
 
 
@@ -521,10 +572,6 @@ def run_train():
         per_step = {k: v - before[k] for k, v in train_counts().items()}
         kern = [e for e in prof.key_averages()
                 if getattr(e, "device_type", None) == DeviceType.CUDA]
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
         busy = sum(dev_us(e) for e in kern) / 1e6
         print(f"one {mode} train step under the profiler: loss "
               f"{loss:.4f}, {window:.2f} s wall, "
@@ -655,6 +702,372 @@ def time_train_kernels(gen, flush, err):
     return rows
 
 
+def make_queue(rng, V):
+    """The serve smoke queue: 8 requests, prompts of 32-300 tokens, most
+    starting with a common 64-token prefix, 16-32 new tokens, half greedy
+    and half temperature 0.8 / top-k 40 / top-p 0.95."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    prefix = rng.integers(0, V, 64).astype(np.int32)
+    reqs = []
+    for i in range(8):
+        n = int(rng.integers(32, 301))
+        p = rng.integers(0, V, n).astype(np.int32)
+        if i % 3 != 2 and n > 64:
+            p[:64] = prefix                  # shared 64-token prefix
+        sampled = i % 2 == 1
+        reqs.append(Request(prompt=p, max_new_tokens=int(rng.integers(16, 33)),
+                            temperature=0.8 if sampled else 0.0,
+                            top_k=40 if sampled else 0,
+                            top_p=0.95 if sampled else 1.0,
+                            seed=int(rng.integers(0, 2**31))))
+    return reqs
+
+
+def serve_counts():
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_ssm as ps
+    from repro_torch.kernels import sampling as sp
+    return {"paged_flash_attention": pa.paged_flash_attention.launches,
+            "paged_ssm_update": ps.paged_ssm_update.launches,
+            "topk_topp_mask": sp.topk_topp_mask.launches,
+            "rmsnorm_fwd": train_counts()["rmsnorm_fwd"]}
+
+
+def reset_serve_counts():
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_ssm as ps
+    from repro_torch.kernels import sampling as sp
+    for fn in (pa.paged_flash_attention, ps.paged_ssm_update,
+               sp.topk_topp_mask):
+        fn.launches = 0
+    reset_train_counts()
+
+
+def serve_queue(engine, rng, per_wave):
+    """``ServeEngine.generate`` on the smoke queue, every launch counter
+    set to 0 just before and read just after. Fails unless every request
+    emits its tokens inside the vocab, each kernel in ``per_wave`` ran
+    exactly that many times per wave, and sampling and RMSNorm ran.
+    Returns the launch counts."""
+    import torch
+    name = engine.rcfg.model.name
+    V = engine.rcfg.model.vocab_size
+    reqs = make_queue(rng, V)
+    reset_serve_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = serve_counts()
+    st = engine.scheduler.stats
+    thr = engine.scheduler.throughput()
+    for i, r in enumerate(out):
+        if r.error is not None or len(r.output) != r.max_new_tokens:
+            fail(f"{name} request {i}: error={r.error} "
+                 f"tokens={len(r.output)}/{r.max_new_tokens}")
+        if not ((r.output >= 0) & (r.output < V)).all():
+            fail(f"{name} request {i}: token ids outside the vocab")
+    waves = st["prefill_calls"] + st["decode_steps"]
+    for kernel, n in per_wave.items():
+        if launches[kernel] != n * waves:
+            fail(f"{name}: {kernel} launched {launches[kernel]} times, "
+                 f"want {n} per wave x {waves} waves")
+    if launches["topk_topp_mask"] <= 0 or launches["rmsnorm_fwd"] <= 0:
+        fail(f"{name}: a kernel of the path never launched: {launches}")
+    ttft = sorted(r.ttft_s for r in out)
+    n_tok = sum(len(r.output) for r in out)
+    print(f"serve {name}: 8 requests, {st['prefill_tokens']} prompt tokens "
+          f"prefilled ({st['shared_tokens']} shared), {n_tok} tokens out in "
+          f"{wall:.2f} s; {st['prefill_calls']} prefill + "
+          f"{st['decode_steps']} decode waves")
+    print(f"serve {name}: decode {thr['decode_tok_s']:.1f} tok/s, prefill "
+          f"{thr['prefill_tok_s']:.1f} tok/s, TTFT p50 {ttft[4]:.3f} s max "
+          f"{ttft[-1]:.3f} s, end-to-end {n_tok / wall:.1f} tok/s")
+    print(f"serve {name}: launches {launches}; per wave "
+          + ", ".join(f"{k} {v}" for k, v in per_wave.items()))
+    return launches
+
+
+def step_check(engine, step, init_pool, rng):
+    """One prefill (S=64) and one decode step, fused kernels vs the
+    gathered path with every plain version (norms included). In float32
+    the two must agree closely; in bf16 the kernel path must be no
+    further from the float32 reference than the plain bf16 path is
+    (times STEP_BF16_FACTOR) — bf16 rounding through a random-weight
+    model's layers moves logits by a few percent either way."""
+    import torch
+    be = engine.backend
+    rcfg = engine.rcfg
+    cfg = rcfg.model
+    rcfg32 = rcfg.replace(model=dataclasses.replace(cfg, dtype="float32"))
+    variants = {"f32 fused": (engine.params, rcfg32, True),
+                "f32 gathered": (engine.params, rcfg32, False),
+                "bf16 fused": (be.params, rcfg, True),
+                "bf16 gathered": (be.params, rcfg, False)}
+    pools = {k: init_pool(r) for k, (_, r, _) in variants.items()}
+    table = (1 + torch.arange(MAX_BATCH * 8, device="cuda")).reshape(
+        MAX_BATCH, 8).to(torch.int32)
+    lengths = torch.zeros(MAX_BATCH, dtype=torch.int32, device="cuda")
+    n_new = torch.tensor([64, 50, 33, 10], device="cuda")
+    for i, S in enumerate((64, 1)):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (MAX_BATCH, S))).cuda()
+        lg = {}
+        for k, (prm, r, fused) in variants.items():
+            with contextlib.nullcontext() if fused else plain_kernels():
+                logit, _ = step(prm, pools[k], toks, lengths, n_new, table,
+                                r, fused=fused)
+            lg[k] = logit.float()
+            if not torch.isfinite(lg[k]).all():
+                fail(f"{cfg.name}: non-finite logits ({k})")
+        ref = lg["f32 gathered"]
+
+        def rel(k, ref=ref, lg=lg):
+            return ((lg[k] - ref).abs().max() / ref.abs().max()).item()
+        e32, ek, ep = rel("f32 fused"), rel("bf16 fused"), rel("bf16 gathered")
+        print(f"{cfg.name} fused vs gathered step {i} (S={S}): float32 "
+              f"max|diff|/max|logit| = {e32:.3e} (tolerance {STEP_F32_TOL:g});"
+              f" bf16 vs the float32 reference: kernel path {ek:.3e}, plain "
+              f"path {ep:.3e} (tolerance {STEP_BF16_FACTOR:g}x plain)")
+        if not e32 <= STEP_F32_TOL or not ek <= STEP_BF16_FACTOR * ep:
+            fail(f"{cfg.name}: fused and gathered steps disagree at step {i}")
+        lengths = lengths + n_new.to(torch.int32)
+        n_new = torch.ones(MAX_BATCH, dtype=torch.long, device="cuda")
+
+
+def profile_decode_wave(be, name):
+    """Where a steady decode wave's device time goes: B=4 at contexts
+    DECODE_LENS, 2 of 4 slots sampled, 5 waves under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.cache import SlotBatch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    scratch = be.init_state(1 + MAX_BATCH * (MAX_LEN // PAGE))
+    ptab = (1 + np.arange(MAX_BATCH * (MAX_LEN // PAGE))).reshape(
+        MAX_BATCH, -1).astype(np.int32)
+    slots = SlotBatch.greedy(MAX_BATCH, ptab, lengths=DECODE_LENS)
+    slots.temps[1::2] = 0.8
+    slots.top_ks[1::2] = 40
+    slots.top_ps[1::2] = 0.95
+    tok = np.ones((MAX_BATCH, 1), np.int32)
+    for _ in range(2):
+        be.step(scratch, slots, tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        be.step(scratch, slots, tok)      # each step reads its tokens back
+    bare = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            be.step(scratch, slots, tok)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    # device-side rows only (kernels, copies): summing the host ops' device
+    # time as well would count every kernel twice
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kern) / 1e6
+    print(f"{name} decode wave (B=4, contexts {DECODE_LENS}, 2 of 4 slots "
+          f"sampled): {1e3 * bare / 5:.2f} ms wall ({1e3 * window / 5:.2f} "
+          f"ms under the profiler), "
+          + (f"device busy {1e3 * busy / 5:.2f} ms per wave = "
+             f"{100 * busy / bare:.1f}% of the unprofiled wave, "
+             f"{sum(e.count for e in kern) // 5} device ops per wave"
+             if kern else "device busy not measured (no device events)"))
+    for e in sorted(kern, key=dev_us, reverse=True)[:10]:
+        print(f"  {dev_us(e) / 5 / 1e3:8.4f} ms/wave  {e.count // 5:4d}x  "
+              f"{e.key[:80]}")
+
+
+def serve_ssm(arch, seed):
+    """Serve ``arch`` (an SSM or hybrid config) at full width and full
+    depth: the smoke queue, the fused-vs-gathered step check and a
+    profiled decode wave. Returns the queue's launch counts."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    rcfg = get_config(arch, "decode_32k")
+    cfg, s = rcfg.model, rcfg.model.ssm
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_model(rcfg, seed=seed, device="cuda")
+    engine = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
+                         max_len=MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    n_pages = 1 + MAX_BATCH * 8
+    if cfg.family == "ssm":
+        n_ssm, n_attn = transformer.stacked_layer_depth(rcfg), 0
+        step = functools.partial(transformer.ssm_paged_decode_step,
+                                 page_size=PAGE)
+
+        def init_pool(r):
+            return transformer.init_paged_ssm_cache(r, n_pages,
+                                                    device="cuda")
+        shape = (f"{n_ssm} stacked mamba1 layers ({cfg.n_layers} + "
+                 f"{n_ssm - cfg.n_layers} gate-0 padded)")
+    else:
+        n_ssm, n_attn = cfg.n_layers, cfg.n_layers // cfg.hybrid_attn_every
+        step = functools.partial(transformer.hybrid_paged_decode_step,
+                                 page_size=PAGE)
+
+        def init_pool(r):
+            return transformer.init_paged_hybrid_cache(r, n_pages, PAGE,
+                                                       device="cuda")
+        shape = (f"{n_ssm} mamba2 layers (headdim {s.headdim}) + a shared "
+                 f"attention block ({cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+                 f"{cfg.resolved_head_dim}) after every "
+                 f"{cfg.hybrid_attn_every}: {n_attn} applications")
+    print(f"model: {cfg.name} d_model={cfg.d_model} {shape}, d_inner="
+          f"{s.expand * cfg.d_model} d_state={s.d_state} vocab="
+          f"{cfg.vocab_size} dtype={cfg.dtype}; init + engine "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    per_wave = {"paged_ssm_update": n_ssm}
+    if n_attn:
+        per_wave["paged_flash_attention"] = n_attn
+    rng = np.random.default_rng(seed)
+    launches = serve_queue(engine, rng, per_wave)
+    step_check(engine, step, init_pool, rng)
+    profile_decode_wave(engine.backend, cfg.name)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+          f" GiB")
+    return launches
+
+
+def ssm_kernel_case(gen, order, S, lengths, n_new):
+    """Full-width rows-layout inputs for one order (R, ds from SSM_ROWS)
+    on a pool of MAX_BATCH slots x MAX_LEN // PAGE pages in random order,
+    with the compact plan the mixers build. Mamba2's A is the per-head
+    decay broadcast across d_state (stride 0), as on the main path."""
+    import torch
+    from repro_torch.models import ssm as tssm
+    R, ds = SSM_ROWS[order]
+    P = MAX_LEN // PAGE
+    n_pages = 1 + MAX_BATCH * P
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(r(MAX_BATCH, S, R)) * 0.2
+    if order == "dbx":
+        A = -torch.exp(r(R, ds))
+    else:
+        A = (-torch.exp(r(R // 64))).repeat_interleave(64)[:, None] \
+            .expand(R, ds)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.reshape(MAX_BATCH, P).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    nn = torch.tensor(n_new, dtype=torch.int32, device="cuda")
+    t_w, phys_w = tssm.compact_snapshot_steps(table, lens, nn, PAGE, S)
+    read_page, live = tssm.paged_read_plan(table, lens, PAGE)
+    return (dt, r(MAX_BATCH, S, R), r(MAX_BATCH, S, ds), r(MAX_BATCH, S, ds),
+            A, r(n_pages, R, ds), (read_page, live, phys_w, t_w), nn)
+
+
+def check_ssm_kernel(gen):
+    """The paged SSM kernel against its plain version at both full-width
+    shapes: y on valid rows and the non-scratch pages within SSM_TOL of
+    max|plain|, pages outside the plan bit-identical, a second launch
+    bit-identical. Returns the largest abs error of y per order."""
+    import torch
+    from repro_torch.kernels import paged_ssm as ps
+    err = {}
+    for order in ("dbx", "dxb"):
+        R, ds = SSM_ROWS[order]
+        for S, lengths, n_new in SSM_CASES:
+            dt, x, Bm, Cm, A, pool, plan, nn = ssm_kernel_case(
+                gen, order, S, lengths, n_new)
+            pools = [pool.clone() for _ in range(3)]
+            want = ps.paged_ssm_update_ref(dt, x, Bm, Cm, A, pools[0], *plan,
+                                           nn, order=order)
+            got, again = (ps.paged_ssm_update(dt, x, Bm, Cm, A, p, *plan, nn,
+                                              order=order)
+                          for p in pools[1:])
+            torch.cuda.synchronize()
+            valid = (torch.arange(S, device="cuda")[None, :]
+                     < nn[:, None])[..., None]
+            e_y = _scaled_err(got * valid, want * valid)
+            e_pool = _scaled_err(pools[1][1:], pools[0][1:])
+            abs_y = ((got - want) * valid).abs().max().item()
+            planned = torch.zeros(pool.shape[0], dtype=torch.bool,
+                                  device="cuda")
+            planned[plan[2].reshape(-1).long()] = True
+            planned[0] = True
+            kept = torch.equal(pools[1][~planned], pool[~planned])
+            same = torch.equal(got, again) and torch.equal(pools[1],
+                                                           pools[2])
+            print(f"paged_ssm_update {order} R={R} ds={ds} S={S:3d} lengths "
+                  f"{lengths} n_new {n_new}: y max|kernel-plain| {abs_y:.3e}"
+                  f" = {e_y:.3e} of max|plain|, pool[1:] {e_pool:.3e} "
+                  f"(tolerance {SSM_TOL:g}); unplanned pages kept {kept}, "
+                  f"second launch bit-identical {same}")
+            if not (e_y <= SSM_TOL and e_pool <= SSM_TOL and kept and same):
+                fail(f"paged_ssm_update {order} S={S} disagrees with its "
+                     "plain version")
+            err[order] = max(err.get(order, 0.0), abs_y)
+    return err
+
+
+def ssm_bound_ms(order, S, lengths, n_new, plan):
+    """Least time for one paged SSM update on these inputs: the bytes it
+    must move (dt and x at the active steps, y, B and C, A's distinct
+    values, the live read pages and the pages written, the plan) over
+    the HBM rate, vs 7 float32 operations (exp included) per state
+    element and active step over the non-tensor float32 peak."""
+    R, ds = SSM_ROWS[order]
+    steps = sum(min(S, n) for n in n_new)
+    live = sum(1 for n in lengths if n > 0)
+    written = int((plan[2] != 0).sum())
+    W = plan[2].shape[1]
+    a_bytes = R * ds * 4 if order == "dbx" else R * 4
+    nbytes = (2 * steps * R * 4 + MAX_BATCH * S * R * 4
+              + 2 * MAX_BATCH * S * ds * 4 + a_bytes
+              + (live + written) * R * ds * 4 + MAX_BATCH * (3 + 2 * W) * 4)
+    ops = 7 * steps * R * ds
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def time_ssm_kernel(gen, flush):
+    """Kernel (CUDA events around the wrapper call, and the kernel's
+    device time from the profiler), plain and bound times of the paged
+    SSM update at both full-width shapes: decode (B=4, S=1, contexts
+    DECODE_LENS) and a 256-token prefill chunk. No single PyTorch call
+    computes the paged scan (a snapshot-paged selective scan), so there
+    is no library time."""
+    from repro_torch.kernels import paged_ssm as ps
+    rows = {}
+    for order in ("dbx", "dxb"):
+        R, ds = SSM_ROWS[order]
+        for S, lengths, n_new in ((1, DECODE_LENS, [1] * MAX_BATCH),
+                                  (256, [0, 37, 200, 256],
+                                   [256] * MAX_BATCH)):
+            dt, x, Bm, Cm, A, pool, plan, nn = ssm_kernel_case(
+                gen, order, S, lengths, n_new)
+            args = (dt, x, Bm, Cm, A, pool, *plan, nn)
+            k_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update(
+                *a, order=o), flush=flush)
+            d_ms = device_ms(lambda a=args, o=order: ps.paged_ssm_update(
+                *a, order=o), "paged_ssm_kernel", 20, flush)
+            p_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update_ref(
+                *a, order=o), iters=20 if S == 1 else 3, flush=flush)
+            b_ms, by = ssm_bound_ms(order, S, lengths, n_new, plan)
+            print(f"paged_ssm_update {order} R={R} ds={ds} B={MAX_BATCH} "
+                  f"S={S}: kernel {k_ms:.4f} ms (device {d_ms:.4f} ms), "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), "
+                  "library none")
+            rows[(order, S)] = (k_ms, d_ms, p_ms, b_ms, by)
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -668,10 +1081,7 @@ def main() -> int:
         from repro_torch.kernels import sampling as sp
         from repro_torch.launch.steps import apply_top_k_top_p
         from repro_torch.models import transformer
-        from repro_torch.serve.cache import SlotBatch
-        from repro_torch.serve.engine import Request, ServeEngine
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.serve.engine import ServeEngine
     except ImportError as e:
         fail(f"the port is not importable next to this script ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -699,28 +1109,34 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     attn_err = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[1]
-        for S, lengths in ((1, [300, 17, 129, 0]),
-                           (64, [0, 37, 200, 448]),
-                           (256, [0, 37, 200, 256])):
-            case = attn_case(gen, MAX_BATCH, S, lengths, dtype,
-                             MAX_LEN // PAGE, poison=1e30)
-            q, pk, pv, table, lens = case
-            cut = table[:, :live_bucket(lengths, S)]
-            want = pa.paged_attention_ref(q, pk, pv, cut, lens).float()
-            got = pa.paged_flash_attention(q, pk, pv, cut, lens)
-            full = pa.paged_flash_attention(q, pk, pv, table, lens)
-            torch.cuda.synchronize()
-            if not torch.equal(got, full):
-                fail(f"paged attention S={S} {dname}: the live-bucket "
-                     "table changed the output")
-            err = (got.float() - want).abs().max().item()
-            print(f"paged_flash_attention S={S:3d} {dname:8s} max|kernel-"
-                  f"plain| = {err:.3e} (tolerance {ATTN_TOL[dname]:g})")
-            if not err <= ATTN_TOL[dname]:
-                fail(f"paged attention S={S} {dname} error {err:.3e}")
-            attn_err[dname] = max(attn_err.get(dname, 0.0), err)
+    # qwen3_1p7b's GQA heads, then zamba2_1p2b's shared attention (MHA,
+    # 32/32 heads of hd 64)
+    for heads, cases in (((H, HKV, HD), ((1, [300, 17, 129, 0]),
+                                         (64, [0, 37, 200, 448]),
+                                         (256, [0, 37, 200, 256]))),
+                         ((32, 32, 64), ((1, [300, 17, 129, 0]),
+                                         (64, [0, 37, 200, 448])))):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for S, lengths in cases:
+                case = attn_case(gen, MAX_BATCH, S, lengths, dtype,
+                                 MAX_LEN // PAGE, poison=1e30, heads=heads)
+                q, pk, pv, table, lens = case
+                cut = table[:, :live_bucket(lengths, S)]
+                want = pa.paged_attention_ref(q, pk, pv, cut, lens).float()
+                got = pa.paged_flash_attention(q, pk, pv, cut, lens)
+                full = pa.paged_flash_attention(q, pk, pv, table, lens)
+                torch.cuda.synchronize()
+                shape = f"H={heads[0]}/{heads[1]} hd={heads[2]} S={S:3d}"
+                if not torch.equal(got, full):
+                    fail(f"paged attention {shape} {dname}: the live-bucket "
+                         "table changed the output")
+                err = (got.float() - want).abs().max().item()
+                print(f"paged_flash_attention {shape} {dname:8s} max|kernel-"
+                      f"plain| = {err:.3e} (tolerance {ATTN_TOL[dname]:g})")
+                if not err <= ATTN_TOL[dname]:
+                    fail(f"paged attention {shape} {dname} error {err:.3e}")
+                attn_err[dname] = max(attn_err.get(dname, 0.0), err)
     logits, ks, ps = sampling_case(gen, 8, 151936)
     want = sp.topk_topp_mask_ref(logits, ks, ps)
     got = sp.topk_topp_mask(logits, ks, ps)
@@ -735,12 +1151,14 @@ def main() -> int:
           f"{SAMPLING_TV:g}); kept per row {keep_g.sum(-1).tolist()}")
     if samp_err != 0.0 or not tv <= SAMPLING_TV:
         fail("sampling mask disagrees with its plain version")
+    ssm_err = check_ssm_kernel(gen)
     train_err = check_train_kernels(gen)
 
     # -- 3. serve qwen3_1p7b at full width through the kernels --------------
     rcfg = get_config("qwen3_1p7b", "decode_32k")
     cfg = rcfg.model
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = transformer.init_model(rcfg, seed=0, device="cuda")
     engine = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
                          max_len=MAX_LEN, device="cuda")
@@ -752,149 +1170,21 @@ def main() -> int:
           f"init + engine {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     rng = np.random.default_rng(0)
-    V = cfg.vocab_size
-    prefix = rng.integers(0, V, 64).astype(np.int32)
-    reqs = []
-    for i in range(8):
-        n = int(rng.integers(32, 301))
-        p = rng.integers(0, V, n).astype(np.int32)
-        if i % 3 != 2 and n > 64:
-            p[:64] = prefix                  # shared 64-token prefix
-        sampled = i % 2 == 1
-        reqs.append(Request(prompt=p, max_new_tokens=int(rng.integers(16, 33)),
-                            temperature=0.8 if sampled else 0.0,
-                            top_k=40 if sampled else 0,
-                            top_p=0.95 if sampled else 1.0,
-                            seed=int(rng.integers(0, 2**31))))
-    pa.paged_flash_attention.launches = 0
-    sp.topk_topp_mask.launches = 0
-    reset_train_counts()
-    t0 = time.perf_counter()
-    out = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_flash_attention": pa.paged_flash_attention.launches,
-                "topk_topp_mask": sp.topk_topp_mask.launches}
-    st = engine.scheduler.stats
-    thr = engine.scheduler.throughput()
-    for i, r in enumerate(out):
-        if r.error is not None or len(r.output) != r.max_new_tokens:
-            fail(f"request {i}: error={r.error} "
-                 f"tokens={len(r.output)}/{r.max_new_tokens}")
-        if not ((r.output >= 0) & (r.output < V)).all():
-            fail(f"request {i}: token ids outside the vocab")
-    waves = st["prefill_calls"] + st["decode_steps"]
-    if launches["paged_flash_attention"] != n_layers * waves:
-        fail(f"paged attention launched {launches['paged_flash_attention']}"
-             f" times, want {n_layers} layers x {waves} waves")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the path never launched: {launches}")
-    ttft = sorted(r.ttft_s for r in out)
-    n_tok = sum(len(r.output) for r in out)
-    print(f"serve: 8 requests, {st['prefill_tokens']} prompt tokens "
-          f"prefilled ({st['shared_tokens']} shared), {n_tok} tokens out in "
-          f"{wall:.2f} s; {st['prefill_calls']} prefill + "
-          f"{st['decode_steps']} decode waves")
-    print(f"serve: decode {thr['decode_tok_s']:.1f} tok/s, prefill "
-          f"{thr['prefill_tok_s']:.1f} tok/s, TTFT p50 {ttft[4]:.3f} s max "
-          f"{ttft[-1]:.3f} s, end-to-end {n_tok / wall:.1f} tok/s")
-    print(f"serve: launches {launches}; RMSNorm on the serve path "
-          f"{train_counts()['rmsnorm_fwd']} forward launches")
-
-    # one prefill + decode step, fused kernels vs the gathered path with
-    # every plain version (norms included):
-    # in float32 the two must agree closely; in bf16 the kernel path must
-    # be no further from the float32 reference than the plain bf16 path
-    # is (times STEP_BF16_FACTOR) — bf16 rounding through 34 layers of a
-    # random-weight model moves logits by a few percent either way
-    be = engine.backend
-    rcfg32 = rcfg.replace(model=dataclasses.replace(cfg, dtype="float32"))
-    variants = {"f32 fused": (engine.params, rcfg32, True),
-                "f32 gathered": (engine.params, rcfg32, False),
-                "bf16 fused": (be.params, rcfg, True),
-                "bf16 gathered": (be.params, rcfg, False)}
-    pools = {k: transformer.init_paged_cache(r, 1 + MAX_BATCH * 8, PAGE,
-                                             device="cuda")
-             for k, (_, r, _) in variants.items()}
-    table = (1 + torch.arange(MAX_BATCH * 8, device="cuda")).reshape(
-        MAX_BATCH, 8).to(torch.int32)
-    lengths = torch.zeros(MAX_BATCH, dtype=torch.int32, device="cuda")
-    n_new = torch.tensor([64, 50, 33, 10], device="cuda")
-    for step, S in enumerate((64, 1)):
-        toks = torch.from_numpy(rng.integers(0, V, (MAX_BATCH, S))).cuda()
-        lg = {}
-        for k, (prm, r, fused) in variants.items():
-            with contextlib.nullcontext() if fused else plain_kernels():
-                logit, _ = transformer.paged_decode_step(
-                    prm, pools[k], toks, lengths, n_new, table, r,
-                    fused=fused)
-            lg[k] = logit.float()
-            if not torch.isfinite(lg[k]).all():
-                fail(f"non-finite logits ({k})")
-        ref = lg["f32 gathered"]
-
-        def rel(k, ref=ref, lg=lg):
-            return ((lg[k] - ref).abs().max() / ref.abs().max()).item()
-        e32, ek, ep = rel("f32 fused"), rel("bf16 fused"), rel("bf16 gathered")
-        print(f"fused vs gathered step {step} (S={S}): float32 "
-              f"max|diff|/max|logit| = {e32:.3e} (tolerance {STEP_F32_TOL:g});"
-              f" bf16 vs the float32 reference: kernel path {ek:.3e}, plain "
-              f"path {ep:.3e} (tolerance {STEP_BF16_FACTOR:g}x plain)")
-        if not e32 <= STEP_F32_TOL or not ek <= STEP_BF16_FACTOR * ep:
-            fail(f"fused and gathered steps disagree at step {step}")
-        lengths = lengths + n_new.to(torch.int32)
-        n_new = torch.ones(MAX_BATCH, dtype=torch.long, device="cuda")
-
-    # where a decode wave's device time goes
-    slots_len = [287, 301, 150, 64]
-    scratch = be.init_state(1 + MAX_BATCH * (MAX_LEN // PAGE))
-    ptab = (1 + np.arange(MAX_BATCH * (MAX_LEN // PAGE))).reshape(
-        MAX_BATCH, -1).astype(np.int32)
-    slots = SlotBatch.greedy(MAX_BATCH, ptab, lengths=slots_len)
-    slots.temps[1::2] = 0.8
-    slots.top_ks[1::2] = 40
-    slots.top_ps[1::2] = 0.95
-    tok = np.ones((MAX_BATCH, 1), np.int32)
-    for _ in range(2):
-        be.step(scratch, slots, tok)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        be.step(scratch, slots, tok)      # each step reads its tokens back
-    bare = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            be.step(scratch, slots, tok)
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    # device-side rows only (kernels, copies): summing the host ops' device
-    # time as well would count every kernel twice
-    kern = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in kern) / 1e6
-    print(f"decode wave (B=4, contexts {slots_len}, 2 of 4 slots sampled): "
-          f"{1e3 * bare / 5:.2f} ms wall ({1e3 * window / 5:.2f} ms under "
-          f"the profiler), "
-          + (f"device busy {1e3 * busy / 5:.2f} ms per wave = "
-             f"{100 * busy / bare:.1f}% of the unprofiled wave, "
-             f"{sum(e.count for e in kern) // 5} device ops per wave"
-             if kern else "device busy not measured (no device events)"))
-    for e in sorted(kern, key=dev_us, reverse=True)[:10]:
-        print(f"  {dev_us(e) / 5 / 1e3:8.4f} ms/wave  {e.count // 5:4d}x  "
-              f"{e.key[:80]}")
+    launches = serve_queue(engine, rng,
+                           {"paged_flash_attention": n_layers})
+    step_check(engine, transformer.paged_decode_step,
+               lambda r: transformer.init_paged_cache(
+                   r, 1 + MAX_BATCH * 8, PAGE, device="cuda"), rng)
+    profile_decode_wave(engine.backend, cfg.name)
+    print(f"{cfg.name}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+          f" GiB")
 
     # -- 4. times at the serve shapes ---------------------------------------
     flush = torch.empty(64 * 2**20 // 4, device="cuda")   # > 50 MB L2
-    q, pk, pv, table, lens = attn_case(gen, MAX_BATCH, 1, slots_len,
+    q, pk, pv, table, lens = attn_case(gen, MAX_BATCH, 1, DECODE_LENS,
                                        torch.bfloat16, MAX_LEN // PAGE,
                                        poison=0.0)
-    P = live_bucket(slots_len, 1)
+    P = live_bucket(DECODE_LENS, 1)
     cut = table[:, :P]
     k_ms = time_ms(lambda: pa.paged_flash_attention(q, pk, pv, cut, lens),
                    flush=flush)
@@ -912,7 +1202,7 @@ def main() -> int:
             <= lens.long()[:, None, None, None])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=mask), flush=flush)
-    a_bound, a_by = attn_bound_ms(MAX_BATCH, 1, slots_len, P, 2)
+    a_bound, a_by = attn_bound_ms(MAX_BATCH, 1, DECODE_LENS, P, 2)
     print(f"paged_flash_attention decode B=4 S=1 bf16 P={P}: kernel "
           f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the gathered "
           f"view {lib_ms:.4f} ms, bound {a_bound:.5f} ms ({a_by}); x"
@@ -931,6 +1221,7 @@ def main() -> int:
     print(f"paged_flash_attention prefill B=4 S=256 bf16 P={Pp}: kernel "
           f"{kp_ms:.4f} ms, plain {pp_ms:.4f} ms, bound {pb:.5f} ms ({pby})")
 
+    V = cfg.vocab_size
     sl, sks, sps = sampling_case(gen, MAX_BATCH, V)
     s_ms = time_ms(lambda: sp.topk_topp_mask(sl, sks, sps), flush=flush)
     s_plain = time_ms(lambda: sp.topk_topp_mask_ref(sl, sks, sps),
@@ -940,11 +1231,19 @@ def main() -> int:
     print(f"topk_topp_mask B=4 V={V}: kernel {s_ms:.4f} ms, plain "
           f"{s_plain:.4f} ms, sort-based apply_top_k_top_p {s_sort:.4f} ms,"
           f" bound {s_bound:.5f} ms (bytes)")
-
-    # -- 5. training: gradients at reduced depth, then full depth ----------
-    del engine, be, params, scratch, pools, variants, lg, prm, logit
+    ssm_rows = time_ssm_kernel(gen, flush)
+    del engine, params, q, pk, pv, kd, vd, qp, pkp, pvp
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 5. serve falcon_mamba_7b and zamba2_1p2b at full width and depth ---
+    ssm_launches = {}
+    for arch, order in (("falcon_mamba_7b", "dbx"), ("zamba2_1p2b", "dxb")):
+        ssm_launches[order] = serve_ssm(arch, seed=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 6. training: gradients at reduced depth, then full depth ----------
     check_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
@@ -952,7 +1251,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 6. training kernels' times at the training shapes -----------------
+    # -- 7. training kernels' times at the training shapes -----------------
     train_rows = time_train_kernels(gen, flush, train_err)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
@@ -984,8 +1283,30 @@ def main() -> int:
             "launches": train_launches[name], "max_abs_err": train_err[name],
             "ms": km, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
             "library_ms": lm})
-    launches.update(train_launches)
-    print("kernels: " + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    # one row per product order: falcon-mamba-7b's path launches "dbx",
+    # zamba2-1.2b's "dxb"; ms/plain_ms/bound_ms at decode (S=1), prefill_*
+    # at a 256-token chunk, device_* the kernel alone (profiler); no
+    # single PyTorch call computes the paged scan
+    for order in ("dbx", "dxb"):
+        km, dm, pm, bm, by = ssm_rows[(order, 1)]
+        kp, dp, pp, bp, _ = ssm_rows[(order, 256)]
+        kernels.append({
+            "name": f"paged_ssm_update_{order}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_ssm.cu",
+            "replaces": "src/repro/kernels/paged_ssm.py:92",
+            "launches": ssm_launches[order]["paged_ssm_update"],
+            "max_abs_err": ssm_err[order], "ms": km, "plain_ms": pm,
+            "bound_ms": bm, "bound_by": by, "library_ms": None,
+            "device_ms": dm, "prefill_ms": kp, "prefill_device_ms": dp,
+            "prefill_plain_ms": pp, "prefill_bound_ms": bp})
+    counts = {"paged_flash_attention": launches["paged_flash_attention"],
+              "topk_topp_mask": launches["topk_topp_mask"],
+              **train_launches,
+              "paged_ssm_update_dbx":
+                  ssm_launches["dbx"]["paged_ssm_update"],
+              "paged_ssm_update_dxb":
+                  ssm_launches["dxb"]["paged_ssm_update"]}
+    print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

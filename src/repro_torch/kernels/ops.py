@@ -1,7 +1,8 @@
 """Public entry points of the port's kernels — dispatch by device.
 
 Port of :mod:`repro.kernels.ops`: the training kernels (flash attention,
-RMSNorm) and the paged-decode ones. The JAX
+RMSNorm) and the paged-decode ones (attention, SSM update, sampling
+mask). The JAX
 package resolves a three-way mode ("pallas" / "interpret" / "ref") per
 call; here device placement alone decides, with no override:
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import paged_ssm as ps
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import sampling as sp
 
@@ -49,6 +51,24 @@ def paged_attention(q, pk, pv, page_table, lengths):
     if q.is_cuda:
         return pa.paged_flash_attention(q, pk, pv, page_table, lengths)
     return pa.paged_attention_ref(q, pk, pv, page_table, lengths)
+
+
+def paged_ssm_update(dt, x, Bm, Cm, A, h_pool, read_page, live, phys_w,
+                     t_w, n_new, *, order: str):
+    """Paged SSM recurrence + compact snapshot commit, rows layout.
+
+    dt/x: (B, S, R); Bm/Cm: (B, S, ds); A: (R, ds); h_pool: (N, R, ds)
+    float32, **updated in place** (where the JAX package aliases it to
+    the output). read_page/live/n_new: (B,); phys_w/t_w: (B, W) — the
+    compact write plan from ``repro_torch.models.ssm.
+    compact_snapshot_steps``. ``order`` selects the mamba1 ("dbx") vs
+    mamba2 ("dxb") product grouping. Returns y (B, S, R) float32.
+    """
+    if dt.is_cuda:
+        return ps.paged_ssm_update(dt, x, Bm, Cm, A, h_pool, read_page,
+                                   live, phys_w, t_w, n_new, order=order)
+    return ps.paged_ssm_update_ref(dt, x, Bm, Cm, A, h_pool, read_page,
+                                   live, phys_w, t_w, n_new, order=order)
 
 
 def topk_topp_mask(logits, top_ks, top_ps):

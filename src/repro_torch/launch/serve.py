@@ -10,8 +10,10 @@
       [--no-partial-prefix] [--prefill-chunk-tokens 0] [--stats] \\
       [--metrics-json metrics.json] [--trace-out trace.json]
 
-Port of :mod:`repro.launch.serve` for attention decoders, on one card:
-the model runs at the config's full width from random weights made from
+Port of :mod:`repro.launch.serve` for attention decoders and the SSM
+and hybrid families (``--arch falcon_mamba_7b``, ``--arch
+zamba2_1p2b``), on one card: the model runs at the config's full width
+from random weights made from
 ``--seed`` (``--reduced`` shrinks it for CPU runs with ``--device
 cpu``). Without a CUDA device and without ``--device cpu`` it exits with
 an error instead of running on the CPU. Speculative decoding

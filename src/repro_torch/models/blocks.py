@@ -3,8 +3,10 @@
 Port of the ``attn_mlp`` kind of :mod:`repro.models.blocks`: one layer is
 the forward-Euler step ``Z_{n+1} = Z_n + gate * F(Z_n)`` with
 ``F = phi1(X) + phi2(X + phi1(X))``, phi1 = SA o LN, phi2 = MLP o LN.
-Block params are homogeneous within a kind, so they stack over the
-layer axis (leading dim of every leaf).
+The ``mamba1``/``mamba2`` kinds (``F = Mamba o LN``) have their params
+here and are served by ``repro_torch.models.ssm``; their training step
+comes with the SSM training slice. Block params are homogeneous within a
+kind, so they stack over the layer axis (leading dim of every leaf).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.models.attention import (attention_apply, init_attention,
                                           paged_attention_apply)
 from repro_torch.models.layers import init_norm, norm_apply
 from repro_torch.models.mlp import init_mlp, mlp_apply
+from repro_torch.models.ssm import init_mamba1, init_mamba2
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -33,10 +36,14 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
                kind: Optional[str] = None, *, lead=(), device=None):
     """Params of one block, or of ``lead`` stacked blocks."""
     kind = kind or block_kind(cfg)
+    if kind in ("mamba1", "mamba2"):
+        init_mixer = init_mamba1 if kind == "mamba1" else init_mamba2
+        return {"norm": init_norm(cfg, lead=lead, device=device),
+                "mixer": init_mixer(gen, cfg, lead=lead, device=device)}
     if kind != "attn_mlp":
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (attn_mlp only; the "
-            "SSM/hybrid and MoE families come in later slices)")
+            f"block kind {kind!r} is not ported yet (attn_mlp, mamba1 and "
+            "mamba2 only; the MoE family comes in a later slice)")
     return {
         "ln1": init_norm(cfg, lead=lead, device=device),
         "attn": init_attention(gen, cfg, lead=lead, device=device),

@@ -1,0 +1,391 @@
+"""Mamba1 (falcon-mamba) and Mamba2 (zamba2 backbone) mixers against the
+paged state pool (serving).
+
+Port of the serving half of :mod:`repro.models.ssm`. The serve engine
+treats SSM decode state like paged KV: a pool of fixed-size pages
+managed by the refcounted allocator. A page here is a per-slot state
+*snapshot* — page p of a slot holds the (conv window, h) state after
+exactly (p+1)*page_size tokens. A step reads the state of position
+``lengths`` from page (lengths-1)//page_size and writes the advanced
+state into page lengths//page_size, so crossing a page boundary leaves
+the completed page holding its boundary snapshot, which the prefix trie
+publishes. Page 0 is the scratch page: writes from idle slots and padded
+positions land there, and reads at position 0 are masked to the zero
+state.
+
+The pools are updated **in place** (the JAX package returns new pools
+and donates the old ones), so the mixers return their output only. Only
+the commit mode is ported; the deferred mode (``commit=False``,
+``state_in``) belongs to speculative decoding, and the dense
+``mamba{1,2}_apply`` to the SSM training slice.
+
+``fused=True`` runs the recurrence and the snapshot commit through
+:func:`repro_torch.kernels.ops.paged_ssm_update` (the CUDA kernel on the
+card, its plain version on the CPU) from the *compact* plan; the
+gathered path runs the masked scan here and commits every (slot,
+table-column) pair. On the CPU the two give bitwise-equal outputs and
+non-scratch pool pages.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.paged_ssm import max_write_pages
+from repro_torch.models.layers import dense_init, torch_dtype
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or int(math.ceil(cfg.d_model / 16))
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_mamba1(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                device=None):
+    """Mamba1 mixer params (the JAX init's shapes and scales)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    dtr = _dt_rank(cfg)
+    pdt = torch_dtype(cfg.param_dtype)
+    u = torch.rand((*lead, di), generator=gen, dtype=torch.float32,
+                   device=device)
+    A = torch.arange(1, s.d_state + 1, dtype=torch.float32,
+                     device=device).expand(*lead, di, s.d_state)
+    return {
+        "in_proj": dense_init(gen, (*lead, d, 2 * di), pdt, device=device),
+        "conv_w": dense_init(gen, (*lead, s.d_conv, di), pdt, scale=0.1,
+                             device=device),
+        "conv_b": torch.zeros((*lead, di), dtype=pdt, device=device),
+        "x_proj": dense_init(gen, (*lead, di, dtr + 2 * s.d_state), pdt,
+                             device=device),
+        "dt_proj": dense_init(gen, (*lead, dtr, di), pdt, scale=dtr ** -0.5,
+                              device=device),
+        "dt_bias": torch.log(torch.expm1(
+            torch.clamp(u * 0.1 + 1e-3, min=1e-4))).to(pdt),
+        "A_log": torch.log(A).to(pdt),
+        "D": torch.ones((*lead, di), dtype=pdt, device=device),
+        "out_proj": dense_init(gen, (*lead, di, d), pdt, device=device),
+    }
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                device=None):
+    """Mamba2 mixer params (the JAX init's shapes and scales)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    nh = di // s.headdim
+    pdt = torch_dtype(cfg.param_dtype)
+    A = torch.arange(1, nh + 1, dtype=torch.float32,
+                     device=device).expand(*lead, nh)
+    return {
+        "in_proj": dense_init(gen, (*lead, d, 2 * di + 2 * s.d_state + nh),
+                              pdt, device=device),
+        "conv_w": dense_init(gen, (*lead, s.d_conv, di + 2 * s.d_state),
+                             pdt, scale=0.1, device=device),
+        "conv_b": torch.zeros((*lead, di + 2 * s.d_state), dtype=pdt,
+                              device=device),
+        "dt_bias": torch.zeros((*lead, nh), dtype=pdt, device=device),
+        "A_log": torch.log(A).to(pdt),
+        "D": torch.ones((*lead, nh), dtype=pdt, device=device),
+        "norm_scale": torch.ones((*lead, di), dtype=pdt, device=device),
+        "out_proj": dense_init(gen, (*lead, di, d), pdt, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Paged recurrent state
+# ---------------------------------------------------------------------------
+
+
+def init_paged_ssm_pool(cfg: ModelConfig, n_layers: int, n_pages: int,
+                        version: int, *, device=None):
+    """State-snapshot page pool stacked over layers (page axis 1, like
+    the paged KV layout, so one copy-on-write covers every backend)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    dt = torch_dtype(cfg.dtype)
+    if version == 1:
+        return {
+            "conv": torch.zeros((n_layers, n_pages, s.d_conv - 1, di),
+                                dtype=dt, device=device),
+            "h": torch.zeros((n_layers, n_pages, di, s.d_state),
+                             dtype=torch.float32, device=device),
+        }
+    nh = di // s.headdim
+    ci = di + 2 * s.d_state
+    return {
+        "conv": torch.zeros((n_layers, n_pages, s.d_conv - 1, ci), dtype=dt,
+                            device=device),
+        "h": torch.zeros((n_layers, n_pages, nh, s.headdim, s.d_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def paged_read_plan(page_table, lengths, page_size: int):
+    """(read_page (B,), live (B,) bool): the pool page holding the state
+    after ``lengths`` tokens, and whether there is any (position 0 reads
+    the zero state)."""
+    P = page_table.shape[1]
+    slot = torch.clamp((lengths.long() - 1) // page_size, 0, P - 1)
+    prev = torch.gather(page_table.long(), 1, slot[:, None])[:, 0]
+    return prev, lengths > 0
+
+
+def paged_state_read(pool, page_table, lengths, page_size: int):
+    """Per-slot incoming state (zeros for slots at position 0). pool:
+    (n_pages, ...); page_table: (B, P); lengths: (B,). Returns (B, ...),
+    a copy."""
+    prev, live = paged_read_plan(page_table, lengths, page_size)
+    init = pool[prev]
+    live = live.reshape((-1,) + (1,) * (init.ndim - 1))
+    return torch.where(live, init, torch.zeros_like(init))
+
+
+def snapshot_steps(page_table, lengths, n_new, page_size: int):
+    """Which pages this call finalizes, and at which local step: for slot
+    b processing positions lengths[b] .. lengths[b]+n_new[b]-1, page-slot
+    p receives its final write at local step ``min((p+1)*page_size-1,
+    last_pos) - lengths`` iff p overlaps the written range. Returns (t
+    (B, P), phys (B, P)) with unwritten entries routed to scratch page 0.
+    """
+    B, P = page_table.shape
+    lengths, n_new = lengths.long(), n_new.long()
+    last = lengths + n_new - 1
+    p = torch.arange(P, device=page_table.device)[None, :]
+    t = torch.minimum((p + 1) * page_size - 1, last[:, None]) \
+        - lengths[:, None]
+    written = (n_new[:, None] > 0) & (p >= (lengths // page_size)[:, None]) \
+        & (p <= (last // page_size)[:, None])
+    phys = torch.where(written, page_table.long(), torch.zeros_like(t))
+    return torch.clamp(t, min=0), phys
+
+
+def compact_snapshot_steps(page_table, lengths, n_new, page_size: int,
+                           seq_len: int):
+    """Compact twin of :func:`snapshot_steps` for the fused path: the
+    same (t, phys) contract restricted to the W = ``max_write_pages(
+    seq_len, page_size)`` table slots a call can finalize,
+    ``lengths//page_size ..``. Every real page the full plan writes is
+    covered with an identical step, so pools committed through either
+    plan agree everywhere except scratch page 0."""
+    W = max_write_pages(seq_len, page_size)
+    B, P = page_table.shape
+    lengths, n_new = lengths.long(), n_new.long()
+    last = lengths + n_new - 1
+    wslot = (lengths // page_size)[:, None] \
+        + torch.arange(W, device=page_table.device)[None, :]
+    written = (n_new[:, None] > 0) & (wslot <= (last // page_size)[:, None]) \
+        & (wslot < P)
+    phys = torch.where(written, torch.gather(
+        page_table.long(), 1, torch.clamp(wslot, 0, P - 1)),
+        torch.zeros_like(wslot))
+    t = torch.minimum((wslot + 1) * page_size - 1, last[:, None]) \
+        - lengths[:, None]
+    return torch.clamp(t, min=0), phys
+
+
+def paged_state_write(pool, snaps, phys):
+    """Scatter per-(slot, page) snapshots into the pool in place. snaps:
+    (B, P, ...) aligned with ``phys``. Duplicate writes to scratch page 0
+    land in unspecified order; page 0 is never read as state."""
+    B, P = phys.shape
+    flat = snaps.reshape((B * P,) + snaps.shape[2:]).to(pool.dtype)
+    pool[phys.reshape(-1)] = flat
+
+
+def _gather_windows(xp, t, K: int):
+    """Conv-window snapshots: the window after local step t is
+    xp[:, t+1 : t+K] (xp = [init window | new inputs], (B, S+K-1, C));
+    t: (B, P). Returns (B, P, K-1, C)."""
+    B = xp.shape[0]
+    idx = t[:, :, None] + torch.arange(1, K, device=xp.device)[None, None, :]
+    return xp[torch.arange(B, device=xp.device)[:, None, None], idx]
+
+
+def paged_pool_commit(conv_pool, h_pool, xp, hs_b, *, page_table, lengths,
+                      n_new, page_size: int):
+    """Publish one layer's snapshots for the first ``n_new[b]`` tokens
+    through the full (B, P) plan, in place. ``xp``: the padded conv input
+    (B, S+K-1, C); ``hs_b``: every local step's state (B, S, ...)."""
+    K = conv_pool.shape[-2] + 1
+    t, phys = snapshot_steps(page_table, lengths, n_new, page_size)
+    B = phys.shape[0]
+    h_snap = hs_b[torch.arange(B, device=hs_b.device)[:, None], t]
+    paged_state_write(h_pool, h_snap, phys)
+    paged_state_write(conv_pool, _gather_windows(xp, t, K), phys)
+
+
+# ---------------------------------------------------------------------------
+# Mixers
+# ---------------------------------------------------------------------------
+
+
+def _conv_window(params, xin, conv_pool, page_table, lengths, page_size,
+                 dt_):
+    """Depthwise causal conv over [stored window | new inputs]. Returns
+    (silu(conv + bias) (B, S, C), xp (B, S+K-1, C))."""
+    S = xin.shape[1]
+    K = params["conv_w"].shape[0]
+    win0 = paged_state_read(conv_pool, page_table, lengths, page_size)
+    xp = torch.cat([win0.to(dt_), xin], dim=1)
+    w, b = params["conv_w"].to(dt_), params["conv_b"].to(dt_)
+    xc = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
+    return F.silu(xc + b[None, None, :]), xp
+
+
+def _commit_conv_fused(conv_pool, xp, t_w, phys_w):
+    K = conv_pool.shape[-2] + 1
+    paged_state_write(conv_pool, _gather_windows(xp, t_w, K), phys_w)
+
+
+def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
+                       page_table, lengths, n_new, page_size: int,
+                       fused: bool = False):
+    """One layer's mamba1 mixer against the paged state pool.
+
+    x: (B, S, D) normed block input; slot b contributes ``n_new[b] <= S``
+    real tokens from absolute position ``lengths[b]`` (0 = idle slot, its
+    state untouched). conv_pool: (n_pages, K-1, di); h_pool: (n_pages,
+    di, d_state) — both written in place. Returns the mixer output
+    (B, S, D); rows at padded positions are garbage (the caller reads
+    position n_new-1 only).
+    """
+    s = cfg.ssm
+    dt_ = torch_dtype(cfg.dtype)
+    x = x.to(dt_)
+    B, S, D = x.shape
+    dtr = _dt_rank(cfg)
+
+    xz = x @ params["in_proj"].to(dt_)
+    xin, z = xz.chunk(2, dim=-1)
+    xc, xp = _conv_window(params, xin, conv_pool, page_table, lengths,
+                          page_size, dt_)
+
+    dbc = xc @ params["x_proj"].to(dt_)
+    dtr_v, Bm, Cm = torch.split(dbc, [dtr, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dtr_v @ params["dt_proj"].to(dt_)
+                    + params["dt_bias"].to(dt_))
+    A = -torch.exp(params["A_log"].float())
+
+    dt32, xc32 = dt.float(), xc.float()
+    B32, C32 = Bm.float(), Cm.float()
+
+    if fused:
+        t_w, phys_w = compact_snapshot_steps(page_table, lengths, n_new,
+                                             page_size, S)
+        read_page, live = paged_read_plan(page_table, lengths, page_size)
+        ys = kops.paged_ssm_update(
+            dt32.contiguous(), xc32.contiguous(), B32.contiguous(),
+            C32.contiguous(), A, h_pool, read_page, live, phys_w, t_w,
+            n_new, order="dbx")
+        y = ys.to(dt_)
+    else:
+        valid = torch.arange(S, device=x.device)[None, :] < n_new[:, None]
+        h = paged_state_read(h_pool, page_table, lengths, page_size)
+        hs, ys = [], []
+        for t in range(S):
+            dt_t, x_t, b_t, c_t = dt32[:, t], xc32[:, t], B32[:, t], C32[:, t]
+            dA = torch.exp(dt_t[:, :, None] * A[None])
+            h2 = dA * h + dt_t[:, :, None] * b_t[:, None, :] \
+                * x_t[:, :, None]
+            h = torch.where(valid[:, t, None, None], h2, h)  # frozen state
+            ys.append(torch.einsum("bes,bs->be", h, c_t))
+            hs.append(h)
+        y = torch.stack(ys, dim=1).to(dt_)
+    y = y + params["D"].to(dt_)[None, None, :] * xc
+    y = y * F.silu(z)
+    out = y @ params["out_proj"].to(dt_)
+
+    if fused:
+        _commit_conv_fused(conv_pool, xp, t_w, phys_w)
+    else:
+        paged_pool_commit(conv_pool, h_pool, xp, torch.stack(hs, dim=1),
+                          page_table=page_table, lengths=lengths,
+                          n_new=n_new, page_size=page_size)
+    return out
+
+
+def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
+                       page_table, lengths, n_new, page_size: int,
+                       fused: bool = False):
+    """Mamba2 twin of :func:`mamba1_paged_apply` (same pool contract; the
+    conv runs over the concatenated x/B/C channels, h is per head:
+    (n_pages, nh, headdim, d_state)).
+
+    The fused path flattens (heads, headdim) to the kernel's rows axis:
+    per-head dt repeats across headdim and A is a stride-0 broadcast of
+    the per-head decay (the kernel takes A's strides), the h pool is
+    viewed as (n_pages, R, d_state) — a view, so the kernel's in-place
+    update lands in the pool — and the product order is ``"dxb"``.
+
+    The gated RMSNorm is the RMSNorm kernel's function (eps 1e-6, float32
+    reduction, cast back), so it goes through ``ops.rmsnorm``.
+    """
+    s = cfg.ssm
+    dt_ = torch_dtype(cfg.dtype)
+    x = x.to(dt_)
+    B, S, D = x.shape
+    di = s.expand * D
+    nh = di // s.headdim
+
+    proj = x @ params["in_proj"].to(dt_)
+    z, xbc, dt = torch.split(proj, [di, di + 2 * s.d_state, nh], dim=-1)
+    xbc, xp = _conv_window(params, xbc, conv_pool, page_table, lengths,
+                           page_size, dt_)
+    xin, Bm, Cm = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"].float())   # (B, S, nh)
+    A = -torch.exp(params["A_log"].float())                   # (nh,)
+
+    xh = xin.reshape(B, S, nh, s.headdim).float()
+    B32, C32 = Bm.float(), Cm.float()
+
+    if fused:
+        R = nh * s.headdim
+        t_w, phys_w = compact_snapshot_steps(page_table, lengths, n_new,
+                                             page_size, S)
+        read_page, live = paged_read_plan(page_table, lengths, page_size)
+        A_rows = A.repeat_interleave(s.headdim)[:, None].expand(
+            R, s.d_state)
+        h_rows = h_pool.view(-1, R, s.d_state)
+        ys = kops.paged_ssm_update(
+            dt.repeat_interleave(s.headdim, dim=-1).contiguous(),
+            xh.reshape(B, S, R).contiguous(), B32.contiguous(),
+            C32.contiguous(), A_rows, h_rows, read_page, live, phys_w, t_w,
+            n_new, order="dxb")
+        y = ys.reshape(B, S, nh, s.headdim)
+    else:
+        valid = torch.arange(S, device=x.device)[None, :] < n_new[:, None]
+        h = paged_state_read(h_pool, page_table, lengths, page_size)
+        hs, ys = [], []
+        for t in range(S):
+            dt_t, x_t, b_t, c_t = dt[:, t], xh[:, t], B32[:, t], C32[:, t]
+            dA = torch.exp(dt_t * A[None])
+            h2 = dA[:, :, None, None] * h \
+                + (dt_t[:, :, None] * x_t)[..., None] * b_t[:, None, None, :]
+            h = torch.where(valid[:, t, None, None, None], h2, h)
+            ys.append(torch.einsum("bhes,bs->bhe", h, c_t))
+            hs.append(h)
+        y = torch.stack(ys, dim=1)
+    y = y + params["D"].float()[None, None, :, None] * xh
+    y = y.reshape(B, S, di).to(dt_)
+    y = y * F.silu(z)
+    y = kops.rmsnorm(y, params["norm_scale"])                 # gated RMSNorm
+    out = y @ params["out_proj"].to(dt_)
+
+    if fused:
+        _commit_conv_fused(conv_pool, xp, t_w, phys_w)
+    else:
+        paged_pool_commit(conv_pool, h_pool, xp, torch.stack(hs, dim=1),
+                          page_table=page_table, lengths=lengths,
+                          n_new=n_new, page_size=page_size)
+    return out

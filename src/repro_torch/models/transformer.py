@@ -1,15 +1,17 @@
-"""The decoder model around the layer stack: training and serving.
+"""The model around the layer stack: training and serving.
 
 Port of :mod:`repro.models.transformer` for the decoder family with
-``attn_mlp`` blocks. Params use the JAX pytree's key paths: ``embed``
+``attn_mlp`` blocks (training and serving) and the SSM and hybrid
+families (serving). Params use the JAX pytree's key paths: ``embed``
 (``tok``, ``out``), ``final_norm``, ``open`` / ``close`` (serial buffer
 stacks) and ``mid`` (``params`` stack + ``gate``) — the ParallelNet's
-layers, padded with gate-0 identity layers to the MGRIT divisibility.
-Training runs the buffers serially and the ParallelNet through
-:func:`repro_torch.core.lp.lp_forward` (MGRIT forward, MGRIT adjoint
-backward); serving runs every stacked layer in order, padded ones
-included. The encoder-decoder, SSM and hybrid families come in later
-slices.
+layers, padded with gate-0 identity layers to the MGRIT divisibility;
+the hybrid family has ``backbone`` (mamba2 stack) and ``shared_attn``
+(one ``attn_mlp`` block) instead. Training runs the buffers serially and
+the ParallelNet through :func:`repro_torch.core.lp.lp_forward` (MGRIT
+forward, MGRIT adjoint backward); serving runs every stacked layer in
+order, padded ones included. SSM training and the encoder-decoder
+family come in later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core import mgrit
 from repro_torch.core.lp import LPStatic, lp_forward
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import (block_kind, block_step, init_block,
                                        paged_attn_block)
 from repro_torch.models.layers import (embed_tokens, init_embedding,
@@ -68,14 +71,22 @@ def depth_plan(n_layers: int, mg: MGRITConfig) -> DepthPlan:
 
 def _init_params(rcfg: RunConfig, gen, device) -> Dict[str, Any]:
     cfg, mg = rcfg.model, rcfg.mgrit
-    if cfg.family != "decoder" or block_kind(cfg) != "attn_mlp":
+    kind = block_kind(cfg)
+    if cfg.family not in ("decoder", "ssm", "hybrid") or kind == "attn_moe":
         raise NotImplementedError(
-            f"family={cfg.family!r} kind={block_kind(cfg)!r} is not ported "
-            "yet: this slice serves decoder models with attn_mlp blocks")
-    plan = depth_plan(cfg.n_layers, mg)
+            f"family={cfg.family!r} kind={kind!r} is not ported yet: the "
+            "port has decoder models with attn_mlp blocks and the SSM and "
+            "hybrid families")
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg, device=device),
         "final_norm": init_norm(cfg, device=device)}
+    if cfg.family == "hybrid":
+        params["backbone"] = init_block(gen, cfg, "mamba2",
+                                        lead=(cfg.n_layers,), device=device)
+        params["shared_attn"] = init_block(gen, cfg, "attn_mlp",
+                                           device=device)
+        return params
+    plan = depth_plan(cfg.n_layers, mg)
 
     def stack(n):
         return init_block(gen, cfg, lead=(n,), device=device) if n else None
@@ -105,15 +116,18 @@ def param_shapes(rcfg: RunConfig) -> Dict[str, Any]:
 
 
 def serving_params(params, cfg: ModelConfig):
-    """A copy of ``params`` whose matmul weights (embeddings, attention
-    and MLP projections) are held in the compute dtype. The reference
-    casts them to ``cfg.dtype`` at every use; casting once gives the same
-    numbers without re-reading the float32 weights every wave. Norm
-    scales and gates keep their dtype: the reference reads them in
-    float32."""
+    """A copy of ``params`` whose matmul weights (embeddings, attention,
+    MLP and Mamba projections, the Mamba conv) are held in the compute
+    dtype. The reference casts them to ``cfg.dtype`` at every use;
+    casting once gives the same numbers without re-reading the float32
+    weights every wave. Everything else keeps its dtype and is cast where
+    the reference casts it: norm scales and gates are read in float32,
+    and Mamba's ``dt_bias``, ``D`` and ``norm_scale`` are cast to
+    ``cfg.dtype`` by mamba1 but read in float32 by mamba2."""
     dt = torch_dtype(cfg.dtype)
     matmul = {"tok", "out", "wq", "wk", "wv", "wo", "w_in", "w_out",
-              "w_gate"}
+              "w_gate", "in_proj", "x_proj", "dt_proj", "out_proj",
+              "conv_w", "conv_b"}
 
     def walk(tree):
         if tree is None:
@@ -170,7 +184,7 @@ def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
     cfg = rcfg.model
     kind = block_kind(cfg)
     if cfg.family != "decoder":
-        later = ("the SSM and hybrid slice (ROADMAP Queue 1)"
+        later = ("the SSM training slice (ROADMAP Queue 1)"
                  if cfg.family in ("ssm", "hybrid") else
                  "the remaining-families slice (ROADMAP Queue 1)")
         raise NotImplementedError(
@@ -298,3 +312,113 @@ def paged_decode_step(params, pages, tokens, lengths, n_new, page_table,
     z = _paged_attn_forward(params, pages, tokens, lengths, n_new,
                             page_table, rcfg, fused=fused)
     return _paged_last_logits(params, z, n_new, rcfg.model), pages
+
+
+def init_paged_ssm_cache(rcfg: RunConfig, n_pages: int, *, device=None):
+    """State-snapshot page pools for the ssm family's full stacked layer
+    stack (open+mid+close)."""
+    cfg = rcfg.model
+    return ssm_mod.init_paged_ssm_pool(cfg, stacked_layer_depth(rcfg),
+                                       n_pages, cfg.ssm.version,
+                                       device=device)
+
+
+def init_paged_hybrid_cache(rcfg: RunConfig, n_pages: int, page_size: int,
+                            *, device=None):
+    """Hybrid (zamba2) pools: mamba2 state snapshots for every backbone
+    layer + KV pages for each interleaved shared-attention position, all
+    addressed by the same physical page ids."""
+    cfg = rcfg.model
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    return {
+        "mamba": ssm_mod.init_paged_ssm_pool(cfg, cfg.n_layers, n_pages, 2,
+                                             device=device),
+        "attn": attn_mod.init_paged_kv_cache(cfg, n_attn, n_pages,
+                                             page_size, device=device),
+    }
+
+
+def _ssm_paged_forward(params, pools, tokens, lengths, n_new, page_table,
+                       rcfg: RunConfig, *, page_size: int,
+                       fused: bool = False):
+    """Embeds and runs every stacked mamba layer against its state pools
+    (written in place); returns z (B, S, D). ``fused`` routes each
+    mixer's recurrence and commit through the paged SSM kernel."""
+    cfg = rcfg.model
+    kind = block_kind(cfg)
+    if kind not in ("mamba1", "mamba2"):
+        raise NotImplementedError("ssm paged decode requires mamba blocks")
+    mixer = ssm_mod.mamba1_paged_apply if kind == "mamba1" \
+        else ssm_mod.mamba2_paged_apply
+    layers, gates = _all_layers_stacked(params)
+    if len(layers) != pools["h"].shape[0]:
+        raise ValueError(f"{len(layers)} layers but the state pools stack "
+                         f"{pools['h'].shape[0]}")
+    z = embed_tokens(params["embed"], tokens, cfg)
+    for i, p in enumerate(layers):
+        f = mixer(p["mixer"], norm_apply(p["norm"], z, cfg), cfg,
+                  conv_pool=pools["conv"][i], h_pool=pools["h"][i],
+                  page_table=page_table, lengths=lengths, n_new=n_new,
+                  page_size=page_size, fused=fused)
+        z = z + gates[i].to(z.dtype) * f
+    return z
+
+
+def ssm_paged_decode_step(params, pools, tokens, lengths, n_new, page_table,
+                          rcfg: RunConfig, *, page_size: int,
+                          fused: bool = False):
+    """Paged step for the ssm family: the contract of
+    :func:`paged_decode_step` with KV pages replaced by state-snapshot
+    pages. Padded positions (>= n_new) freeze the recurrent state, so one
+    call advances a whole prompt chunk. Returns (last_logits (B, V),
+    pools) — the pools updated in place."""
+    z = _ssm_paged_forward(params, pools, tokens, lengths, n_new,
+                           page_table, rcfg, page_size=page_size,
+                           fused=fused)
+    return _paged_last_logits(params, z, n_new, rcfg.model), pools
+
+
+def _hybrid_paged_forward(params, state, tokens, lengths, n_new, page_table,
+                          rcfg: RunConfig, *, page_size: int,
+                          fused: bool = False):
+    """The mamba2 backbone against its snapshot pools, with the shared
+    attention block after every ``hybrid_attn_every`` layers against its
+    KV pools (all written in place); returns z (B, S, D)."""
+    cfg = rcfg.model
+    k = cfg.hybrid_attn_every
+    n_seg, rem = divmod(cfg.n_layers, k)
+    S = tokens.shape[1]
+    pos = lengths[:, None] + torch.arange(S, device=tokens.device)[None, :]
+    rope = rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, pos)
+    z = embed_tokens(params["embed"], tokens, cfg)
+    backbone = mgrit.slots(params["backbone"])
+    mamba, attn = state["mamba"], state["attn"]
+    li = 0
+    for s_i in range(n_seg + (1 if rem else 0)):
+        for _ in range(k if s_i < n_seg else rem):
+            p = backbone[li]
+            z = z + ssm_mod.mamba2_paged_apply(
+                p["mixer"], norm_apply(p["norm"], z, cfg), cfg,
+                conv_pool=mamba["conv"][li], h_pool=mamba["h"][li],
+                page_table=page_table, lengths=lengths, n_new=n_new,
+                page_size=page_size, fused=fused)
+            li += 1
+        if s_i < n_seg:
+            z = paged_attn_block(
+                params["shared_attn"], z, cfg, kind="attn_mlp", rope=rope,
+                pk=attn["k"][s_i], pv=attn["v"][s_i], page_table=page_table,
+                lengths=lengths, n_new=n_new, fused=fused)
+    return z
+
+
+def hybrid_paged_decode_step(params, state, tokens, lengths, n_new,
+                             page_table, rcfg: RunConfig, *, page_size: int,
+                             fused: bool = False):
+    """Paged step for the hybrid family: mamba2 backbone layers advance
+    state-snapshot pages, the interleaved shared-attention block reads
+    and writes its KV pages — one page table, one physical page id space.
+    Returns (last_logits (B, V), state) — the pools updated in place."""
+    z = _hybrid_paged_forward(params, state, tokens, lengths, n_new,
+                              page_table, rcfg, page_size=page_size,
+                              fused=fused)
+    return _paged_last_logits(params, z, n_new, rcfg.model), state

@@ -1,8 +1,9 @@
 """``CacheBackend`` API — the decode-state protocol of the serve engine.
 
-Port of :mod:`repro.serve.cache` for attention decoders
-(:class:`PagedKVBackend`). The scheduler and engine never mention model
-families; they talk to a backend, which owns
+Port of :mod:`repro.serve.cache`: attention decoders
+(:class:`PagedKVBackend`), the ssm family (:class:`SSMStateBackend`) and
+the hybrid family (:class:`HybridBackend`). The scheduler and engine
+never mention model families; they talk to a backend, which owns
 
   device half  ``init(max_batch, n_pages) -> state`` (the page pools on
                the backend's device) and the occupancy-masked step —
@@ -14,11 +15,10 @@ families; they talk to a backend, which owns
 
 The pools are updated in place, where the JAX package donates them to a
 jitted call: every method that takes ``state`` returns the same tensors.
-Not ported: meshes (one card; multi-device is the last slice),
-speculative decoding (``verify`` / ``coarse_draft``, a later slice), and
-the SSM / hybrid backends (the SSM slice). Without a mesh the
-reference's ``shard_state`` / ``pool_pages`` are identities, so callers
-skip them.
+Not ported: meshes (one card; multi-device is the last slice) and
+speculative decoding (``verify`` / ``coarse_draft``, a later slice).
+Without a mesh the reference's ``shard_state`` / ``pool_pages`` are
+identities, so callers skip them.
 """
 from __future__ import annotations
 
@@ -108,7 +108,8 @@ class CacheBackend:
         mesh / sharding: not supported (raise).
     """
 
-    #: pages are state snapshots (SSM/hybrid) — never true in this port
+    #: pages are state snapshots (SSM/hybrid): no intra-wave sharing, no
+    #: tail forks on full-prompt prefix hits, no ``fork_partial``
     snapshot_state = False
 
     def __init__(self, rcfg: RunConfig, params, mesh=None,
@@ -182,6 +183,15 @@ class CacheBackend:
         """Steady-state decode: tokens (B, 1); returns (state, next
         (B, 1)). The same step as prefill at S == 1."""
         return self._apply(state, slots, tokens, "serve.decode")
+
+    # -- device half: speculative decoding (not ported) --------------------
+
+    def _verify_fns(self):
+        raise NotImplementedError(SPEC_SLICE)
+
+    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
+                         n_pages: int):
+        raise NotImplementedError(SPEC_SLICE)
 
     # -- host half: page ops ------------------------------------------------
     # Refcount lifecycle: alloc_view -> 1 per page, share -> +1, release
@@ -283,6 +293,37 @@ class PagedKVBackend(CacheBackend):
                                             device=self.device)
 
 
+class SSMStateBackend(CacheBackend):
+    """Mamba1/mamba2 models: recurrent state as snapshot pages."""
+
+    snapshot_state = True
+
+    def _decode_fn(self):
+        return functools.partial(transformer.ssm_paged_decode_step,
+                                 page_size=self.page_size,
+                                 fused=self.fused)
+
+    def init_state(self, n_pages: int):
+        return transformer.init_paged_ssm_cache(self.rcfg, n_pages,
+                                                device=self.device)
+
+
+class HybridBackend(CacheBackend):
+    """Hybrid (zamba2): mamba2 snapshot pools + shared-attention KV pools
+    composed per block kind, one page table for both."""
+
+    snapshot_state = True
+
+    def _decode_fn(self):
+        return functools.partial(transformer.hybrid_paged_decode_step,
+                                 page_size=self.page_size,
+                                 fused=self.fused)
+
+    def init_state(self, n_pages: int):
+        return transformer.init_paged_hybrid_cache(
+            self.rcfg, n_pages, self.page_size, device=self.device)
+
+
 def make_backend(rcfg: RunConfig, params, mesh=None, page_size: int = 16,
                  sharding=None, fused: bool = True, obs=None,
                  device=None) -> CacheBackend:
@@ -292,7 +333,13 @@ def make_backend(rcfg: RunConfig, params, mesh=None, page_size: int = 16,
     if cfg.family == "decoder" and kind == "attn_mlp":
         return PagedKVBackend(rcfg, params, mesh, page_size, sharding,
                               fused, obs, device)
+    if cfg.family == "ssm" and kind in ("mamba1", "mamba2"):
+        return SSMStateBackend(rcfg, params, mesh, page_size, sharding,
+                               fused, obs, device)
+    if cfg.family == "hybrid":
+        return HybridBackend(rcfg, params, mesh, page_size, sharding,
+                             fused, obs, device)
     raise NotImplementedError(
         f"no CacheBackend for family={cfg.family!r} (kind={kind!r}) in the "
-        "port yet: this slice serves attn_mlp decoders; MoE, SSM and "
-        "hybrid backends come in later slices")
+        "port yet: it serves attn_mlp decoders and the SSM and hybrid "
+        "families; the MoE backend comes in a later slice")

@@ -1,8 +1,9 @@
 """Continuous-batching serving engine.
 
-Port of :mod:`repro.serve.engine`. Attention decoders serve through the
-paged path on one card: **batched chunked prefill** (all admitted
-prompts -> KV pages in one call), a
+Port of :mod:`repro.serve.engine`. Attention decoders and the SSM and
+hybrid families serve through the paged path on one card: **batched
+chunked prefill** (all admitted prompts -> KV or state pages in one
+call), a
 **refcounted page pool** (KV pages or recurrent-state snapshot pages,
 sequences of different lengths share one pool, common prompt prefixes
 share physical pages copy-on-write), **per-request sampling**

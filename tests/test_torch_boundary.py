@@ -62,7 +62,8 @@ def test_module_list_covers_both_slices():
                 "repro_torch.core.lp", "repro_torch.core.adaptive",
                 "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
                 "repro_torch.launch.train", "repro_torch.train.trainer",
-                "repro_torch.tree"):
+                "repro_torch.tree", "repro_torch.models.ssm",
+                "repro_torch.kernels.paged_ssm"):
         assert mod in names, mod
     for path, _ in modules():
         pkg = path.parent

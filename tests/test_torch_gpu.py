@@ -17,17 +17,26 @@ order, no atomics). Sampling: survivors bit-equal; the kernel sums the nucleus
 mass in another order, so tokens whose cumulative mass lies within float
 rounding of p may flip — their total probability per row must stay
 below 1e-5 (the two masks' sampling distributions are that close in
-total variation). The input builders are shared with
-``test_torch_kernels.py``.
+total variation). Paged SSM update: y on valid rows and the non-scratch
+pool pages within 1e-5 of the plain version's largest magnitude (nvcc
+contracts multiply-adds into FMAs and the card's expf is not the CPU's,
+over up to S sequential steps); pages outside the write plan bit-equal;
+the pool updated in place; a second launch bit-identical. The input
+builders are shared with ``test_torch_kernels.py`` and
+``test_torch_ssm.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import paged_ssm as tps
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import sampling as tsp
+from repro_torch.models import ssm as tssm
 
 
 def attn_case(seed, B, S, H, Hkv, hd, page_size=4, pages_per_slot=4,
@@ -46,6 +55,38 @@ def attn_case(seed, B, S, H, Hkv, hd, page_size=4, pages_per_slot=4,
     cap = pages_per_slot * page_size
     lengths = np.minimum(np.arange(B) * 3 + 1, cap - S).astype(np.int32)
     return q, pk, pv, table, lengths
+
+
+def ssm_case(seed, B, S, R, ds, pages_per_slot, lengths, n_new):
+    """dt/x/Bm/Cm/A/h_pool (float32) and page table, lengths, n_new
+    (int32), numpy: the paged SSM cases of ``tests/test_kernels_paged.py``
+    (the write plan is the caller's, for its page size)."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + B * pages_per_slot                   # page 0 = scratch
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    dt = (np.log1p(np.exp(r(B, S, R))) * 0.2).astype(np.float32)
+    A = (-np.exp(r(R, ds))).astype(np.float32)
+    table = (1 + np.arange(B * pages_per_slot)).reshape(
+        B, pages_per_slot).astype(np.int32)
+    return (dt, r(B, S, R), r(B, S, ds), r(B, S, ds), A,
+            r(n_pages, R, ds), table, np.asarray(lengths, np.int32),
+            np.asarray(n_new, np.int32))
+
+
+def ssm_plan(table, lengths, n_new, page_size, S):
+    """(read_page, live, phys_w, t_w) from the port's planners."""
+    t_w, phys_w = tssm.compact_snapshot_steps(table, lengths, n_new,
+                                              page_size, S)
+    read_page, live = tssm.paged_read_plan(table, lengths, page_size)
+    return read_page, live, phys_w, t_w
+
+
+# (S, lengths, n_new) at B=2, R=8, ds=4, page_size 4, 3 pages per slot:
+# a decode step crossing a page boundary; chunked prefill + an idle slot;
+# an empty slot (no live read page)
+SSM_CASES = [(1, [3, 0], [1, 1]), (4, [2, 5], [4, 0]), (1, [0, 7], [1, 1])]
 
 
 def flash_case(seed, B, H, Hkv, Sq, Sk, hd):
@@ -115,7 +156,9 @@ def _need_card():
 @pytest.mark.parametrize("B,S,H,Hkv,hd,page_size,pages", [
     *(g + (4, 4) for g in GRID),
     (4, 1, 16, 8, 128, 16, 8),          # qwen3_1p7b decode
-    (4, 64, 16, 8, 128, 16, 8)])        # qwen3_1p7b prefill chunk
+    (4, 64, 16, 8, 128, 16, 8),         # qwen3_1p7b prefill chunk
+    (4, 1, 32, 32, 64, 16, 8),          # zamba2_1p2b shared attn decode
+    (4, 64, 32, 32, 64, 16, 8)])        # zamba2_1p2b prefill chunk
 def test_paged_flash_attention_matches_plain_on_card(
         B, S, H, Hkv, hd, page_size, pages, dtype, tol):
     _need_card()
@@ -240,3 +283,75 @@ def test_rmsnorm_backward_is_deterministic_on_card(dtype):
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["dbx", "dxb"])
+@pytest.mark.parametrize("B,S,R,ds,page_size,pages,lengths,n_new", [
+    *((2, S, 8, 4, 4, 3, L, N) for S, L, N in SSM_CASES),
+    (4, 1, 8192, 16, 16, 4, [31, 16, 5, 0], [1, 1, 0, 1]),    # falcon rows
+    (4, 40, 4096, 64, 16, 4, [0, 9, 16, 3], [40, 17, 0, 33])])  # zamba2
+def test_paged_ssm_update_matches_plain_on_card(
+        B, S, R, ds, page_size, pages, lengths, n_new, order):
+    _need_card()
+    dt, x, Bm, Cm, A, pool, table, lens, nn = to_torch(*ssm_case(
+        R + S, B, S, R, ds, pages, lengths, n_new), device="cuda")
+    if order == "dxb":            # mamba2: one decay per row, stride 0
+        A = A[:, :1].expand(R, ds)
+    plan = ssm_plan(table, lens, nn, page_size, S)
+    pools = [pool.clone() for _ in range(3)]
+    ptr = pools[1].data_ptr()
+
+    def run(fn, p):
+        return fn(dt, x, Bm, Cm, A, p, *plan, nn, order=order)
+    want = run(tps.paged_ssm_update_ref, pools[0])
+    got = run(tps.paged_ssm_update, pools[1])
+    again = run(tps.paged_ssm_update, pools[2])
+    torch.cuda.synchronize()
+    assert pools[1].data_ptr() == ptr
+    valid = (torch.arange(S, device="cuda")[None, :]
+             < nn[:, None])[..., None]
+    assert _scaled_err(got * valid, want * valid) <= 1e-5
+    assert _scaled_err(pools[1][1:], pools[0][1:]) <= 1e-5
+    planned = set(plan[2].reshape(-1).tolist()) | {0}
+    for page in range(pool.shape[0]):
+        if page not in planned:
+            assert torch.equal(pools[1][page], pool[page]), page
+    assert torch.equal(got, again) and torch.equal(pools[1], pools[2])
+
+
+@pytest.mark.gpu
+def test_mamba2_fused_updates_pool_view_in_place_on_card():
+    """The mixer hands the kernel a (n_pages, R, ds) *view* of the
+    (n_pages, nh, headdim, ds) pool: the update lands in the pool, and
+    matches the gathered plain scan."""
+    _need_card()
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    rcfg = reduce_config(get_config("zamba2_1p2b", "decode_32k"))
+    cfg = dataclasses.replace(rcfg.model, dtype="float32")
+    params = transformer.init_model(rcfg, seed=3, device="cuda")
+    mixer = {k: v[0] for k, v in params["backbone"]["mixer"].items()}
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 5, cfg.d_model)).astype(
+        np.float32)).cuda()
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    kw = dict(page_table=table, lengths=torch.tensor([3, 0], device="cuda"),
+              n_new=torch.tensor([5, 2], device="cuda"), page_size=4)
+    pools = [tssm.init_paged_ssm_pool(cfg, 1, 5, 2, device="cuda")
+             for _ in range(2)]
+    pools[0]["h"].normal_()
+    pools[1]["h"].copy_(pools[0]["h"])
+    ptr = pools[0]["h"].data_ptr()
+    before = pools[0]["h"].clone()
+    got = tssm.mamba2_paged_apply(mixer, x, cfg, conv_pool=pools[0]["conv"][0],
+                                  h_pool=pools[0]["h"][0], fused=True, **kw)
+    want = tssm.mamba2_paged_apply(mixer, x, cfg,
+                                   conv_pool=pools[1]["conv"][0],
+                                   h_pool=pools[1]["h"][0], fused=False, **kw)
+    torch.cuda.synchronize()
+    assert pools[0]["h"].data_ptr() == ptr
+    assert not torch.equal(pools[0]["h"][0, 1:], before[0, 1:])
+    assert _scaled_err(got, want) <= 1e-5
+    assert _scaled_err(pools[0]["h"][0, 1:], pools[1]["h"][0, 1:]) <= 1e-5

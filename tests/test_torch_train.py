@@ -560,6 +560,6 @@ def test_unported_families_raise_naming_their_slice():
     with pytest.raises(NotImplementedError, match="remaining-families"):
         ttr.forward({}, {}, rcfg)
     rcfg = t_reduce(t_get_config("falcon_mamba_7b"))
-    with pytest.raises(NotImplementedError, match="SSM and hybrid slice"):
+    with pytest.raises(NotImplementedError, match="SSM training slice"):
         ttr.forward({}, {}, rcfg)
 
