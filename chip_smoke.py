@@ -7,22 +7,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` for ``sm_90a`` and holds each against its plain PyTorch version:
 paged attention at qwen3_1p7b's and zamba2_1p2b's head shapes, the
 sampling mask, the paged SSM update at falcon_mamba_7b's and
-zamba2_1p2b's full-width rows (both product orders), and the training
+zamba2_1p2b's full-width rows (both product orders), the training
 kernels forward and backward, in float32 and bf16, at the training and
-serve shapes, with a bit-repeatability check of every backward. Then it
-drives the port's paths, each with the launch counters set to 0 just
-before and read just after: it serves ``qwen3_1p7b``, then
-``falcon_mamba_7b`` and ``zamba2_1p2b``, each at full width and full
-depth (random weights from a seed) through ``ServeEngine``, compares one
-fused step with the gathered plain path and profiles a decode wave; it
-checks the training gradients at full width and reduced depth (kernel
-path vs plain path vs direct autograd), then trains full-width,
-full-depth ``qwen3_1p7b`` for three MGRIT steps through
-``Trainer.train`` (adaptive probe at step 2) and profiles one MGRIT and
-one serial step. It times each kernel beside its plain version, a
-library yardstick where one PyTorch call computes the same function,
-and its bound, and holds the flash kernels against the plain version at
-the training shape. Imports ``repro_torch``, torch and numpy only. Exits
+serve shapes, and the selective scan forward and backward at
+falcon_mamba_7b's and zamba2_1p2b's full-width rows, with a
+bit-repeatability check of every backward. Then it drives the port's
+paths, each with the launch counters set to 0 just before and read just
+after: it serves ``qwen3_1p7b``, then ``falcon_mamba_7b`` and
+``zamba2_1p2b``, each at full width and full depth (random weights from
+a seed) through ``ServeEngine``, compares one fused step with the
+gathered plain path and profiles a decode wave; it checks the training
+gradients at full width and reduced depth (kernel path vs plain path vs
+direct autograd), then trains full-width, full-depth ``qwen3_1p7b`` for
+three MGRIT steps through ``Trainer.train`` (adaptive probe at step 2)
+and profiles one MGRIT and one serial step. It checks the SSM training
+gradients the same way at reduced depth, then trains full-width
+``falcon_mamba_7b`` at 26 layers (MGRIT, probe at step 2; full depth
+does not fit one card) and full-width, full-depth ``zamba2_1p2b``
+(serial) for three steps each, profiling one step of each mode. It
+times each kernel beside its plain version, a library yardstick where
+one PyTorch call computes the same function, and its bound, and holds
+the flash kernels against the plain version at the training shape. Imports ``repro_torch``, torch and numpy only. Exits
 non-zero, before printing any result, when no CUDA device is available
 or the repository's ``src`` is missing; exits non-zero on any mismatch.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
@@ -70,11 +75,23 @@ SSM_TOL = 1e-5
 SSM_CASES = ((1, [16, 31, 0, 300], [1, 1, 1, 0]),
              (64, [0, 37, 200, 448], [64, 50, 0, 64]),
              (256, [0, 37, 200, 256], [256, 200, 0, 256]))
+# selective scan: (Bb, rows, d_state, headdim) of falcon-mamba-7b's
+# training shape (its d_inner channels) and zamba2-1.2b's (64 heads x
+# headdim 64 rows; per-head dt, decay and D repeated across headdim);
+# kernel vs plain tolerances relative to max|plain|: y as the paged SSM
+# update, the six cotangents 1e-4 (float32 sums over up to 8192 rows and
+# S steps in another order)
+SCAN_ROWS = {"falcon": (2, 8192, 16, 0), "zamba2": (1, 4096, 64, 64)}
+SCAN_TOL = {"y": 1e-5, "grad": 1e-4}
+SCAN_NAMES = ("dt", "x", "A", "B", "C", "D")
+FALCON_TRAIN_LAYERS = 26        # 1 open + 24 ParallelNet + 1 close
 # (rows, width) the RMSNorm kernel sees: training ln / qk-norm rows; a
-# decode wave's ln, q-norm and k-norm rows; a 512-token prefill bucket's
+# decode wave's ln, q-norm and k-norm rows; a 512-token prefill bucket's;
+# falcon-mamba-7b's training block norms and zamba2-1.2b's gated norm
 RMS_SHAPES = ((8192, 2048), (8192 * H, HD),
               (MAX_BATCH, 2048), (MAX_BATCH * H, HD), (MAX_BATCH * HKV, HD),
-              (MAX_BATCH * 512, 2048), (MAX_BATCH * 512 * H, HD))
+              (MAX_BATCH * 512, 2048), (MAX_BATCH * 512 * H, HD),
+              (TRAIN_B * TRAIN_S, 4096), (TRAIN_S, 4096))
 
 
 def fail(msg: str):
@@ -89,12 +106,12 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, iters: int = 20, flush=None) -> float:
-    """Mean device time of ``fn`` from CUDA events, after warm-up. With
-    ``flush`` (a large tensor) the L2 cache is overwritten before each
-    timed launch, as a layer's caller would find it."""
+def time_ms(fn, iters: int = 20, flush=None, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` from CUDA events, after ``warmup``
+    calls. With ``flush`` (a large tensor) the L2 cache is overwritten
+    before each timed launch, as a layer's caller would find it."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -248,8 +265,10 @@ def flash_tol_text(dname) -> str:
 def check_train_kernels(gen):
     """Flash attention and RMSNorm, forward and backward, against their
     plain versions (autograd of the plain version for the gradients), in
-    float32 and bf16; each backward twice, bit-identical. Returns the
-    largest bf16 absolute error of each kernel at the training shapes."""
+    float32 and bf16; each backward twice, bit-identical. Attention also
+    runs at zamba2_1p2b's training shape, in bf16 (its dtype). Returns
+    the largest bf16 absolute error of each kernel at the training
+    shapes."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -259,10 +278,13 @@ def check_train_kernels(gen):
             (1, 8, 1, 256, 256, 64, True), (1, 2, 2, 128, 256, 64, False),
             (2, 2, 2, 384, 384, 128, True), (1, 4, 2, 100, 77, 64, True),
             (TRAIN_B, H, HKV, 1024, 1024, HD, True)]
+    zamba2_attn = (1, 32, 32, TRAIN_S, TRAIN_S, 64, True)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         tol = FLASH_TOL[dname]
-        for B, h, hkv, Sq, Sk, hd, causal in grid:
+        bf16 = dtype == torch.bfloat16
+        cases = grid + ([zamba2_attn] if bf16 else [])
+        for B, h, hkv, Sq, Sk, hd, causal in cases:
             q, do = (torch.randn((B, h, Sq, hd), generator=gen,
                                  device="cuda") * 0.5 for _ in range(2))
             k, v = (torch.randn((B, hkv, Sk, hd), generator=gen,
@@ -284,11 +306,13 @@ def check_train_kernels(gen):
             if not (out_ok and e_grad <= tol):
                 fail(f"flash attention {shape} {dname} disagrees with its "
                      "plain version")
-            if dtype == torch.bfloat16 and Sq == 1024:
-                err["flash_attention_fwd"] = e_out
+            if bf16 and Sq >= 1024:
+                err["flash_attention_fwd"] = max(err["flash_attention_fwd"],
+                                                 e_out)
                 err["flash_attention_bwd"] = max(
-                    (g.float() - w.float()).abs().max().item()
-                    for g, w in zip(got[1:], want[1:]))
+                    err["flash_attention_bwd"],
+                    *((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got[1:], want[1:])))
                 qm, km, vm, dom = (x.transpose(1, 2).contiguous()
                                    for x in (q, k, v, do))
                 o, lse = fa.flash_attention_fwd(qm, km, vm, True)
@@ -296,7 +320,10 @@ def check_train_kernels(gen):
                 again = fa.flash_attention_bwd(qm, km, vm, o, lse, dom, True)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                    fail("flash attention backward is not bit-repeatable")
+                    fail(f"flash attention backward {shape} is not "
+                         "bit-repeatable")
+                del qm, km, vm, dom, o, lse, first, again
+            del q, k, v, do, want, got
         for R, D in RMS_SHAPES:
             x = (torch.randn((R, D), generator=gen, device="cuda") * 2.0) \
                 .to(dtype)
@@ -343,35 +370,40 @@ def plain_kernels():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
-    saved = ops.flash_attention, ops.rmsnorm
+    from repro_torch.kernels import ssm_scan as ss
+    saved = ops.flash_attention, ops.rmsnorm, ops.ssm_scan
     before = train_counts()
     ops.flash_attention = lambda q, k, v, *, causal=True: \
         fa.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2),
                                causal=causal).transpose(1, 2)
     ops.rmsnorm = rn.rmsnorm_ref
+    ops.ssm_scan = ss.ssm_scan_ref
     try:
         yield
     finally:
-        ops.flash_attention, ops.rmsnorm = saved
+        ops.flash_attention, ops.rmsnorm, ops.ssm_scan = saved
     if train_counts() != before:
         fail("a training kernel launched on the plain path")
 
 
-def train_counts():
+def _train_kernel_fns():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
-    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches,
-            "rmsnorm_fwd": rn.rmsnorm_fwd.launches,
-            "rmsnorm_bwd": rn.rmsnorm_bwd.launches}
+    from repro_torch.kernels import ssm_scan as ss
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "rmsnorm_fwd": rn.rmsnorm_fwd, "rmsnorm_bwd": rn.rmsnorm_bwd,
+            "ssm_scan_fwd": ss.ssm_scan_fwd,
+            "ssm_scan_bwd": ss.ssm_scan_bwd}
+
+
+def train_counts():
+    return {k: fn.launches for k, fn in _train_kernel_fns().items()}
 
 
 def reset_train_counts():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
-    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd,
-               rn.rmsnorm_fwd, rn.rmsnorm_bwd):
+    for fn in _train_kernel_fns().values():
         fn.launches = 0
 
 
@@ -492,42 +524,309 @@ def check_train_grads():
     del params, ga, gd, gk, gp
 
 
-def run_train():
-    """Full-width, full-depth qwen3_1p7b: Trainer.train(3) in MGRIT mode
-    with the probe at step 2, the training launch counters reset just
-    before and read just after; then one more MGRIT step under the
-    profiler."""
+def scan_case(gen, fam, S):
+    """(dt, x, A, B, C, D) of the selective scan at ``fam``'s rows
+    (SCAN_ROWS) on the card: mamba1 draws per-channel dt, decay and D;
+    mamba2 per-head ones repeated across headdim, the decay a stride-0
+    (rows, d_state) view, as on the main path."""
+    import torch
+    import torch.nn.functional as F
+    Bb, R, ds, hd = SCAN_ROWS[fam]
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if hd:
+        nh = R // hd
+        dt = (F.softplus(r(Bb, S, nh)) * 0.2).repeat_interleave(hd, dim=-1)
+        A = (-torch.exp(r(nh))).repeat_interleave(hd)[:, None].expand(R, ds)
+        D = (1.0 + 0.1 * r(nh)).repeat_interleave(hd)
+    else:
+        dt = F.softplus(r(Bb, S, R)) * 0.2
+        A = -torch.exp(r(R, ds))
+        D = 1.0 + 0.1 * r(R)
+    return dt, r(Bb, S, R), A, r(Bb, S, ds), r(Bb, S, ds), D
+
+
+def check_scan_kernel(gen):
+    """The selective scan against its plain version at falcon-mamba-7b's
+    and zamba2-1.2b's full-width rows: y and all six cotangents (autograd
+    of the plain version) at S=1000 (15 checkpoint chunks and a ragged
+    tail), a second backward bit-identical; y at the training length
+    S=4096. Returns the largest abs error of y and of the cotangents."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    err = {"ssm_scan_fwd": 0.0, "ssm_scan_bwd": 0.0}
+    for fam in ("falcon", "zamba2"):
+        Bb, R, ds, hd = SCAN_ROWS[fam]
+        shape = f"{fam} rows Bb={Bb} R={R} ds={ds}" + \
+            (f" (heads of {hd}, stride-0 decay)" if hd else "")
+        ins = scan_case(gen, fam, 1000)
+        gy = torch.randn(ins[1].shape, generator=gen, device="cuda")
+
+        def run(fn, ins=ins, gy=gy):
+            args = [t.detach().requires_grad_(True) for t in ins]
+            y = fn(*args)
+            return (y, *torch.autograd.grad(y, args, gy))
+        want, got = run(ss.ssm_scan_ref), run(ss.ssm_scan)
+        _, hc = ss.ssm_scan_fwd(*ins)
+        first, again = (ss.ssm_scan_bwd(*ins, hc, gy) for _ in range(2))
+        torch.cuda.synchronize()
+        e_y = _scaled_err(got[0], want[0])
+        e_g = {n: _scaled_err(g, w)
+               for n, g, w in zip(SCAN_NAMES, got[1:], want[1:])}
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"ssm_scan {shape} S=1000: y max|kernel-plain|/max|plain| "
+              f"{e_y:.3e} (tolerance {SCAN_TOL['y']:g}); cotangents "
+              + ", ".join(f"{n} {e:.3e}" for n, e in e_g.items())
+              + f" (tolerance {SCAN_TOL['grad']:g}); second backward "
+              f"bit-identical {same}")
+        if not (e_y <= SCAN_TOL["y"] and max(e_g.values())
+                <= SCAN_TOL["grad"] and same):
+            fail(f"ssm_scan {shape} disagrees with its plain version")
+        err["ssm_scan_fwd"] = max(err["ssm_scan_fwd"], (
+            got[0] - want[0]).abs().max().item())
+        err["ssm_scan_bwd"] = max(err["ssm_scan_bwd"], max(
+            (g - w).abs().max().item() for g, w in zip(got[1:], want[1:])))
+        del want, got, first, again, hc
+        ins = scan_case(gen, fam, TRAIN_S)
+        with torch.no_grad():
+            want, got = ss.ssm_scan_ref(*ins), ss.ssm_scan(*ins)
+        torch.cuda.synchronize()
+        e_y = _scaled_err(got, want)
+        print(f"ssm_scan {shape} S={TRAIN_S}: y max|kernel-plain|/max|plain|"
+              f" {e_y:.3e} (tolerance {SCAN_TOL['y']:g})")
+        if not e_y <= SCAN_TOL["y"]:
+            fail(f"ssm_scan {shape} S={TRAIN_S} disagrees with its plain "
+                 "version")
+        err["ssm_scan_fwd"] = max(err["ssm_scan_fwd"],
+                                  (got - want).abs().max().item())
+    return err
+
+
+def check_ssm_train_grads():
+    """Gradients through the scan kernel at full width and reduced depth,
+    B=2, S=512: falcon_mamba_7b at 6 layers (1 open, 4 ParallelNet, 1
+    close), the kernel path's loss and every gradient leaf against the
+    plain path's in float32, serial and MGRIT (fwd 2 / bwd 1), and in bf16
+    serial by direction and norm (the checks of tests/test_lp_grads.py);
+    zamba2_1p2b at 6 mamba2 layers and one shared-attention application
+    (attention at hd 64, backward included), the same float32 and bf16
+    checks, serial (its config)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.models import transformer
+
+    def rcfg_for(arch, dtype, fwd=0, bwd=0):
+        rcfg = get_config(arch, "train_4k")
+        mg = rcfg.mgrit
+        if mg.enabled:
+            mg = dataclasses.replace(mg, pad_to=4, fwd_iters=fwd,
+                                     bwd_iters=bwd)
+        return rcfg.replace(
+            model=dataclasses.replace(rcfg.model, n_layers=6, dtype=dtype),
+            mgrit=mg, shape=ShapeConfig("s512", "train", 512, 2),
+            microbatches=1)
+
+    def compare(arch, label, rcfg, mode, params, batch):
+        lk, gk = grads_of(params, batch, rcfg, mode=mode)
+        with plain_kernels():
+            lp_, gp = grads_of(params, batch, rcfg, mode=mode)
+        e, leaf = leaf_errors(gk, gp)
+        print(f"train grads {arch}, 6 layers S=512 {label}: kernel path vs "
+              f"plain path: loss {lk:.6f} vs {lp_:.6f}; worst leaf {leaf} "
+              f"max|diff|/max|leaf| {e:.3e} (tolerance {GRAD_REL:g})")
+        if not (e <= GRAD_REL and abs(lk - lp_) <= 1e-5 * abs(lp_)):
+            fail(f"{arch} {label} gradients differ between the kernel and "
+                 "plain paths")
+
+    def flat(g):
+        return torch.cat([g[p].float().reshape(-1) for p in sorted(g)
+                          if p[-1] != "gate"])
+
+    for arch in ("falcon_mamba_7b", "zamba2_1p2b"):
+        r32 = rcfg_for(arch, "float32")
+        params = transformer.init_model(r32, seed=1, device="cuda")
+        batch = shard_batch(SyntheticLM(r32, seed=1).batch_at(0), "cuda")
+        compare(arch, "f32 serial", r32, "serial", params, batch)
+        if arch == "falcon_mamba_7b":
+            compare(arch, "f32 MGRIT fwd 2 / bwd 1",
+                    rcfg_for(arch, "float32", 2, 1), "lp", params, batch)
+        r16 = rcfg_for(arch, "bfloat16")
+        _, gk = grads_of(params, batch, r16, mode="serial")
+        with plain_kernels():
+            _, gp = grads_of(params, batch, r16, mode="serial")
+        fk, fp = flat(gk), flat(gp)
+        cos = (fk @ fp / (fk.norm() * fp.norm() + 1e-30)).item()
+        nrel = abs(fk.norm().item() - fp.norm().item()) / fp.norm().item()
+        print(f"train grads {arch}, 6 layers S=512 bf16 serial: kernel "
+              f"path vs plain path: cosine {cos:.6f} (> 0.9999), norm "
+              f"rel diff {nrel:.3e} (< 1e-2)")
+        if not (cos > 0.9999 and nrel < 1e-2 and np.isfinite(cos)):
+            fail(f"{arch} bf16 kernel-path gradients lose direction or "
+                 "norm")
+        del gk, gp, fk, fp, params
+
+
+def scan_bound_ms(fam, S, backward=False):
+    """Least time for one scan call at ``fam``'s rows: the bytes the
+    function must move (forward: dt, x, B, C, A and D read, y written;
+    backward: those inputs and gy read, the six cotangents written; dt,
+    A, D and their cotangents counted at their distinct values, one per
+    head for mamba2's rows) over the HBM rate, vs float32 operations over
+    the non-tensor peak: per state element and step 5 (forward: the
+    update's multiply-add and term, the readout's multiply-add) or 18
+    (backward, the chunk's recompute included), plus 2 (the product dt*A
+    and its exp) per distinct decay value and step: every (row, state)
+    for mamba1, one per head for mamba2's rows. The checkpoints the
+    design stores are not in the bound (see ``scan_checkpoint_bytes``)."""
+    Bb, R, ds, hd = SCAN_ROWS[fam]
+    n_ch = R // hd if hd else R           # distinct dt and D values
+    n_decay = R // hd if hd else R * ds   # distinct A values
+    x, dt, bc = Bb * S * R * 4, Bb * S * n_ch * 4, 2 * Bb * S * ds * 4
+    ins = dt + x + bc + n_decay * 4 + n_ch * 4
+    if backward:
+        nbytes = 2 * ins + x                # inputs, gy; cotangents
+        ops = Bb * S * (18 * R * ds + 2 * n_decay)
+    else:
+        nbytes = ins + x
+        ops = Bb * S * (5 * R * ds + 2 * n_decay)
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def scan_checkpoint_bytes(fam, S):
+    """Bytes of the float32 state the forward stores every 64 steps (and
+    the backward reads): a cost of the design, outside the bound."""
+    Bb, R, ds, _ = SCAN_ROWS[fam]
+    return Bb * -(-S // 64) * R * ds * 4
+
+
+def time_scan_kernels(gen, flush):
+    """Kernel and plain times (CUDA events, L2 flushed) of the selective
+    scan forward (with the checkpoints a training forward stores) and
+    backward at both training shapes (S=4096), and their bounds. No
+    single PyTorch call computes a selective scan, so there is no
+    library time."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    rows = {}
+    for fam in ("falcon", "zamba2"):
+        ins = scan_case(gen, fam, TRAIN_S)
+        gy = torch.randn(ins[1].shape, generator=gen, device="cuda")
+        _, hc = ss.ssm_scan_fwd(*ins)
+        k_fwd = time_ms(lambda a=ins: ss.ssm_scan_fwd(*a), 5, flush)
+        k_bwd = time_ms(lambda a=ins, h=hc, g=gy: ss.ssm_scan_bwd(*a, h, g),
+                        5, flush)
+        with torch.no_grad():
+            p_fwd = time_ms(lambda a=ins: ss.ssm_scan_ref(*a), 2, flush,
+                            warmup=1)
+        args = [t.detach().requires_grad_(True) for t in ins]
+        py = ss.ssm_scan_ref(*args)
+        p_bwd = time_ms(lambda: torch.autograd.grad(
+            py, args, gy, retain_graph=True), 2, flush, warmup=1)
+        del py, args, hc
+        fb, fby = scan_bound_ms(fam, TRAIN_S)
+        bb, bby = scan_bound_ms(fam, TRAIN_S, backward=True)
+        Bb, R, ds, _ = SCAN_ROWS[fam]
+        for name, km, pm, bm, by in (("ssm_scan_fwd", k_fwd, p_fwd, fb, fby),
+                                     ("ssm_scan_bwd", k_bwd, p_bwd, bb, bby)):
+            print(f"{name} {fam} rows Bb={Bb} S={TRAIN_S} R={R} ds={ds} f32:"
+                  f" kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bm:.5f} "
+                  f"ms ({by}), library none; checkpoints "
+                  f"{scan_checkpoint_bytes(fam, TRAIN_S) / 1e6:.1f} MB "
+                  "(outside the bound)")
+            rows[(name, fam)] = (km, pm, bm, by)
+        del ins, gy
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def qwen3_train_config():
+    """Full-width, full-depth qwen3_1p7b at train_4k's S=4096, B=2."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    rcfg = get_config("qwen3_1p7b", "train_4k")
+    return rcfg.replace(
+        shape=ShapeConfig("train_4k", "train", TRAIN_S, TRAIN_B),
+        microbatches=1,
+        mgrit=dataclasses.replace(rcfg.mgrit, check_every=2))
+
+
+def falcon_train_config():
+    """Full-width falcon_mamba_7b at FALCON_TRAIN_LAYERS layers (1 open +
+    24 ParallelNet + 1 close, pad_to 4: no gate-0 layers), its MGRIT
+    config (cf 4, levels 2, fwd 2 / bwd 1) probed every 2 steps, B=2,
+    S=4096. Full depth (64 layers, 7.48 B parameters) needs 120 GB of
+    float32 params, grads and AdamW moments: more than one card holds."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    rcfg = get_config("falcon_mamba_7b", "train_4k")
+    return rcfg.replace(
+        model=dataclasses.replace(rcfg.model, n_layers=FALCON_TRAIN_LAYERS),
+        shape=ShapeConfig("train_4k", "train", TRAIN_S, TRAIN_B),
+        microbatches=1,
+        mgrit=dataclasses.replace(rcfg.mgrit, pad_to=4, check_every=2))
+
+
+def zamba2_train_config():
+    """Full-width, full-depth zamba2_1p2b (38 mamba2 layers, the shared
+    attention block after every 6), serial as its config says, B=1,
+    S=4096."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    rcfg = get_config("zamba2_1p2b", "train_4k")
+    return rcfg.replace(shape=ShapeConfig("train_4k", "train", TRAIN_S, 1),
+                        microbatches=1)
+
+
+def run_train(rcfg, required):
+    """``Trainer.train(3)`` of ``rcfg``, every training launch counter set
+    to 0 just before and read just after (the adaptive probe at step 2
+    when MGRIT is on); then one step of each mode under the profiler
+    (MGRIT and serial when MGRIT is on, else serial), each on the batch
+    after them. Fails unless each kernel in ``required`` launched, every loss
+    and forward residual norm is finite and, under MGRIT, the probe ran
+    at step 2. Returns (launches over the 3 steps, {mode: launches in
+    the profiled step}, peak GiB)."""
+    import numpy as np
+    import torch
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch.steps import make_train_fn
     from repro_torch.models import transformer
     from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaves_with_paths
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rcfg = get_config("qwen3_1p7b", "train_4k")
-    rcfg = rcfg.replace(
-        shape=ShapeConfig("train_4k", "train", TRAIN_S, TRAIN_B),
-        microbatches=1,
-        mgrit=dataclasses.replace(rcfg.mgrit, check_every=2))
     cfg, mg = rcfg.model, rcfg.mgrit
+    B, S = rcfg.shape.global_batch, rcfg.shape.seq_len
     t0 = time.perf_counter()
     trainer = Trainer(rcfg, seed=0)
     torch.cuda.synchronize()
-    n_layers = transformer.stacked_layer_depth(rcfg)
-    n_mid = n_layers - mg.n_open - mg.n_close
-    n_real = cfg.n_layers - mg.n_open - mg.n_close
-    print(f"train: {cfg.name} d_model={cfg.d_model} {n_layers} stacked "
-          f"layers ({mg.n_open} open + {n_mid} ParallelNet, gate-0 padded "
-          f"from {n_real}, + {mg.n_close} close), B={TRAIN_B} S={TRAIN_S} "
-          f"(train_4k's global batch 256 cut to {TRAIN_B}, microbatches 1),"
-          f" {cfg.dtype} compute, f32 params; MGRIT cf={mg.cf} "
-          f"levels={mg.levels} fwd_iters={mg.fwd_iters} bwd_iters="
-          f"{mg.bwd_iters}, probe every {mg.check_every}; init "
-          f"{time.perf_counter() - t0:.1f} s, "
+    if cfg.family == "hybrid":
+        depth = (f"{cfg.n_layers} mamba2 layers + the shared attention "
+                 f"block after every {cfg.hybrid_attn_every} "
+                 f"({cfg.n_layers // cfg.hybrid_attn_every} applications), "
+                 "serial (its config)")
+    else:
+        n_layers = transformer.stacked_layer_depth(rcfg)
+        n_mid = n_layers - mg.n_open - mg.n_close
+        n_real = cfg.n_layers - mg.n_open - mg.n_close
+        depth = (f"{n_layers} stacked layers ({mg.n_open} open + {n_mid} "
+                 f"ParallelNet, gate-0 padded from {n_real}, + "
+                 f"{mg.n_close} close); MGRIT cf={mg.cf} levels="
+                 f"{mg.levels} fwd_iters={mg.fwd_iters} bwd_iters="
+                 f"{mg.bwd_iters}, probe every {mg.check_every}")
+    n_params = sum(p.numel() for _, p in
+                   leaves_with_paths(trainer.params))
+    print(f"train: {cfg.name} d_model={cfg.d_model} {depth}; "
+          f"{n_params / 1e9:.3f} B params; B={B} S={S} (train_4k's global "
+          f"batch 256 cut to {B}, microbatches 1), {cfg.dtype} compute, "
+          f"f32 params; init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
@@ -537,25 +836,31 @@ def run_train():
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (loss, sec, norms, mode) in enumerate(zip(
             rep.losses, rep.step_seconds, rep.fwd_norms, rep.mode_trace)):
-        print(f"train step {i} [{mode}]: loss {loss:.4f}, fwd_norms "
-              f"{[float(f'{n:.4g}') for n in norms]}, {sec:.2f} s, "
-              f"{TRAIN_B * TRAIN_S / sec:.0f} tokens/s")
-    print(f"train: probe history (step, rho_fwd, rho_bwd) "
+        print(f"train {cfg.name} step {i} [{mode}]: loss {loss:.4f}, "
+              f"fwd_norms {[float(f'{n:.4g}') for n in norms]}, "
+              f"{sec:.2f} s, {B * S / sec:.0f} tokens/s")
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"train {cfg.name}: probe history (step, rho_fwd, rho_bwd) "
           f"{rep.controller_history}; switched_at {rep.switched_at}; peak "
-          f"memory {peak:.1f} GiB; launches over 3 steps {launches}")
+          f"memory {peak:.1f} GiB of {total:.1f}; launches over 3 steps "
+          f"{launches}")
     if len(rep.losses) != 3 or not np.all(np.isfinite(rep.losses)):
-        fail(f"train losses {rep.losses}")
+        fail(f"{cfg.name} train losses {rep.losses}")
     if not all(np.all(np.isfinite(n)) for n in rep.fwd_norms):
-        fail(f"non-finite forward residual norms {rep.fwd_norms}")
-    if [h[0] for h in rep.controller_history] != [2]:
-        fail(f"the probe did not run at step 2: {rep.controller_history}")
-    if min(launches.values()) <= 0:
-        fail(f"a training kernel never launched: {launches}")
+        fail(f"{cfg.name}: non-finite forward residual norms "
+             f"{rep.fwd_norms}")
+    if mg.enabled and [h[0] for h in rep.controller_history] != [2]:
+        fail(f"{cfg.name}: the probe did not run at step 2: "
+             f"{rep.controller_history}")
+    if min(launches[k] for k in required) <= 0:
+        fail(f"{cfg.name}: a training kernel never launched: {launches}")
 
-    # one step of each mode under the profiler, MGRIT (lp) first, each
-    # on the next batch, whatever mode the controller is in now
-    serial = rcfg.replace(mgrit=dataclasses.replace(mg, enabled=False))
-    for mode, step_rcfg in (("MGRIT (lp)", rcfg), ("serial", serial)):
+    modes = [("serial", rcfg.replace(
+        mgrit=dataclasses.replace(mg, enabled=False)))]
+    if mg.enabled:
+        modes.insert(0, ("MGRIT (lp)", rcfg))
+    per_mode = {}
+    for mode, step_rcfg in modes:
         step_fn = make_train_fn(step_rcfg)
         batch = shard_batch(trainer.pipeline.batch_at(trainer.step),
                             "cuda")
@@ -568,12 +873,14 @@ def run_train():
             loss = metrics["loss"].item()
             window = time.perf_counter() - t0
         if not np.isfinite(loss):
-            fail(f"the profiled {mode} step's loss is {loss}")
-        per_step = {k: v - before[k] for k, v in train_counts().items()}
+            fail(f"the profiled {cfg.name} {mode} step's loss is {loss}")
+        per_step = {k: v - before[k] for k, v in train_counts().items()
+                    if k in required}
+        per_mode[mode] = per_step
         kern = [e for e in prof.key_averages()
                 if getattr(e, "device_type", None) == DeviceType.CUDA]
         busy = sum(dev_us(e) for e in kern) / 1e6
-        print(f"one {mode} train step under the profiler: loss "
+        print(f"one {cfg.name} {mode} train step under the profiler: loss "
               f"{loss:.4f}, {window:.2f} s wall, "
               + (f"device busy {busy:.2f} s = {100 * busy / window:.1f}%, "
                  f"{sum(e.count for e in kern)} device ops"
@@ -581,7 +888,8 @@ def run_train():
               + f"; launches in this step {per_step}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"  {dev_us(e) / 1e6:8.3f} s  {e.count:6d}x  {e.key[:80]}")
-    return launches, rep
+    del trainer
+    return launches, per_mode, peak
 
 
 def flash_bound_ms(B, h, S, hd, itemsize, backward=False):
@@ -1153,6 +1461,9 @@ def main() -> int:
         fail("sampling mask disagrees with its plain version")
     ssm_err = check_ssm_kernel(gen)
     train_err = check_train_kernels(gen)
+    train_err.update(check_scan_kernel(gen))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 3. serve qwen3_1p7b at full width through the kernels --------------
     rcfg = get_config("qwen3_1p7b", "decode_32k")
@@ -1247,12 +1558,30 @@ def main() -> int:
     check_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, _ = run_train()
+    attn_kernels = ("flash_attention_fwd", "flash_attention_bwd",
+                    "rmsnorm_fwd", "rmsnorm_bwd")
+    scan_kernels = ("ssm_scan_fwd", "ssm_scan_bwd")
+    train_launches, _, _ = run_train(qwen3_train_config(), attn_kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 7. training kernels' times at the training shapes -----------------
+    # -- 7. SSM training: gradients at reduced depth, then path A (falcon,
+    # MGRIT) and path B (zamba2, serial) at full width ----------------------
+    check_ssm_train_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_train = {}
+    for fam, rcfg, need in (
+            ("falcon", falcon_train_config(),
+             ("rmsnorm_fwd", "rmsnorm_bwd") + scan_kernels),
+            ("zamba2", zamba2_train_config(), attn_kernels + scan_kernels)):
+        ssm_train[fam] = run_train(rcfg, need)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 8. training kernels' times at the training shapes -----------------
     train_rows = time_train_kernels(gen, flush, train_err)
+    scan_rows = time_scan_kernels(gen, flush)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [
@@ -1299,9 +1628,32 @@ def main() -> int:
             "bound_ms": bm, "bound_by": by, "library_ms": None,
             "device_ms": dm, "prefill_ms": kp, "prefill_device_ms": dp,
             "prefill_plain_ms": pp, "prefill_bound_ms": bp})
+    # path A (falcon-mamba-7b, MGRIT) and path B (zamba2-1.2b, serial):
+    # launches over Trainer.train(3) summed, per path, and per profiled
+    # step; ms/plain_ms/bound_ms at path A's shape, zamba2_* at path B's
+    for name in scan_kernels:
+        km, pm, bm, by = scan_rows[(name, "falcon")]
+        kz, pz, bz, byz = scan_rows[(name, "zamba2")]
+        per_path = {fam: ssm_train[fam][0][name] for fam in ssm_train}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:50",
+            "launches": sum(per_path.values()),
+            "max_abs_err": train_err[name], "ms": km, "plain_ms": pm,
+            "bound_ms": bm, "bound_by": by, "library_ms": None,
+            "launches_falcon": per_path["falcon"],
+            "launches_zamba2": per_path["zamba2"],
+            "launches_per_step": {
+                f"{fam} {mode}": n[name] for fam in ssm_train
+                for mode, n in ssm_train[fam][1].items()},
+            "zamba2_ms": kz, "zamba2_plain_ms": pz, "zamba2_bound_ms": bz,
+            "zamba2_bound_by": byz})
     counts = {"paged_flash_attention": launches["paged_flash_attention"],
               "topk_topp_mask": launches["topk_topp_mask"],
-              **train_launches,
+              **{k: train_launches[k] for k in attn_kernels},
+              **{f"{k}_{fam}": ssm_train[fam][0][k]
+                 for fam in ssm_train for k in scan_kernels},
               "paged_ssm_update_dbx":
                   ssm_launches["dbx"]["paged_ssm_update"],
               "paged_ssm_update_dxb":

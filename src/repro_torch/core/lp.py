@@ -34,14 +34,14 @@ from repro_torch.core import mgrit
 from repro_torch.models.blocks import block_F
 from repro_torch.tree import leaves_with_paths, tree_map, unflatten
 
-Extra = Dict[str, Any]  # per-call inputs: rope (cos, sin)
+Extra = Dict[str, Any]  # per-call inputs: rope (cos, sin), None for mamba
 
 
 @dataclasses.dataclass(frozen=True)
 class LPStatic:
     cfg: ModelConfig
     mgrit: MGRITConfig
-    kind: str               # block kind (attn_mlp in this port)
+    kind: str               # block kind: attn_mlp, mamba1 or mamba2
     causal: bool = True
 
     def spec(self, iters: int) -> mgrit.MGRITSpec:

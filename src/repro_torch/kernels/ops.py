@@ -1,8 +1,8 @@
 """Public entry points of the port's kernels — dispatch by device.
 
 Port of :mod:`repro.kernels.ops`: the training kernels (flash attention,
-RMSNorm) and the paged-decode ones (attention, SSM update, sampling
-mask). The JAX
+RMSNorm, the selective scan) and the paged-decode ones (attention, SSM
+update, sampling mask). The JAX
 package resolves a three-way mode ("pallas" / "interpret" / "ref") per
 call; here device placement alone decides, with no override:
 
@@ -19,6 +19,7 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_ssm as ps
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import sampling as sp
+from repro_torch.kernels import ssm_scan as ss
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -38,6 +39,17 @@ def rmsnorm(x, w):
     if x.is_cuda:
         return rn.rmsnorm(x, w)
     return rn.rmsnorm_ref(x, w)
+
+
+def ssm_scan(dt, x, A, B, C, D):
+    """Selective scan ``h = exp(dt*A)*h + (dt*x) B``, ``y = h.C + D*x``
+    (``repro.kernels.ssm_scan``). dt/x: (Bb, S, di); A: (di, ds), any
+    strides; B/C: (Bb, S, ds); D: (di,). Returns y (Bb, S, di) in x's
+    dtype. Differentiable in every input (kernel backward on the card,
+    autograd of the plain version on the CPU)."""
+    if x.is_cuda:
+        return ss.ssm_scan(dt, x, A, B, C, D)
+    return ss.ssm_scan_ref(dt, x, A, B, C, D)
 
 
 def paged_attention(q, pk, pv, page_table, lengths):

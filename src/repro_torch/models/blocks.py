@@ -1,12 +1,12 @@
 """Pre-LN transformer blocks in neural-ODE form (paper Eq. 1).
 
-Port of the ``attn_mlp`` kind of :mod:`repro.models.blocks`: one layer is
-the forward-Euler step ``Z_{n+1} = Z_n + gate * F(Z_n)`` with
-``F = phi1(X) + phi2(X + phi1(X))``, phi1 = SA o LN, phi2 = MLP o LN.
-The ``mamba1``/``mamba2`` kinds (``F = Mamba o LN``) have their params
-here and are served by ``repro_torch.models.ssm``; their training step
-comes with the SSM training slice. Block params are homogeneous within a
-kind, so they stack over the layer axis (leading dim of every leaf).
+Port of the ``attn_mlp``, ``mamba1`` and ``mamba2`` kinds of
+:mod:`repro.models.blocks`: one layer is the forward-Euler step
+``Z_{n+1} = Z_n + gate * F(Z_n)`` with ``F = phi1(X) + phi2(X +
+phi1(X))``, phi1 = SA o LN, phi2 = MLP o LN (attn_mlp), or ``F = Mixer o
+LN`` (the mamba kinds; their paged serving step is
+``repro_torch.models.ssm``). Block params are homogeneous within a kind,
+so they stack over the layer axis (leading dim of every leaf).
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from repro_torch.models.attention import (attention_apply, init_attention,
                                           paged_attention_apply)
 from repro_torch.models.layers import init_norm, norm_apply
 from repro_torch.models.mlp import init_mlp, mlp_apply
-from repro_torch.models.ssm import init_mamba1, init_mamba2
+from repro_torch.models.ssm import (init_mamba1, init_mamba2, mamba1_apply,
+                                   mamba2_apply)
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -62,7 +63,11 @@ def attn_block_F(params, z, a, cfg: ModelConfig, *, kind: str):
 
 def block_F(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
             rope=None):
-    """Evaluate the ODE right-hand side F(t, z) of one block."""
+    """Evaluate the ODE right-hand side F(t, z) of one block (``rope`` is
+    read by the attention kinds only)."""
+    if kind in ("mamba1", "mamba2"):
+        mixer = mamba1_apply if kind == "mamba1" else mamba2_apply
+        return mixer(params["mixer"], norm_apply(params["norm"], z, cfg), cfg)
     if kind != "attn_mlp":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     a = attention_apply(params["attn"], norm_apply(params["ln1"], z, cfg),

@@ -1,7 +1,11 @@
-"""Mamba1 (falcon-mamba) and Mamba2 (zamba2 backbone) mixers against the
-paged state pool (serving).
+"""Mamba1 (falcon-mamba) and Mamba2 (zamba2 backbone) mixers: dense
+(training) and against the paged state pool (serving).
 
-Port of the serving half of :mod:`repro.models.ssm`. The serve engine
+Port of :mod:`repro.models.ssm`. The dense mixers ``mamba{1,2}_apply``
+run the whole sequence through :func:`repro_torch.kernels.ops.ssm_scan`
+(the selective-scan kernel on the card, its plain version on the CPU;
+the JAX package runs the same recurrence as a ``lax.scan``); their
+cache argument (the dense decode oracle) is not ported. The serve engine
 treats SSM decode state like paged KV: a pool of fixed-size pages
 managed by the refcounted allocator. A page here is a per-slot state
 *snapshot* — page p of a slot holds the (conv window, h) state after
@@ -16,8 +20,7 @@ state.
 The pools are updated **in place** (the JAX package returns new pools
 and donates the old ones), so the mixers return their output only. Only
 the commit mode is ported; the deferred mode (``commit=False``,
-``state_in``) belongs to speculative decoding, and the dense
-``mamba{1,2}_apply`` to the SSM training slice.
+``state_in``) belongs to speculative decoding.
 
 ``fused=True`` runs the recurrence and the snapshot commit through
 :func:`repro_torch.kernels.ops.paged_ssm_update` (the CUDA kernel on the
@@ -226,7 +229,89 @@ def paged_pool_commit(conv_pool, h_pool, xp, hs_b, *, page_table, lengths,
 
 
 # ---------------------------------------------------------------------------
-# Mixers
+# Dense mixers (training)
+# ---------------------------------------------------------------------------
+
+_NO_CACHE = ("the dense decode oracle (a mixer with a cache) is not ported "
+             "yet: it stays queued in ROADMAP Queue 1 item 1; serving "
+             "uses mamba{1,2}_paged_apply")
+
+
+def _conv_sum(xp, w, S: int):
+    """sum_i xp[:, i:i+S] * w[i]: the depthwise causal conv over a
+    left-padded input xp (B, S+K-1, C); w: (K, C)."""
+    return sum(xp[:, i:i + S, :] * w[i][None, None, :]
+               for i in range(w.shape[0]))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv with zero history. x: (B, S, C), w: (K, C),
+    b: (C,)."""
+    xp = F.pad(x, (0, 0, w.shape[0] - 1, 0))
+    return _conv_sum(xp, w, x.shape[1]) + b[None, None, :]
+
+
+def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
+    """Mamba1 mixer over a whole sequence. x: (B, S, D) -> (B, S, D).
+
+    The scan adds ``D * xc`` in float32 and rounds once; the reference
+    rounds the scan to ``cfg.dtype`` first (ulps in float32)."""
+    if cache is not None:
+        raise NotImplementedError(_NO_CACHE)
+    s = cfg.ssm
+    dt_ = torch_dtype(cfg.dtype)
+    x = x.to(dt_)
+    dtr = _dt_rank(cfg)
+
+    xin, z = (x @ params["in_proj"].to(dt_)).chunk(2, dim=-1)
+    xc = F.silu(_causal_conv(xin, params["conv_w"].to(dt_),
+                             params["conv_b"].to(dt_)))
+    dtr_v, Bm, Cm = torch.split(xc @ params["x_proj"].to(dt_),
+                                [dtr, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dtr_v @ params["dt_proj"].to(dt_)
+                    + params["dt_bias"].to(dt_))
+    A = -torch.exp(params["A_log"].float())
+    y = kops.ssm_scan(dt.float(), xc.float(), A, Bm.float(), Cm.float(),
+                      params["D"].float()).to(dt_)
+    y = y * F.silu(z)
+    return y @ params["out_proj"].to(dt_)
+
+
+def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
+    """Mamba2 mixer over a whole sequence. x: (B, S, D) -> (B, S, D).
+
+    The scan runs in rows layout, as the paged kernel does: rows = heads
+    x headdim, the per-head dt and D repeated across headdim and the
+    per-head decay a stride-0 (rows, d_state) view; autograd sums the
+    repeated cotangents back to each head. The gated RMSNorm goes
+    through ``ops.rmsnorm`` (the same function)."""
+    if cache is not None:
+        raise NotImplementedError(_NO_CACHE)
+    s = cfg.ssm
+    dt_ = torch_dtype(cfg.dtype)
+    x = x.to(dt_)
+    di = s.expand * x.shape[-1]
+    nh = di // s.headdim
+
+    z, xbc, dt = torch.split(x @ params["in_proj"].to(dt_),
+                             [di, di + 2 * s.d_state, nh], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, params["conv_w"].to(dt_),
+                              params["conv_b"].to(dt_)))
+    xin, Bm, Cm = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"].float())   # (B, S, nh)
+    A = -torch.exp(params["A_log"].float())                   # (nh,)
+    y = kops.ssm_scan(
+        dt.repeat_interleave(s.headdim, dim=-1), xin.float(),
+        A.repeat_interleave(s.headdim)[:, None].expand(di, s.d_state),
+        Bm.float(), Cm.float(),
+        params["D"].float().repeat_interleave(s.headdim)).to(dt_)
+    y = y * F.silu(z)
+    y = kops.rmsnorm(y, params["norm_scale"])                 # gated RMSNorm
+    return y @ params["out_proj"].to(dt_)
+
+
+# ---------------------------------------------------------------------------
+# Paged mixers (serving)
 # ---------------------------------------------------------------------------
 
 
@@ -234,13 +319,10 @@ def _conv_window(params, xin, conv_pool, page_table, lengths, page_size,
                  dt_):
     """Depthwise causal conv over [stored window | new inputs]. Returns
     (silu(conv + bias) (B, S, C), xp (B, S+K-1, C))."""
-    S = xin.shape[1]
-    K = params["conv_w"].shape[0]
     win0 = paged_state_read(conv_pool, page_table, lengths, page_size)
     xp = torch.cat([win0.to(dt_), xin], dim=1)
-    w, b = params["conv_w"].to(dt_), params["conv_b"].to(dt_)
-    xc = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
-    return F.silu(xc + b[None, None, :]), xp
+    xc = _conv_sum(xp, params["conv_w"].to(dt_), xin.shape[1])
+    return F.silu(xc + params["conv_b"].to(dt_)[None, None, :]), xp
 
 
 def _commit_conv_fused(conv_pool, xp, t_w, phys_w):

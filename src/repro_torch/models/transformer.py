@@ -1,17 +1,18 @@
 """The model around the layer stack: training and serving.
 
 Port of :mod:`repro.models.transformer` for the decoder family with
-``attn_mlp`` blocks (training and serving) and the SSM and hybrid
-families (serving). Params use the JAX pytree's key paths: ``embed``
+``attn_mlp`` blocks and the SSM and hybrid families, training and paged
+serving. Params use the JAX pytree's key paths: ``embed``
 (``tok``, ``out``), ``final_norm``, ``open`` / ``close`` (serial buffer
 stacks) and ``mid`` (``params`` stack + ``gate``) — the ParallelNet's
 layers, padded with gate-0 identity layers to the MGRIT divisibility;
 the hybrid family has ``backbone`` (mamba2 stack) and ``shared_attn``
 (one ``attn_mlp`` block) instead. Training runs the buffers serially and
 the ParallelNet through :func:`repro_torch.core.lp.lp_forward` (MGRIT
-forward, MGRIT adjoint backward); serving runs every stacked layer in
-order, padded ones included. SSM training and the encoder-decoder
-family come in later slices.
+forward, MGRIT adjoint backward); the hybrid family trains serially
+(the shared attention block breaks the ODE form); serving runs every
+stacked layer in order, padded ones included. The remaining families
+(MoE, encoder, encoder-decoder) come in a later slice.
 """
 from __future__ import annotations
 
@@ -179,25 +180,42 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x
 
 
+def _hybrid_trunk(params, z, cfg: ModelConfig, rope):
+    """The mamba2 backbone, serial, with the shared attention block after
+    every ``hybrid_attn_every`` layers (none after a trailing partial
+    segment)."""
+    k = cfg.hybrid_attn_every
+    for i, p in enumerate(mgrit.slots(params["backbone"])):
+        z = block_step(p, z, cfg, kind="mamba2", causal=True, h=1.0)
+        if (i + 1) % k == 0:
+            z = block_step(params["shared_attn"], z, cfg, kind="attn_mlp",
+                           causal=True, h=1.0, rope=rope)
+    return z
+
+
 def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
     """Returns (logits, diagnostics). batch: tokens (B, S) [+ mm_embeds]."""
     cfg = rcfg.model
     kind = block_kind(cfg)
-    if cfg.family != "decoder":
-        later = ("the SSM training slice (ROADMAP Queue 1)"
-                 if cfg.family in ("ssm", "hybrid") else
-                 "the remaining-families slice (ROADMAP Queue 1)")
+    if cfg.family not in ("decoder", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the port trains "
-            f"decoder models; it comes with {later}")
+            "decoder, SSM and hybrid models; it comes with the "
+            "remaining-families slice (ROADMAP Queue 1)")
     z = _embed_inputs(params, batch, cfg)
-    rope = _rope_for(cfg, z.shape[1], z.device)
-    z = _serial_buffer(params.get("open"), z, cfg, kind=kind, causal=True,
-                       rope=rope)
-    z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=True,
-                      rope=rope, mode=mode)
-    z = _serial_buffer(params.get("close"), z, cfg, kind=kind, causal=True,
-                       rope=rope)
+    if cfg.family == "hybrid":
+        z = _hybrid_trunk(params, z, cfg,
+                          _rope_for(cfg, z.shape[1], z.device))
+        norms = torch.zeros((1,), dtype=torch.float32, device=z.device)
+    else:
+        rope = None if kind in ("mamba1", "mamba2") else \
+            _rope_for(cfg, z.shape[1], z.device)
+        z = _serial_buffer(params.get("open"), z, cfg, kind=kind,
+                           causal=True, rope=rope)
+        z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=True,
+                          rope=rope, mode=mode)
+        z = _serial_buffer(params.get("close"), z, cfg, kind=kind,
+                           causal=True, rope=rope)
     z = norm_apply(params["final_norm"], z, cfg)
     logits = unembed(params["embed"], z, cfg)
     return logits, {"fwd_norms": norms}

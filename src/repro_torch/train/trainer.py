@@ -91,7 +91,8 @@ class Trainer:
             kind=kind, causal=True)
         with torch.no_grad():
             z = transformer._embed_inputs(self.params, batch, cfg)
-            rope = transformer._rope_for(cfg, z.shape[1], z.device)
+            rope = None if kind in ("mamba1", "mamba2") else \
+                transformer._rope_for(cfg, z.shape[1], z.device)
             z = transformer._serial_buffer(self.params.get("open"), z, cfg,
                                            kind=kind, causal=True,
                                            rope=rope)

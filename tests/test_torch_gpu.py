@@ -21,9 +21,13 @@ total variation). Paged SSM update: y on valid rows and the non-scratch
 pool pages within 1e-5 of the plain version's largest magnitude (nvcc
 contracts multiply-adds into FMAs and the card's expf is not the CPU's,
 over up to S sequential steps); pages outside the write plan bit-equal;
-the pool updated in place; a second launch bit-identical. The input
-builders are shared with ``test_torch_kernels.py`` and
-``test_torch_ssm.py``.
+the pool updated in place; a second launch bit-identical. Selective scan: y
+within 1e-5 and each of the six cotangents within 1e-4 of the plain
+version's largest magnitude (FMAs, expf, and float32 sums over up to
+8192 rows and S steps in another order); a second backward
+bit-identical. The input builders are shared with
+``test_torch_kernels.py``, ``test_torch_ssm.py`` and
+``test_torch_ssm_train.py``.
 """
 import dataclasses
 
@@ -36,6 +40,7 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import paged_ssm as tps
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import sampling as tsp
+from repro_torch.kernels import ssm_scan as tss
 from repro_torch.models import ssm as tssm
 
 
@@ -114,6 +119,20 @@ FLASH_GRID = [(2, 4, 2, 32, 32, 16, True),
               (1, 8, 1, 32, 32, 16, True),
               (1, 2, 2, 16, 32, 16, False),
               (1, 2, 2, 16, 16, 128, True)]
+
+
+def ssm_scan_case(seed, Bb, S, di, ds):
+    """dt (softplus, x0.2), x, A (-exp), B, C, D near 1 and an output
+    cotangent gy (numpy, float32): the inputs of ``repro.kernels.ssm_scan``
+    as ``tests/test_kernels.py`` draws them."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    dt = (np.log1p(np.exp(r(Bb, S, di))) * 0.2).astype(np.float32)
+    return (dt, r(Bb, S, di), (-np.exp(r(di, ds))).astype(np.float32),
+            r(Bb, S, ds), r(Bb, S, ds), (1.0 + 0.1 * r(di)).astype(np.float32),
+            r(Bb, S, di))
 
 
 def to_torch(*arrays, device="cpu"):
@@ -355,3 +374,51 @@ def test_mamba2_fused_updates_pool_view_in_place_on_card():
     assert not torch.equal(pools[0]["h"][0, 1:], before[0, 1:])
     assert _scaled_err(got, want) <= 1e-5
     assert _scaled_err(pools[0]["h"][0, 1:], pools[1]["h"][0, 1:]) <= 1e-5
+
+
+# (Bb, S, di, ds, broadcast A): ragged chunk tails, a partial block of
+# rows, every d_state the kernel is built for, mamba2's stride-0 decay,
+# and falcon-mamba-7b's and zamba2-1.2b's full-width rows
+SCAN_CASES = [(2, 100, 64, 8, False), (1, 130, 96, 16, False),
+              (2, 64, 128, 4, False), (1, 70, 64, 32, False),
+              (1, 200, 256, 64, True), (2, 1000, 8192, 16, False),
+              (1, 1000, 4096, 64, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bb,S,di,ds,broadcast_A", SCAN_CASES)
+def test_ssm_scan_fwd_bwd_match_plain_on_card(Bb, S, di, ds, broadcast_A):
+    _need_card()
+    *ins, gy = to_torch(*ssm_scan_case(S + di + ds, Bb, S, di, ds),
+                        device="cuda")
+    if broadcast_A:                 # mamba2: one decay per row, stride 0
+        ins[2] = ins[2][:, :1].expand(di, ds)
+
+    def run(fn):
+        args = [t.detach().requires_grad_(True) for t in ins]
+        y = fn(*args)
+        return (y, *torch.autograd.grad(y, args, gy))
+    want = run(tss.ssm_scan_ref)
+    got = run(tss.ssm_scan)
+    torch.cuda.synchronize()
+    assert _scaled_err(got[0], want[0]) <= 1e-5
+    for name, g, w in zip(("dt", "x", "A", "B", "C", "D"), got[1:],
+                          want[1:]):
+        assert g.shape == w.shape, name
+        assert _scaled_err(g, w) <= 1e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("di,ds", [(8192, 16), (4096, 64)])
+def test_ssm_scan_backward_is_deterministic_on_card(di, ds):
+    """A second backward is bit-identical (fixed-order sums, no
+    atomics)."""
+    _need_card()
+    *ins, gy = to_torch(*ssm_scan_case(di + ds, 2, 300, di, ds),
+                        device="cuda")
+    _, hc = tss.ssm_scan_fwd(*ins)
+    first = tss.ssm_scan_bwd(*ins, hc, gy)
+    second = tss.ssm_scan_bwd(*ins, hc, gy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

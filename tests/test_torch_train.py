@@ -559,7 +559,11 @@ def test_unported_families_raise_naming_their_slice():
     rcfg = t_reduce(t_get_config("seamless_m4t_v2"))
     with pytest.raises(NotImplementedError, match="remaining-families"):
         ttr.forward({}, {}, rcfg)
-    rcfg = t_reduce(t_get_config("falcon_mamba_7b"))
-    with pytest.raises(NotImplementedError, match="SSM training slice"):
-        ttr.forward({}, {}, rcfg)
+    from repro_torch.models import ssm as tssm
+    for arch, apply in (("falcon_mamba_7b", tssm.mamba1_apply),
+                        ("zamba2_1p2b", tssm.mamba2_apply)):
+        cfg = t_reduce(t_get_config(arch)).model
+        with pytest.raises(NotImplementedError,
+                           match="dense decode oracle.*Queue 1 item 1"):
+            apply({}, torch.zeros(1, 1, cfg.d_model), cfg, cache={})
 
