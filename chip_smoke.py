@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc`` for ``sm_90a`` and holds each against its plain PyTorch version:
+``nvcc`` for ``sm_90a``, counts the wgmma (HGMMA), mma.sync (HMMA) and
+TMA-load (UTMALDG) instructions of every flash-attention kernel in its
+SASS (the bf16 kernels must hold wgmma and TMA loads), and holds each
+kernel against its plain PyTorch version:
 paged attention at qwen3_1p7b's and zamba2_1p2b's head shapes, the
 sampling mask, the paged SSM update at falcon_mamba_7b's and
 zamba2_1p2b's full-width rows (both product orders), the training
@@ -27,9 +30,11 @@ does not fit one card) and full-width, full-depth ``zamba2_1p2b``
 (serial) for three steps each, profiling one step of each mode. It
 times each kernel beside its plain version, a library yardstick where
 one PyTorch call computes the same function, and its bound, and holds
-the flash kernels against the plain version at the training shape. Imports ``repro_torch``, torch and numpy only. Exits
-non-zero, before printing any result, when no CUDA device is available
-or the repository's ``src`` is missing; exits non-zero on any mismatch.
+the flash kernels against the plain version at both training shapes
+(qwen3_1p7b's and zamba2_1p2b's, each timed). Imports ``repro_torch``,
+torch and numpy only. Exits non-zero, before printing any result, when
+no CUDA device is available or the repository's ``src`` is missing;
+exits non-zero on any mismatch.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the launch counts, the card's name and power limit, and one JSON
 object with every kernel's numbers.
@@ -96,6 +101,52 @@ RMS_SHAPES = ((8192, 2048), (8192 * H, HD),
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")    # wgmma, mma.sync, TMA load
+
+
+def flash_sass_census():
+    """Count, per kernel of the built flash-attention library, its HGMMA,
+    HMMA and UTMALDG instructions (``cuobjdump -sass``) and print them.
+    Fails unless every bf16 tensor-core kernel (namespace ``tc``: the
+    forward, dK/dV and dQ at both tile widths) holds wgmma and TMA
+    loads."""
+    from repro_torch.kernels import build
+    tools = Path(build.nvcc_path()).parent
+    sass = subprocess.run(
+        [str(tools / "cuobjdump"), "-sass",
+         str(build.library_path("flash_attention"))], capture_output=True,
+        text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+                counts[name][op] += 1
+    names = list(counts)
+    try:
+        plain = subprocess.run([str(tools / "cu++filt")], input="\n".join(
+            names), capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = names
+    short = {n: re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
+                       r"\(int\)", "", p).split("(")[0]
+             for n, p in zip(names, plain)}
+    tc = [n for n in names if "tc::" in short[n]]
+    for n in sorted(names, key=short.get):
+        print(f"  SASS {short[n]}: " + ", ".join(
+            f"{op} {counts[n][op]}" for op in SASS_OPS))
+    kinds = {re.sub(r"<.*", "", short[n]) for n in tc}
+    if kinds != {"tc::fwd_kernel", "tc::dkdv_kernel", "tc::dq_kernel"} \
+            or any(counts[n]["HGMMA"] == 0 or counts[n]["UTMALDG"] == 0
+                   for n in tc):
+        fail("a bf16 flash-attention kernel lacks wgmma (HGMMA) or TMA "
+             f"loads (UTMALDG): {[(short[n], counts[n]) for n in tc]}")
 
 
 def card_line() -> str:
@@ -277,6 +328,7 @@ def check_train_kernels(gen):
     grid = [(1, 4, 4, 128, 128, 64, True), (2, 4, 2, 128, 128, 32, True),
             (1, 8, 1, 256, 256, 64, True), (1, 2, 2, 128, 256, 64, False),
             (2, 2, 2, 384, 384, 128, True), (1, 4, 2, 100, 77, 64, True),
+            (1, 4, 2, 200, 333, 128, True),
             (TRAIN_B, H, HKV, 1024, 1024, HD, True)]
     zamba2_attn = (1, 32, 32, TRAIN_S, TRAIN_S, 64, True)
     for dtype in (torch.float32, torch.bfloat16):
@@ -892,13 +944,13 @@ def run_train(rcfg, required):
     return launches, per_mode, peak
 
 
-def flash_bound_ms(B, h, S, hd, itemsize, backward=False):
-    """Least time at the training shape: causal pairs x (4 fwd, 10 bwd)
-    x hd flops over the bf16 peak, vs each input and output once."""
+def flash_bound_ms(B, h, hkv, S, hd, itemsize, backward=False):
+    """Least time at a causal training shape: causal pairs x (4 fwd, 10
+    bwd) x hd flops over the bf16 peak, vs each input and output once."""
     pairs = S * (S + 1) // 2
     ops = (10 if backward else 4) * hd * pairs * B * h
     n_q = B * S * h * hd * itemsize
-    n_kv = 2 * B * S * HKV * hd * itemsize
+    n_kv = 2 * B * S * hkv * hd * itemsize
     lse = B * h * S * 4
     nbytes = (3 * n_q + 2 * n_kv + lse) if backward else \
         (2 * n_q + n_kv + lse)        # bwd: q,o,dO + dq; fwd: q,o
@@ -908,27 +960,23 @@ def flash_bound_ms(B, h, S, hd, itemsize, backward=False):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def time_train_kernels(gen, flush, err):
-    """Kernel, plain and library times at the training shapes (bf16):
-    attention B=2 S=4096 H=16/8 hd=128 causal; RMSNorm (8192, 2048). The
-    attention kernels' out, dq, dk and dv at that shape are also held
-    against the plain version's (``err`` takes their largest abs
-    errors)."""
+def time_flash(gen, flush, err, name, B, h, hkv, hd):
+    """The bf16 flash kernels at one causal training shape (S=4096): held
+    against the plain version (``err`` takes the largest abs errors of
+    out and of dq/dk/dv), then kernel, plain, SDPA and bound times.
+    Returns {"fwd"/"bwd": (kernel, plain, library, bound ms, bound by)}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
-    bf = torch.bfloat16
-    q, do = (torch.randn((TRAIN_B, TRAIN_S, H, HD), generator=gen,
+    bf, S = torch.bfloat16, TRAIN_S
+    q, do = (torch.randn((B, S, h, hd), generator=gen,
                          device="cuda").to(bf) for _ in range(2))
-    k, v = (torch.randn((TRAIN_B, TRAIN_S, HKV, HD), generator=gen,
+    k, v = (torch.randn((B, S, hkv, hd), generator=gen,
                         device="cuda").to(bf) for _ in range(2))
     o, lse = fa.flash_attention_fwd(q, k, v, True)
-    out = {}
-    out["flash_attention_fwd"] = time_ms(
-        lambda: fa.flash_attention_fwd(q, k, v, True), 5, flush)
-    out["flash_attention_bwd"] = time_ms(
-        lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True), 5, flush)
+    k_fwd = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 5, flush)
+    k_bwd = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                   True), 5, flush)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
     plain_fwd = time_ms(lambda: fa.flash_attention_ref(qt, kt, vt), 3,
@@ -942,13 +990,12 @@ def time_train_kernels(gen, flush, err):
     torch.cuda.synchronize()
     e_out, out_ok = flash_out_check(got[0], want[0], "bfloat16")
     e_grad = max(_scaled_err(g, w) for g, w in zip(got[1:], want[1:]))
-    print(f"flash_attention B={TRAIN_B} H={H}/{HKV} Sq=Sk={TRAIN_S} hd={HD} "
-          f"causal bfloat16 (the training shape): out max|kernel-plain| "
+    shape = f"B={B} H={h}/{hkv} Sq=Sk={S} hd={hd} causal bfloat16"
+    print(f"flash_attention {shape} ({name}): out max|kernel-plain| "
           f"{e_out:.3e}, dq/dk/dv max|kernel-plain|/max|plain| {e_grad:.3e} "
           f"({flash_tol_text('bfloat16')})")
     if not (out_ok and e_grad <= FLASH_TOL["bfloat16"]):
-        fail("flash attention disagrees with its plain version at the "
-             "training shape")
+        fail(f"flash attention disagrees with its plain version at {name}")
     err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e_out)
     err["flash_attention_bwd"] = max(
         err["flash_attention_bwd"],
@@ -964,6 +1011,42 @@ def time_train_kernels(gen, flush, err):
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lo, (ql, kl, vl), dot.contiguous(), retain_graph=True), 5, flush)
     del lo
+    pairs = B * h * S * (S + 1) // 2
+    rows = {}
+    for part, km, pm, lm, per_pair in (("fwd", k_fwd, plain_fwd, lib_fwd, 6),
+                                       ("bwd", k_bwd, plain_bwd, lib_bwd,
+                                        16)):
+        bm, by = flash_bound_ms(B, h, hkv, S, hd, 2, backward=part == "bwd")
+        design = 1e3 * per_pair * hd * pairs / PEAK_BF16_FLOP_S
+        rows[part] = (km, pm, lm, bm, by)
+        print(f"flash_attention_{part} {shape} ({name}): kernel {km:.4f} "
+              f"ms, plain {pm:.4f} ms, SDPA(enable_gqa) {lm:.4f} ms, bound "
+              f"{bm:.5f} ms ({by}); the design's {per_pair} x hd flops a "
+              f"pair take {design:.5f} ms at the bf16 peak")
+    return rows
+
+
+def time_train_kernels(gen, flush, err):
+    """Kernel, plain and library times at the training shapes (bf16):
+    attention causal S=4096 at qwen3_1p7b's B=2 H=16/8 hd=128 and
+    zamba2_1p2b's B=1 H=32/32 hd=64 (each also held against the plain
+    version, see ``time_flash``); RMSNorm (8192, 2048). Returns {kernel:
+    (kernel, plain, library, bound ms, bound by)}, with zamba2's flash
+    rows under "<kernel>@zamba2"."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    bf = torch.bfloat16
+    rows = {}
+    for name, (B, h, hkv, hd), suffix in (
+            ("qwen3_1p7b", (TRAIN_B, H, HKV, HD), ""),
+            ("zamba2_1p2b", (1, 32, 32, 64), "@zamba2")):
+        flash = time_flash(gen, flush, err, name, B, h, hkv, hd)
+        for part, row in flash.items():
+            rows[f"flash_attention_{part}{suffix}"] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {}
 
     x = torch.randn((TRAIN_B * TRAIN_S, 2048), generator=gen,
                     device="cuda").to(bf)
@@ -989,24 +1072,14 @@ def time_train_kernels(gen, flush, err):
     R, D = x.shape
     rb_fwd = 1e3 * (2 * R * D * 2 + D * 4 + R * 4) / PEAK_BYTES_S
     rb_bwd = 1e3 * (3 * R * D * 2 + R * 4 + 2 * D * 4) / PEAK_BYTES_S
-    fb, fby = flash_bound_ms(TRAIN_B, H, TRAIN_S, HD, 2)
-    bb, bby = flash_bound_ms(TRAIN_B, H, TRAIN_S, HD, 2, backward=True)
-    rows = {
-        "flash_attention_fwd": (out["flash_attention_fwd"], plain_fwd,
-                                lib_fwd, fb, fby),
-        "flash_attention_bwd": (out["flash_attention_bwd"], plain_bwd,
-                                lib_bwd, bb, bby),
-        "rmsnorm_fwd": (out["rmsnorm_fwd"], rms_plain_fwd, rms_lib_fwd,
-                        rb_fwd, "bytes"),
-        "rmsnorm_bwd": (out["rmsnorm_bwd"], rms_plain_bwd, rms_lib_bwd,
-                        rb_bwd, "bytes")}
-    for name, (km, pm, lm, bm, by) in rows.items():
-        shape = (f"B={TRAIN_B} S={TRAIN_S} H={H}/{HKV} hd={HD} causal"
-                 if name.startswith("flash") else f"({R}, {D})")
-        lib = "SDPA(enable_gqa)" if name.startswith("flash") else \
-            "F.rms_norm"
-        print(f"{name} {shape} bf16: kernel {km:.4f} ms, plain {pm:.4f} ms,"
-              f" {lib} {lm:.4f} ms, bound {bm:.5f} ms ({by})")
+    rows["rmsnorm_fwd"] = (out["rmsnorm_fwd"], rms_plain_fwd, rms_lib_fwd,
+                           rb_fwd, "bytes")
+    rows["rmsnorm_bwd"] = (out["rmsnorm_bwd"], rms_plain_bwd, rms_lib_bwd,
+                           rb_bwd, "bytes")
+    for name in ("rmsnorm_fwd", "rmsnorm_bwd"):
+        km, pm, lm, bm, by = rows[name]
+        print(f"{name} ({R}, {D}) bf16: kernel {km:.4f} ms, plain {pm:.4f} "
+              f"ms, F.rms_norm {lm:.4f} ms, bound {bm:.5f} ms ({by})")
     return rows
 
 
@@ -1409,9 +1482,16 @@ def main() -> int:
     for name, (_, log) in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = re.findall(r"[1-9]\d* bytes spill \w+", log)
+        serial = len(re.findall(r"wgmma.mma_async instructions are "
+                                r"serialized", log))
         print(f"  {name}: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}-{max(regs, default=0)}, spills "
-              f"{spills or 'none'}")
+              f"{spills or 'none'}"
+              + (f", {serial} kernels with serialised wgmma" if serial
+                 else ""))
+    print("flash_attention SASS (the bf16 path on the tensor cores and "
+          "TMA):")
+    flash_sass_census()
 
     # -- 2. kernels vs plain versions at the serve shapes -------------------
     gen = torch.Generator(device="cuda")
@@ -1605,13 +1685,21 @@ def main() -> int:
             ("flash_attention_bwd", "flash_attention", 64),
             ("rmsnorm_fwd", "rmsnorm", 23), ("rmsnorm_bwd", "rmsnorm", 23)):
         km, pm, lm, bm, by = train_rows[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/{src}.py:{line}",
             "launches": train_launches[name], "max_abs_err": train_err[name],
             "ms": km, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
-            "library_ms": lm})
+            "library_ms": lm}
+        if src == "flash_attention":
+            # zamba2_1p2b's shape (B=1 H=32/32 hd=64) and its run's launches
+            kz, pz, lz, bz, byz = train_rows[f"{name}@zamba2"]
+            row.update(zamba2_ms=kz, zamba2_plain_ms=pz,
+                       zamba2_library_ms=lz, zamba2_bound_ms=bz,
+                       zamba2_bound_by=byz,
+                       launches_zamba2=ssm_train["zamba2"][0][name])
+        kernels.append(row)
     # one row per product order: falcon-mamba-7b's path launches "dbx",
     # zamba2-1.2b's "dxb"; ms/plain_ms/bound_ms at decode (S=1), prefill_*
     # at a 256-token chunk, device_* the kernel alone (profiler); no

@@ -14,8 +14,9 @@ float32 softmax, output in q's dtype.
   layout (B, S, H, hd) through :class:`FlashAttention`, a
   ``torch.autograd.Function`` whose forward and backward are kernels
   (which TPU kernel it replaces, what bounds it and its design are in the
-  source's header). It takes CUDA tensors only and raises on anything
-  else; it never falls back to the plain version.
+  source's header): bf16 on the tensor cores (wgmma fed by TMA), float32
+  on the CUDA cores, chosen by dtype alone. It takes CUDA tensors only
+  and raises on anything else; it never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -77,6 +78,13 @@ def _check(q, k, v):
                          "or an empty axis")
 
 
+def _tma_ready(t):
+    """Contiguous, starting on a 16-byte boundary (TMA's requirement for
+    the bf16 kernels' tensor maps)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _dims(q, k, causal):
     B, Sq, H, hd = q.shape
     return (_DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], hd,
@@ -89,7 +97,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
     hd). Returns (o like q, lse (B, H, Sq) float32). Adds one to
     ``flash_attention_fwd.launches``."""
     _check(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_tma_ready(t) for t in (q, k, v))
     B, Sq, H, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -108,7 +116,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     _check(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
         raise ValueError("o and do must match q's shape and dtype")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    q, k, v, o, do = (_tma_ready(t) for t in (q, k, v, o, do))
     B, Sq, H, _ = q.shape
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \

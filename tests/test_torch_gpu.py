@@ -6,8 +6,8 @@ where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: float32 2e-5 (the repo's float32 attention tolerance);
-bfloat16 2e-2 (the plain version rounds the probabilities to bf16 before
-the value product, as the reference does, the kernel keeps them in
+bfloat16 2e-2 (the flash kernels multiply bf16 tiles on the tensor cores
+and round P and dS to bf16 in the backward; the plain version works in
 float32). The bf16 attention output is also held per element to
 1e-3 + 1e-2 x |plain| (the later causal rows hold values far below
 2e-2). Gradients are held to the same numbers times each tensor's
@@ -232,10 +232,25 @@ def _scaled_err(got, want):
     (2, 2, 2, 384, 384, 128, True),     # hd = 128
     (1, 4, 2, 100, 77, 64, True),       # ragged tiles, top-left causal
     (1, 4, 2, 77, 100, 16, False),
+    (1, 4, 2, 200, 333, 128, True),     # Sq != Sk, not multiples of tiles
     (2, 16, 8, 1024, 1024, 128, True)])  # qwen3_1p7b widths
 def test_flash_attention_fwd_bwd_match_plain_on_card(
         B, H, Hkv, Sq, Sk, hd, causal, dtype, tol):
     _need_card()
+    _check_flash_on_card(B, H, Hkv, Sq, Sk, hd, causal, dtype, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,hd,causal", [
+    (2, 16, 8, 4096, 4096, 128, True),  # qwen3_1p7b's training shape
+    (1, 32, 32, 4096, 4096, 64, True)])  # zamba2_1p2b's shared attention
+def test_flash_attention_bf16_training_shapes_match_plain_on_card(
+        B, H, Hkv, Sq, Sk, hd, causal):
+    _need_card()
+    _check_flash_on_card(B, H, Hkv, Sq, Sk, hd, causal, torch.bfloat16, 2e-2)
+
+
+def _check_flash_on_card(B, H, Hkv, Sq, Sk, hd, causal, dtype, tol):
     q, k, v, do = (x.to(dtype) for x in to_torch(
         *flash_case(Sq + hd, B, H, Hkv, Sq, Sk, hd), device="cuda"))
     want = _grads(lambda *a: tfa.flash_attention_ref(*a, causal=causal),

@@ -10,7 +10,10 @@ attention 2e-5 (the repo's float32 tolerance,
 of the plain version vs ``jax.vjp``: dense float32 softmax backward,
 summed in another order); RMSNorm 1e-5 forward and backward; the
 sampling mask is exact (identical
-survivor sets, survivors bit-equal) on distinct logits.
+survivor sets, survivors bit-equal) on distinct logits. The bf16
+flash-attention kernels' rounding points, emulated in plain torch, are
+held to the card's bf16 tolerances (out 2e-2 and 1e-3 + 1e-2 |plain| per
+element, gradients 2e-2 of their max).
 """
 import jax
 import jax.numpy as jnp
@@ -141,6 +144,100 @@ def test_flash_attention_plain_grads_match_jax_vjp(B, H, Hkv, Sq, Sk, hd,
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16_flash_emulated(q, k, v, do, causal, split_p=True, block=128):
+    """The bf16 tensor-core kernels' arithmetic in plain torch, rounding
+    where they round: products of bf16 operands summed in float32, the
+    scale applied to S in float32, the online softmax in base 2 over
+    128-key tiles, P fed to P V as a bf16 high part plus a bf16 remainder
+    (``split_p``; else rounded once), the output rounded to bf16; in the
+    backward P and dS rounded to bf16 before dV = P^T dO, dK = dS^T Q and
+    dQ = dS K, dS from the float32 P. q/do (B, H, Sq, hd), k/v (B, Hkv,
+    Sk, hd), all bf16. Returns (o, dq, dk, dv) in bf16."""
+    B, H, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = np.float32(1.0 / np.sqrt(hd))
+    sl = float(scale * np.float32(LOG2E))
+    rb = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    qf = q.float().reshape(B, Hkv, g, Sq, hd)
+    dof = do.float().reshape(B, Hkv, g, Sq, hd)
+    kf, vf = k.float(), v.float()
+    rows = torch.arange(Sq)[:, None]
+    m = torch.full((B, Hkv, g, Sq), -float("inf"))
+    l = torch.zeros((B, Hkv, g, Sq))
+    acc = torch.zeros((B, Hkv, g, Sq, hd))
+    for k0 in range(0, Sk, block):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf[:, :, k0:k0 + block])
+        s = s * sl
+        if causal:
+            cols = torch.arange(k0, min(k0 + block, Sk))[None, :]
+            s = s.masked_fill(cols > rows, -float("inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * corr + p.sum(-1)
+        pv = rb(p) + rb(p - rb(p)) if split_p else rb(p)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", pv, vf[:, :, k0:k0 + block])
+        m = mx
+    o = (acc / l[..., None]).to(torch.bfloat16)
+    lse2 = m + torch.log2(l)                   # lse in base 2
+
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * sl
+    p = torch.exp2(s - lse2[..., None])
+    if causal:
+        p = p.masked_fill(torch.arange(Sk)[None, :] > rows, 0.0)
+    delta = (dof * o.float().reshape(B, Hkv, g, Sq, hd)).sum(-1)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", rb(p), dof)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", rb(ds), qf) * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", rb(ds), kf) * scale
+    return (o.reshape(B, H, Sq, hd), dq.reshape(B, H, Sq, hd)
+            .to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16))
+
+
+def _flash_bf16_errors(hd, split_p, seed):
+    """(worst out excess over 1e-3 + 1e-2 |plain| per element, max out
+    error, worst gradient error / max |plain gradient|) of the emulated
+    kernels against autograd of the plain version, causal GQA S=512
+    H=4/2, bf16 inputs made with numpy."""
+    q, k, v, do = (t.to(torch.bfloat16) for t in to_torch(
+        *flash_case(seed, 1, 4, 2, 512, 512, hd)))
+    tq, tk, tv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    want = tfa.flash_attention_ref(tq, tk, tv, causal=True)
+    wgrads = torch.autograd.grad(want, (tq, tk, tv), do)
+    o, *grads = _bf16_flash_emulated(q, k, v, do, True, split_p=split_p)
+    d = (o.float() - want.float()).abs()
+    excess = (d - (1e-3 + 1e-2 * want.float().abs())).max().item()
+    g_err = max(((g.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item()
+                for g, w in zip(grads, wgrads))
+    return excess, d.max().item(), g_err
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bf16_rounding_plan_within_card_tolerance(hd):
+    """Where the bf16 kernels round, emulated on the CPU, stays inside the
+    tolerances the card holds them to: out within 2e-2 and, per element,
+    1e-3 + 1e-2 |plain|; dq/dk/dv within 2e-2 of their max."""
+    excess, out_err, g_err = _flash_bf16_errors(hd, True, 1)
+    assert excess <= 0.0 and out_err <= 2e-2
+    assert g_err <= 2e-2
+
+
+def test_flash_bf16_single_rounding_of_p_breaks_out_tolerance():
+    """Why the forward feeds P V a bf16 high part plus a bf16 remainder:
+    with P rounded once to bf16, rows that see few keys leave the
+    per-element output tolerance on this input (the split stays inside,
+    as the test above shows for the same seed)."""
+    excess, _, _ = _flash_bf16_errors(128, False, 1)
+    assert excess > 0.0
 
 
 @pytest.mark.parametrize("R,D", [(64, 128), (32, 256), (16, 2048)])
