@@ -5,10 +5,13 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` for ``sm_90a``, counts the wgmma (HGMMA), mma.sync (HMMA) and
-TMA-load (UTMALDG) instructions of every flash-attention kernel in its
-SASS (the bf16 kernels must hold wgmma and TMA loads), and holds each
-kernel against its plain PyTorch version:
-paged attention at qwen3_1p7b's and zamba2_1p2b's head shapes, the
+TMA-load (UTMALDG) instructions of every flash-attention and
+paged-attention kernel in its SASS (the bf16 flash kernels must hold
+wgmma and TMA loads, the bf16 multi-row paged kernel tensor-core
+products, no float32 paged kernel any), and holds each kernel against
+its plain PyTorch version:
+paged attention at qwen3_1p7b's and zamba2_1p2b's head shapes (also
+bitwise: a live-bucket table against a wider one, a second launch), the
 sampling mask, the paged SSM update at falcon_mamba_7b's and
 zamba2_1p2b's full-width rows (both product orders), the training
 kernels forward and backward, in float32 and bf16, at the training and
@@ -106,18 +109,15 @@ def fail(msg: str):
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")    # wgmma, mma.sync, TMA load
 
 
-def flash_sass_census():
-    """Count, per kernel of the built flash-attention library, its HGMMA,
-    HMMA and UTMALDG instructions (``cuobjdump -sass``) and print them.
-    Fails unless every bf16 tensor-core kernel (namespace ``tc``: the
-    forward, dK/dV and dQ at both tile widths) holds wgmma and TMA
-    loads."""
+def sass_census(lib: str) -> dict:
+    """{short kernel name: {op: count}} of the HGMMA, HMMA and UTMALDG
+    instructions of every kernel of one built library (``cuobjdump
+    -sass``), printed one kernel a line."""
     from repro_torch.kernels import build
     tools = Path(build.nvcc_path()).parent
     sass = subprocess.run(
-        [str(tools / "cuobjdump"), "-sass",
-         str(build.library_path("flash_attention"))], capture_output=True,
-        text=True, timeout=300, check=True).stdout
+        [str(tools / "cuobjdump"), "-sass", str(build.library_path(lib))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -137,16 +137,36 @@ def flash_sass_census():
     short = {n: re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
                        r"\(int\)", "", p).split("(")[0]
              for n, p in zip(names, plain)}
-    tc = [n for n in names if "tc::" in short[n]]
-    for n in sorted(names, key=short.get):
-        print(f"  SASS {short[n]}: " + ", ".join(
-            f"{op} {counts[n][op]}" for op in SASS_OPS))
-    kinds = {re.sub(r"<.*", "", short[n]) for n in tc}
+    out = {short[n]: counts[n] for n in names}
+    for n in sorted(out):
+        print(f"  SASS {n}: " + ", ".join(f"{op} {out[n][op]}"
+                                          for op in SASS_OPS))
+    return out
+
+
+def sass_checks():
+    """Fails unless every bf16 flash-attention kernel (namespace ``tc``:
+    the forward, dK/dV and dQ at both tile widths) holds wgmma and TMA
+    loads, the bf16 multi-row paged-attention kernel holds tensor-core
+    products (HMMA or HGMMA), and no float32 paged-attention kernel does."""
+    print("flash_attention SASS (the bf16 path on the tensor cores and "
+          "TMA):")
+    flash = sass_census("flash_attention")
+    tc = {n: c for n, c in flash.items() if "tc::" in n}
+    kinds = {re.sub(r"<.*", "", n) for n in tc}
     if kinds != {"tc::fwd_kernel", "tc::dkdv_kernel", "tc::dq_kernel"} \
-            or any(counts[n]["HGMMA"] == 0 or counts[n]["UTMALDG"] == 0
-                   for n in tc):
+            or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in tc.values()):
         fail("a bf16 flash-attention kernel lacks wgmma (HGMMA) or TMA "
-             f"loads (UTMALDG): {[(short[n], counts[n]) for n in tc]}")
+             f"loads (UTMALDG): {tc}")
+    print("paged_attention SASS (bf16 multi-row on the tensor cores, "
+          "float32 on the CUDA cores):")
+    paged = sass_census("paged_attention")
+    mma = {n: c for n, c in paged.items() if "paged_mma_kernel" in n}
+    f32 = {n: c for n, c in paged.items() if re.search(r"<float\b", n)}
+    if not mma or any(c["HMMA"] + c["HGMMA"] == 0 for c in mma.values()):
+        fail(f"a bf16 multi-row paged-attention kernel lacks HMMA: {mma}")
+    if not f32 or any(c["HMMA"] + c["HGMMA"] for c in f32.values()):
+        fail(f"a float32 paged-attention kernel uses the tensor cores: {f32}")
 
 
 def card_line() -> str:
@@ -185,15 +205,29 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, kernel: str, iters: int, flush) -> float:
-    """Mean device time (ms) of the ``kernel`` launches one ``fn()``
-    makes, from ``torch.profiler`` over ``iters`` calls with the L2
-    flushed before each: the kernel alone, without the host time of its
-    wrapper, which CUDA events around a call include whenever the host
-    is the slower side."""
+def _flush_keys(flush) -> set:
+    """Names of the device kernels that ``flush.zero_()`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.zero_()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA}
+
+
+def device_ms(fn, kernel, iters: int, flush) -> float:
+    """Mean device time (ms) per ``fn()`` call of the device kernels whose
+    name holds ``kernel`` (with ``kernel=None``, of every device op but the
+    L2 flush's), from ``torch.profiler`` over ``iters`` calls with the L2
+    flushed before each: the kernels alone, without the host time of their
+    wrapper, which CUDA events around a call include whenever the host is
+    the slower side."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    skip = _flush_keys(flush) if kernel is None else set()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -203,11 +237,10 @@ def device_ms(fn, kernel: str, iters: int, flush) -> float:
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
-            and kernel in e.key]
-    count = sum(e.count for e in rows)
-    if not count:
-        fail(f"the profiler saw no {kernel} launch")
-    return sum(dev_us(e) for e in rows) / count / 1e3
+            and (kernel in e.key if kernel else e.key not in skip)]
+    if not sum(e.count for e in rows):
+        fail(f"the profiler saw no {kernel or 'device op'} launch")
+    return sum(dev_us(e) for e in rows) / iters / 1e3
 
 
 def attn_case(gen, B, S, lengths, dtype, n_slot_pages, poison, heads=None):
@@ -1030,9 +1063,12 @@ def time_train_kernels(gen, flush, err):
     """Kernel, plain and library times at the training shapes (bf16):
     attention causal S=4096 at qwen3_1p7b's B=2 H=16/8 hd=128 and
     zamba2_1p2b's B=1 H=32/32 hd=64 (each also held against the plain
-    version, see ``time_flash``); RMSNorm (8192, 2048). Returns {kernel:
+    version, see ``time_flash``); RMSNorm (8192, 2048), and its forward at
+    qk-norm's (131072, 128) too, with device times. Returns {kernel:
     (kernel, plain, library, bound ms, bound by)}, with zamba2's flash
-    rows under "<kernel>@zamba2"."""
+    rows under "<kernel>@zamba2", the forward's device times (kernel,
+    library) under "rmsnorm_fwd@device" and its qk-norm row (the five,
+    then both device times) under "rmsnorm_fwd@qk_norm"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
@@ -1080,7 +1116,69 @@ def time_train_kernels(gen, flush, err):
         km, pm, lm, bm, by = rows[name]
         print(f"{name} ({R}, {D}) bf16: kernel {km:.4f} ms, plain {pm:.4f} "
               f"ms, F.rms_norm {lm:.4f} ms, bound {bm:.5f} ms ({by})")
+    rows["rmsnorm_fwd@device"] = (
+        device_ms(lambda: rn.rmsnorm_fwd(x, w), "rmsnorm", 20, flush),
+        device_ms(lambda: F.rms_norm(x, (D,), wb, eps=1e-6), None, 20,
+                  flush))
+    # the forward at qk-norm's rows: B x S x heads rows of hd
+    xq = torch.randn((TRAIN_B * TRAIN_S * H, HD), generator=gen,
+                     device="cuda").to(bf)
+    wq = 1.0 + 0.1 * torch.randn(HD, generator=gen, device="cuda")
+    wqb = wq.to(bf)
+    Rq = xq.shape[0]
+    rows["rmsnorm_fwd@qk_norm"] = (
+        time_ms(lambda: rn.rmsnorm_fwd(xq, wq), 20, flush),
+        time_ms(lambda: rn.rmsnorm_ref(xq, wq), 20, flush),
+        time_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), 20, flush),
+        1e3 * (2 * Rq * HD * 2 + HD * 4 + Rq * 4) / PEAK_BYTES_S, "bytes",
+        device_ms(lambda: rn.rmsnorm_fwd(xq, wq), "rmsnorm", 20, flush),
+        device_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), None, 20,
+                  flush))
+    kd_, ld_ = rows["rmsnorm_fwd@device"]
+    print(f"rmsnorm_fwd ({R}, {D}) bf16 device time: kernel {kd_:.4f} ms, "
+          f"F.rms_norm {ld_:.4f} ms")
+    km, pm, lm, bm, by, kd_, ld_ = rows["rmsnorm_fwd@qk_norm"]
+    print(f"rmsnorm_fwd ({Rq}, {HD}) bf16: kernel {km:.4f} ms (device "
+          f"{kd_:.4f}), plain {pm:.4f} ms, F.rms_norm {lm:.4f} ms (device "
+          f"{ld_:.4f}), bound {bm:.5f} ms ({by})")
     return rows
+
+
+def time_paged(flush, q, pk, pv, table, lens, lengths, S):
+    """Paged attention at one bf16 serve shape (qwen3_1p7b's heads): the
+    kernel (CUDA events, and the kernels alone by the profiler), the plain
+    version, SDPA on the gathered view (the pages gathered beforehand, K/V
+    repeated over the g heads, a boolean causal mask; events and device
+    time) and the bound."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    B, P = q.shape[0], table.shape[1]
+    rows_idx = (table.long()[:, :, None] * PAGE
+                + torch.arange(PAGE, device="cuda")).reshape(B, -1)
+    g = H // HKV
+    kd = pk.view(-1, HKV, HD)[rows_idx].transpose(1, 2) \
+        .repeat_interleave(g, dim=1)
+    vd = pv.view(-1, HKV, HD)[rows_idx].transpose(1, 2) \
+        .repeat_interleave(g, dim=1)
+    qd = q.transpose(1, 2)
+    qpos = lens.long()[:, None] + torch.arange(S, device="cuda")
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, None, None, :]
+            <= qpos[:, None, :, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel():
+        return pa.paged_flash_attention(q, pk, pv, table, lens)
+
+    def library():
+        return sdpa(qd, kd, vd, attn_mask=mask)
+    bound, by = attn_bound_ms(B, S, lengths, P, 2)
+    return {"ms": time_ms(kernel, flush=flush),
+            "device_ms": device_ms(kernel, "paged_", 20, flush),
+            "plain_ms": time_ms(lambda: pa.paged_attention_ref(
+                q, pk, pv, table, lens), flush=flush),
+            "library_ms": time_ms(library, flush=flush),
+            "library_device_ms": device_ms(library, None, 20, flush),
+            "bound_ms": bound, "bound_by": by}
 
 
 def make_queue(rng, V):
@@ -1489,9 +1587,7 @@ def main() -> int:
               f"{spills or 'none'}"
               + (f", {serial} kernels with serialised wgmma" if serial
                  else ""))
-    print("flash_attention SASS (the bf16 path on the tensor cores and "
-          "TMA):")
-    flash_sass_census()
+    sass_checks()
 
     # -- 2. kernels vs plain versions at the serve shapes -------------------
     gen = torch.Generator(device="cuda")
@@ -1503,25 +1599,40 @@ def main() -> int:
                                          (64, [0, 37, 200, 448]),
                                          (256, [0, 37, 200, 256]))),
                          ((32, 32, 64), ((1, [300, 17, 129, 0]),
-                                         (64, [0, 37, 200, 448])))):
+                                         (64, [0, 37, 200, 448]),
+                                         (256, [0, 37, 200, 256])))):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             for S, lengths in cases:
+                # a full table of 48 pages a slot, wider than the live
+                # bucket's 32, so the two tables give the split-KV path
+                # different grids
                 case = attn_case(gen, MAX_BATCH, S, lengths, dtype,
-                                 MAX_LEN // PAGE, poison=1e30, heads=heads)
+                                 MAX_LEN // PAGE + 16, poison=1e30,
+                                 heads=heads)
                 q, pk, pv, table, lens = case
                 cut = table[:, :live_bucket(lengths, S)]
                 want = pa.paged_attention_ref(q, pk, pv, cut, lens).float()
                 got = pa.paged_flash_attention(q, pk, pv, cut, lens)
                 full = pa.paged_flash_attention(q, pk, pv, table, lens)
+                again = pa.paged_flash_attention(q, pk, pv, cut, lens)
                 torch.cuda.synchronize()
+                path = "split-KV" if pa.plan(dtype, MAX_BATCH, S, *heads,
+                                             PAGE, cut.shape[1]).split \
+                    else "multi-row"
                 shape = f"H={heads[0]}/{heads[1]} hd={heads[2]} S={S:3d}"
                 if not torch.equal(got, full):
                     fail(f"paged attention {shape} {dname}: the live-bucket "
                          "table changed the output")
+                if not torch.equal(got, again):
+                    fail(f"paged attention {shape} {dname}: a second launch "
+                         "changed the output")
                 err = (got.float() - want).abs().max().item()
-                print(f"paged_flash_attention {shape} {dname:8s} max|kernel-"
-                      f"plain| = {err:.3e} (tolerance {ATTN_TOL[dname]:g})")
+                print(f"paged_flash_attention {shape} {dname:8s} ({path}) "
+                      f"max|kernel-plain| = {err:.3e} (tolerance "
+                      f"{ATTN_TOL[dname]:g}); live-bucket table ({cut.shape[1]}"
+                      f" pages) == full ({table.shape[1]}) == second launch, "
+                      "bitwise")
                 if not err <= ATTN_TOL[dname]:
                     fail(f"paged attention {shape} {dname} error {err:.3e}")
                 attn_err[dname] = max(attn_err.get(dname, 0.0), err)
@@ -1577,40 +1688,30 @@ def main() -> int:
                                        poison=0.0)
     P = live_bucket(DECODE_LENS, 1)
     cut = table[:, :P]
-    k_ms = time_ms(lambda: pa.paged_flash_attention(q, pk, pv, cut, lens),
-                   flush=flush)
-    plain_ms = time_ms(lambda: pa.paged_attention_ref(q, pk, pv, cut, lens),
-                       flush=flush)
-    rows_idx = (cut.long()[:, :, None] * PAGE
-                + torch.arange(PAGE, device="cuda")).reshape(MAX_BATCH, -1)
-    g = H // HKV
-    kd = pk.view(-1, HKV, HD)[rows_idx].transpose(1, 2) \
-        .repeat_interleave(g, dim=1)
-    vd = pv.view(-1, HKV, HD)[rows_idx].transpose(1, 2) \
-        .repeat_interleave(g, dim=1)
-    qd = q.transpose(1, 2)
-    mask = (torch.arange(kd.shape[2], device="cuda")[None, None, None, :]
-            <= lens.long()[:, None, None, None])
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=mask), flush=flush)
-    a_bound, a_by = attn_bound_ms(MAX_BATCH, 1, DECODE_LENS, P, 2)
+    decode_plan = pa.plan(torch.bfloat16, MAX_BATCH, 1, H, HKV, HD, PAGE, P)
+    blocks = decode_plan.grid[0] * decode_plan.grid[1] // HKV
+    print(f"paged_flash_attention decode plan at P={P}: {decode_plan}; "
+          f"{blocks} blocks per (KV head, slot)")
+    if not decode_plan.split or blocks <= 1:
+        fail("the decode shape does not take the split-KV grid")
+    attn = time_paged(flush, q, pk, pv, cut, lens, DECODE_LENS, 1)
     print(f"paged_flash_attention decode B=4 S=1 bf16 P={P}: kernel "
-          f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the gathered "
-          f"view {lib_ms:.4f} ms, bound {a_bound:.5f} ms ({a_by}); x"
-          f"{n_layers} per wave")
+          f"{attn['ms']:.4f} ms (device {attn['device_ms']:.4f}), plain "
+          f"{attn['plain_ms']:.4f} ms, SDPA on the gathered view "
+          f"{attn['library_ms']:.4f} ms (device "
+          f"{attn['library_device_ms']:.4f}), bound {attn['bound_ms']:.5f}"
+          f" ms ({attn['bound_by']}); x{n_layers} per wave")
     pre_len = [0, 37, 100, 200]
     qp, pkp, pvp, tp_, lp = attn_case(gen, MAX_BATCH, 256, pre_len,
                                       torch.bfloat16, MAX_LEN // PAGE, 0.0)
     Pp = live_bucket(pre_len, 256)
-    kp_ms = time_ms(lambda: pa.paged_flash_attention(qp, pkp, pvp,
-                                                     tp_[:, :Pp], lp),
-                    flush=flush)
-    pp_ms = time_ms(lambda: pa.paged_attention_ref(qp, pkp, pvp,
-                                                   tp_[:, :Pp], lp),
-                    flush=flush)
-    pb, pby = attn_bound_ms(MAX_BATCH, 256, pre_len, Pp, 2)
+    pre = time_paged(flush, qp, pkp, pvp, tp_[:, :Pp], lp, pre_len, 256)
     print(f"paged_flash_attention prefill B=4 S=256 bf16 P={Pp}: kernel "
-          f"{kp_ms:.4f} ms, plain {pp_ms:.4f} ms, bound {pb:.5f} ms ({pby})")
+          f"{pre['ms']:.4f} ms (device {pre['device_ms']:.4f}), plain "
+          f"{pre['plain_ms']:.4f} ms, SDPA on the gathered view "
+          f"{pre['library_ms']:.4f} ms (device "
+          f"{pre['library_device_ms']:.4f}), bound {pre['bound_ms']:.5f} ms "
+          f"({pre['bound_by']})")
 
     V = cfg.vocab_size
     sl, sks, sps = sampling_case(gen, MAX_BATCH, V)
@@ -1623,7 +1724,7 @@ def main() -> int:
           f"{s_plain:.4f} ms, sort-based apply_top_k_top_p {s_sort:.4f} ms,"
           f" bound {s_bound:.5f} ms (bytes)")
     ssm_rows = time_ssm_kernel(gen, flush)
-    del engine, params, q, pk, pv, kd, vd, qp, pkp, pvp
+    del engine, params, q, pk, pv, qp, pkp, pvp
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1669,9 +1770,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:88",
          "launches": launches["paged_flash_attention"],
-         "max_abs_err": attn_err["bfloat16"], "ms": k_ms,
-         "plain_ms": plain_ms, "bound_ms": a_bound, "bound_by": a_by,
-         "library_ms": lib_ms},
+         "max_abs_err": attn_err["bfloat16"],
+         # decode (S=1, split-KV; device_ms counts the combine kernel
+         # too), prefill_* a 256-token chunk (tensor cores)
+         **attn, **{f"prefill_{k}": v for k, v in pre.items()}},
         {"name": "topk_topp_mask", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sampling.cu",
          "replaces": "src/repro/kernels/sampling.py:126",
@@ -1692,6 +1794,16 @@ def main() -> int:
             "launches": train_launches[name], "max_abs_err": train_err[name],
             "ms": km, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
             "library_ms": lm}
+        if name == "rmsnorm_fwd":
+            # device_* the kernels alone (profiler); qk_norm_* at
+            # qk-norm's (131072, 128) rows
+            row["device_ms"], row["library_device_ms"] = \
+                train_rows["rmsnorm_fwd@device"]
+            row.update(zip(("qk_norm_ms", "qk_norm_plain_ms",
+                            "qk_norm_library_ms", "qk_norm_bound_ms",
+                            "qk_norm_bound_by", "qk_norm_device_ms",
+                            "qk_norm_library_device_ms"),
+                           train_rows["rmsnorm_fwd@qk_norm"], strict=True))
         if src == "flash_attention":
             # zamba2_1p2b's shape (B=1 H=32/32 hd=64) and its run's launches
             kz, pz, lz, bz, byz = train_rows[f"{name}@zamba2"]

@@ -98,6 +98,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def stream_ptr(t) -> int:
+    """The handle of PyTorch's current CUDA stream on ``t``'s device, for a
+    launcher's ``cudaStream_t`` argument: the raw handle, without building
+    a ``torch.cuda.Stream`` object (about 0.3 us against 5 us a call)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher (the C
     side returns ``cudaGetLastError()`` right after the launch)."""

@@ -89,7 +89,7 @@ def _dims(q, k, causal):
     B, Sq, H, hd = q.shape
     return (_DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], hd,
             int(causal), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            build.stream_ptr(q))
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True):

@@ -10,13 +10,17 @@ logical page p from physical page ``page_table[b, p]``.
   ``dot_attention`` path, so on the CPU the fused and gathered serve
   paths agree bitwise (the reference's own contract).
 - :func:`paged_flash_attention` launches ``csrc/paged_attention.cu``
-  (which TPU kernel it replaces, what bounds it and its design are in
-  the source's header). It takes CUDA tensors only and raises on
-  anything else; it never falls back to the plain version.
+  (which TPU kernel it replaces, what bounds it and its two designs,
+  split-KV decode and tensor-core multi-row, are in the source's
+  header); :func:`plan` reports which design a shape takes. It takes
+  CUDA tensors only and raises on anything else; it never falls back to
+  the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -62,17 +66,42 @@ def paged_attention_ref(q, pk, pv, page_table, lengths):
 
 
 def _lib():
-    fn = build.load("paged_attention").paged_attention_launch
+    lib = build.load("paged_attention")
+    fn = lib.paged_attention_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-    return fn
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        lib.paged_attention_plan.restype = ctypes.c_int
+        lib.paged_attention_plan.argtypes = [ctypes.c_int] * 8 + [
+            ctypes.POINTER(ctypes.c_longlong)]
+    return lib
+
+
+class Plan(NamedTuple):
+    """What the C launcher does for one call shape."""
+    split: bool                  # True: split-KV decode, False: multi-row
+    grid: Tuple[int, int, int]   # of the main kernel
+    workspace: int               # float32 partials the split path needs
+    split_keys: int              # keys per split (fixed offsets from 0)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(dtype: torch.dtype, B: int, S: int, H: int, Hkv: int, hd: int,
+         page_size: int, P: int) -> Plan:
+    """The C launcher's :class:`Plan` for one call shape (the library is
+    built on first use)."""
+    out = (ctypes.c_longlong * 6)()
+    rc = _lib().paged_attention_plan(_DTYPE_CODE[dtype], B, S, H, Hkv, hd,
+                                     page_size, P, out)
+    build.check(rc, "paged_attention_plan")
+    return Plan(bool(out[0]), (out[1], out[2], out[3]), out[4], out[5])
 
 
 def paged_flash_attention(q, pk, pv, page_table, lengths):
-    """The CUDA kernel, same contract as :func:`paged_attention_ref`.
-    Every launch adds one to ``paged_flash_attention.launches``."""
+    """The CUDA kernels, same contract as :func:`paged_attention_ref`.
+    Every call adds one to ``paged_flash_attention.launches`` (the split
+    path's combine kernel is part of the same call)."""
     if not (q.is_cuda and pk.is_cuda and pv.is_cuda and page_table.is_cuda
             and lengths.is_cuda):
         raise ValueError("paged_flash_attention takes CUDA tensors only; "
@@ -88,19 +117,29 @@ def paged_flash_attention(q, pk, pv, page_table, lengths):
                          " or pool shapes differ")
     if H % Hkv or not (pk.is_contiguous() and pv.is_contiguous()):
         raise ValueError("need H % Hkv == 0 and contiguous page pools")
+    if pk.data_ptr() % 16 or pv.data_ptr() % 16:
+        raise ValueError("page pools must start on a 16-byte boundary")
     P = page_table.shape[1]
     if page_table.shape[0] != B or lengths.shape != (B,) or P == 0:
         raise ValueError("page_table must be (B, P>0) and lengths (B,)")
     q = q.contiguous()
-    table = page_table.to(torch.int32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
+    if q.data_ptr() % 16:                 # the kernels read 16-byte rows
+        q = q.clone()
+    table, lens = (t if t.dtype == torch.int32 and t.is_contiguous()
+                   else t.to(torch.int32).contiguous()
+                   for t in (page_table, lengths))
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    rc = _lib()(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
-                lens.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, S,
-                H, Hkv, hd, page_size, P, hd ** -0.5,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _lib()
+    n_work = plan(q.dtype, B, S, H, Hkv, hd, page_size, P).workspace
+    work = q.new_empty(n_work, dtype=torch.float32) if n_work else None
+    rc = lib.paged_attention_launch(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
+        lens.data_ptr(), out.data_ptr(),
+        work.data_ptr() if work is not None else None, n_work,
+        _DTYPE_CODE[q.dtype], B, S, H, Hkv, hd, page_size, P, hd ** -0.5,
+        build.stream_ptr(q))
     build.check(rc, "paged_attention_launch")
     paged_flash_attention.launches += 1
     return out

@@ -147,7 +147,7 @@ def paged_ssm_update(dt, x, Bm, Cm, A, h_pool, read_page, live, phys_w,
                 A.data_ptr(), A.stride(0), A.stride(1), h_pool.data_ptr(),
                 *(t.data_ptr() for t in ints), y.data_ptr(),
                 ORDERS.index(order), B, S, R, ds, W,
-                torch.cuda.current_stream(dt.device).cuda_stream)
+                build.stream_ptr(dt))
     build.check(rc, "paged_ssm_launch")
     paged_ssm_update.launches += 1
     return y

@@ -41,10 +41,6 @@ def _fn(name, n_ptr, n_int):
     return fn
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check(x, w):
     if not (x.is_cuda and w.is_cuda):
         raise ValueError("the rmsnorm kernels take CUDA tensors only; the "
@@ -71,11 +67,11 @@ def rmsnorm_fwd(x, w, eps: float = EPS):
     x = x.contiguous()
     R, D = x.shape
     y = torch.empty_like(x)
-    rstd = torch.empty(R, dtype=torch.float32, device=x.device)
+    rstd = x.new_empty(R, dtype=torch.float32)
     if R:
         rc = _fn("rmsnorm_fwd_launch", 4, 3)(
             x.data_ptr(), w.contiguous().data_ptr(), y.data_ptr(),
-            rstd.data_ptr(), _DTYPE_CODE[x.dtype], R, D, eps, _stream(x))
+            rstd.data_ptr(), _DTYPE_CODE[x.dtype], R, D, eps, build.stream_ptr(x))
         build.check(rc, "rmsnorm_fwd_launch")
         rmsnorm_fwd.launches += 1
     return y, rstd
@@ -98,7 +94,7 @@ def rmsnorm_bwd(x, w, rstd, dy):
         rc = _fn("rmsnorm_bwd_launch", 7, 4)(
             x.data_ptr(), w.contiguous().data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            _DTYPE_CODE[x.dtype], R, D, n_chunks, _stream(x))
+            _DTYPE_CODE[x.dtype], R, D, n_chunks, build.stream_ptr(x))
         build.check(rc, "rmsnorm_bwd_launch")
         rmsnorm_bwd.launches += 1
     return dx, dw

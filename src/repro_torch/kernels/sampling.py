@@ -120,7 +120,7 @@ def topk_topp_mask(logits, top_ks, top_ps):
     if B == 0 or V == 0:
         return out
     rc = _lib()(x.data_ptr(), ks.data_ptr(), ps.data_ptr(), out.data_ptr(),
-                B, V, torch.cuda.current_stream(x.device).cuda_stream)
+                B, V, build.stream_ptr(x))
     build.check(rc, "topk_topp_mask_launch")
     topk_topp_mask.launches += 1
     return out

@@ -101,10 +101,6 @@ def _check(dt, x, A, B, C, D, **more):
     return Bb, S, di, ds
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def ssm_scan_fwd(dt, x, A, B, C, D):
     """Forward kernel: returns (y (Bb, S, di) float32, the state before
     every CHUNK steps (Bb, ceil(S/CHUNK), ds, di) float32 for the
@@ -117,7 +113,7 @@ def ssm_scan_fwd(dt, x, A, B, C, D):
     rc = _fn("ssm_scan_fwd_launch")(
         dt.data_ptr(), x.data_ptr(), A.data_ptr(), A.stride(0), A.stride(1),
         B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
-        hc.data_ptr(), Bb, S, di, ds, _stream(x))
+        hc.data_ptr(), Bb, S, di, ds, build.stream_ptr(x))
     build.check(rc, "ssm_scan_fwd_launch")
     ssm_scan_fwd.launches += 1
     return y, hc
@@ -150,7 +146,7 @@ def ssm_scan_bwd(dt, x, A, B, C, D, hc, gy):
         B.data_ptr(), C.data_ptr(), D.data_ptr(), hc.data_ptr(),
         gy.data_ptr(), gdt.data_ptr(), gx.data_ptr(), gB.data_ptr(),
         gC.data_ptr(), gA.data_ptr(), gD.data_ptr(),
-        *(t.data_ptr() for t in scratch), Bb, S, di, ds, _stream(x))
+        *(t.data_ptr() for t in scratch), Bb, S, di, ds, build.stream_ptr(x))
     build.check(rc, "ssm_scan_bwd_launch")
     ssm_scan_bwd.launches += 1
     return gdt, gx, gA, gB, gC, gD

@@ -11,7 +11,10 @@ and round P and dS to bf16 in the backward; the plain version works in
 float32). The bf16 attention output is also held per element to
 1e-3 + 1e-2 x |plain| (the later causal rows hold values far below
 2e-2). Gradients are held to the same numbers times each tensor's
-largest magnitude; RMSNorm to 1e-5 in float32. Backward kernels must
+largest magnitude; RMSNorm to 1e-5 in float32. Paged attention must also
+give the same bits for the live-page table and a wider one, for pools
+poisoned past each slot's last visible key, and on a second launch (the
+split-KV decode path merges its splits in a fixed order, no atomics). Backward kernels must
 also give bit-identical gradients on a second run (fixed summation
 order, no atomics). Sampling: survivors bit-equal; the kernel sums the nucleus
 mass in another order, so tokens whose cumulative mass lies within float
@@ -177,7 +180,10 @@ def _need_card():
     (4, 1, 16, 8, 128, 16, 8),          # qwen3_1p7b decode
     (4, 64, 16, 8, 128, 16, 8),         # qwen3_1p7b prefill chunk
     (4, 1, 32, 32, 64, 16, 8),          # zamba2_1p2b shared attn decode
-    (4, 64, 32, 32, 64, 16, 8)])        # zamba2_1p2b prefill chunk
+    (4, 64, 32, 32, 64, 16, 8),         # zamba2_1p2b prefill chunk
+    (4, 128, 32, 32, 64, 16, 16),       # zamba2_1p2b prefill, multi-row
+    (2, 1, 48, 1, 128, 16, 8),          # MQA decode: 12 split row tiles
+    (2, 4, 48, 1, 128, 16, 8)])         # MQA verify: 192 multi-row rows
 def test_paged_flash_attention_matches_plain_on_card(
         B, S, H, Hkv, hd, page_size, pages, dtype, tol):
     _need_card()
@@ -189,6 +195,79 @@ def test_paged_flash_attention_matches_plain_on_card(
     got = tpa.paged_flash_attention(*case).float()
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= tol
+
+
+def _split_keys() -> int:
+    return tpa.plan(torch.bfloat16, 1, 1, 1, 1, 128, 16, 1).split_keys
+
+
+def _poison_past_length(pk, pv, table, lengths, S):
+    """Copies of the pools whose rows past each slot's last visible key
+    hold 1e30."""
+    pk, pv = pk.clone(), pv.clone()
+    ps = pk.shape[1]
+    for b in range(table.shape[0]):
+        rows = (table[b].long()[:, None] * ps
+                + torch.arange(ps, device=pk.device)).reshape(-1)
+        dead = rows[int(lengths[b]) + S:]
+        pk.view(-1, *pk.shape[2:])[dead] = 1e30
+        pv.view(-1, *pv.shape[2:])[dead] = 1e30
+    return pk, pv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("g", [1, 3, 48])
+def test_paged_decode_split_edges_match_plain_on_card(g, dtype, tol):
+    """The split-KV decode path at contexts on both sides of a split
+    boundary (0, 1, kSplitKeys - 1, kSplitKeys, kSplitKeys + 1), at
+    g = 1, 3 and 48 (MQA: 12 row tiles), hd 128, one KV head, pages in
+    random order: within the tolerance of the plain version; the
+    live-bucket table and a table twice as wide give the same bits, and
+    so do pools poisoned past each slot's last visible key."""
+    _need_card()
+    ks = _split_keys()
+    ctx = [0, 1, ks - 1, ks, ks + 1]
+    B, ps = len(ctx), 16
+    live = -(-(ks + 2) // ps)
+    q, pk, pv, _, _ = attn_case(g + 7, B, 1, g, 1, 128, ps, 2 * live)
+    table = (1 + np.random.default_rng(g).permutation(B * 2 * live)) \
+        .reshape(B, 2 * live).astype(np.int32)
+    q, pk, pv, table, lens = to_torch(q, pk, pv, table,
+                                      np.asarray(ctx, np.int32),
+                                      device="cuda")
+    q, pk, pv = (t.to(dtype) for t in (q, pk, pv))
+    assert tpa.plan(dtype, B, 1, g, 1, 128, ps, 2 * live).split
+    want = tpa.paged_attention_ref(q, pk, pv, table, lens).float()
+    got = tpa.paged_flash_attention(q, pk, pv, table, lens)
+    cut = tpa.paged_flash_attention(q, pk, pv, table[:, :live], lens)
+    poisoned = tpa.paged_flash_attention(
+        q, *_poison_past_length(pk, pv, table, lens, 1), table, lens)
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= tol
+    assert torch.equal(got, cut)
+    assert torch.equal(got, poisoned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,lengths", [(1, [287, 301, 150, 64]),
+                                       (256, [0, 37, 100, 200])])
+def test_paged_flash_attention_is_bit_repeatable_on_card(S, lengths):
+    """qwen3_1p7b's heads in bf16: a second launch gives the same bits on
+    the split-KV decode path (S = 1) and the tensor-core multi-row path
+    (a 256-token prefill chunk)."""
+    _need_card()
+    q, pk, pv, table, _ = attn_case(S, 4, S, 16, 8, 128, 16, 32)
+    case = to_torch(q, pk, pv, table, np.asarray(lengths, np.int32),
+                    device="cuda")
+    case[:3] = [t.to(torch.bfloat16) for t in case[:3]]
+    assert tpa.plan(torch.bfloat16, 4, S, 16, 8, 128, 16, 32).split \
+        == (S == 1)
+    first = tpa.paged_flash_attention(*case)
+    second = tpa.paged_flash_attention(*case)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -303,6 +382,37 @@ def test_rmsnorm_fwd_bwd_match_plain_on_card(R, D, dtype, tol):
     assert got[1].dtype == dtype and got[2].dtype == torch.float32
     assert _scaled_err(got[1], want[1]) <= tol
     assert _scaled_err(got[2], want[2]) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("R,D,offset", [
+    (512, 4096, 0),                     # wide rows: 2 or 4 warps a row
+    (300, 2050, 0),                     # D not a multiple of the vector
+    (257, 100, 0),                      # float32 vectors, bf16 scalar
+    (256, 2048, 1),                     # rows off a 16-byte boundary
+    (1000, 128, 1)])
+def test_rmsnorm_fwd_vector_and_scalar_paths_match_plain_on_card(
+        R, D, offset, dtype, tol):
+    """The forward's vector and scalar paths: y within the tolerance of
+    the plain version and rstd = rsqrt(mean(x^2) + eps) within 1e-5
+    relative, also for x taken ``offset`` elements into a flat buffer."""
+    _need_card()
+    x, w, _ = to_torch(*rms_case(R * D + offset, R, D), device="cuda")
+    x = x.to(dtype)
+    if offset:
+        flat = torch.empty(R * D + offset, dtype=dtype, device="cuda")
+        flat[offset:] = x.reshape(-1)
+        x = flat[offset:].view(R, D)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    y, rstd = trn.rmsnorm_fwd(x, w)
+    want = trn.rmsnorm_ref(x, w)
+    want_rstd = torch.rsqrt(x.float().square().mean(-1) + trn.EPS)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and rstd.dtype == torch.float32
+    assert (y.float() - want.float()).abs().max().item() <= tol
+    assert ((rstd - want_rstd).abs() / want_rstd).max().item() <= 1e-5
 
 
 @pytest.mark.gpu

@@ -13,7 +13,9 @@ sampling mask is exact (identical
 survivor sets, survivors bit-equal) on distinct logits. The bf16
 flash-attention kernels' rounding points, emulated in plain torch, are
 held to the card's bf16 tolerances (out 2e-2 and 1e-3 + 1e-2 |plain| per
-element, gradients 2e-2 of their max).
+element, gradients 2e-2 of their max). The paged-attention decode
+kernel's split-KV plan, emulated in float32, is held to the plain version
+and to JAX within 2e-5, and to itself bit for bit across table widths.
 """
 import jax
 import jax.numpy as jnp
@@ -81,6 +83,104 @@ def test_paged_attention_plain_truncated_table_preserves_output():
     full = tpa.paged_attention_ref(q, pk, pv, table, lengths)
     cut = tpa.paged_attention_ref(q, pk, pv, table[:, :2], lengths)
     assert torch.equal(cut, full)
+
+
+def _split_kv_partials(q, pk, pv, table, lengths, split_keys):
+    """float32 emulation of the split-KV decode plan of
+    ``csrc/paged_attention.cu``: splits of ``split_keys`` keys at fixed
+    offsets from key 0, ceil(P x page_size / split_keys) of them, keys past
+    the table zero-filled; per split and row the partial (m, l, acc), a
+    masked key adding p = 0, and a split that starts past the slot's last
+    visible key neutral (m = -1e30, l = 0, acc = 0). Returns the partials
+    in split order, each (B, Hkv, g, S[, hd])."""
+    B, S, H, hd = q.shape
+    ps, Hkv = pk.shape[1], pk.shape[2]
+    g, P = H // Hkv, table.shape[1]
+    n_split = -(-P * ps // split_keys)
+    rows = (table.long()[:, :, None] * ps + torch.arange(ps)).reshape(B, -1)
+    pad = (0, 0, 0, 0, 0, n_split * split_keys - P * ps)
+    kd = torch.nn.functional.pad(pk.reshape(-1, Hkv, hd)[rows].float(), pad)
+    vd = torch.nn.functional.pad(pv.reshape(-1, Hkv, hd)[rows].float(), pad)
+    qs = q.float().reshape(B, S, Hkv, g, hd) * hd ** -0.5
+    qpos = lengths.long()[:, None] + torch.arange(S)
+    n_keys = torch.clamp(lengths.long() + S, max=P * ps)
+    parts = []
+    for k0 in range(0, n_split * split_keys, split_keys):
+        kpos = k0 + torch.arange(split_keys)
+        ks = kd[:, k0:k0 + split_keys].contiguous()
+        vs = vd[:, k0:k0 + split_keys].contiguous()
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qs, ks)
+        vis = ((kpos <= qpos[:, :, None])
+               & (kpos < n_keys[:, None, None]))[:, None, None]
+        m = torch.where(vis, sc, tpa.NEG_INF).amax(-1)
+        p = torch.where(vis, torch.exp(sc - m[..., None]), 0.0)
+        acc = torch.einsum("bhgqk,bkhd->bhgqd", p, vs)
+        dead = (k0 >= n_keys)[:, None, None, None]
+        parts.append((torch.where(dead, tpa.NEG_INF, m),
+                      torch.where(dead, 0.0, p.sum(-1)),
+                      torch.where(dead[..., None], 0.0, acc)))
+    return parts
+
+
+def _split_kv_combine(parts):
+    """The combine kernel's merge, in split order: out = acc / max(l,
+    1e-30) in model layout (B, S, H, hd)."""
+    m = torch.stack([pm for pm, _, _ in parts]).amax(0)
+    l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
+    for pm, pl, pa in parts:
+        c = torch.exp(pm - m)
+        l = l + pl * c
+        acc = acc + pa * c[..., None]
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    B, Hkv, g, S, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * g, hd)
+
+
+@pytest.mark.parametrize("split_keys", [4, 64])
+@pytest.mark.parametrize("B,S,H,Hkv,hd", GRID)
+def test_paged_split_kv_plan_matches_plain_and_jax(B, S, H, Hkv, hd,
+                                                    split_keys):
+    """The decode kernel's split-KV plan, emulated in float32 (4 keys a
+    split: several splits a slot; 64: one split, past the table
+    zero-filled), is the plain version's function within 2e-5, and JAX's
+    Pallas kernel's (interpret mode)."""
+    case = attn_case(B * 100 + S, B, S, H, Hkv, hd)
+    got = _split_kv_combine(_split_kv_partials(*to_torch(*case),
+                                               split_keys))
+    want = tpa.paged_attention_ref(*to_torch(*case))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+    jax_out = np.asarray(jops.paged_attention(*map(jnp.asarray, case),
+                                              mode="interpret"))
+    np.testing.assert_allclose(got.numpy(), jax_out, rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+
+
+def test_paged_split_kv_plan_is_bitwise_independent_of_table_width():
+    """Split boundaries do not depend on P and a neutral partial adds
+    exactly +0: the emulated plan gives the same bits for the live-page
+    table and wider ones, and a neutral split, at the end (where a wider
+    table puts them) or between live ones, moves no bit."""
+    q, pk, pv, table, lengths = to_torch(*attn_case(13, 3, 2, 4, 2, 16,
+                                                    page_size=4,
+                                                    pages_per_slot=6))
+    parts = _split_kv_partials(q, pk, pv, table, lengths, 4)
+    full = _split_kv_combine(parts)
+    live = -(-int((lengths + 2).max()) // 4)
+    for P in range(live, table.shape[1]):
+        cut = _split_kv_combine(_split_kv_partials(q, pk, pv, table[:, :P],
+                                                   lengths, 4))
+        assert torch.equal(cut, full)
+    m, l, acc = parts[0]
+    neutral = (torch.full_like(m, tpa.NEG_INF), torch.zeros_like(l),
+               torch.zeros_like(acc))
+    assert torch.equal(_split_kv_combine(parts + [neutral]), full)
+    assert torch.equal(_split_kv_combine(parts[:1] + [neutral] + parts[1:]),
+                       full)
+    np.testing.assert_allclose(
+        full.numpy(), tpa.paged_attention_ref(q, pk, pv, table,
+                                              lengths).numpy(),
+        rtol=ATTN_TOL, atol=ATTN_TOL)
 
 
 @pytest.mark.parametrize("seed", [9, 10, 11])
