@@ -30,12 +30,15 @@ and profiles one MGRIT and one serial step. It checks the SSM training
 gradients the same way at reduced depth, then trains full-width
 ``falcon_mamba_7b`` at 26 layers (MGRIT, probe at step 2; full depth
 does not fit one card) and full-width, full-depth ``zamba2_1p2b``
-(serial) for three steps each, profiling one step of each mode. It
-times each kernel beside its plain version, a library yardstick where
-one PyTorch call computes the same function, and its bound, and holds
-the flash kernels against the plain version at both training shapes
-(qwen3_1p7b's and zamba2_1p2b's, each timed). Imports ``repro_torch``,
-torch and numpy only. Exits non-zero, before printing any result, when
+(serial) for three steps each, profiling one step of each mode.
+Before serving (phase 2b) it times each training kernel beside its
+plain version, a library yardstick where one PyTorch call computes the
+same function, and its bound (the RMSNorm and scan kernels with their
+device times too), and holds the flash kernels and the scan backward
+against the plain version at the training shapes (qwen3_1p7b's and
+zamba2_1p2b's attention, falcon_mamba_7b's and zamba2_1p2b's scan rows
+at S=4096, each timed); the serve kernels are timed after serving
+qwen3_1p7b. Imports ``repro_torch``, torch and numpy only. Exits non-zero, before printing any result, when
 no CUDA device is available or the repository's ``src`` is missing;
 exits non-zero on any mismatch.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
@@ -205,42 +208,41 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def _flush_keys(flush) -> set:
-    """Names of the device kernels that ``flush.zero_()`` launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, iters: int, flush) -> float:
+    """Mean device time (ms) of one ``fn()`` call, the L2 cleared before
+    each by a read of ``flush`` (a read leaves no dirty lines for the
+    call to write back, as ``flush.zero_()`` would right before it): a
+    long device-side sleep is queued first, then the ``iters`` calls,
+    each between its own pair of CUDA events, so that the host has
+    queued every call before the device reaches the first. The events
+    then time the device's work alone, without the host time of the
+    wrapper, which events around a call include whenever the host is the
+    slower side. A reading counts only if the host finished queueing
+    within the sleep (else the sleep doubles, up to 3 tries)."""
     import torch
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flush.zero_()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA}
-
-
-def device_ms(fn, kernel, iters: int, flush) -> float:
-    """Mean device time (ms) per ``fn()`` call of the device kernels whose
-    name holds ``kernel`` (with ``kernel=None``, of every device op but the
-    L2 flush's), from ``torch.profiler`` over ``iters`` calls with the L2
-    flushed before each: the kernels alone, without the host time of their
-    wrapper, which CUDA events around a call include whenever the host is
-    the slower side."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    skip = _flush_keys(flush) if kernel is None else set()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
+    cycles = 100_000_000                  # ~50 ms at the H100's clocks
+    for _ in range(3):
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        t0 = time.perf_counter()
+        for a, b in marks:
+            flush.sum()
+            a.record()
             fn()
+            b.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and (kernel in e.key if kernel else e.key not in skip)]
-    if not sum(e.count for e in rows):
-        fail(f"the profiler saw no {kernel or 'device op'} launch")
-    return sum(dev_us(e) for e in rows) / iters / 1e3
+        if queued_ms < s0.elapsed_time(s1):
+            return sum(a.elapsed_time(b) for a, b in marks) / iters
+        cycles *= 2
+    fail("device_ms: the host could not queue the calls within the sleep")
 
 
 def attn_case(gen, B, S, lengths, dtype, n_slot_pages, poison, heads=None):
@@ -789,12 +791,14 @@ def scan_checkpoint_bytes(fam, S):
     return Bb * -(-S // 64) * R * ds * 4
 
 
-def time_scan_kernels(gen, flush):
-    """Kernel and plain times (CUDA events, L2 flushed) of the selective
-    scan forward (with the checkpoints a training forward stores) and
-    backward at both training shapes (S=4096), and their bounds. No
-    single PyTorch call computes a selective scan, so there is no
-    library time."""
+def time_scan_kernels(gen, flush, err):
+    """Kernel and plain times (CUDA events, L2 flushed) and the kernels'
+    device times (``device_ms``) of the selective scan forward (with the
+    checkpoints a training forward stores) and backward at both training
+    shapes (S=4096), and their bounds; the backward's six cotangents are
+    also held against the plain version's autograd there (``err`` takes
+    the largest abs error). No single PyTorch call computes a selective
+    scan, so there is no library time."""
     import torch
     from repro_torch.kernels import ssm_scan as ss
     rows = {}
@@ -805,6 +809,9 @@ def time_scan_kernels(gen, flush):
         k_fwd = time_ms(lambda a=ins: ss.ssm_scan_fwd(*a), 5, flush)
         k_bwd = time_ms(lambda a=ins, h=hc, g=gy: ss.ssm_scan_bwd(*a, h, g),
                         5, flush)
+        d_fwd = device_ms(lambda a=ins: ss.ssm_scan_fwd(*a), 5, flush)
+        d_bwd = device_ms(lambda a=ins, h=hc, g=gy: ss.ssm_scan_bwd(
+            *a, h, g), 5, flush)
         with torch.no_grad():
             p_fwd = time_ms(lambda a=ins: ss.ssm_scan_ref(*a), 2, flush,
                             warmup=1)
@@ -812,18 +819,33 @@ def time_scan_kernels(gen, flush):
         py = ss.ssm_scan_ref(*args)
         p_bwd = time_ms(lambda: torch.autograd.grad(
             py, args, gy, retain_graph=True), 2, flush, warmup=1)
-        del py, args, hc
+        want = torch.autograd.grad(py, args, gy)
+        got = ss.ssm_scan_bwd(*ins, hc, gy)
+        torch.cuda.synchronize()
+        e_g = {n: _scaled_err(g, w)
+               for n, g, w in zip(SCAN_NAMES, got, want)}
+        Bb, R, ds, _ = SCAN_ROWS[fam]
+        print(f"ssm_scan_bwd {fam} rows Bb={Bb} R={R} ds={ds} S={TRAIN_S}: "
+              "cotangents max|kernel-plain|/max|plain| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in e_g.items())
+              + f" (tolerance {SCAN_TOL['grad']:g})")
+        if not max(e_g.values()) <= SCAN_TOL["grad"]:
+            fail(f"ssm_scan backward {fam} S={TRAIN_S} disagrees with its "
+                 "plain version")
+        err["ssm_scan_bwd"] = max(err["ssm_scan_bwd"], max(
+            (g - w).abs().max().item() for g, w in zip(got, want)))
+        del py, args, hc, want, got
         fb, fby = scan_bound_ms(fam, TRAIN_S)
         bb, bby = scan_bound_ms(fam, TRAIN_S, backward=True)
-        Bb, R, ds, _ = SCAN_ROWS[fam]
-        for name, km, pm, bm, by in (("ssm_scan_fwd", k_fwd, p_fwd, fb, fby),
-                                     ("ssm_scan_bwd", k_bwd, p_bwd, bb, bby)):
+        for name, km, dm, pm, bm, by in (
+                ("ssm_scan_fwd", k_fwd, d_fwd, p_fwd, fb, fby),
+                ("ssm_scan_bwd", k_bwd, d_bwd, p_bwd, bb, bby)):
             print(f"{name} {fam} rows Bb={Bb} S={TRAIN_S} R={R} ds={ds} f32:"
-                  f" kernel {km:.4f} ms, plain {pm:.4f} ms, bound {bm:.5f} "
-                  f"ms ({by}), library none; checkpoints "
+                  f" kernel {km:.4f} ms (device {dm:.4f}), plain {pm:.4f} "
+                  f"ms, bound {bm:.5f} ms ({by}), library none; checkpoints "
                   f"{scan_checkpoint_bytes(fam, TRAIN_S) / 1e6:.1f} MB "
                   "(outside the bound)")
-            rows[(name, fam)] = (km, pm, bm, by)
+            rows[(name, fam)] = (km, pm, bm, by, dm)
         del ins, gy
         gc.collect()
         torch.cuda.empty_cache()
@@ -1063,12 +1085,12 @@ def time_train_kernels(gen, flush, err):
     """Kernel, plain and library times at the training shapes (bf16):
     attention causal S=4096 at qwen3_1p7b's B=2 H=16/8 hd=128 and
     zamba2_1p2b's B=1 H=32/32 hd=64 (each also held against the plain
-    version, see ``time_flash``); RMSNorm (8192, 2048), and its forward at
-    qk-norm's (131072, 128) too, with device times. Returns {kernel:
-    (kernel, plain, library, bound ms, bound by)}, with zamba2's flash
-    rows under "<kernel>@zamba2", the forward's device times (kernel,
-    library) under "rmsnorm_fwd@device" and its qk-norm row (the five,
-    then both device times) under "rmsnorm_fwd@qk_norm"."""
+    version, see ``time_flash``); RMSNorm forward and backward at (8192,
+    2048) and at qk-norm's (131072, 128), with device times. Returns
+    {kernel: (kernel, plain, library, bound ms, bound by)}, with zamba2's
+    flash rows under "<kernel>@zamba2", the RMSNorm device times (kernel,
+    library) under "rmsnorm_{fwd,bwd}@device" and the qk-norm rows (the
+    five, then both device times) under "rmsnorm_{fwd,bwd}@qk_norm"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
@@ -1117,9 +1139,12 @@ def time_train_kernels(gen, flush, err):
         print(f"{name} ({R}, {D}) bf16: kernel {km:.4f} ms, plain {pm:.4f} "
               f"ms, F.rms_norm {lm:.4f} ms, bound {bm:.5f} ms ({by})")
     rows["rmsnorm_fwd@device"] = (
-        device_ms(lambda: rn.rmsnorm_fwd(x, w), "rmsnorm", 20, flush),
-        device_ms(lambda: F.rms_norm(x, (D,), wb, eps=1e-6), None, 20,
-                  flush))
+        device_ms(lambda: rn.rmsnorm_fwd(x, w), 20, flush),
+        device_ms(lambda: F.rms_norm(x, (D,), wb, eps=1e-6), 20, flush))
+    rows["rmsnorm_bwd@device"] = (
+        device_ms(lambda: rn.rmsnorm_bwd(x, w, rstd, dy), 20, flush),
+        device_ms(lambda: torch.autograd.grad(
+            ly, (xr, wbr), dy, retain_graph=True), 20, flush))
     # the forward at qk-norm's rows: B x S x heads rows of hd
     xq = torch.randn((TRAIN_B * TRAIN_S * H, HD), generator=gen,
                      device="cuda").to(bf)
@@ -1131,25 +1156,45 @@ def time_train_kernels(gen, flush, err):
         time_ms(lambda: rn.rmsnorm_ref(xq, wq), 20, flush),
         time_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), 20, flush),
         1e3 * (2 * Rq * HD * 2 + HD * 4 + Rq * 4) / PEAK_BYTES_S, "bytes",
-        device_ms(lambda: rn.rmsnorm_fwd(xq, wq), "rmsnorm", 20, flush),
-        device_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), None, 20,
-                  flush))
-    kd_, ld_ = rows["rmsnorm_fwd@device"]
-    print(f"rmsnorm_fwd ({R}, {D}) bf16 device time: kernel {kd_:.4f} ms, "
-          f"F.rms_norm {ld_:.4f} ms")
-    km, pm, lm, bm, by, kd_, ld_ = rows["rmsnorm_fwd@qk_norm"]
-    print(f"rmsnorm_fwd ({Rq}, {HD}) bf16: kernel {km:.4f} ms (device "
-          f"{kd_:.4f}), plain {pm:.4f} ms, F.rms_norm {lm:.4f} ms (device "
-          f"{ld_:.4f}), bound {bm:.5f} ms ({by})")
+        device_ms(lambda: rn.rmsnorm_fwd(xq, wq), 20, flush),
+        device_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), 20, flush))
+    # the backward at qk-norm's rows
+    dyq = torch.randn_like(xq)
+    _, rstdq = rn.rmsnorm_fwd(xq, wq)
+    xqr, wqr = xq.detach().requires_grad_(True), wq.detach().requires_grad_(
+        True)
+    pyq = rn.rmsnorm_ref(xqr, wqr)
+    wqbr = wqb.detach().requires_grad_(True)
+    lyq = F.rms_norm(xqr, (HD,), wqbr, eps=1e-6)
+    rows["rmsnorm_bwd@qk_norm"] = (
+        time_ms(lambda: rn.rmsnorm_bwd(xq, wq, rstdq, dyq), 20, flush),
+        time_ms(lambda: torch.autograd.grad(
+            pyq, (xqr, wqr), dyq, retain_graph=True), 20, flush),
+        time_ms(lambda: torch.autograd.grad(
+            lyq, (xqr, wqbr), dyq, retain_graph=True), 20, flush),
+        1e3 * (3 * Rq * HD * 2 + Rq * 4 + 2 * HD * 4) / PEAK_BYTES_S,
+        "bytes",
+        device_ms(lambda: rn.rmsnorm_bwd(xq, wq, rstdq, dyq), 20, flush),
+        device_ms(lambda: torch.autograd.grad(
+            lyq, (xqr, wqbr), dyq, retain_graph=True), 20, flush))
+    for name in ("rmsnorm_fwd", "rmsnorm_bwd"):
+        kd_, ld_ = rows[f"{name}@device"]
+        print(f"{name} ({R}, {D}) bf16 device time: kernel {kd_:.4f} ms, "
+              f"F.rms_norm {ld_:.4f} ms")
+    for name in ("rmsnorm_fwd", "rmsnorm_bwd"):
+        km, pm, lm, bm, by, kd_, ld_ = rows[f"{name}@qk_norm"]
+        print(f"{name} ({Rq}, {HD}) bf16: kernel {km:.4f} ms (device "
+              f"{kd_:.4f}), plain {pm:.4f} ms, F.rms_norm {lm:.4f} ms "
+              f"(device {ld_:.4f}), bound {bm:.5f} ms ({by})")
     return rows
 
 
 def time_paged(flush, q, pk, pv, table, lens, lengths, S):
     """Paged attention at one bf16 serve shape (qwen3_1p7b's heads): the
-    kernel (CUDA events, and the kernels alone by the profiler), the plain
-    version, SDPA on the gathered view (the pages gathered beforehand, K/V
-    repeated over the g heads, a boolean causal mask; events and device
-    time) and the bound."""
+    kernel (CUDA events, and the call's device work alone,
+    ``device_ms``), the plain version, SDPA on the gathered view (the
+    pages gathered beforehand, K/V repeated over the g heads, a boolean
+    causal mask; events and device time) and the bound."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     B, P = q.shape[0], table.shape[1]
@@ -1173,11 +1218,11 @@ def time_paged(flush, q, pk, pv, table, lens, lengths, S):
         return sdpa(qd, kd, vd, attn_mask=mask)
     bound, by = attn_bound_ms(B, S, lengths, P, 2)
     return {"ms": time_ms(kernel, flush=flush),
-            "device_ms": device_ms(kernel, "paged_", 20, flush),
+            "device_ms": device_ms(kernel, 20, flush),
             "plain_ms": time_ms(lambda: pa.paged_attention_ref(
                 q, pk, pv, table, lens), flush=flush),
             "library_ms": time_ms(library, flush=flush),
-            "library_device_ms": device_ms(library, None, 20, flush),
+            "library_device_ms": device_ms(library, 20, flush),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -1517,7 +1562,7 @@ def ssm_bound_ms(order, S, lengths, n_new, plan):
 
 def time_ssm_kernel(gen, flush):
     """Kernel (CUDA events around the wrapper call, and the kernel's
-    device time from the profiler), plain and bound times of the paged
+    device time, ``device_ms``), plain and bound times of the paged
     SSM update at both full-width shapes: decode (B=4, S=1, contexts
     DECODE_LENS) and a 256-token prefill chunk. No single PyTorch call
     computes the paged scan (a snapshot-paged selective scan), so there
@@ -1535,7 +1580,7 @@ def time_ssm_kernel(gen, flush):
             k_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update(
                 *a, order=o), flush=flush)
             d_ms = device_ms(lambda a=args, o=order: ps.paged_ssm_update(
-                *a, order=o), "paged_ssm_kernel", 20, flush)
+                *a, order=o), 20, flush)
             p_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update_ref(
                 *a, order=o), iters=20 if S == 1 else 3, flush=flush)
             b_ms, by = ssm_bound_ms(order, S, lengths, n_new, plan)
@@ -1656,6 +1701,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 2b. training kernels' times at the training shapes (before the
+    # long profiler sessions of the later phases) --------------------------
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")   # > 50 MB L2
+    train_rows = time_train_kernels(gen, flush, train_err)
+    scan_rows = time_scan_kernels(gen, flush, train_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 3. serve qwen3_1p7b at full width through the kernels --------------
     rcfg = get_config("qwen3_1p7b", "decode_32k")
     cfg = rcfg.model
@@ -1682,7 +1735,6 @@ def main() -> int:
           f" GiB")
 
     # -- 4. times at the serve shapes ---------------------------------------
-    flush = torch.empty(64 * 2**20 // 4, device="cuda")   # > 50 MB L2
     q, pk, pv, table, lens = attn_case(gen, MAX_BATCH, 1, DECODE_LENS,
                                        torch.bfloat16, MAX_LEN // PAGE,
                                        poison=0.0)
@@ -1760,9 +1812,6 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- 8. training kernels' times at the training shapes -----------------
-    train_rows = time_train_kernels(gen, flush, train_err)
-    scan_rows = time_scan_kernels(gen, flush)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [
@@ -1794,16 +1843,16 @@ def main() -> int:
             "launches": train_launches[name], "max_abs_err": train_err[name],
             "ms": km, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
             "library_ms": lm}
-        if name == "rmsnorm_fwd":
-            # device_* the kernels alone (profiler); qk_norm_* at
+        if src == "rmsnorm":
+            # device_* the device work alone (device_ms); qk_norm_* at
             # qk-norm's (131072, 128) rows
             row["device_ms"], row["library_device_ms"] = \
-                train_rows["rmsnorm_fwd@device"]
+                train_rows[f"{name}@device"]
             row.update(zip(("qk_norm_ms", "qk_norm_plain_ms",
                             "qk_norm_library_ms", "qk_norm_bound_ms",
                             "qk_norm_bound_by", "qk_norm_device_ms",
                             "qk_norm_library_device_ms"),
-                           train_rows["rmsnorm_fwd@qk_norm"], strict=True))
+                           train_rows[f"{name}@qk_norm"], strict=True))
         if src == "flash_attention":
             # zamba2_1p2b's shape (B=1 H=32/32 hd=64) and its run's launches
             kz, pz, lz, bz, byz = train_rows[f"{name}@zamba2"]
@@ -1814,7 +1863,7 @@ def main() -> int:
         kernels.append(row)
     # one row per product order: falcon-mamba-7b's path launches "dbx",
     # zamba2-1.2b's "dxb"; ms/plain_ms/bound_ms at decode (S=1), prefill_*
-    # at a 256-token chunk, device_* the kernel alone (profiler); no
+    # at a 256-token chunk, device_* the device work alone; no
     # single PyTorch call computes the paged scan
     for order in ("dbx", "dxb"):
         km, dm, pm, bm, by = ssm_rows[(order, 1)]
@@ -1830,10 +1879,11 @@ def main() -> int:
             "prefill_plain_ms": pp, "prefill_bound_ms": bp})
     # path A (falcon-mamba-7b, MGRIT) and path B (zamba2-1.2b, serial):
     # launches over Trainer.train(3) summed, per path, and per profiled
-    # step; ms/plain_ms/bound_ms at path A's shape, zamba2_* at path B's
+    # step; ms/plain_ms/bound_ms/device_ms at path A's shape, zamba2_* at
+    # path B's; device_* the device work alone (device_ms)
     for name in scan_kernels:
-        km, pm, bm, by = scan_rows[(name, "falcon")]
-        kz, pz, bz, byz = scan_rows[(name, "zamba2")]
+        km, pm, bm, by, dm = scan_rows[(name, "falcon")]
+        kz, pz, bz, byz, dz = scan_rows[(name, "zamba2")]
         per_path = {fam: ssm_train[fam][0][name] for fam in ssm_train}
         kernels.append({
             "name": name, "route": "cuda",
@@ -1848,7 +1898,8 @@ def main() -> int:
                 f"{fam} {mode}": n[name] for fam in ssm_train
                 for mode, n in ssm_train[fam][1].items()},
             "zamba2_ms": kz, "zamba2_plain_ms": pz, "zamba2_bound_ms": bz,
-            "zamba2_bound_by": byz})
+            "zamba2_bound_by": byz, "device_ms": dm,
+            "zamba2_device_ms": dz})
     counts = {"paged_flash_attention": launches["paged_flash_attention"],
               "topk_topp_mask": launches["topk_topp_mask"],
               **{k: train_launches[k] for k in attn_kernels},

@@ -31,15 +31,26 @@
 // vector, a base pointer off a 16-byte boundary, or a row wider than 2048
 // vectors takes the scalar kernel (one warp a row, x read twice).
 //
-// Backward design. One warp owns one row (lanes stride over the columns,
-// so a warp's loads are contiguous) and the row's sums are warp shuffles.
-// dw is a sum over all rows: instead of float atomics (whose order, and so
-// whose result, changes from run to run) it is reduced in two fixed-order
-// passes: a column-parallel pass writes one partial sum per (row chunk,
-// column), then one pass adds the chunks in order. The chunk count depends
-// only on (R, D), so dw is bit-identical from run to run, which keeps
-// MGRIT training runs repeatable. Later work: 16-byte vector loads, fusing
-// the dw partials into the dx pass.
+// Backward design. The backward moves x and dy in and dx out, each once,
+// and the dw partials, which stay in registers. It takes the forward's
+// vector layout, TPR threads a row (16 lanes at qk-norm's D = 128 bf16,
+// 2-8 warps for wider rows), but two warps share a row of 129-256
+// vectors (D = 2048 bf16: 4 vectors a thread, not 8), so that x, dy and
+// the dw sums fit two blocks an SM instead of one; 16-byte loads of x and
+// dy kept in registers through the row sum of xhat * w * dy (shuffles in
+// the group, shared memory in warp order across warps) and the dx write
+// (16-byte stores). dw is a sum over all rows: each thread owns a fixed
+// column slice and adds dy * xhat for it over the rows it walks (grid
+// stride, the grid sized to what the card keeps resident) in float32
+// registers; at the end the block adds its row groups in a fixed order
+// (shuffles, then shared memory in group order) into one partial row,
+// and a second kernel adds the blocks' partials in a fixed order. No
+// float atomics: the number of partials depends only on (R, D, dtype)
+// and the card, so dw is bit-identical from run to run, which keeps
+// MGRIT training runs repeatable. Two launches a call. A width off the
+// vector or a pointer off 16 bytes takes the scalar path: one warp a
+// row for dx, a column-parallel pass of dw partials over fixed row
+// chunks, and the same fixed-order sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -226,14 +237,160 @@ rmsnorm_bwd_dw_partial_kernel(const T* __restrict__ x,
   partial[(size_t)blockIdx.y * D + c] = acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ partial,
-                             float* __restrict__ dw, int D, int n_chunks) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= D) return;
+// dw[c] = sum over the n partial rows of partial[., c], in a fixed order:
+// warp j of a block adds rows j, j + 32, ..; then the warps in order
+__global__ void __launch_bounds__(1024)
+rmsnorm_bwd_dw_sum_kernel(const float* __restrict__ partial,
+                          float* __restrict__ dw, int D, int n) {
+  __shared__ float s[32][33];
+  const int lane = threadIdx.x % 32, j = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + lane;
   float acc = 0.f;
-  for (int k = 0; k < n_chunks; ++k) acc += partial[(size_t)k * D + c];
-  dw[c] = acc;
+  if (c < D)
+    for (int p = j; p < n; p += 32) acc += partial[(size_t)p * D + c];
+  s[j][lane] = acc;
+  __syncthreads();
+  if (j == 0 && c < D) {
+    float tot = 0.f;
+    for (int q = 0; q < 32; ++q) tot += s[q][lane];
+    dw[c] = tot;
+  }
+}
+
+// The vector backward: the forward's thread layout (TPR threads a row,
+// each NV 16-byte vectors of it); dx a row at a time, dy * xhat summed
+// into per-thread column registers over the rows the block walks, then
+// the block's row groups added in a fixed order into partial[blockIdx.x].
+template <typename T, int TPR, int NV>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ rstd,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ partial, int R, int D) {
+  constexpr int E = 16 / sizeof(T);          // elements per vector
+  constexpr int RPB = kThreads / TPR;        // rows a block takes at once
+  constexpr int WPR = TPR > 32 ? TPR / 32 : 1;   // warps per row
+  // row groups whose column sums meet in shared memory: a warp's groups
+  // are added by shuffles first when TPR < 32
+  constexpr int NG = TPR < 32 ? kWarps : RPB;
+  __shared__ float part[kWarps];
+  extern __shared__ float sdw[];             // D floats when NG > 1
+  const int nvec = D / E;
+  const int t = threadIdx.x % TPR, rb = threadIdx.x / TPR;
+  float acc[NV][E];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < E; ++k) acc[i][k] = 0.f;
+  for (int r0 = blockIdx.x * RPB; r0 < R; r0 += gridDim.x * RPB) {
+    const int r = r0 + rb;
+    const bool live = r < R;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)r * D);
+    const uint4* gr = reinterpret_cast<const uint4*>(dy + (size_t)r * D);
+    const float rs = live ? rstd[r] : 0.f;
+    uint4 xv[NV], gv[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = t + i * TPR;
+      if (live && v < nvec) {
+        xv[i] = xr[v];
+        gv[i] = gr[v];
+      }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = t + i * TPR;
+      if (live && v < nvec) {
+        float xf[E], gf[E];
+        unpack16(xv[i], xf, T());
+        unpack16(gv[i], gf, T());
+        const float4* w4 = reinterpret_cast<const float4*>(w + v * E);
+#pragma unroll
+        for (int k = 0; k < E; k += 4) {
+          const float4 ww = __ldg(w4 + k / 4);
+          s += xf[k] * rs * ww.x * gf[k];
+          s += xf[k + 1] * rs * ww.y * gf[k + 1];
+          s += xf[k + 2] * rs * ww.z * gf[k + 2];
+          s += xf[k + 3] * rs * ww.w * gf[k + 3];
+        }
+      }
+    }
+#pragma unroll
+    for (int o = (TPR < 32 ? TPR : 32) / 2; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if constexpr (WPR > 1) {
+      if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = s;
+      __syncthreads();
+      s = 0.f;
+#pragma unroll
+      for (int k = 0; k < WPR; ++k) s += part[rb * WPR + k];
+      __syncthreads();                  // part is rewritten next row
+    }
+    const float mean = s / (float)D;
+    uint4* dr = reinterpret_cast<uint4*>(dx + (size_t)r * D);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = t + i * TPR;
+      if (live && v < nvec) {
+        float xf[E], gf[E], wf[E];
+        unpack16(xv[i], xf, T());
+        unpack16(gv[i], gf, T());
+        const float4* w4 = reinterpret_cast<const float4*>(w + v * E);
+#pragma unroll
+        for (int k = 0; k < E; k += 4) {
+          const float4 ww = __ldg(w4 + k / 4);
+          wf[k] = ww.x; wf[k + 1] = ww.y; wf[k + 2] = ww.z; wf[k + 3] = ww.w;
+        }
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+          const float xhat = xf[k] * rs;
+          acc[i][k] += gf[k] * xhat;
+          xf[k] = rs * (wf[k] * gf[k] - xhat * mean);
+        }
+        dr[v] = pack16(xf, T());
+      }
+    }
+  }
+  // the block's row groups, in a fixed order
+  if constexpr (TPR < 32) {
+#pragma unroll
+    for (int o = TPR; o < 32; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int k = 0; k < E; ++k)
+          acc[i][k] += __shfl_xor_sync(0xffffffffu, acc[i][k], o);
+  }
+  const int grp = TPR < 32 ? threadIdx.x / 32 : rb;
+  const bool lead = TPR >= 32 || threadIdx.x % 32 < TPR;
+  float* out = partial + (size_t)blockIdx.x * D;
+  if constexpr (NG == 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = t + i * TPR;
+      if (v < nvec)
+#pragma unroll
+        for (int k = 0; k < E; k += 4)
+          *reinterpret_cast<float4*>(out + v * E + k) = make_float4(
+              acc[i][k], acc[i][k + 1], acc[i][k + 2], acc[i][k + 3]);
+    }
+  } else {
+    for (int g = 0; g < NG; ++g) {
+      if (grp == g && lead) {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int v = t + i * TPR;
+          if (v < nvec)
+#pragma unroll
+            for (int k = 0; k < E; ++k)
+              sdw[v * E + k] = (g ? sdw[v * E + k] : 0.f) + acc[i][k];
+        }
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x; c < D; c += kThreads) out[c] = sdw[c];
+  }
 }
 
 template <typename T, int TPR, int NV>
@@ -284,25 +441,111 @@ int fwd(const void* xv, const float* w, void* yv, float* rstd, int R, int D,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of the vector backward: one float per column when the
+// block's row groups meet there (the widest row of the instance)
+template <int TPR, int NV, int E>
+constexpr size_t bwd_vec_smem() {
+  return TPR < kThreads ? sizeof(float) * TPR * NV * E : 0;
+}
+
+template <typename T, int TPR, int NV>
+int bwd_vec_blocks(int R) {
+  // blocks of this kernel the card keeps resident (asked once: the grid
+  // walks the rows with a stride, so any count is correct)
+  static const long long room = [] {
+    int dev = 0, sms = 132, per_sm = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rmsnorm_bwd_vec_kernel<T, TPR, NV>, kThreads,
+        bwd_vec_smem<TPR, NV, 16 / sizeof(T)>());
+    return (long long)sms * (per_sm > 0 ? per_sm : 1);
+  }();
+  constexpr int RPB = kThreads / TPR;
+  const long long need = ((long long)R + RPB - 1) / RPB;
+  return (int)(need < room ? need : room);
+}
+
+template <typename T, int TPR, int NV>
+int bwd_vec(const T* x, const float* w, const float* rstd, const T* dy,
+            T* dx, float* partial, int R, int D, int n_part,
+            cudaStream_t st) {
+  constexpr size_t smem = bwd_vec_smem<TPR, NV, 16 / sizeof(T)>();
+  rmsnorm_bwd_vec_kernel<T, TPR, NV><<<n_part, kThreads, smem, st>>>(
+      x, w, rstd, dy, dx, partial, R, D);
+  return (int)cudaGetLastError();
+}
+
+// The backward's plan: CALL(TPR, NV), the vector path's threads a row
+// and vectors a thread for this width, or SCALAR off the vector path.
+#define REPRO_RMS_BWD_PLAN(CALL, SCALAR)                                  \
+  do {                                                                    \
+    if (aligned) {                                                        \
+      if (nvec <= 8) CALL(8, 1);                                          \
+      if (nvec <= 16) CALL(16, 1);                                        \
+      if (nvec <= 32) CALL(32, 1);                                        \
+      if (nvec <= 64) CALL(32, 2);                                        \
+      if (nvec <= 128) CALL(32, 4);                                       \
+      if (nvec <= 256) CALL(64, 4);                                       \
+      if (nvec <= 512) CALL(64, 8);                                       \
+      if (nvec <= 1024) CALL(128, 8);                                     \
+      if (nvec <= 2048) CALL(256, 8);                                     \
+    }                                                                     \
+    SCALAR;                                                               \
+  } while (0)
+
+// Row chunks of the scalar path's dw partials: a function of the shape
+// alone, so the summation order (and dw's bits) never change
+int scalar_chunks(int R, int D) {
+  const int col_blocks = (D + kThreads - 1) / kThreads;
+  const int n = 1024 / col_blocks;
+  return n < 1 ? 1 : (n < R ? n : R);
+}
+
+template <typename T>
+int bwd_partials(bool aligned, int R, int D) {
+  const int nvec = D / (int)(16 / sizeof(T));
+#define REPRO_RMS_BLOCKS(TPR, NV) return bwd_vec_blocks<T, TPR, NV>(R)
+  REPRO_RMS_BWD_PLAN(REPRO_RMS_BLOCKS, return scalar_chunks(R, D));
+#undef REPRO_RMS_BLOCKS
+}
+
+// dx and the dw partials: the vector kernel, or the scalar path's two
+template <typename T>
+int bwd_dx_partials(const T* x, const float* w, const float* rstd,
+                    const T* dy, T* dx, float* partial, bool aligned, int R,
+                    int D, int n_part, cudaStream_t st) {
+  const int nvec = D / (int)(16 / sizeof(T));
+#define REPRO_RMS_VEC(TPR, NV) \
+  return bwd_vec<T, TPR, NV>(x, w, rstd, dy, dx, partial, R, D, n_part, st)
+  REPRO_RMS_BWD_PLAN(REPRO_RMS_VEC, break);
+#undef REPRO_RMS_VEC
+  rmsnorm_bwd_dx_kernel<T><<<(R + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      x, w, rstd, dy, dx, R, D);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  rmsnorm_bwd_dw_partial_kernel<T>
+      <<<dim3((D + kThreads - 1) / kThreads, n_part), kThreads, 0, st>>>(
+          x, rstd, dy, partial, R, D, (R + n_part - 1) / n_part);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int bwd(const void* x, const float* w, const float* rstd, const void* dy,
-        void* dx, float* dw, float* partial, int R, int D, int n_chunks,
+        void* dx, float* dw, float* partial, int R, int D, int n_part,
         cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  rmsnorm_bwd_dx_kernel<T><<<(R + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      xt, w, rstd, dyt, static_cast<T*>(dx), R, D);
-  int rc = (int)cudaGetLastError();
+  constexpr int E = 16 / sizeof(T);
+  const bool aligned = D % E == 0 &&
+      ((uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx | (uintptr_t)w) % 16 ==
+          0;
+  if (n_part != bwd_partials<T>(aligned, R, D))
+    return (int)cudaErrorInvalidValue;
+  const int rc = bwd_dx_partials<T>(
+      static_cast<const T*>(x), w, rstd, static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, aligned, R, D, n_part, st);
   if (rc) return rc;
-  const int col_blocks = (D + kThreads - 1) / kThreads;
-  const int rows_per_chunk = (R + n_chunks - 1) / n_chunks;
-  rmsnorm_bwd_dw_partial_kernel<T>
-      <<<dim3(col_blocks, n_chunks), kThreads, 0, st>>>(
-          xt, rstd, dyt, partial, R, D, rows_per_chunk);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  rmsnorm_bwd_dw_reduce_kernel<<<col_blocks, kThreads, 0, st>>>(
-      partial, dw, D, n_chunks);
+  rmsnorm_bwd_dw_sum_kernel<<<(D + 31) / 32, 1024, 0, st>>>(partial, dw, D,
+                                                             n_part);
   return (int)cudaGetLastError();
 }
 
@@ -310,9 +553,10 @@ int bwd(const void* x, const float* w, const float* rstd, const void* dy,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y, dy, dx). w, rstd, dw and the
 // partial buffer are float32. All contiguous: x/y/dy/dx (R, D), w/dw (D,),
-// rstd (R,), partial (n_chunks, D); the forward takes its vector path
-// when x, y and w start on 16-byte boundaries and D is a multiple of the
-// vector (8 bf16, 4 float32). Each returns cudaGetLastError().
+// rstd (R,), partial (n_part, D) with n_part = rmsnorm_bwd_partials(..)
+// for the same pointers and shape. Each path is a vector path when its
+// pointers start on 16-byte boundaries and D is a multiple of the vector
+// (8 bf16, 4 float32). Each launcher returns cudaGetLastError().
 extern "C" int rmsnorm_fwd_launch(const void* x, const void* w, void* y,
                                   void* rstd, int dtype, int R, int D,
                                   float eps, void* stream) {
@@ -325,21 +569,32 @@ extern "C" int rmsnorm_fwd_launch(const void* x, const void* w, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
+extern "C" int rmsnorm_bwd_partials(const void* x, const void* w,
+                                    const void* dy, const void* dx,
+                                    int dtype, int R, int D) {
+  if (R <= 0 || D <= 0) return 0;
+  const uintptr_t p =
+      (uintptr_t)x | (uintptr_t)w | (uintptr_t)dy | (uintptr_t)dx;
+  if (dtype == 0) return bwd_partials<float>(D % 4 == 0 && p % 16 == 0, R, D);
+  if (dtype == 1)
+    return bwd_partials<__nv_bfloat16>(D % 8 == 0 && p % 16 == 0, R, D);
+  return 0;
+}
+
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
                                   const void* rstd, const void* dy, void* dx,
                                   void* dw, void* partial, int dtype, int R,
-                                  int D, int n_chunks, void* stream) {
-  if (R <= 0 || D <= 0 || n_chunks <= 0 || n_chunks > R)
-    return (int)cudaErrorInvalidValue;
+                                  int D, int n_part, void* stream) {
+  if (R <= 0 || D <= 0 || n_part <= 0) return (int)cudaErrorInvalidValue;
   const float* wf = static_cast<const float*>(w);
   const float* rs = static_cast<const float*>(rstd);
   float* dwf = static_cast<float*>(dw);
   float* pf = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd<float>(x, wf, rs, dy, dx, dwf, pf, R, D, n_chunks, st);
+    return bwd<float>(x, wf, rs, dy, dx, dwf, pf, R, D, n_part, st);
   if (dtype == 1)
-    return bwd<__nv_bfloat16>(x, wf, rs, dy, dx, dwf, pf, R, D, n_chunks,
+    return bwd<__nv_bfloat16>(x, wf, rs, dy, dx, dwf, pf, R, D, n_part,
                               st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,13 +31,22 @@ def rmsnorm_ref(x, w, *, eps: float = EPS):
     return (x32 * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
-def _fn(name, n_ptr, n_int):
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # x, w, y, rstd, dtype, R, D, eps, stream
+    "rmsnorm_fwd_launch": [_P] * 4 + [_I] * 3 + [ctypes.c_float, _P],
+    # x, w, dy, dx, dtype, R, D
+    "rmsnorm_bwd_partials": [_P] * 4 + [_I] * 3,
+    # x, w, rstd, dy, dx, dw, partial, dtype, R, D, n_part, stream
+    "rmsnorm_bwd_launch": [_P] * 7 + [_I] * 4 + [_P],
+}
+
+
+def _fn(name):
     fn = getattr(build.load("rmsnorm"), name)
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        tail = [ctypes.c_float] if name == "rmsnorm_fwd_launch" else []
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + tail + [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
     return fn
 
 
@@ -53,13 +62,6 @@ def _check(x, w):
                          f"and {tuple(w.shape)}")
 
 
-def dw_chunks(R: int, D: int) -> int:
-    """Row chunks of the dw reduction: a function of the shape alone, so
-    the summation order (and dw's bits) never change between runs."""
-    col_blocks = -(-D // 256)
-    return max(1, min(R, 1024 // col_blocks))
-
-
 def rmsnorm_fwd(x, w, eps: float = EPS):
     """Forward kernel: x (R, D) float32/bf16, w (D,) float32. Returns
     (y like x, rstd (R,) float32). Adds one to ``rmsnorm_fwd.launches``."""
@@ -69,7 +71,7 @@ def rmsnorm_fwd(x, w, eps: float = EPS):
     y = torch.empty_like(x)
     rstd = x.new_empty(R, dtype=torch.float32)
     if R:
-        rc = _fn("rmsnorm_fwd_launch", 4, 3)(
+        rc = _fn("rmsnorm_fwd_launch")(
             x.data_ptr(), w.contiguous().data_ptr(), y.data_ptr(),
             rstd.data_ptr(), _DTYPE_CODE[x.dtype], R, D, eps, build.stream_ptr(x))
         build.check(rc, "rmsnorm_fwd_launch")
@@ -79,24 +81,27 @@ def rmsnorm_fwd(x, w, eps: float = EPS):
 
 def rmsnorm_bwd(x, w, rstd, dy):
     """Backward kernels: returns (dx like x, dw (D,) float32), dw summed
-    in a fixed order. Adds one to ``rmsnorm_bwd.launches``."""
+    in a fixed order over a number of partial rows that the launcher
+    picks from the shape and the card alone. Adds one to
+    ``rmsnorm_bwd.launches``."""
     _check(x, w)
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_cuda:
         raise ValueError("dy must match x's shape, dtype and device")
-    x, dy = x.contiguous(), dy.contiguous()
+    x, dy, w = x.contiguous(), dy.contiguous(), w.contiguous()
     R, D = x.shape
     dx = torch.empty_like(x)
-    dw = torch.zeros(D, dtype=torch.float32, device=x.device)
-    if R:
-        n_chunks = dw_chunks(R, D)
-        partial = torch.empty((n_chunks, D), dtype=torch.float32,
-                              device=x.device)
-        rc = _fn("rmsnorm_bwd_launch", 7, 4)(
-            x.data_ptr(), w.contiguous().data_ptr(), rstd.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            _DTYPE_CODE[x.dtype], R, D, n_chunks, build.stream_ptr(x))
-        build.check(rc, "rmsnorm_bwd_launch")
-        rmsnorm_bwd.launches += 1
+    if not R:
+        return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
+    dw = torch.empty(D, dtype=torch.float32, device=x.device)
+    ptrs = x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr()
+    code = _DTYPE_CODE[x.dtype]
+    n_part = _fn("rmsnorm_bwd_partials")(*ptrs, code, R, D)
+    partial = torch.empty((n_part, D), dtype=torch.float32, device=x.device)
+    rc = _fn("rmsnorm_bwd_launch")(
+        ptrs[0], ptrs[1], rstd.data_ptr(), ptrs[2], ptrs[3], dw.data_ptr(),
+        partial.data_ptr(), code, R, D, n_part, build.stream_ptr(x))
+    build.check(rc, "rmsnorm_bwd_launch")
+    rmsnorm_bwd.launches += 1
     return dx, dw
 
 

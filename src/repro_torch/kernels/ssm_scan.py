@@ -30,6 +30,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_ssm import _STATE_DIMS
 
 CHUNK = 64              # steps between the forward's stored states
+TILE = 256              # rows per partial of the backward's gB/gC sums
 
 
 def ssm_scan_ref(dt, x, A, B, C, D):
@@ -53,11 +54,12 @@ def ssm_scan_ref(dt, x, A, B, C, D):
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "ssm_scan_chunk": [],
-    "ssm_scan_warps": [_I],
+    "ssm_scan_tile": [],
     # dt, x, A, A's strides, B, C, D, y, hc, Bb, S, di, ds, stream
     "ssm_scan_fwd_launch": [_P] * 3 + [_L] * 2 + [_P] * 5 + [_I] * 4 + [_P],
     # dt, x, A, A's strides, B, C, D, hc, gy, the six cotangents, the
-    # four scratch buffers, Bb, S, di, ds, stream
+    # four scratch buffers (carries, dt sums, gB/gC and gD partials), Bb,
+    # S, di, ds, stream
     "ssm_scan_bwd_launch": [_P] * 3 + [_L] * 2 + [_P] * 15 + [_I] * 4
     + [_P],
 }
@@ -95,9 +97,9 @@ def _check(dt, x, A, B, C, D, **more):
                              f"{shape}")
     if ds not in _STATE_DIMS:
         raise ValueError(f"d_state {ds} not in {_STATE_DIMS}")
-    if _fn("ssm_scan_chunk")() != CHUNK:
+    if (_fn("ssm_scan_chunk")(), _fn("ssm_scan_tile")()) != (CHUNK, TILE):
         raise RuntimeError("csrc/ssm_scan.cu and kernels/ssm_scan.py "
-                           "disagree on the checkpoint chunk")
+                           "disagree on the checkpoint chunk or row tile")
     return Bb, S, di, ds
 
 
@@ -120,10 +122,11 @@ def ssm_scan_fwd(dt, x, A, B, C, D):
 
 
 def ssm_scan_bwd(dt, x, A, B, C, D, hc, gy):
-    """Backward kernels: the cotangents (gdt, gx, gA, gB, gC, gD) of
-    (dt, x, A, B, C, D), all float32 and contiguous (gA dense (di, ds)
-    even when A is a broadcast view), each cross-row sum taken in a fixed
-    order. Adds one to ``ssm_scan_bwd.launches``."""
+    """Backward kernels (chunk-parallel: carries, their scan, then every
+    chunk from its stored state): the cotangents (gdt, gx, gA, gB, gC,
+    gD) of (dt, x, A, B, C, D), all float32 and contiguous (gA dense (di,
+    ds) even when A is a broadcast view), each cross-row or cross-chunk
+    sum taken in a fixed order. Adds one to ``ssm_scan_bwd.launches``."""
     Bb, S, di, ds = _check(dt, x, A, B, C, D, hc=hc, gy=gy)
     if tuple(gy.shape) != (Bb, S, di) or \
             tuple(hc.shape) != (Bb, -(-S // CHUNK), ds, di):
@@ -138,9 +141,9 @@ def ssm_scan_bwd(dt, x, A, B, C, D, hc, gy):
     gdt, gx = empty(Bb, S, di), empty(Bb, S, di)
     gA, gB, gC, gD = empty(di, ds), empty(Bb, S, ds), empty(Bb, S, ds), \
         empty(di)
-    n_w = _fn("ssm_scan_warps")(di)
-    scratch = (empty(Bb, CHUNK, ds, di), empty(Bb, S, n_w, 2 * ds),
-               empty(Bb, ds, di), empty(Bb, di))
+    n_c, n_t = -(-S // CHUNK), -(-di // TILE)
+    scratch = (empty(Bb, n_c, di, ds), empty(Bb, n_c, di),
+               empty(Bb, S, n_t, 2 * ds), empty(Bb, n_c, di))
     rc = _fn("ssm_scan_bwd_launch")(
         dt.data_ptr(), x.data_ptr(), A.data_ptr(), A.stride(0), A.stride(1),
         B.data_ptr(), C.data_ptr(), D.data_ptr(), hc.data_ptr(),

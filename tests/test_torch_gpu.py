@@ -416,10 +416,47 @@ def test_rmsnorm_fwd_vector_and_scalar_paths_match_plain_on_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_backward_is_deterministic_on_card(dtype):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("R,D,offset", [
+    (512, 4096, 0),                     # wide rows: 2 or 4 warps a row
+    (300, 2050, 0),                     # D not a multiple of the vector
+    (257, 100, 0),                      # float32 vectors, bf16 scalar
+    (256, 2048, 1),                     # rows off a 16-byte boundary
+    (1000, 128, 1)])
+def test_rmsnorm_bwd_vector_and_scalar_paths_match_plain_on_card(
+        R, D, offset, dtype, tol):
+    """The backward's vector and scalar paths, at the forward test's
+    shapes and offsets: dx and dw within the tolerance of the plain
+    version's autograd, times each one's largest magnitude, also for x
+    and dy taken ``offset`` elements into flat buffers."""
     _need_card()
-    x, w, dy = to_torch(*rms_case(6, 8192 * 16, 128), device="cuda")
+    x, w, dy = to_torch(*rms_case(R * D + offset + 1, R, D), device="cuda")
+    x, dy = x.to(dtype), dy.to(dtype)
+    if offset:
+        def shifted(t):
+            flat = torch.empty(R * D + offset, dtype=dtype, device="cuda")
+            flat[offset:] = t.reshape(-1)
+            return flat[offset:].view(R, D)
+        x, dy = shifted(x), shifted(dy)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    _, rstd = trn.rmsnorm_fwd(x, w)
+    dx, dw = trn.rmsnorm_bwd(x, w, rstd, dy)
+    xx = x.detach().requires_grad_(True)
+    ww = w.detach().requires_grad_(True)
+    want = torch.autograd.grad(trn.rmsnorm_ref(xx, ww), (xx, ww), dy)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    assert _scaled_err(dx, want[0]) <= tol
+    assert _scaled_err(dw, want[1]) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", [(8192 * 16, 128), (8192, 2048)])
+def test_rmsnorm_backward_is_deterministic_on_card(R, D, dtype):
+    _need_card()
+    x, w, dy = to_torch(*rms_case(6, R, D), device="cuda")
     x, dy = x.to(dtype), dy.to(dtype)
     _, rstd = trn.rmsnorm_fwd(x, w)
     first = trn.rmsnorm_bwd(x, w, rstd, dy)
@@ -501,21 +538,29 @@ def test_mamba2_fused_updates_pool_view_in_place_on_card():
     assert _scaled_err(pools[0]["h"][0, 1:], pools[1]["h"][0, 1:]) <= 1e-5
 
 
-# (Bb, S, di, ds, broadcast A): ragged chunk tails, a partial block of
-# rows, every d_state the kernel is built for, mamba2's stride-0 decay,
-# and falcon-mamba-7b's and zamba2-1.2b's full-width rows
-SCAN_CASES = [(2, 100, 64, 8, False), (1, 130, 96, 16, False),
-              (2, 64, 128, 4, False), (1, 70, 64, 32, False),
-              (1, 200, 256, 64, True), (2, 1000, 8192, 16, False),
-              (1, 1000, 4096, 64, True)]
+# (Bb, S, di, ds, broadcast A, A scale): ragged chunk tails, a partial
+# block of rows, every d_state the kernel is built for, mamba2's stride-0
+# decay, falcon-mamba-7b's and zamba2-1.2b's full-width rows, at S = 1,
+# one step short of a chunk (63) and the training length 4096, and decays
+# 200x larger, whose products over a chunk underflow to 0
+SCAN_CASES = [(2, 100, 64, 8, False, 1.0), (1, 130, 96, 16, False, 1.0),
+              (2, 64, 128, 4, False, 1.0), (1, 70, 64, 32, False, 1.0),
+              (1, 200, 256, 64, True, 1.0), (2, 1000, 8192, 16, False, 1.0),
+              (1, 1000, 4096, 64, True, 1.0), (2, 1, 8192, 16, False, 1.0),
+              (2, 63, 8192, 16, False, 1.0),
+              (2, 4096, 8192, 16, False, 1.0),
+              (2, 300, 1024, 16, False, 200.0),
+              (1, 300, 1024, 64, True, 200.0)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Bb,S,di,ds,broadcast_A", SCAN_CASES)
-def test_ssm_scan_fwd_bwd_match_plain_on_card(Bb, S, di, ds, broadcast_A):
+@pytest.mark.parametrize("Bb,S,di,ds,broadcast_A,a_scale", SCAN_CASES)
+def test_ssm_scan_fwd_bwd_match_plain_on_card(Bb, S, di, ds, broadcast_A,
+                                              a_scale):
     _need_card()
     *ins, gy = to_torch(*ssm_scan_case(S + di + ds, Bb, S, di, ds),
                         device="cuda")
+    ins[2] = ins[2] * a_scale
     if broadcast_A:                 # mamba2: one decay per row, stride 0
         ins[2] = ins[2][:, :1].expand(di, ds)
 
@@ -534,13 +579,17 @@ def test_ssm_scan_fwd_bwd_match_plain_on_card(Bb, S, di, ds, broadcast_A):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("di,ds", [(8192, 16), (4096, 64)])
-def test_ssm_scan_backward_is_deterministic_on_card(di, ds):
+@pytest.mark.parametrize("di,ds,broadcast_A", [(8192, 16, False),
+                                               (4096, 64, False),
+                                               (4096, 64, True)])
+def test_ssm_scan_backward_is_deterministic_on_card(di, ds, broadcast_A):
     """A second backward is bit-identical (fixed-order sums, no
-    atomics)."""
+    atomics), also with mamba2's stride-0 decay."""
     _need_card()
     *ins, gy = to_torch(*ssm_scan_case(di + ds, 2, 300, di, ds),
                         device="cuda")
+    if broadcast_A:
+        ins[2] = ins[2][:, :1].expand(di, ds)
     _, hc = tss.ssm_scan_fwd(*ins)
     first = tss.ssm_scan_bwd(*ins, hc, gy)
     second = tss.ssm_scan_bwd(*ins, hc, gy)

@@ -125,6 +125,124 @@ def test_ssm_scan_dispatch_cpu_to_plain_and_kernels_refuse_cpu():
     assert (tss.ssm_scan_fwd.launches, tss.ssm_scan_bwd.launches) == before
 
 
+def _scan_bwd_plan(dt, x, A, B, C, D, gy, chunk=tss.CHUNK, sub=8,
+                   tile=tss.TILE):
+    """float32 emulation of the backward plan of ``csrc/ssm_scan.cu``:
+    (1) per chunk k >= 1, the chunk walked backwards with no cotangent
+    from the right gives c_k and sum dt; (2) lam_k right to left, lam_{k-1}
+    = c_k + exp(A sum dt) lam_k; (3) per chunk, h from the stored state
+    hc[k] forward to every ``sub``-step start, then each sub-chunk
+    recomputed and walked backwards from lam_k; gB/gC as one partial per
+    (t, tile of ``tile`` rows), gA/gD as one per (b, k), each added in a
+    fixed order. Returns the six cotangents and P_k = exp(A sum dt) of
+    chunks 1.. (Bb, nC - 1, di, ds)."""
+    Bb, S, di = x.shape
+    ds = A.shape[1]
+    n_c, n_t = -(-S // chunk), -(-di // tile)
+    a = torch.exp(dt[..., None] * A)                  # (Bb, S, di, ds)
+    inp = (dt * x)[..., None] * B[:, :, None, :]
+    h, hc = torch.zeros(Bb, di, ds), []
+    for t in range(S):                                # the forward's states
+        if t % chunk == 0:
+            hc.append(h)
+        h = a[:, t] * h + inp[:, t]
+    c, dsum = torch.zeros(Bb, n_c, di, ds), torch.zeros(Bb, n_c, di)
+    for k in range(1, n_c):                           # phase 1
+        gc = torch.zeros(Bb, di, ds)
+        for t in reversed(range(k * chunk, min(S, (k + 1) * chunk))):
+            gc = a[:, t] * (gy[:, t, :, None] * C[:, t, None, :] + gc)
+            dsum[:, k] += dt[:, t]
+        c[:, k] = gc
+    P = torch.exp(A * dsum[:, 1:, :, None])
+    lam, lk = torch.zeros_like(c), torch.zeros(Bb, di, ds)
+    for k in range(n_c - 1, 0, -1):                   # phase 2
+        lam[:, k] = lk
+        lk = c[:, k] + P[:, k - 1] * lk
+    lam[:, 0] = lk
+    gdt, gx = torch.zeros(Bb, S, di), torch.zeros(Bb, S, di)
+    part = torch.zeros(Bb, S, n_t, 2, ds)
+    gA_part, gD_part = torch.zeros(Bb, n_c, di, ds), torch.zeros(Bb, n_c, di)
+    for k in range(n_c):                              # phase 3
+        t0, t1 = k * chunk, min(S, (k + 1) * chunk)
+        starts, hh = {}, hc[k]
+        for t in range(t0, t1):
+            if (t - t0) % sub == 0:
+                starts[t] = hh
+            hh = a[:, t] * hh + inp[:, t]
+        gc = lam[:, k]
+        for j0 in reversed(range(t0, t1, sub)):
+            hs, hp = [], starts[j0]
+            for t in range(j0, min(j0 + sub, t1)):    # recompute
+                hp = a[:, t] * hp + inp[:, t]
+                hs.append(hp)
+            for i in reversed(range(len(hs))):
+                t = j0 + i
+                prev = hs[i - 1] if i else starts[j0]
+                g = gy[:, t, :, None] * C[:, t, None, :] + gc
+                gc = a[:, t] * g
+                th = gc * prev
+                s1 = (g * B[:, t, None, :]).sum(-1)
+                gx[:, t] = dt[:, t] * s1 + D * gy[:, t]
+                gdt[:, t] = x[:, t] * s1 + (A * th).sum(-1)
+                gA_part[:, k] += dt[:, t, :, None] * th
+                gbc = (g * (dt * x)[:, t, :, None], gy[:, t, :, None] * hs[i])
+                for q in range(n_t):
+                    rows = slice(q * tile, (q + 1) * tile)
+                    for j, v in enumerate(gbc):
+                        part[:, t, q, j] = v[:, rows].sum(1)
+        gD_part[:, k] = (gy * x)[:, t0:t1].sum(1)
+    gBC = part[:, :, 0]
+    for q in range(1, n_t):
+        gBC = gBC + part[:, :, q]
+    gA, gD = torch.zeros(di, ds), torch.zeros(di)
+    for b in range(Bb):
+        for k in range(n_c):
+            gA, gD = gA + gA_part[b, k], gD + gD_part[b, k]
+    return (gdt, gx, gA, gBC[:, :, 0], gBC[:, :, 1], gD), P
+
+
+# (Bb, S, di, ds, stride-0 decay, underflow, tile): three chunks with a
+# ragged tail, S below one chunk, mamba2's stride-0 decay, and a decay
+# large enough that whole chunks' products are exactly 0
+SCAN_PLAN_CASES = [(2, 150, 12, 16, False, False, 4),
+                   (1, 40, 10, 8, False, False, 4),
+                   (1, 150, 16, 8, True, False, 8),
+                   (2, 150, 12, 4, False, True, 4)]
+
+
+@pytest.mark.parametrize("Bb,S,di,ds,stride0,underflow,tile",
+                         SCAN_PLAN_CASES)
+def test_ssm_scan_bwd_plan_matches_autograd_and_jax_vjp(
+        Bb, S, di, ds, stride0, underflow, tile):
+    """The chunk-parallel backward plan of the scan kernel, emulated in
+    float32, gives every cotangent of the plain version's autograd and of
+    jax.vjp of the reference within 1e-4 of each cotangent's largest
+    magnitude."""
+    dt, x, A, B, C, D, gy = ssm_scan_case(7 * S + di, Bb, S, di, ds)
+    if stride0:
+        A = np.repeat(A[:, :1], ds, axis=1)
+    if underflow:                     # rows whose chunk products are 0
+        A[: di // 2] *= 200.0
+    ins = to_torch(dt, x, A, B, C, D)
+    tA = ins[2][:, :1].expand(di, ds) if stride0 else ins[2]
+    got, P = _scan_bwd_plan(ins[0], ins[1], tA, *ins[3:],
+                            torch.from_numpy(gy), tile=tile)
+    if underflow:
+        assert (P[:, :, : di // 2] == 0).all() and (P[:, :, di // 2:] > 0).all()
+    args = [t.clone().requires_grad_(True) for t in ins]
+    want_t = torch.autograd.grad(tss.ssm_scan_ref(*args), args,
+                                 torch.from_numpy(gy))
+    _, vjp = jax.vjp(jref.ssm_scan_ref,
+                     *map(jnp.asarray, (dt, x, A, B, C, D)))
+    want_j = vjp(jnp.asarray(gy))
+    for name, g, wt, wj in zip(("dt", "x", "A", "B", "C", "D"), got, want_t,
+                               want_j):
+        for w in (wt.numpy(), np.asarray(wj)):
+            assert g.shape == w.shape, name
+            err = np.abs(g.numpy() - w).max()
+            assert err <= GRAD_REL * np.abs(w).max(), (name, err)
+
+
 # ---------------------------------------------------------------------------
 # 2. Dense mixers and mamba blocks
 # ---------------------------------------------------------------------------
