@@ -77,7 +77,7 @@ DECODE_LENS = [287, 301, 150, 64]   # contexts of the profiled decode wave
 # paged SSM update: rows and d_state of falcon-mamba-7b (mamba1, "dbx")
 # and zamba2-1.2b (mamba2, 64 heads x headdim 64, "dxb"); the kernel vs
 # plain tolerance is relative to max|plain| (FMA contraction and the
-# card's expf over up to 256 sequential float32 steps)
+# card's exp2 over up to 256 sequential float32 steps)
 SSM_ROWS = {"dbx": (8192, 16), "dxb": (4096, 64)}
 SSM_TOL = 1e-5
 # (S, lengths, n_new): a decode step crossing a page boundary (16), one
@@ -634,12 +634,34 @@ def scan_case(gen, fam, S):
     return dt, r(Bb, S, R), A, r(Bb, S, ds), r(Bb, S, ds), D
 
 
+def check_scan_fwd_states(ins, shape, S):
+    """The forward kernel's stored states (the state before every 64
+    steps, where the backward starts its chunks) against the plain
+    recurrence's within SCAN_TOL["y"] of max|plain|, and a second
+    forward bit-identical (y and states)."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    _, want = ss.ssm_scan_fwd_ref(*ins)
+    (y1, hc1), (y2, hc2) = (ss.ssm_scan_fwd(*ins) for _ in range(2))
+    torch.cuda.synchronize()
+    e_hc = _scaled_err(hc1, want)
+    same = torch.equal(y1, y2) and torch.equal(hc1, hc2)
+    print(f"ssm_scan_fwd {shape} S={S}: stored states max|kernel-plain|/"
+          f"max|plain| {e_hc:.3e} (tolerance {SCAN_TOL['y']:g}); second "
+          f"forward bit-identical {same}")
+    if not (e_hc <= SCAN_TOL["y"] and same):
+        fail(f"ssm_scan_fwd {shape} S={S}: stored states disagree with "
+             "the plain recurrence, or a second forward differs")
+
+
 def check_scan_kernel(gen):
     """The selective scan against its plain version at falcon-mamba-7b's
     and zamba2-1.2b's full-width rows: y and all six cotangents (autograd
     of the plain version) at S=1000 (15 checkpoint chunks and a ragged
     tail), a second backward bit-identical; y at the training length
-    S=4096. Returns the largest abs error of y and of the cotangents."""
+    S=4096; at both lengths the forward's stored states against the
+    plain recurrence's and a second forward bit-identical. Returns the
+    largest abs error of y and of the cotangents."""
     import torch
     from repro_torch.kernels import ssm_scan as ss
     err = {"ssm_scan_fwd": 0.0, "ssm_scan_bwd": 0.0}
@@ -675,6 +697,7 @@ def check_scan_kernel(gen):
         err["ssm_scan_bwd"] = max(err["ssm_scan_bwd"], max(
             (g - w).abs().max().item() for g, w in zip(got[1:], want[1:])))
         del want, got, first, again, hc
+        check_scan_fwd_states(ins, shape, 1000)
         ins = scan_case(gen, fam, TRAIN_S)
         with torch.no_grad():
             want, got = ss.ssm_scan_ref(*ins), ss.ssm_scan(*ins)
@@ -687,6 +710,8 @@ def check_scan_kernel(gen):
                  "version")
         err["ssm_scan_fwd"] = max(err["ssm_scan_fwd"],
                                   (got - want).abs().max().item())
+        del want, got
+        check_scan_fwd_states(ins, shape, TRAIN_S)
     return err
 
 
@@ -1405,6 +1430,14 @@ def profile_decode_wave(be, name):
     for e in sorted(kern, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 5 / 1e3:8.4f} ms/wave  {e.count // 5:4d}x  "
               f"{e.key[:80]}")
+    # the port's paged kernels, in the top rows or not: their own device
+    # time per launch
+    for e in kern:
+        kernel = re.search(r"::(paged_\w+<[^>]*>)", e.key)
+        if kernel and e.count:
+            print(f"  {name} decode wave: {kernel.group(1)} "
+                  f"{dev_us(e) / e.count:.2f} us a launch, {e.count // 5}x "
+                  "a wave")
 
 
 def serve_ssm(arch, seed):
@@ -1467,16 +1500,32 @@ def serve_ssm(arch, seed):
     return launches
 
 
-def ssm_kernel_case(gen, order, S, lengths, n_new):
-    """Full-width rows-layout inputs for one order (R, ds from SSM_ROWS)
-    on a pool of MAX_BATCH slots x MAX_LEN // PAGE pages in random order,
-    with the compact plan the mixers build. Mamba2's A is the per-head
-    decay broadcast across d_state (stride 0), as on the main path."""
+def ssm_table(gen):
+    """MAX_BATCH slots x MAX_LEN // PAGE pages of the pool, in random
+    order (page 0 is scratch)."""
     import torch
-    from repro_torch.models import ssm as tssm
-    R, ds = SSM_ROWS[order]
     P = MAX_LEN // PAGE
-    n_pages = 1 + MAX_BATCH * P
+    perm = torch.randperm(MAX_BATCH * P, generator=gen, device="cuda") + 1
+    return perm.reshape(MAX_BATCH, P).to(torch.int32)
+
+
+def ssm_plan_of(table, lens, nn, S):
+    """(read_page, live, phys_w, t_w): the compact plan the mixers build."""
+    from repro_torch.models import ssm as tssm
+    t_w, phys_w = tssm.compact_snapshot_steps(table, lens, nn, PAGE, S)
+    read_page, live = tssm.paged_read_plan(table, lens, PAGE)
+    return read_page, live, phys_w, t_w
+
+
+def ssm_kernel_case(gen, order, S, lengths, n_new, table=None):
+    """Full-width rows-layout inputs for one order (R, ds from SSM_ROWS)
+    on a pool of MAX_BATCH slots x MAX_LEN // PAGE pages (``table``, else
+    a random one), with the compact plan the mixers build. Mamba2's A is
+    the per-head decay broadcast across d_state (stride 0), as on the
+    main path."""
+    import torch
+    R, ds = SSM_ROWS[order]
+    n_pages = 1 + MAX_BATCH * (MAX_LEN // PAGE)
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -1486,21 +1535,54 @@ def ssm_kernel_case(gen, order, S, lengths, n_new):
     else:
         A = (-torch.exp(r(R // 64))).repeat_interleave(64)[:, None] \
             .expand(R, ds)
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-    table = perm.reshape(MAX_BATCH, P).to(torch.int32)
+    if table is None:
+        table = ssm_table(gen)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     nn = torch.tensor(n_new, dtype=torch.int32, device="cuda")
-    t_w, phys_w = tssm.compact_snapshot_steps(table, lens, nn, PAGE, S)
-    read_page, live = tssm.paged_read_plan(table, lens, PAGE)
     return (dt, r(MAX_BATCH, S, R), r(MAX_BATCH, S, ds), r(MAX_BATCH, S, ds),
-            A, r(n_pages, R, ds), (read_page, live, phys_w, t_w), nn)
+            A, r(n_pages, R, ds), ssm_plan_of(table, lens, nn, S), nn)
+
+
+def check_ssm_split(gen, order, split):
+    """Chunked prefill == one call, bit for bit: SSM_CASES' 256-token
+    chunk (a slot from 0, one mid-page, an idle one, one late; one slot
+    padded past its n_new) at ``order``'s full-width rows, split in two
+    calls at ``split``, gives y and the pool bit-identical to one call."""
+    import torch
+    from repro_torch.kernels import paged_ssm as ps
+    S, lengths, n_new = SSM_CASES[2]
+    table = ssm_table(gen)
+    dt, x, Bm, Cm, A, pool, plan, nn = ssm_kernel_case(
+        gen, order, S, lengths, n_new, table)
+    pools = [pool.clone(), pool.clone()]
+    one = ps.paged_ssm_update(dt, x, Bm, Cm, A, pools[0], *plan, nn,
+                              order=order)
+    ys = []
+    at = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for lo, hi in ((0, split), (split, S)):
+        n = torch.clamp(nn - lo, 0, hi - lo).to(torch.int32)
+        part = [t[:, lo:hi].contiguous() for t in (dt, x, Bm, Cm)]
+        ys.append(ps.paged_ssm_update(
+            *part, A, pools[1], *ssm_plan_of(table, at, n, hi - lo), n,
+            order=order))
+        at = (at + n).to(torch.int32)
+    torch.cuda.synchronize()
+    same = (torch.equal(torch.cat(ys, dim=1), one)
+            and torch.equal(pools[1], pools[0]))
+    print(f"paged_ssm_update {order} S={S} lengths {lengths} n_new {n_new}:"
+          f" two calls split at step {split} bit-identical to one call "
+          f"(y and pool) {same}")
+    if not same:
+        fail(f"paged_ssm_update {order}: a call split in two differs from "
+             "one call")
 
 
 def check_ssm_kernel(gen):
     """The paged SSM kernel against its plain version at both full-width
     shapes: y on valid rows and the non-scratch pages within SSM_TOL of
     max|plain|, pages outside the plan bit-identical, a second launch
-    bit-identical. Returns the largest abs error of y per order."""
+    bit-identical; at both orders a call split in two bit-identical to
+    one call. Returns the largest abs error of y per order."""
     import torch
     from repro_torch.kernels import paged_ssm as ps
     err = {}
@@ -1537,6 +1619,9 @@ def check_ssm_kernel(gen):
                 fail(f"paged_ssm_update {order} S={S} disagrees with its "
                      "plain version")
             err[order] = max(err.get(order, 0.0), abs_y)
+        # inside a page; and a last call of one step (the decode kernel)
+        for split in (100, 255):
+            check_ssm_split(gen, order, split)
     return err
 
 
@@ -1561,14 +1646,20 @@ def ssm_bound_ms(order, S, lengths, n_new, plan):
 
 
 def time_ssm_kernel(gen, flush):
-    """Kernel (CUDA events around the wrapper call, and the kernel's
-    device time, ``device_ms``), plain and bound times of the paged
-    SSM update at both full-width shapes: decode (B=4, S=1, contexts
-    DECODE_LENS) and a 256-token prefill chunk. No single PyTorch call
-    computes the paged scan (a snapshot-paged selective scan), so there
-    is no library time."""
+    """Kernel (CUDA events around the wrapper call, and the call's
+    device time, ``device_ms``, which includes the wrapper's int32
+    conversions of the plan; and the kernel's alone, with the plan handed
+    over as int32 already), plain and bound times of the paged SSM update
+    at both full-width shapes: decode (B=4, S=1, contexts DECODE_LENS) and
+    a 256-token prefill chunk. No single PyTorch call computes the paged
+    scan (a snapshot-paged selective scan), so there is no library
+    time."""
+    import torch
     from repro_torch.kernels import paged_ssm as ps
     rows = {}
+    floor = device_ms(lambda: torch.cuda._sleep(0), 20, flush)
+    print(f"device_ms of an empty launch (the floor of a kernel-alone "
+          f"time): {floor:.4f} ms")
     for order in ("dbx", "dxb"):
         R, ds = SSM_ROWS[order]
         for S, lengths, n_new in ((1, DECODE_LENS, [1] * MAX_BATCH),
@@ -1581,14 +1672,17 @@ def time_ssm_kernel(gen, flush):
                 *a, order=o), flush=flush)
             d_ms = device_ms(lambda a=args, o=order: ps.paged_ssm_update(
                 *a, order=o), 20, flush)
+            a32 = (*args[:6], *(t.to(torch.int32) for t in (*plan, nn)))
+            a_ms = device_ms(lambda a=a32, o=order: ps.paged_ssm_update(
+                *a, order=o), 20, flush)
             p_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update_ref(
                 *a, order=o), iters=20 if S == 1 else 3, flush=flush)
             b_ms, by = ssm_bound_ms(order, S, lengths, n_new, plan)
             print(f"paged_ssm_update {order} R={R} ds={ds} B={MAX_BATCH} "
-                  f"S={S}: kernel {k_ms:.4f} ms (device {d_ms:.4f} ms), "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({by}), "
-                  "library none")
-            rows[(order, S)] = (k_ms, d_ms, p_ms, b_ms, by)
+                  f"S={S}: kernel {k_ms:.4f} ms (device {d_ms:.4f} ms; "
+                  f"kernel alone {a_ms:.4f} ms), plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({by}), library none")
+            rows[(order, S)] = (k_ms, d_ms, p_ms, b_ms, by, a_ms)
     return rows
 
 
@@ -1863,11 +1957,12 @@ def main() -> int:
         kernels.append(row)
     # one row per product order: falcon-mamba-7b's path launches "dbx",
     # zamba2-1.2b's "dxb"; ms/plain_ms/bound_ms at decode (S=1), prefill_*
-    # at a 256-token chunk, device_* the device work alone; no
-    # single PyTorch call computes the paged scan
+    # at a 256-token chunk, device_* the device work alone, kernel_* the
+    # kernel's alone (plan already int32); no single PyTorch call computes
+    # the paged scan
     for order in ("dbx", "dxb"):
-        km, dm, pm, bm, by = ssm_rows[(order, 1)]
-        kp, dp, pp, bp, _ = ssm_rows[(order, 256)]
+        km, dm, pm, bm, by, am = ssm_rows[(order, 1)]
+        kp, dp, pp, bp, _, ap = ssm_rows[(order, 256)]
         kernels.append({
             "name": f"paged_ssm_update_{order}", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_ssm.cu",
@@ -1875,7 +1970,8 @@ def main() -> int:
             "launches": ssm_launches[order]["paged_ssm_update"],
             "max_abs_err": ssm_err[order], "ms": km, "plain_ms": pm,
             "bound_ms": bm, "bound_by": by, "library_ms": None,
-            "device_ms": dm, "prefill_ms": kp, "prefill_device_ms": dp,
+            "device_ms": dm, "kernel_device_ms": am, "prefill_ms": kp,
+            "prefill_device_ms": dp, "prefill_kernel_device_ms": ap,
             "prefill_plain_ms": pp, "prefill_bound_ms": bp})
     # path A (falcon-mamba-7b, MGRIT) and path B (zamba2-1.2b, serial):
     # launches over Trainer.train(3) summed, per path, and per profiled

@@ -21,30 +21,47 @@
 //   gC_t  = sum_r gy_t h_t                     gA = sum_{b,t} g_t a_t dt_t h_{t-1}
 //   gD    = sum_{b,t} gy_t x_t
 //
-// What bounds it on the H100. The forward moves dt, x and y (and the
-// checkpoints) once: at falcon-mamba-7b's training shape (Bb 2, S 4096,
-// di 8192, ds 16) about 0.87 GB, 0.26 ms at 3.35 TB/s; it evaluates
-// Bb*S*di*ds expf, about as long on the SFUs. The backward is bound by
-// its instruction stream, not its bytes: at that shape 1.07e9 (state x
-// step) elements, each through three exp2 passes (carries, the forward
-// to the sub-chunk starts, the recompute; 0.8 ms on the SFUs alone),
-// about 25 float32 operations and 3 shuffles, and the index arithmetic
-// around them, against about 1.9 GB of traffic (dt, x, gy read twice, gx
-// and gdt written, the checkpoints and the carries: 0.6 ms).
+// What bounds it on the H100. The forward moves dt, x, B, C and y once:
+// at falcon-mamba-7b's training shape (Bb 2, S 4096, di 8192, ds 16)
+// about 0.81 GB, 0.24 ms at 3.35 TB/s (the checkpoints, 0.07 GB, come on
+// top). Its instruction stream is longer: Bb*S*di*ds = 1.07e9 (state x
+// step) elements, each an exp (with mamba2's stride-0 decay, zamba2, one
+// a row and step instead), h's multiply-add, the term and the readout's
+// product, plus a share of the sums over states. The backward is bound by
+// its instruction stream, not its bytes: at that shape 1.07e9 elements,
+// each through three exp2 passes (carries, the forward to the sub-chunk
+// starts, the recompute; 0.8 ms on the SFUs alone), about 25 float32
+// operations and 3 shuffles, and the index arithmetic around them,
+// against about 1.9 GB of traffic (dt, x, gy read twice, gx and gdt
+// written, the checkpoints and the carries: 0.6 ms).
 
 // Forward design. The TPU kernel keeps h resident in VMEM across a
 // sequential grid of sequence chunks. Blocks on the card run in no
-// order, so one thread owns one (b, r) for the whole call and walks t in
-// a loop with h[0:ds] and A[r, 0:ds] in registers. B_t and C_t are shared
-// by all rows, so a block stages a chunk of them through shared memory;
-// each thread also stages its own column of dt and x for the chunk, so
-// that a chunk's loads overlap instead of one load's latency being paid
-// at every step. The parallelism is only Bb*di threads (16384 for
-// falcon-mamba-7b, 4096 for zamba2-1.2b), each a sequential chain: the
-// kernel is latency-bound, far from its bound. For mamba2 (zamba2) every
-// row of a head has the same decay, so the 64 x 64 exps of a head and
-// step are the same number, recomputed here: a known waste. Later work:
-// a chunked (parallel-in-time) forward and exps shared per head.
+// order, so time stays sequential inside a lane, and the lanes go over
+// states: ds/4 lanes a row, 4 states a lane, RB rows a block (64 at ds 16,
+// 16 at ds 64) walking the whole sequence for one batch row. That is
+// Bb*di*ds/4 lanes (65 k at falcon-mamba-7b's rows, 65 k at zamba2-1.2b's,
+// each with 4 independent state chains) where one thread a row gave 16 k /
+// 4 k chains of ds. (min(ds, 32) lanes a row, the backward's layout, was
+// measured first: at 1 or 2 states a lane the readout's shuffles and the
+// B, C loads took most of the time.) A chunk-parallel forward, as the
+// backward, would need a second full pass of exps, so it is not the
+// design. A block copies the next 32 steps' dt and x ([step][row], 16-byte
+// cp.async) and B and C ([step][state]) into shared memory while it works
+// on these; a block-wide pass then lays out, per row and 4 steps, d and d
+// x, so that a lane reads 4 steps of each in one 16-byte load. For a
+// stride-0 decay (a_cs == 0) that pass stores exp(d A) in place of d: one
+// exp a row and step, shared by the row's lanes. The exp is expf of d A,
+// the plain version's, so the decays agree bit for bit: ex2.approx of d (A
+// log2 e) ran low on average near 1 and, summed over the long memories
+// of slow-decaying states, missed y's 1e-5 at falcon-mamba-7b's rows. A step is then, per state of a lane, that exp, h's multiply-add
+// and the readout's product with C; a lane keeps its states' h.C for a
+// batch of max(ds/4, 4) steps, then one reduce-scatter over the row's
+// lanes leaves one step's sum per lane (about one shuffle a step). Those
+// sums, and the state before every 64 steps (hc), go through shared
+// memory, so that y = sum + D x and hc are stored contiguous along rows,
+// 16 bytes a thread (4 bytes where di or a pointer is off 16 bytes: the
+// launcher picks). No atomics: the same inputs give the same bits.
 //
 // Backward design: the adjoint is linear, so the chunks the forward
 // checkpoints run in parallel. Let chunk k cover steps t0..t1 and lam_k
@@ -89,7 +106,6 @@
 
 namespace {
 
-constexpr int kThreads = 64;   // rows per forward block, one thread a row
 constexpr int kChunk = 64;     // steps per checkpoint / B, C staging chunk
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSub = 8;        // steps per backward sub-chunk (recompute)
@@ -101,86 +117,6 @@ constexpr int kCarryThreads = 128;
 // a staged row of dt, x or gy: kChunk steps, padded so that the rows of
 // a warp fall in other banks
 constexpr int kStageRow = kChunk + 4;
-
-__device__ __forceinline__ void stage_bc(float* sb, float* sc,
-                                         const float* __restrict__ Bm,
-                                         const float* __restrict__ Cm,
-                                         size_t off, int n) {
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    sb[e] = Bm[off + e];
-    sc[e] = Cm[off + e];
-  }
-}
-
-// This thread's column of a chunk of a (.., di) stream: dst[tt][tid] =
-// src[o0 + tt * di]. Every thread reads back only its own column, so no
-// barrier is needed; the L loads are independent and overlap.
-__device__ __forceinline__ void stage_col(float* dst,
-                                          const float* __restrict__ src,
-                                          size_t o0, int L, int di) {
-  for (int tt = 0; tt < L; ++tt)
-    dst[tt * kThreads + threadIdx.x] = src[o0 + (size_t)tt * di];
-}
-
-template <int DS>
-constexpr size_t fwd_smem() {
-  return (2 * kChunk * DS + 2 * kChunk * kThreads) * sizeof(float);
-}
-
-template <int DS>
-__global__ void __launch_bounds__(kThreads)
-ssm_scan_fwd_kernel(const float* __restrict__ dt,
-                    const float* __restrict__ x,
-                    const float* __restrict__ A, long long a_rs,
-                    long long a_cs, const float* __restrict__ Bm,
-                    const float* __restrict__ Cm,
-                    const float* __restrict__ D, float* __restrict__ y,
-                    float* __restrict__ hc, int S, int di, int nC) {
-  extern __shared__ float smem[];
-  float* sb = smem;                         // [kChunk][DS]
-  float* sc = sb + kChunk * DS;             // [kChunk][DS]
-  float* sdt = sc + kChunk * DS;            // [kChunk][kThreads]
-  float* sx = sdt + kChunk * kThreads;      // [kChunk][kThreads]
-  const int b = blockIdx.y;
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool has_row = r < di;
-
-  float a[DS], h[DS];
-  float dr = 0.f;
-#pragma unroll
-  for (int s = 0; s < DS; ++s) {
-    h[s] = 0.f;
-    a[s] = has_row ? A[r * a_rs + s * a_cs] : 0.f;
-  }
-  if (has_row) dr = D[r];
-
-  for (int k = 0; k < nC; ++k) {
-    const int t0 = k * kChunk;
-    const int L = min(kChunk, S - t0);
-    __syncthreads();                  // the previous chunk is consumed
-    stage_bc(sb, sc, Bm, Cm, ((size_t)b * S + t0) * DS, L * DS);
-    __syncthreads();
-    if (!has_row) continue;
-    const size_t o0 = ((size_t)b * S + t0) * di + r;
-    stage_col(sdt, dt, o0, L, di);
-    stage_col(sx, x, o0, L, di);
-    float* dst = hc + ((size_t)b * nC + k) * DS * di + r;
-#pragma unroll
-    for (int s = 0; s < DS; ++s) dst[(size_t)s * di] = h[s];
-    for (int tt = 0; tt < L; ++tt) {
-      const float d = sdt[tt * kThreads + threadIdx.x];
-      const float xv = sx[tt * kThreads + threadIdx.x];
-      const float dx = d * xv;
-      float acc = 0.f;
-#pragma unroll
-      for (int s = 0; s < DS; ++s) {
-        h[s] = expf(d * a[s]) * h[s] + dx * sb[tt * DS + s];
-        acc += h[s] * sc[tt * DS + s];
-      }
-      y[o0 + (size_t)tt * di] = acc + dr * xv;
-    }
-  }
-}
 
 // Reduce-scatter over the lane bits o, o/2, .., omin (powers of two):
 // stage by stage each lane keeps half of its n values, adding its
@@ -274,6 +210,256 @@ __device__ __forceinline__ void copy_commit() {
 template <int N>
 __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16-byte asynchronous copy, zero-filled (nothing read) when !ok; both
+// addresses 16-byte aligned
+__device__ __forceinline__ void copy_async16(float* dst, const float* src,
+                                             bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+// G consecutive floats, G a multiple of 4 (16-byte aligned): G/4 16-byte
+// loads / stores
+template <int G>
+__device__ __forceinline__ void ldv(float (&v)[G], const float* p) {
+#pragma unroll
+  for (int i = 0; i < G; i += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + i);
+    v[i] = f.x; v[i + 1] = f.y; v[i + 2] = f.z; v[i + 3] = f.w;
+  }
+}
+template <int G>
+__device__ __forceinline__ void stv(float* p, const float (&v)[G]) {
+#pragma unroll
+  for (int i = 0; i < G; i += 4)
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+}
+
+constexpr int imax(int a, int b) { return a > b ? a : b; }
+constexpr int kFwdSteps = 32;             // steps staged at a time
+constexpr int kFwdRow = kFwdSteps + 4;    // a row's staged steps, padded
+
+// The forward's lanes: TPR = DS/G lanes a row, G states a lane (s =
+// lane_in_row * G + i), RW rows a warp, RB rows a block; the readout sums
+// N >= 4 steps a batch. After its reduce-scatter a lane holds K = N/TPR
+// sums (one where TPR >= N): those of steps i + K * ((lane in row) >>
+// SH), i < K; lanes that differ only in the low SH bits hold copies.
+template <int DS>
+struct FwdLanes {
+  static constexpr int G = 4;
+  static constexpr int TPR = DS / G;
+  static constexpr int LT = ilog2(TPR);
+  static constexpr int RW = 32 / TPR;
+  static constexpr int RB = imin(64, 8 * RW);
+  static constexpr int NT = RB / RW * 32;           // threads a block
+  static constexpr int RP = RB + 4;                 // [step][row] tiles
+  static constexpr int N = imax(TPR, 4);
+  static constexpr int K = N / TPR > 1 ? N / TPR : 1;
+  static constexpr int SH = LT > ilog2(N) ? LT - ilog2(N) : 0;
+  // shared memory (floats): dt, x [2 stages][2][kFwdSteps][RP]; B, C [2
+  // stages][2][kFwdSteps][DS]; d (or the decay), d x [2][RB][kFwdRow]; the
+  // sums of y [kFwdSteps][RP]; the state before the chunk [DS][RB]; D and
+  // A of the rows [2][RB]
+  static constexpr int in_floats = 2 * 2 * kFwdSteps * RP;
+  static constexpr int bc_floats = 2 * 2 * kFwdSteps * DS;
+  static constexpr int q_floats = 2 * RB * kFwdRow;
+  static constexpr int smem_floats = in_floats + bc_floats + q_floats +
+                                     kFwdSteps * RP + DS * RB + 2 * RB;
+};
+
+// One block per (tile of RB rows, batch row b), the whole sequence,
+// kFwdSteps steps at a time; the state before every kChunk steps -> hc
+// (Bb, nC, DS, di). kRow: a stride-0 decay (one exp a row and step);
+// kVec: di % 4 == 0 and dt, x, B, C, y, hc 16-byte aligned (16-byte
+// copies and stores).
+template <int DS, bool kRow, bool kVec>
+__global__ void __launch_bounds__(FwdLanes<DS>::NT, 2)
+ssm_scan_fwd_kernel(const float* __restrict__ dt,
+                    const float* __restrict__ x,
+                    const float* __restrict__ A, long long a_rs,
+                    long long a_cs, const float* __restrict__ Bm,
+                    const float* __restrict__ Cm,
+                    const float* __restrict__ D, float* __restrict__ y,
+                    float* __restrict__ hc, int S, int di, int nC) {
+  using Ln = FwdLanes<DS>;
+  constexpr int TPR = Ln::TPR, RB = Ln::RB, RP = Ln::RP, NT = Ln::NT;
+  constexpr int N = Ln::N, K = Ln::K, G = Ln::G, Q = RB / 4, T = kFwdSteps;
+  constexpr int GA = kRow ? 1 : G;                 // decays a lane holds
+  extern __shared__ __align__(16) float smem[];
+  float* sio = smem;                               // [2][2][T][RP]
+  float* sbc = sio + Ln::in_floats;                // [2][2][T][DS]
+  float* sq = sbc + Ln::bc_floats;                 // [2][RB][kFwdRow]
+  float* sy = sq + Ln::q_floats;                   // [T][RP]
+  float* shc = sy + T * RP;                        // [DS][RB]
+  float* sD = shc + DS * RB;                       // [RB]
+  float* sA = sD + RB;                             // [RB]
+  const int b = blockIdx.y, r0 = blockIdx.x * RB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lr = lane % TPR, rib = warp * Ln::RW + lane / TPR;
+  const int s0 = lr * G, r = r0 + rib;
+  const size_t bs = (size_t)b * S;
+
+  // the copies of the steps from t0 into stage st (one commit group);
+  // rows past di and steps past S zero-filled
+  auto load = [&](int t0, int st) {
+    const int L = min(T, S - t0);
+    float* si = sio + st * 2 * T * RP;
+    float* sb = sbc + st * 2 * T * DS;
+    if constexpr (kVec) {
+      for (int e = tid; e < 2 * T * Q; e += NT) {
+        const int q = e / (T * Q), tt = e / Q % T, c = 4 * (e % Q);
+        const float* src = q ? x : dt;
+        const bool ok = tt < L && r0 + c < di;
+        copy_async16(si + (q * T + tt) * RP + c,
+                     ok ? src + (bs + t0 + tt) * di + r0 + c : src, ok);
+      }
+      for (int e = tid; e < 2 * T * DS / 4; e += NT) {
+        const int q = e / (T * DS / 4), f = 4 * (e % (T * DS / 4));
+        const float* src = q ? Cm : Bm;
+        const bool ok = f / DS < L;
+        copy_async16(sb + q * T * DS + f, ok ? src + (bs + t0) * DS + f : src,
+                     ok);
+      }
+    } else {
+      for (int e = tid; e < 2 * T * RB; e += NT) {
+        const int q = e / (T * RB), tt = e / RB % T, c = e % RB;
+        const float* src = q ? x : dt;
+        const bool ok = tt < L && r0 + c < di;
+        copy_async4(si + (q * T + tt) * RP + c,
+                    ok ? src + (bs + t0 + tt) * di + r0 + c : src, ok);
+      }
+      for (int e = tid; e < 2 * T * DS; e += NT) {
+        const int q = e / (T * DS), f = e % (T * DS);
+        const float* src = q ? Cm : Bm;
+        const bool ok = f / DS < L;
+        copy_async4(sb + q * T * DS + f, ok ? src + (bs + t0) * DS + f : src,
+                    ok);
+      }
+    }
+    copy_commit();
+  };
+
+  load(0, 0);
+  for (int e = tid; e < RB; e += NT) {
+    const bool ok = r0 + e < di;
+    sD[e] = ok ? D[r0 + e] : 0.f;
+    sA[e] = ok ? A[(r0 + e) * a_rs] : 0.f;
+  }
+  float Al[GA], h[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) h[i] = 0.f;
+  if constexpr (!kRow) {
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      Al[i] = r < di ? A[r * a_rs + (s0 + i) * a_cs] : 0.f;
+  }
+  const float* qa = sq + rib * kFwdRow;
+  const float* qx = sq + (RB + rib) * kFwdRow;
+  for (int t0 = 0, c = 0; t0 < S; t0 += T, ++c) {
+    const int st = c & 1, L = min(T, S - t0);
+    const bool ckpt = t0 % kChunk == 0;
+    const float* cdt = sio + st * 2 * T * RP;
+    const float* cx = cdt + T * RP;
+    const float* cb = sbc + st * 2 * T * DS;
+    copy_wait<0>();
+    __syncthreads();          // these steps landed; the last ones written out
+    if (ckpt) stv(shc + s0 * RB + G * rib, h);   // [DS/G][RB][G]
+    // per row and 4 steps: d (the decay for a stride-0 A) and d x, read
+    // down the staged columns (consecutive rows: no bank conflict) and
+    // stored 16 bytes at a time
+    for (int e = tid; e < T / 4 * RB; e += NT) {
+      const int row = e % RB, q4 = 4 * (e / RB);
+      float dq[4], xq[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float d = cdt[(q4 + k) * RP + row];
+        dq[k] = kRow ? expf(d * sA[row]) : d;
+        xq[k] = __fmul_rn(d, cx[(q4 + k) * RP + row]);
+      }
+      stv(sq + row * kFwdRow + q4, dq);
+      stv(sq + (RB + row) * kFwdRow + q4, xq);
+    }
+    __syncthreads();
+    if (t0 + T < S) load(t0 + T, st ^ 1);
+    for (int u0 = 0; u0 < L; u0 += N) {     // steps past L run on zeros
+      float v[N];
+#pragma unroll
+      for (int g = 0; g < N; g += 4) {
+        float a4[4], x4[4];
+        ldv(a4, qa + u0 + g);
+        ldv(x4, qx + u0 + g);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int u = u0 + g + j;
+          float bq[G], cq[G];
+          ldv(bq, cb + u * DS + s0);
+          ldv(cq, cb + (T + u) * DS + s0);
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            float a;
+            if constexpr (kRow) a = a4[j];
+            else a = expf(a4[j] * Al[i]);
+            h[i] = __fmaf_rn(a, h[i], __fmul_rn(x4[j], bq[i]));
+          }
+          float p = __fmul_rn(h[0], cq[0]);
+#pragma unroll
+          for (int i = 1; i < G; ++i) p = __fmaf_rn(h[i], cq[i], p);
+          v[g + j] = p;
+        }
+      }
+      reduce_scatter<N, N, TPR / 2, 1>(v, lane);
+      if ((lr & ((1 << Ln::SH) - 1)) == 0) {
+#pragma unroll
+        for (int i = 0; i < K; ++i)
+          sy[(u0 + i + K * (lr >> Ln::SH)) * RP + rib] = v[i];
+      }
+    }
+    __syncthreads();
+    // y = sum + D x, and the state before the chunk, contiguous along rows
+    float* hk = hc + (size_t)(b * nC + t0 / kChunk) * DS * di;
+    if constexpr (kVec) {
+      for (int e = tid; e < L * Q; e += NT) {
+        const int tt = e / Q, c = 4 * (e % Q);
+        if (r0 + c < di) {
+          float s4[4], x4[4], d4[4];
+          ldv(s4, sy + tt * RP + c);
+          ldv(x4, cx + tt * RP + c);
+          ldv(d4, sD + c);
+          *reinterpret_cast<float4*>(y + (bs + t0 + tt) * di + r0 + c) =
+              make_float4(__fmaf_rn(d4[0], x4[0], s4[0]),
+                          __fmaf_rn(d4[1], x4[1], s4[1]),
+                          __fmaf_rn(d4[2], x4[2], s4[2]),
+                          __fmaf_rn(d4[3], x4[3], s4[3]));
+        }
+      }
+      for (int e = tid; ckpt && e < DS * Q; e += NT) {
+        const int s = e / Q, c = 4 * (e % Q);
+        if (r0 + c < di) {
+          float h4[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            h4[q] = shc[(s / G) * G * RB + G * (c + q) + s % G];
+          *reinterpret_cast<float4*>(hk + (size_t)s * di + r0 + c) =
+              make_float4(h4[0], h4[1], h4[2], h4[3]);
+        }
+      }
+    } else {
+      for (int e = tid; e < L * RB; e += NT) {
+        const int tt = e / RB, c = e % RB;
+        if (r0 + c < di)
+          y[(bs + t0 + tt) * di + r0 + c] =
+              __fmaf_rn(sD[c], cx[tt * RP + c], sy[tt * RP + c]);
+      }
+      for (int e = tid; ckpt && e < DS * RB; e += NT) {
+        const int s = e / RB, c = e % RB;
+        if (r0 + c < di)
+          hk[(size_t)s * di + r0 + c] = shc[(s / G) * G * RB + G * c + s % G];
+      }
+    }
+  }
 }
 
 // Phase 1, one thread per (b, chunk k >= 1, row r), its DS states in
@@ -751,19 +937,20 @@ ssm_bwd_reduce_ad(const float* __restrict__ gA_part,
   }
 }
 
-template <int DS>
+template <int DS, bool kRow, bool kVec>
 int fwd(const float* dt, const float* x, const float* A, long long a_rs,
         long long a_cs, const float* Bm, const float* Cm, const float* D,
         float* y, float* hc, int Bb, int S, int di, cudaStream_t st) {
+  using Ln = FwdLanes<DS>;
   const int nC = (S + kChunk - 1) / kChunk;
-  const dim3 grid((di + kThreads - 1) / kThreads, Bb);
-  constexpr size_t smem = fwd_smem<DS>();
-  const int rc = (int)cudaFuncSetAttribute(
-      ssm_scan_fwd_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (rc) return rc;
-  ssm_scan_fwd_kernel<DS><<<grid, kThreads, smem, st>>>(
-      dt, x, A, a_rs, a_cs, Bm, Cm, D, y, hc, S, di, nC);
+  constexpr size_t smem = sizeof(float) * Ln::smem_floats;
+  static const int attr = (int)cudaFuncSetAttribute(
+      ssm_scan_fwd_kernel<DS, kRow, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr) return attr;
+  ssm_scan_fwd_kernel<DS, kRow, kVec>
+      <<<dim3((di + Ln::RB - 1) / Ln::RB, Bb), Ln::NT, smem, st>>>(
+          dt, x, A, a_rs, a_cs, Bm, Cm, D, y, hc, S, di, nC);
   return (int)cudaGetLastError();
 }
 
@@ -839,14 +1026,25 @@ extern "C" int ssm_scan_fwd_launch(const void* dt, const void* x,
                                    void* stream) {
   if (Bb <= 0 || S <= 0 || di <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte copies and stores where every row start is 16-byte aligned;
+  // mamba2's decay is one number a row (a stride-0 view): one exp a step
+  const bool vec = di % 4 == 0 &&
+                   ((uintptr_t)dt | (uintptr_t)x | (uintptr_t)Bm |
+                    (uintptr_t)Cm | (uintptr_t)y | (uintptr_t)hc) % 16 == 0;
+#define REPRO_SSM_FWD_ARGS                                                  \
+  static_cast<const float*>(dt), static_cast<const float*>(x),             \
+      static_cast<const float*>(A), a_rs, a_cs,                            \
+      static_cast<const float*>(Bm), static_cast<const float*>(Cm),        \
+      static_cast<const float*>(D), static_cast<float*>(y),                \
+      static_cast<float*>(hc), Bb, S, di, st
 #define REPRO_SSM_FWD(DSV)                                                  \
-  fwd<DSV>(static_cast<const float*>(dt), static_cast<const float*>(x),    \
-           static_cast<const float*>(A), a_rs, a_cs,                       \
-           static_cast<const float*>(Bm), static_cast<const float*>(Cm),   \
-           static_cast<const float*>(D), static_cast<float*>(y),           \
-           static_cast<float*>(hc), Bb, S, di, st)
+  (a_cs == 0 ? (vec ? fwd<DSV, true, true>(REPRO_SSM_FWD_ARGS)             \
+                    : fwd<DSV, true, false>(REPRO_SSM_FWD_ARGS))           \
+             : (vec ? fwd<DSV, false, true>(REPRO_SSM_FWD_ARGS)            \
+                    : fwd<DSV, false, false>(REPRO_SSM_FWD_ARGS)))
   REPRO_SSM_DISPATCH(REPRO_SSM_FWD)
 #undef REPRO_SSM_FWD
+#undef REPRO_SSM_FWD_ARGS
 }
 
 extern "C" int ssm_scan_bwd_launch(

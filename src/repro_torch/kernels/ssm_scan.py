@@ -11,7 +11,8 @@ in float32, y cast to x's dtype. dt/x: (Bb, S, di); A: (di, ds); B/C:
 (Bb, S, ds); D: (di,).
 
 - :func:`ssm_scan_ref` is the plain version; on the CPU its gradient is
-  torch autograd's.
+  torch autograd's. :func:`ssm_scan_fwd_ref` is the plain twin of the
+  forward kernel's whole output (y and the stored states).
 - :func:`ssm_scan` runs ``csrc/ssm_scan.cu`` through :class:`SSMScan`, a
   ``torch.autograd.Function`` whose forward and backward are both
   kernels (which TPU kernel it replaces, what bounds it and its design
@@ -49,6 +50,27 @@ def ssm_scan_ref(dt, x, A, B, C, D):
         ys.append(torch.sum(h * C32[:, t, None, :], dim=-1)
                   + D32[None] * x_t)
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssm_scan_fwd_ref(dt, x, A, B, C, D):
+    """Plain version of :func:`ssm_scan_fwd`, the recurrence of
+    :func:`ssm_scan_ref` step for step: (y (Bb, S, di) float32, the state
+    before every CHUNK steps (Bb, ceil(S/CHUNK), ds, di) float32)."""
+    dt32, x32, A32 = dt.float(), x.float(), A.float()
+    B32, C32, D32 = B.float(), C.float(), D.float()
+    Bb, S, di = x.shape
+    h = torch.zeros((Bb, di, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys, hc = [], []
+    for t in range(S):
+        if t % CHUNK == 0:
+            hc.append(h.transpose(1, 2))
+        dt_t, x_t = dt32[:, t], x32[:, t]
+        dA = torch.exp(dt_t[:, :, None] * A32[None])
+        h = dA * h + (dt_t * x_t)[:, :, None] * B32[:, t, None, :]
+        ys.append(torch.sum(h * C32[:, t, None, :], dim=-1)
+                  + D32[None] * x_t)
+    return torch.stack(ys, dim=1), torch.stack(hc, dim=1)
 
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -22,13 +22,15 @@ rounding of p may flip — their total probability per row must stay
 below 1e-5 (the two masks' sampling distributions are that close in
 total variation). Paged SSM update: y on valid rows and the non-scratch
 pool pages within 1e-5 of the plain version's largest magnitude (nvcc
-contracts multiply-adds into FMAs and the card's expf is not the CPU's,
-over up to S sequential steps); pages outside the write plan bit-equal;
-the pool updated in place; a second launch bit-identical. Selective scan: y
+contracts multiply-adds into FMAs and sums in another order, over up to
+S sequential steps); pages outside the write plan bit-equal;
+the pool updated in place; a second launch bit-identical; a call split
+in two bit-identical to one call (chunked prefill == serial, the port's
+bitwise contract). Selective scan: y and the forward's stored states
 within 1e-5 and each of the six cotangents within 1e-4 of the plain
-version's largest magnitude (FMAs, expf, and float32 sums over up to
-8192 rows and S steps in another order); a second backward
-bit-identical. The input builders are shared with
+version's largest magnitude (FMAs, the backward's exp2, and float32 sums
+over up to 8192 rows and S steps in another order); a second forward and
+a second backward bit-identical. The input builders are shared with
 ``test_torch_kernels.py``, ``test_torch_ssm.py`` and
 ``test_torch_ssm_train.py``.
 """
@@ -502,6 +504,68 @@ def test_paged_ssm_update_matches_plain_on_card(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 7, 25, 39])
+@pytest.mark.parametrize("order,R,ds", [("dbx", 8192, 16), ("dxb", 4096, 64)])
+def test_paged_ssm_update_split_call_is_bitwise_one_call_on_card(
+        order, R, ds, split):
+    """Chunked prefill == one call, bit for bit, on the card: 40 tokens
+    a slot at full-width rows (mamba2's stride-0 decay for "dxb"), page
+    size 16, split in two calls at ``split`` (inside a page; the second
+    call crosses a page boundary; at 1 and 39 one of the calls is a
+    single step, which the launcher gives its decode kernel) give y and
+    the pool bit-identical to one call; an idle slot keeps its frozen
+    readout."""
+    _need_card()
+    S, lengths, n_new = 40, [0, 9, 16, 3], [40, 40, 0, 40]
+    dt, x, Bm, Cm, A, pool, table, lens, nn = to_torch(*ssm_case(
+        R + split, 4, S, R, ds, 4, lengths, n_new), device="cuda")
+    if order == "dxb":
+        A = A[:, :1].expand(R, ds)
+    pools = [pool.clone(), pool.clone()]
+    one = tps.paged_ssm_update(dt, x, Bm, Cm, A, pools[0],
+                               *ssm_plan(table, lens, nn, 16, S), nn,
+                               order=order)
+    ys, at = [], lens
+    for lo, hi in ((0, split), (split, S)):
+        n = torch.clamp(nn - lo, 0, hi - lo).to(torch.int32)
+        part = [t[:, lo:hi].contiguous() for t in (dt, x, Bm, Cm)]
+        ys.append(tps.paged_ssm_update(
+            *part, A, pools[1], *ssm_plan(table, at, n, 16, hi - lo), n,
+            order=order))
+        at = (at + n).to(torch.int32)
+    torch.cuda.synchronize()
+    assert not torch.equal(pools[0], pool)
+    assert torch.equal(torch.cat(ys, dim=1), one)
+    assert torch.equal(pools[1], pools[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 4])
+def test_paged_ssm_update_writes_every_window_of_a_step_on_card(S):
+    """A plan with two windows ending at one step (no compact plan has
+    one) gets that step's state in both pages, as the plain version
+    writes it; at S = 1 too (the decode kernel)."""
+    _need_card()
+    dt, x, Bm, Cm, A, pool, table, lens, nn = to_torch(*ssm_case(
+        31 + S, 2, S, 8, 4, 3, [2, 5], [S, S]), device="cuda")
+    pool = torch.cat([pool, pool[:1]])                # page 7: no table's
+    rp, live, phys_w, t_w = ssm_plan(table, lens, nn, 4, S)
+    phys_w = torch.cat([phys_w, torch.tensor([[7], [0]], device="cuda")], 1)
+    t_w = torch.cat([t_w, torch.full((2, 1), S - 1, device="cuda")], 1)
+    pools = [pool.clone(), pool.clone()]
+    want = tps.paged_ssm_update_ref(dt, x, Bm, Cm, A, pools[0], rp, live,
+                                    phys_w, t_w, nn, order="dbx")
+    got = tps.paged_ssm_update(dt, x, Bm, Cm, A, pools[1], rp, live, phys_w,
+                               t_w, nn, order="dbx")
+    torch.cuda.synchronize()
+    last = phys_w[0, :-1][(t_w[0, :-1] == S - 1) & (phys_w[0, :-1] != 0)]
+    assert last.numel() == 1
+    assert torch.equal(pools[1][7], pools[1][last[0]])
+    assert _scaled_err(got, want) <= 1e-5
+    assert _scaled_err(pools[1][1:], pools[0][1:]) <= 1e-5
+
+
+@pytest.mark.gpu
 def test_mamba2_fused_updates_pool_view_in_place_on_card():
     """The mixer hands the kernel a (n_pages, R, ds) *view* of the
     (n_pages, nh, headdim, ds) pool: the update lands in the pool, and
@@ -596,3 +660,50 @@ def test_ssm_scan_backward_is_deterministic_on_card(di, ds, broadcast_A):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1000, 4096])
+@pytest.mark.parametrize("Bb,di,ds,broadcast_A", [(2, 8192, 16, False),
+                                                  (1, 4096, 64, True)])
+def test_ssm_scan_fwd_checkpoints_match_plain_states_on_card(
+        Bb, di, ds, broadcast_A, S):
+    """The forward's stored states hc (the state before every CHUNK
+    steps, where the backward starts its chunks) and y within 1e-5 of
+    the plain recurrence's largest magnitude, at falcon-mamba-7b's and
+    zamba2-1.2b's full-width rows (stride-0 decay); a second forward
+    gives the same bits."""
+    _need_card()
+    ins = to_torch(*ssm_scan_case(S + di, Bb, S, di, ds)[:6], device="cuda")
+    if broadcast_A:
+        ins[2] = ins[2][:, :1].expand(di, ds)
+    want_y, want_hc = tss.ssm_scan_fwd_ref(*ins)
+    y, hc = tss.ssm_scan_fwd(*ins)
+    y2, hc2 = tss.ssm_scan_fwd(*ins)
+    torch.cuda.synchronize()
+    assert hc.shape == want_hc.shape == (Bb, -(-S // tss.CHUNK), ds, di)
+    assert _scaled_err(hc, want_hc) <= 1e-5
+    assert _scaled_err(y, want_y) <= 1e-5
+    assert torch.equal(y, y2) and torch.equal(hc, hc2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("di,offset", [(96, 0), (90, 0), (96, 1)])
+def test_ssm_scan_fwd_vector_and_scalar_paths_match_plain_on_card(
+        di, offset):
+    """Rows a multiple of 4 with 16-byte aligned dt, x take the 16-byte
+    copies; di = 90, or dt and x starting 4 bytes off, the 4-byte ones.
+    Both give y and hc within 1e-5 of the plain version's largest
+    magnitude."""
+    _need_card()
+    ins = to_torch(*ssm_scan_case(di + offset, 2, 150, di, 16)[:6],
+                   device="cuda")
+    for i in (0, 1) if offset else ():
+        buf = torch.empty(ins[i].numel() + offset, device="cuda")
+        ins[i] = buf[offset:].view(ins[i].shape).copy_(ins[i])
+        assert ins[i].data_ptr() % 16
+    want_y, want_hc = tss.ssm_scan_fwd_ref(*ins)
+    y, hc = tss.ssm_scan_fwd(*ins)
+    torch.cuda.synchronize()
+    assert _scaled_err(y, want_y) <= 1e-5
+    assert _scaled_err(hc, want_hc) <= 1e-5

@@ -30,7 +30,10 @@ import torch
 from repro.configs.reduce import reduce_config as j_reduce
 from repro.configs.registry import get_config as j_get_config
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.paged_ssm import max_write_pages as j_max_write_pages
+from repro.kernels.paged_ssm import paged_ssm_update_ref as j_paged_ref
+from repro.kernels.ssm_scan import ssm_scan as j_ssm_scan
 from repro.models import ssm as jssm
 from repro.models import transformer as jtr
 from repro.serve.engine import Request as JRequest
@@ -40,6 +43,7 @@ from repro_torch.configs.registry import get_config as t_get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_ssm as tps
+from repro_torch.kernels import ssm_scan as tss
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttr
@@ -47,7 +51,8 @@ from repro_torch.serve.cache import (HybridBackend, SSMStateBackend,
                                      make_backend)
 from repro_torch.serve.engine import Request as TRequest
 from repro_torch.serve.engine import ServeEngine as TEngine
-from test_torch_gpu import SSM_CASES, ssm_case, ssm_plan, to_torch
+from test_torch_gpu import (SSM_CASES, ssm_case, ssm_plan, ssm_scan_case,
+                            to_torch)
 
 torch.set_num_threads(2)
 MAX_LEN, MAX_BATCH, PAGE = 48, 3, 4
@@ -145,6 +150,177 @@ def test_paged_ssm_dispatch_cpu_plain_and_kernel_refuses_cpu():
     assert tps.paged_ssm_update.launches == before
     for S, ps in ((1, 16), (64, 16), (256, 16), (5, 4)):
         assert tps.max_write_pages(S, ps) == j_max_write_pages(S, ps)
+
+
+# ---------------------------------------------------------------------------
+# 1b. The kernels' lane plans (csrc/ssm_scan.cu forward, csrc/paged_ssm.cu),
+#     emulated in float32 on the CPU
+# ---------------------------------------------------------------------------
+
+def _lane_sum(p):
+    """Sum over the last axis (a row's lanes) in the order of the kernels'
+    reduce-scatter: lanes l and l + n/2 first, then those pairs at n/4,
+    down to neighbours; the same order for every step of a batch."""
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
+def _row_readout(h, c, lanes):
+    """sum_s h[.., s] c[.., s] as the kernels read it out: each of
+    ``lanes`` lanes sums its ds/lanes consecutive states in order, then
+    the lanes' partials go through :func:`_lane_sum`."""
+    p = (h * c).reshape(h.shape[:-1] + (lanes, -1))
+    part = p[..., 0]
+    for i in range(1, p.shape[-1]):
+        part = part + p[..., i]
+    return _lane_sum(part)
+
+
+def _decay(d, A, stride0):
+    """exp(d A) as the kernels take it: one exp a (row, state), or a row
+    (broadcast over states) for a stride-0 decay."""
+    if stride0:
+        return torch.exp(d * A[:, 0])[..., None]
+    return torch.exp(d[..., None] * A)
+
+
+def _scan_fwd_lanes(dt, x, A, B, C, D, stride0):
+    """The forward kernel's plan: ds/4 lanes a row, 4 states a lane; one
+    exp a (row, state, step), or a (row, step) for a stride-0 decay, h's
+    update (d x) B, the readout by lanes, y = sum + D x; the state before
+    every CHUNK steps kept as (Bb, nC, ds, di)."""
+    Bb, S, di = x.shape
+    lanes = A.shape[1] // 4
+    h = torch.zeros(Bb, di, A.shape[1])
+    ys, hc = [], []
+    for t in range(S):
+        if t % tss.CHUNK == 0:
+            hc.append(h.transpose(1, 2))
+        d = dt[:, t]
+        h = _decay(d, A, stride0) * h \
+            + (d * x[:, t])[..., None] * B[:, t, None, :]
+        ys.append(_row_readout(h, C[:, t, None, :], lanes) + D * x[:, t])
+    return torch.stack(ys, dim=1), torch.stack(hc, dim=1)
+
+
+def _paged_lanes(dt, x, Bm, Cm, A, h_pool, read_page, live, phys_w, t_w,
+                 n_new, *, order, stride0):
+    """The paged kernel's plan: ds/G lanes a row, G states a lane (4, 8
+    at ds 64); h from
+    the read page (zero where not live), the masked update with the
+    order's product grouping and one exp a (row, step) for a stride-0
+    "dxb" decay, the readout by lanes, each snapshot written after its
+    step. Updates h_pool in place, returns y."""
+    B, S, R = dt.shape
+    ds = h_pool.shape[-1]
+    lanes = ds // (8 if ds == 64 else 4)
+    h = torch.where(live.bool()[:, None, None], h_pool[read_page.long()],
+                    torch.zeros(()))
+    ys = []
+    for t in range(S):
+        d, xv, b_t = dt[:, t], x[:, t], Bm[:, t, None, :]
+        a = _decay(d, A, stride0 and order == "dxb")
+        term = (d[..., None] * b_t) * xv[..., None] if order == "dbx" \
+            else (d * xv)[..., None] * b_t
+        h = torch.where((t < n_new)[:, None, None], a * h + term, h)
+        ys.append(_row_readout(h, Cm[:, t, None, :], lanes))
+        for b, w in zip(*torch.nonzero((t_w == t) & (phys_w != 0),
+                                       as_tuple=True)):
+            h_pool[phys_w[b, w]] = h[b]
+    return torch.stack(ys, dim=1)
+
+
+# (Bb, S, di, ds, stride-0 decay, JAX chunk): three 64-step chunks, a
+# ragged tail, 4 lanes a row (ds 16), 16 (ds 64, mamba2's stride-0
+# decay), 2 with a short sequence
+SCAN_LANES_CASES = [(2, 192, 12, 16, False, 64), (1, 150, 8, 64, True, 50),
+                    (2, 70, 6, 8, False, 35)]
+
+
+@pytest.mark.parametrize("Bb,S,di,ds,stride0,chunk", SCAN_LANES_CASES)
+def test_scan_fwd_lanes_plan_matches_jax(Bb, S, di, ds, stride0, chunk):
+    """The forward kernel's lane plan, emulated in float32, gives y within
+    1e-5 of max|y| of JAX's Pallas kernel (interpret mode) and its jnp
+    oracle, and the stored states within 1e-5 of the plain recurrence's
+    (``ssm_scan_fwd_ref``, whose y is ``ssm_scan_ref``'s bit for bit)."""
+    dt, x, A, B, C, D, _ = ssm_scan_case(3 * S + ds, Bb, S, di, ds)
+    if stride0:
+        A = np.repeat(A[:, :1], ds, axis=1)
+    ins = to_torch(dt, x, A, B, C, D)
+    got_y, got_hc = _scan_fwd_lanes(*ins, stride0)
+    want_y, want_hc = tss.ssm_scan_fwd_ref(*ins)
+    assert torch.equal(want_y, tss.ssm_scan_ref(*ins))
+    assert got_hc.shape == want_hc.shape == (Bb, -(-S // 64), ds, di)
+    assert (got_hc - want_hc).abs().max() <= 1e-5 * want_hc.abs().max()
+    jargs = [jnp.asarray(a) for a in (dt, x, A, B, C, D)]
+    for want in (j_ssm_scan(*jargs, chunk=chunk, interpret=True),
+                 jref.ssm_scan_ref(*jargs)):
+        want = np.asarray(want)
+        assert np.abs(got_y.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _paged_lanes_case(order, S, lengths, n_new, ds, seed):
+    """ssm_case at B=2, R=8, page size 4, 3 pages a slot (as
+    test_torch_gpu's SSM_CASES); mamba2's A one decay a row."""
+    dt, x, Bm, Cm, A, pool, table, lens, nn = ssm_case(
+        seed, 2, S, 8, ds, 3, lengths, n_new)
+    if order == "dxb":
+        A = np.repeat(A[:, :1], ds, axis=1)
+    return dt, x, Bm, Cm, A, pool, table, lens, nn
+
+
+@pytest.mark.parametrize("ds", [4, 16, 64])
+@pytest.mark.parametrize("order", ["dbx", "dxb"])
+@pytest.mark.parametrize("S,lengths,n_new", SSM_CASES)
+def test_paged_lanes_plan_matches_jax(order, S, lengths, n_new, ds):
+    """The paged kernel's lane plan (4 or 8 states a lane), emulated in
+    float32, gives y on valid rows and the non-scratch pages within 1e-5
+    of max|JAX| of ``repro.kernels.paged_ssm.paged_ssm_update_ref``."""
+    dt, x, Bm, Cm, A, pool, table, lens, nn = _paged_lanes_case(
+        order, S, lengths, n_new, ds, 5 * S + ds)
+    jplan = _jax_plan(table, lens, nn, 4, S)
+    y, new_pool = j_paged_ref(*(jnp.asarray(a)
+                                for a in (dt, x, Bm, Cm, A, pool)),
+                              *jplan, jnp.asarray(nn), order=order)
+    y, new_pool = np.asarray(y), np.asarray(new_pool)
+    tpool = torch.from_numpy(pool.copy())
+    got = _paged_lanes(*to_torch(dt, x, Bm, Cm, A), tpool,
+                       *ssm_plan(*to_torch(table, lens, nn), 4, S),
+                       torch.from_numpy(nn), order=order,
+                       stride0=order == "dxb").numpy()
+    valid = (np.arange(S)[None, :] < nn[:, None])[..., None]
+    assert np.abs((got - y) * valid).max() <= 1e-5 * np.abs(y * valid).max()
+    assert np.abs(tpool.numpy()[1:] - new_pool[1:]).max() \
+        <= 1e-5 * np.abs(new_pool[1:]).max()
+
+
+@pytest.mark.parametrize("split", [1, 3, 5])
+@pytest.mark.parametrize("order,ds", [("dbx", 16), ("dxb", 64)])
+def test_paged_lanes_plan_split_call_is_bitwise_one_call(order, ds, split):
+    """The paged kernel's plan gives bitwise the same y and pool when a
+    7-token call is split in two at ``split`` (page size 4: inside a page,
+    the second call crossing a boundary), slots starting at 0 and mid-page
+    beside an idle one: every step runs the same arithmetic wherever it
+    falls in a call."""
+    S = 7
+    dt, x, Bm, Cm, A, pool, table, lens, nn = to_torch(*_paged_lanes_case(
+        order, S, [0, 2], [S, 0], ds, 11 + split))
+    kw = dict(order=order, stride0=order == "dxb")
+    pools = [pool.clone(), pool.clone()]
+    one = _paged_lanes(dt, x, Bm, Cm, A, pools[0],
+                       *ssm_plan(table, lens, nn, 4, S), nn, **kw)
+    ys, at = [], lens
+    for lo, hi in ((0, split), (split, S)):
+        n = torch.clamp(nn - lo, 0, hi - lo).to(torch.int32)
+        part = [t[:, lo:hi] for t in (dt, x, Bm, Cm)]
+        ys.append(_paged_lanes(*part, A, pools[1],
+                               *ssm_plan(table, at, n, 4, hi - lo), n, **kw))
+        at = (at + n).to(torch.int32)
+    assert not torch.equal(pools[0], pool)
+    assert torch.equal(torch.cat(ys, dim=1), one)
+    assert torch.equal(pools[1], pools[0])
 
 
 # ---------------------------------------------------------------------------
