@@ -12,7 +12,10 @@ products, no float32 paged kernel any), and holds each kernel against
 its plain PyTorch version:
 paged attention at qwen3_1p7b's and zamba2_1p2b's head shapes (also
 bitwise: a live-bucket table against a wider one, a second launch), the
-sampling mask, the paged SSM update at falcon_mamba_7b's and
+sampling mask (vocabularies of 151936, 65024, 32000 and 256206, B 1 /
+4 / 64, ties, one value, +-0.0, 1e6-scaled and peaked logits;
+survivors, tau_k and a second launch bitwise), the paged SSM update at
+falcon_mamba_7b's and
 zamba2_1p2b's full-width rows (both product orders), the training
 kernels forward and backward, in float32 and bf16, at the training and
 serve shapes, and the selective scan forward and backward at
@@ -64,6 +67,12 @@ PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOP_S = 989e12       # H100 SXM dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SAMPLING_TV = 1e-5              # mass of tokens the two masks disagree on
+SAMPLING_KINDS = ("normal", "ties", "equal", "zeros", "scaled", "peaked")
+P1_KEEP_NATS = 20.0             # at p = 1 the kernel keeps the top-k set
+                                # this close to the max (its cut: ~28)
+SAMPLING_EDGE_KS = (0, 40, 1, 0, None, "V+7", -3, 64, 300, 5, 2, 1000)
+SAMPLING_EDGE_PS = (1.0, 0.95, 0.5, 0.9, 1.0, 1e-6, 0.95, 1.0, 0.5, 1.0,
+                    1e-6, 0.95)
 STEP_F32_TOL = 1e-3             # fused vs gathered f32 logits / max |logit|
 STEP_BF16_FACTOR = 2.0          # bf16 kernel path error vs plain path error
 H, HKV, HD, PAGE, MAX_LEN, MAX_BATCH = 16, 8, 128, 16, 512, 4
@@ -297,6 +306,96 @@ def sampling_case(gen, B, V):
     ps = torch.tensor([1.0, 0.95, 0.5, 0.9, 0.3, 1.0, 0.95, 0.8][:B],
                       dtype=torch.float32, device="cuda")
     return logits, ks, ps
+
+
+def sampling_edge(gen, kind, B, V):
+    """(B, V) logits of one kind: "normal" (N(0, 2^2)), "ties" (those
+    rounded to steps of 0.5), "equal" (one value), "zeros" (30% +0.0, 30%
+    -0.0, 2% positive, the rest negative), "scaled" (normal x 1e6, what a
+    greedy slot's temperature clamp passes), "peaked" (normal x 10: a
+    top 40 spans 15-25 nats); per-row k and p cycle over
+    SAMPLING_EDGE_KS / _PS, shifted each cycle, the first four rows the
+    timing mix (k 0/40/1/0, p 1.0/0.95/0.5/0.9)."""
+    import torch
+    x = torch.randn((B, V), generator=gen, device="cuda") * 2.0
+    if kind == "ties":
+        x = torch.round(x * 2) / 2
+    elif kind == "equal":
+        x = torch.full((B, V), 0.7, device="cuda")
+    elif kind == "zeros":
+        r = torch.rand((B, V), generator=gen, device="cuda")
+        x = torch.where(r < 0.3, 0.0, torch.where(
+            r < 0.6, -0.0, torch.where(r < 0.62, x.abs(), -x.abs())))
+    elif kind == "scaled":
+        x = x * 1e6
+    elif kind == "peaked":
+        x = x * 10.0
+    n = len(SAMPLING_EDGE_KS)
+    ks = [V if k is None else V + 7 if k == "V+7" else k
+          for k in SAMPLING_EDGE_KS]
+    top_ks = torch.tensor([ks[r % n] for r in range(B)], dtype=torch.int32,
+                          device="cuda")
+    top_ps = torch.tensor([SAMPLING_EDGE_PS[(r + r // n) % n]
+                           for r in range(B)], device="cuda")
+    return x.contiguous(), top_ks, top_ps
+
+
+def top_k_set_differs(logits, ks, ps, keep) -> bool:
+    """Whether the survivors ``keep`` miss the plain version's tau_k: a
+    survivor outside its top-k set, or a row at p = 1 that dropped a
+    top-k value within P1_KEEP_NATS of its max."""
+    import torch
+    from repro_torch.kernels import sampling as sp
+    V = logits.shape[-1]
+    u = sp._sortable_u32(logits)
+    k_eff = torch.where(ks <= 0, V, ks.long()).clamp(1, V)
+    top_k = u >= sp._search_kth(u, k_eff)[:, None]
+    near = top_k & (logits >= logits.max(-1, keepdim=True).values
+                    - P1_KEEP_NATS)
+    p1 = ps == 1.0
+    return bool((keep & ~top_k).any()) or not torch.equal(
+        keep[p1] | near[p1], keep[p1])
+
+
+def check_sampling(gen):
+    """The sampling kernel against its plain version at the served vocabs
+    (qwen3_1p7b's 151936, falcon_mamba_7b's 65024, zamba2_1p2b's 32000)
+    and seamless_m4t_v2's 256206 (the widest; the scalar loads), B 1 / 4
+    / 64 (64: clusters in waves), over every ``sampling_edge`` kind:
+    survivors bitwise, tau_k bitwise (``top_k_set_differs``), flipped
+    mass <= SAMPLING_TV, a second launch bit-identical. Returns the
+    largest survivor error (0) and flipped mass."""
+    import torch
+    from repro_torch.kernels import sampling as sp
+    worst_tv, worst_err = 0.0, 0.0
+    for V in (151936, 65024, 32000, 256206):
+        for B in (1, 4, 64):
+            tvs = []
+            for kind in SAMPLING_KINDS:
+                logits, ks, ps = sampling_edge(gen, kind, B, V)
+                want = sp.topk_topp_mask_ref(logits, ks, ps)
+                got = sp.topk_topp_mask(logits, ks, ps)
+                again = sp.topk_topp_mask(logits, ks, ps)
+                torch.cuda.synchronize()
+                keep_w, keep_g = want > -1e30, got > -1e30
+                both = keep_w & keep_g
+                err = (got[both] - want[both]).abs().max().item()
+                tv = flipped_mass(logits, keep_w, keep_g)
+                what = f"topk_topp_mask {kind} B={B} V={V}"
+                if err != 0.0 or not tv <= SAMPLING_TV:
+                    fail(f"{what}: survivors differ by {err:.3e} or "
+                         f"flipped mass {tv:.3e} > {SAMPLING_TV:g}")
+                if top_k_set_differs(logits, ks, ps, keep_g):
+                    fail(f"{what}: the survivors miss the plain tau_k")
+                if not torch.equal(got, again):
+                    fail(f"{what}: a second launch changed the output")
+                worst_err, worst_tv = max(worst_err, err), max(worst_tv, tv)
+                tvs.append(tv)
+            print(f"topk_topp_mask V={V} B={B:2d}: {len(SAMPLING_KINDS)} "
+                  f"kinds ({', '.join(SAMPLING_KINDS)}) survivors, tau_k "
+                  f"and second launch bitwise; flipped mass max "
+                  f"{max(tvs):.3e} (tolerance {SAMPLING_TV:g})")
+    return worst_err, worst_tv
 
 
 def flipped_mass(logits, keep_a, keep_b) -> float:
@@ -1430,10 +1529,11 @@ def profile_decode_wave(be, name):
     for e in sorted(kern, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 5 / 1e3:8.4f} ms/wave  {e.count // 5:4d}x  "
               f"{e.key[:80]}")
-    # the port's paged kernels, in the top rows or not: their own device
-    # time per launch
+    # the port's paged kernels and the sampling mask, in the top rows or
+    # not: their own device time per launch
     for e in kern:
-        kernel = re.search(r"::(paged_\w+<[^>]*>)", e.key)
+        kernel = re.search(r"::((?:paged_\w+|topk_topp_mask_kernel)<[^>]*>)",
+                           e.key)
         if kernel and e.count:
             print(f"  {name} decode wave: {kernel.group(1)} "
                   f"{dev_us(e) / e.count:.2f} us a launch, {e.count // 5}x "
@@ -1789,6 +1889,8 @@ def main() -> int:
           f"{SAMPLING_TV:g}); kept per row {keep_g.sum(-1).tolist()}")
     if samp_err != 0.0 or not tv <= SAMPLING_TV:
         fail("sampling mask disagrees with its plain version")
+    edge_err, edge_tv = check_sampling(gen)
+    samp_err = max(samp_err, edge_err)
     ssm_err = check_ssm_kernel(gen)
     train_err = check_train_kernels(gen)
     train_err.update(check_scan_kernel(gen))
@@ -1865,10 +1967,29 @@ def main() -> int:
     s_plain = time_ms(lambda: sp.topk_topp_mask_ref(sl, sks, sps),
                       flush=flush)
     s_sort = time_ms(lambda: apply_top_k_top_p(sl, sks, sps), flush=flush)
+    s_dev = device_ms(lambda: sp.topk_topp_mask(sl, sks, sps), 20, flush)
+    s_sort_dev = device_ms(lambda: apply_top_k_top_p(sl, sks, sps), 20,
+                           flush)
+    # the serve wave's rows: greedy (k 0, p 1) and sampled (k 40, p 0.95)
+    wks = torch.tensor([0, 40, 0, 40], dtype=torch.int32, device="cuda")
+    wps = torch.tensor([1.0, 0.95, 1.0, 0.95], device="cuda")
+    s_wave = device_ms(lambda: sp.topk_topp_mask(sl, wks, wps), 20, flush)
+    # each route alone (all four rows alike)
+    s_rows = {}
+    for row_k, row_p in ((0, 1.0), (40, 0.95), (1, 0.5), (0, 0.9)):
+        rk = torch.full((MAX_BATCH,), row_k, dtype=torch.int32,
+                        device="cuda")
+        rp = torch.full((MAX_BATCH,), row_p, device="cuda")
+        s_rows[f"k{row_k} p{row_p:g}"] = device_ms(
+            lambda rk=rk, rp=rp: sp.topk_topp_mask(sl, rk, rp), 20, flush)
     s_bound = 1e3 * (2 * MAX_BATCH * V * 4 + MAX_BATCH * 8) / PEAK_BYTES_S
-    print(f"topk_topp_mask B=4 V={V}: kernel {s_ms:.4f} ms, plain "
-          f"{s_plain:.4f} ms, sort-based apply_top_k_top_p {s_sort:.4f} ms,"
-          f" bound {s_bound:.5f} ms (bytes)")
+    print(f"topk_topp_mask B=4 V={V} (rows k 0/40/1/0, p "
+          f"1/0.95/0.5/0.9): kernel {s_ms:.4f} ms "
+          f"(device {s_dev:.4f}), plain {s_plain:.4f} ms, sort-based "
+          f"apply_top_k_top_p {s_sort:.4f} ms (device {s_sort_dev:.4f}), "
+          f"bound {s_bound:.5f} ms (bytes); the serve wave's rows (k 0/40, "
+          f"p 1/0.95) device {s_wave:.4f} ms; rows all alike, device "
+          + ", ".join(f"{k} {v:.4f}" for k, v in s_rows.items()) + " ms")
     ssm_rows = time_ssm_kernel(gen, flush)
     del engine, params, q, pk, pv, qp, pkp, pvp
     gc.collect()
@@ -1917,13 +2038,20 @@ def main() -> int:
          # decode (S=1, split-KV; device_ms counts the combine kernel
          # too), prefill_* a 256-token chunk (tensor cores)
          **attn, **{f"prefill_{k}": v for k, v in pre.items()}},
+        # launches: qwen3_1p7b's serve queue, the falcon and zamba2 queues'
+        # beside it (below); device_* the device work alone (device_ms);
+        # sort_* the sort-based apply_top_k_top_p (several PyTorch ops, no
+        # single call computes the mask); wave_device_ms at the serve
+        # wave's rows, rows_device_ms each route alone
         {"name": "topk_topp_mask", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sampling.cu",
          "replaces": "src/repro/kernels/sampling.py:126",
          "launches": launches["topk_topp_mask"],
-         "max_abs_err": samp_err, "ms": s_ms, "plain_ms": s_plain,
-         "bound_ms": s_bound, "bound_by": "bytes", "library_ms": None,
-         "sort_ms": s_sort},
+         "max_abs_err": samp_err, "flipped_mass": edge_tv, "ms": s_ms,
+         "device_ms": s_dev, "plain_ms": s_plain, "bound_ms": s_bound,
+         "bound_by": "bytes", "library_ms": None, "sort_ms": s_sort,
+         "sort_device_ms": s_sort_dev, "wave_device_ms": s_wave,
+         "rows_device_ms": s_rows},
     ]
     for name, src, line in (
             ("flash_attention_fwd", "flash_attention", 64),
@@ -1996,8 +2124,13 @@ def main() -> int:
             "zamba2_ms": kz, "zamba2_plain_ms": pz, "zamba2_bound_ms": bz,
             "zamba2_bound_by": byz, "device_ms": dm,
             "zamba2_device_ms": dz})
+    samp = kernels[1]
+    samp["launches_falcon"] = ssm_launches["dbx"]["topk_topp_mask"]
+    samp["launches_zamba2"] = ssm_launches["dxb"]["topk_topp_mask"]
     counts = {"paged_flash_attention": launches["paged_flash_attention"],
               "topk_topp_mask": launches["topk_topp_mask"],
+              "topk_topp_mask_falcon": samp["launches_falcon"],
+              "topk_topp_mask_zamba2": samp["launches_zamba2"],
               **{k: train_launches[k] for k in attn_kernels},
               **{f"{k}_{fam}": ssm_train[fam][0][k]
                  for fam in ssm_train for k in scan_kernels},

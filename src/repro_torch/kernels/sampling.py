@@ -14,14 +14,19 @@ outside (the sampler's key schedule is contract surface).
 
 - :func:`topk_topp_mask_ref` is the plain version. torch's uint32
   support on the CPU is thin, so it carries the encoding in int64.
-- :func:`topk_topp_mask` launches ``csrc/sampling.cu`` (native uint32;
-  its header says what it replaces and what bounds it). CUDA tensors
-  only; it never falls back.
+- :func:`topk_topp_mask` launches ``csrc/sampling.cu``: a cluster of 16
+  CTAs holds each row in shared memory and finds both thresholds by
+  radix select (its header says what it replaces, what bounds it and
+  how). CUDA tensors only; it never falls back, and raises for a row
+  wider than :func:`max_vocab`.
 
 Tie caveat (as in the reference): thresholds keep every logit tied with
-the k-th value; the nucleus mass is summed in a different order than
-the sorted path, so a token whose cumulative mass lies within float
-rounding of p can flip.
+the k-th value. The kernel sums the nucleus mass in 64-bit fixed point
+(exact, in any order), the plain version in float32, so a token whose
+cumulative mass lies within rounding of p can flip, and at p = 1 each
+drops a far tail the other keeps (the kernel values ~28 nats below the
+max, the plain version the tail its float32 total cannot hold). tau_k
+agrees bit for bit: the kernel's survivors lie in the plain top-k set.
 """
 from __future__ import annotations
 
@@ -94,17 +99,27 @@ def topk_topp_mask_ref(logits, top_ks, top_ps):
 
 
 def _lib():
-    fn = build.load("sampling").topk_topp_mask_launch
+    lib = build.load("sampling")
+    fn = lib.topk_topp_mask_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
-    return fn
+        lib.topk_topp_mask_max_vocab.restype = ctypes.c_int
+        lib.topk_topp_mask_max_vocab.argtypes = []
+    return lib
+
+
+def max_vocab() -> int:
+    """The widest row the kernel takes in a cluster's shared memory."""
+    return _lib().topk_topp_mask_max_vocab()
 
 
 def topk_topp_mask(logits, top_ks, top_ps):
-    """The CUDA kernel, same contract as :func:`topk_topp_mask_ref`.
-    Every launch adds one to ``topk_topp_mask.launches``."""
+    """The CUDA kernel, same contract as :func:`topk_topp_mask_ref`: one
+    cluster of 16 CTAs a row. Raises for a row wider than
+    :func:`max_vocab`. Every launch adds one to
+    ``topk_topp_mask.launches``."""
     if not (logits.is_cuda and top_ks.is_cuda and top_ps.is_cuda):
         raise ValueError("topk_topp_mask takes CUDA tensors only; the "
                          "plain version is topk_topp_mask_ref")
@@ -119,8 +134,13 @@ def topk_topp_mask(logits, top_ks, top_ps):
     out = torch.empty_like(x)
     if B == 0 or V == 0:
         return out
-    rc = _lib()(x.data_ptr(), ks.data_ptr(), ps.data_ptr(), out.data_ptr(),
-                B, V, build.stream_ptr(x))
+    limit = max_vocab()
+    if V > limit:
+        raise ValueError(f"topk_topp_mask: V={V} does not fit a cluster's "
+                         f"shared memory (at most {limit})")
+    rc = _lib().topk_topp_mask_launch(
+        x.data_ptr(), ks.data_ptr(), ps.data_ptr(), out.data_ptr(), B, V,
+        build.stream_ptr(x))
     build.check(rc, "topk_topp_mask_launch")
     topk_topp_mask.launches += 1
     return out

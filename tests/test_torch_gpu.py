@@ -16,11 +16,18 @@ give the same bits for the live-page table and a wider one, for pools
 poisoned past each slot's last visible key, and on a second launch (the
 split-KV decode path merges its splits in a fixed order, no atomics). Backward kernels must
 also give bit-identical gradients on a second run (fixed summation
-order, no atomics). Sampling: survivors bit-equal; the kernel sums the nucleus
-mass in another order, so tokens whose cumulative mass lies within float
-rounding of p may flip — their total probability per row must stay
-below 1e-5 (the two masks' sampling distributions are that close in
-total variation). Paged SSM update: y on valid rows and the non-scratch
+order, no atomics). Sampling: survivors bit-equal; the kernel sums the
+nucleus mass in 64-bit fixed point, the plain version in float32, so
+tokens whose cumulative mass lies within rounding of p may flip — their
+total probability per row must stay below 1e-5 (the two masks' sampling
+distributions are that close in total variation); tau_k is bit-equal:
+every survivor lies in the plain version's top-k set, and at p = 1 every
+top-k value within 20 nats of the row max survives (the kernel drops
+only values ~28 nats below, whose fixed-point weight is 0; the plain
+version drops the tail its float32 total cannot hold, so the two masks
+need not be equal whole there); a second launch is bit-identical
+(integer sums, no float atomics). Paged SSM update: y on valid rows and
+the non-scratch
 pool pages within 1e-5 of the plain version's largest magnitude (nvcc
 contracts multiply-adds into FMAs and sums in another order, over up to
 S sequential steps); pages outside the write plan bit-equal;
@@ -153,6 +160,73 @@ def sampling_case(seed, B=4, V=128):
     return logits, top_ks, top_ps
 
 
+SAMPLING_KINDS = ("normal", "ties", "equal", "zeros", "scaled", "peaked")
+P1_KEEP_NATS = 20.0        # at p = 1 the kernel keeps the top-k set this
+                           # close to the row max (its cut is ~28 nats)
+_EDGE_KS = (0, 40, 1, 0, None, "V+7", -3, 64, 300, 5, 2, 1000)
+_EDGE_PS = (1.0, 0.95, 0.5, 0.9, 1.0, 1e-6, 0.95, 1.0, 0.5, 1.0, 1e-6, 0.95)
+
+
+def sampling_edge_case(seed, kind, B, V):
+    """(B, V) float32 logits of one kind — "normal" (N(0, 2²)), "ties"
+    (those rounded to steps of 0.5), "equal" (one value), "zeros" (30%
+    +0.0, 30% -0.0, 2% positive, the rest negative), "scaled" (normal x
+    1e6, what a greedy slot's temperature clamp passes), "peaked" (normal
+    x 10: a top 40 spans 15-25 nats, as real LM logits can) — and per-row
+    k and p cycling over k in {0, 40, 1, V, V+7, -3, 64, 300, 5, 2, 1000}
+    and p in {1e-6, 0.5, 0.9, 0.95, 1.0}, shifted each cycle so B = 64
+    meets most pairs. The first four rows are the smoke's mix: k
+    0/40/1/0, p 1.0/0.95/0.5/0.9."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, V)) * 2.0).astype(np.float32)
+    if kind == "ties":
+        x = (np.round(x * 2) / 2).astype(np.float32)
+    elif kind == "equal":
+        x = np.full((B, V), 0.7, np.float32)
+    elif kind == "zeros":
+        r = rng.random((B, V))
+        x = np.where(r < 0.3, np.float32(0.0), np.where(
+            r < 0.6, np.float32(-0.0), np.where(r < 0.62, np.abs(x),
+                                                -np.abs(x))))
+        x = x.astype(np.float32)
+    elif kind == "scaled":
+        x = (x * np.float32(1e6)).astype(np.float32)
+    elif kind == "peaked":
+        x = (x * np.float32(10.0)).astype(np.float32)
+    n = len(_EDGE_KS)
+    ks = [V if k is None else V + 7 if k == "V+7" else k for k in _EDGE_KS]
+    top_ks = np.asarray([ks[r % n] for r in range(B)], np.int32)
+    top_ps = np.asarray([_EDGE_PS[(r + r // n) % n] for r in range(B)],
+                        np.float32)
+    return x, top_ks, top_ps
+
+
+def top_k_set(logits, top_ks):
+    """The plain version's top-k set, ``u >= tau_k`` (ties kept), as a
+    (B, V) bool tensor."""
+    V = logits.shape[-1]
+    u = tsp._sortable_u32(logits)
+    ks = top_ks.long()
+    k_eff = torch.where(ks <= 0, torch.full_like(ks, V), ks).clamp(1, V)
+    return u >= tsp._search_kth(u, k_eff)[:, None]
+
+
+def check_top_k_set(logits, top_ks, top_ps, keep):
+    """tau_k bit for bit: the survivors ``keep`` lie in the plain top-k
+    set, and rows at p = 1 keep every value of it within P1_KEEP_NATS of
+    the row max. Returns an error message, or None."""
+    top_k = top_k_set(logits, top_ks)
+    if (keep & ~top_k).any():
+        return "a survivor lies outside the plain version's top-k set"
+    near = top_k & (logits.float() >= logits.float().max(-1, keepdim=True)
+                    .values - P1_KEEP_NATS)
+    p1 = top_ps == 1.0
+    if not torch.equal(keep[p1] | near[p1], keep[p1]):
+        return (f"a row at p = 1 dropped a top-k value within "
+                f"{P1_KEEP_NATS:g} nats of its max")
+    return None
+
+
 def flipped_mass(logits, keep_a, keep_b) -> float:
     """Largest per-row probability (softmax over the union of both
     survivor sets) of the tokens the two masks disagree on."""
@@ -272,16 +346,67 @@ def test_paged_flash_attention_is_bit_repeatable_on_card(S, lengths):
     assert torch.equal(first, second)
 
 
-@pytest.mark.gpu
-def test_topk_topp_mask_matches_plain_on_card():
-    _need_card()
-    case = to_torch(*sampling_case(12, B=8, V=151936), device="cuda")
-    want = tsp.topk_topp_mask_ref(*case)
-    got = tsp.topk_topp_mask(*case)
+def _check_sampling_on_card(logits, top_ks, top_ps):
+    """Survivors bit-equal, flipped mass <= SAMPLING_TV, tau_k bit for bit
+    (``check_top_k_set``), a second launch bit-identical."""
+    want = tsp.topk_topp_mask_ref(logits, top_ks, top_ps)
+    got = tsp.topk_topp_mask(logits, top_ks, top_ps)
+    again = tsp.topk_topp_mask(logits, top_ks, top_ps)
     torch.cuda.synchronize()
     keep_w, keep_g = want > -1e30, got > -1e30
     assert torch.equal(got[keep_w & keep_g], want[keep_w & keep_g])
-    assert flipped_mass(case[0], keep_w, keep_g) <= SAMPLING_TV
+    assert flipped_mass(logits, keep_w, keep_g) <= SAMPLING_TV
+    assert check_top_k_set(logits, top_ks, top_ps, keep_g) is None
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_topk_topp_mask_matches_plain_on_card():
+    _need_card()
+    _check_sampling_on_card(*to_torch(*sampling_case(12, B=8, V=151936),
+                                      device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 64])
+@pytest.mark.parametrize("V", [151936, 65024, 32000, 256206])
+@pytest.mark.parametrize("kind", SAMPLING_KINDS)
+def test_topk_topp_mask_edge_cases_on_card(kind, V, B):
+    """The served vocabs (qwen3_1p7b's 151936, falcon_mamba_7b's 65024,
+    zamba2_1p2b's 32000) and seamless_m4t_v2's 256206 (the widest; the
+    scalar-load path) at B 1 / 4 / 64 (64: clusters in waves) over ties,
+    one value, +-0.0, 1e6-scaled and peaked logits and k, p at their
+    edges (``sampling_edge_case``)."""
+    _need_card()
+    _check_sampling_on_card(*to_torch(*sampling_edge_case(
+        V + B, kind, B, V), device="cuda"))
+
+
+@pytest.mark.gpu
+def test_topk_topp_mask_unaligned_rows_and_widest_row_on_card():
+    """At B = 4, aligned rows and logits 4 bytes off 16-byte alignment
+    (the scalar loads) agree the same way; a row wider than
+    ``max_vocab()`` raises, naming V and the limit, and launches
+    nothing."""
+    _need_card()
+    x, ks, ps = to_torch(*sampling_edge_case(3, "ties", 4, 151936),
+                         device="cuda")
+    flat = torch.empty(x.numel() + 1, device="cuda")
+    flat[1:] = x.reshape(-1)
+    for logits in (x, flat[1:].view(x.shape)):
+        want = tsp.topk_topp_mask_ref(logits, ks, ps)
+        got = tsp.topk_topp_mask(logits, ks, ps)
+        keep_w, keep_g = want > -1e30, got > -1e30
+        assert torch.equal(got[keep_w & keep_g], want[keep_w & keep_g])
+        assert flipped_mass(logits, keep_w, keep_g) <= SAMPLING_TV
+        assert torch.equal(got, tsp.topk_topp_mask(logits, ks, ps))
+    V = tsp.max_vocab() + 4
+    before = tsp.topk_topp_mask.launches
+    with pytest.raises(ValueError,
+                       match=rf"V={V} does not fit .*at most {V - 4}\)"):
+        tsp.topk_topp_mask(torch.zeros((1, V), device="cuda"), ks[:1],
+                           ps[:1])
+    assert tsp.topk_topp_mask.launches == before
 
 
 def _grads(fn, q, k, v, do):

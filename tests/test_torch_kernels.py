@@ -16,6 +16,11 @@ held to the card's bf16 tolerances (out 2e-2 and 1e-3 + 1e-2 |plain| per
 element, gradients 2e-2 of their max). The paged-attention decode
 kernel's split-KV plan, emulated in float32, is held to the plain version
 and to JAX within 2e-5, and to itself bit for bit across table widths.
+The sampling kernel's radix plan (``-k radix``: per-CTA histograms,
+the candidates' early exit, fixed-point masses, every tau_p route),
+emulated in numpy over the kernel's 16 CTAs a row, matches the plain
+version and JAX bit for bit in tau_k and the top-k survivors, and
+within 1e-5 of flipped mass in the nucleus.
 """
 import jax
 import jax.numpy as jnp
@@ -33,8 +38,11 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import sampling as tsp
 from repro_torch.launch.steps import apply_top_k_top_p
-from test_torch_gpu import (FLASH_GRID, GRID, attn_case, flash_case,
-                            rms_case, sampling_case, to_torch)
+from repro.kernels import sampling as jsp
+from test_torch_gpu import (FLASH_GRID, GRID, SAMPLING_KINDS, SAMPLING_TV,
+                            attn_case, check_top_k_set, flash_case,
+                            flipped_mass, rms_case, sampling_case,
+                            sampling_edge_case, to_torch)
 
 torch.set_num_threads(2)
 ATTN_TOL = 2e-5
@@ -198,6 +206,217 @@ def test_topk_topp_mask_plain_matches_sort_based_masking():
     logits, top_ks, top_ps = to_torch(*sampling_case(8, B=8))
     assert torch.equal(tsp.topk_topp_mask_ref(logits, top_ks, top_ps),
                        apply_top_k_top_p(logits, top_ks, top_ps))
+
+
+RADIX_CAND = 255           # candidates a CTA takes pairwise (kCand)
+_FIX = 2.0 ** 40           # e's fixed-point scale
+_U64_MAX = 2 ** 64 - 1
+
+
+def _radix_u(x):
+    """The sortable encoding as uint64 (numpy)."""
+    b = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(b >> 31 != 0, b ^ 0xFFFFFFFF, b ^ 0x80000000)
+
+
+def _radix_x(u):
+    b = np.where(u >> 31 != 0, u ^ 0x80000000, u ^ 0xFFFFFFFF)
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _radix_bins(u, w, parts, shift, prefix):
+    """256 bins of digit (u >> shift) & 255, weights w, over the values
+    whose higher digits equal ``prefix`` (all of them for the top digit):
+    one histogram a part (a CTA's slice), summed as the exchange does.
+    Returns the total bins, their suffix sums (suf[256] = 0) and each
+    part's bins, as Python ints."""
+    per = []
+    for s in parts:
+        us, ws = u[s], w[s]
+        sel = (np.ones(us.shape, bool) if shift == 24
+               else (us >> (shift + 8)) == prefix)
+        h = np.zeros(256, np.uint64)
+        np.add.at(h, ((us[sel] >> shift) & 255).astype(np.int64), ws[sel])
+        per.append([int(v) for v in h])
+    tot = [sum(h[d] for h in per) for d in range(256)]
+    suf = [0] * 257
+    for d in range(255, -1, -1):
+        suf[d] = suf[d + 1] + tot[d]
+    return tot, suf, per
+
+
+def _radix_target(p, z):
+    """The kernel's integer bound for mass < p * z."""
+    if not p > 0:
+        return 0
+    if p == 1:
+        return z
+    if p > 1:
+        return _U64_MAX
+    return int(np.ceil(float(p) * float(z)))
+
+
+def _radix_mass_select(u, w, parts, p):
+    """tau_p by radix select on mass: the least digit whose strictly-
+    greater mass (above the prefix, plus the bins above it) is < p_z."""
+    above, prefix, bound = 0, 0, 0
+    for shift in (24, 16, 8, 0):
+        _, suf, _ = _radix_bins(u, w, parts, shift, prefix)
+        if shift == 24:
+            bound = _radix_target(p, suf[0])
+        cnt = sum(above + s < bound for s in suf[1:])
+        if cnt == 0:
+            return 0xFFFFFFFF
+        d = 256 - cnt
+        above += suf[d + 1]
+        prefix = (prefix << 8) | d
+    return prefix
+
+
+def _radix_row(x, k, p, cluster=16):
+    """One row through ``csrc/sampling.cu``'s plan: CTA slices of
+    ceil(V / cluster) rounded up to 4. tau_k by radix select on counts
+    (8-bit digits from the top; the row min when k is off or >= V), each
+    digit from the cluster's bins, until the values from the chosen
+    bucket up number at most RADIX_CAND: then each CTA mails its
+    candidates (its place counted from the per-CTA bins) and tau_k is the
+    candidate with fewer than k above it and at least k from it up. m is
+    the row max; e enters as round(e x 2^40). tau_p, the least threshold
+    whose strictly-greater mass is < p_z: over mailed candidates,
+    pairwise ("direct": each survivor's u, and 0, is a threshold); else,
+    at p = 1, the least u of positive weight ("p1"); else by radix select
+    on mass over the cluster ("cluster"). Returns (masked row, tau_k,
+    route)."""
+    V = x.size
+    u = _radix_u(x)
+    S = -(-(-(-V // cluster)) // 4) * 4
+    parts = [slice(min(c * S, V), min((c + 1) * S, V))
+             for c in range(cluster)]
+    k_eff = min(max(V if k <= 0 else k, 1), V)
+    cand = None
+    if k_eff == V:
+        tau_k, n_k = int(u.min()), V
+        if V <= RADIX_CAND:
+            cand = u
+    else:
+        prefix, need, above = 0, k_eff, 0
+        src_above = [0] * cluster
+        for shift in (24, 16, 8, 0):
+            tot, suf, per = _radix_bins(u, np.ones(V, np.uint64), parts,
+                                        shift, prefix)
+            d = sum(s >= need for s in suf[:256]) - 1
+            from_d = above + suf[d]
+            need -= suf[d + 1]
+            above += suf[d + 1]
+            prefix = (prefix << 8) | d
+            src_cand = [a + sum(h[d:])
+                        for a, h in zip(src_above, per, strict=True)]
+            src_above = [a + sum(h[d + 1:])
+                         for a, h in zip(src_above, per, strict=True)]
+            if from_d <= RADIX_CAND:
+                cand = u[(u >> shift) >= prefix]
+                assert cand.size == from_d == sum(src_cand)
+                break
+        if cand is None:
+            tau_k, n_k = prefix, above + tot[d]
+        else:
+            gt = (cand[None, :] > cand[:, None]).sum(1)
+            ge = (cand[None, :] >= cand[:, None]).sum(1)
+            kth = (gt < k_eff) & (k_eff <= ge)
+            tau_k, n_k = int(cand[kth][0]), int(ge[kth][0])
+    masked = np.float32(tsp._MASKED)
+    xmax = _radix_x(np.asarray([u.max()], np.uint64))[0]
+    m = xmax if n_k == V else np.maximum(xmax, masked)
+
+    def weight(uu):
+        e = np.exp(np.where(uu >= tau_k, _radix_x(uu), masked) - m)
+        return np.rint(e.astype(np.float32).astype(np.float64)
+                       * _FIX).astype(np.uint64)
+    w_masked = int(np.rint(float(np.exp(masked - m)) * _FIX))
+    if cand is not None and w_masked == 0:
+        route, w = "direct", weight(cand)
+        bound = _radix_target(p, int(w.sum()))
+        tau_p = min([int(c) for c in [*cand.tolist(), 0]
+                     if int(w[cand > c].sum()) < bound], default=0xFFFFFFFF)
+    elif p == 1:
+        route, w = "p1", weight(u)
+        tau_p = int(u[w > 0].min())
+    else:
+        route = "cluster"
+        tau_p = _radix_mass_select(u, weight(u), parts, p)
+    out = np.where(u >= max(tau_k, tau_p), x, masked).astype(np.float32)
+    return out, tau_k, route
+
+
+_jax_mask = jax.jit(jsp.topk_topp_mask_ref)
+
+
+def _jax_kth(x, k_eff):
+    return np.asarray(jsp._search_kth(jsp._sortable_u32(jnp.asarray(x)),
+                                      jnp.asarray(k_eff)))
+
+
+@pytest.mark.parametrize("p", [1e-6, 0.5, 0.95, 1.0])
+@pytest.mark.parametrize("V", [5, 1003, 4100])
+@pytest.mark.parametrize("kind", SAMPLING_KINDS)
+def test_radix_plan_matches_plain_and_jax(kind, V, p):
+    """The kernel's plan, emulated, against the plain version and JAX's
+    ``topk_topp_mask_ref``: tau_k and the top-k survivors bit for bit (k
+    in {<= 0, 1, 40, 64, 300, V, V + 7}; at p = 1 every top-k value within
+    20 nats of the max kept, ``check_top_k_set``); the mask within
+    SAMPLING_TV of flipped mass (fixed-point sums against float32 ones,
+    and at p = 1 each side's far tail). V = 5 leaves CTAs empty; 1003 and
+    4100 are off a multiple of the cluster (1003 of 4 too)."""
+    ks = np.asarray([0, 1, 40, V, V + 7, -3, 300, 64], np.int32)
+    x, _, _ = sampling_edge_case(29, kind, len(ks), V)
+    ps = np.full(len(ks), p, np.float32)
+    rows = [_radix_row(x[i], int(ks[i]), ps[i]) for i in range(len(ks))]
+    got = torch.from_numpy(np.stack([r[0] for r in rows]))
+    lf, tk, tp = to_torch(x, ks, ps)
+    k_eff = torch.where(tk <= 0, torch.full_like(tk, V), tk.long()).clamp(1, V)
+    want_kth = tsp._search_kth(tsp._sortable_u32(lf), k_eff)
+    assert [r[1] for r in rows] == want_kth.tolist()
+    assert [r[1] for r in rows] == _jax_kth(x, k_eff.numpy()).tolist()
+    keep_top_k = tsp._sortable_u32(lf) >= want_kth[:, None]
+    for name, want in (
+            ("plain", tsp.topk_topp_mask_ref(lf, tk, tp)),
+            ("jax", torch.from_numpy(np.array(_jax_mask(
+                *map(jnp.asarray, (x, ks, ps))))))):
+        keep_w, keep_g = want > -1e30, got > -1e30
+        assert not (keep_g & ~keep_top_k).any(), name
+        assert torch.equal(got[keep_w & keep_g], want[keep_w & keep_g]), name
+        assert flipped_mass(lf, keep_w, keep_g) <= SAMPLING_TV, name
+    assert check_top_k_set(lf, tk, tp, got > -1e30) is None
+
+
+def test_radix_plan_takes_every_route():
+    """The routes the parametrised test runs: candidates mailed after the
+    first digit or a later one, or the whole row of a small vocab, taken
+    pairwise; without candidates, the least-weight route at p = 1 and
+    radix on mass over the cluster."""
+    x, _, _ = sampling_edge_case(29, "normal", 1, 4100)
+    assert _radix_row(x[0][:1003], 1, 0.95)[2] == "direct"
+    assert _radix_row(x[0], 40, 0.95)[2] == "direct"
+    assert _radix_row(x[0][:5], 0, 0.95)[2] == "direct"
+    assert _radix_row(x[0], 300, 0.95)[2] == "cluster"
+    assert _radix_row(x[0], 0, 1.0)[2] == "p1"
+    assert _radix_row(x[0], 0, 0.9)[2] == "cluster"
+
+
+@pytest.mark.parametrize("kind", SAMPLING_KINDS)
+def test_radix_plan_is_bitwise_independent_of_the_cluster_size(kind):
+    """Integer counts and fixed-point masses sum in any order: the row
+    split over the kernel's 16 CTAs gives the same bits as over 1 or 4,
+    on every tau_p route."""
+    V = 2051
+    x, ks, ps = sampling_edge_case(31, kind, 12, V)
+    for i in range(len(ks)):
+        want = _radix_row(x[i], int(ks[i]), ps[i], 16)
+        for cluster in (1, 4):
+            got = _radix_row(x[i], int(ks[i]), ps[i], cluster)
+            assert np.array_equal(got[0].view(np.uint32),
+                                  want[0].view(np.uint32))
+            assert got[1:] == want[1:]
 
 
 def test_ops_dispatch_cpu_goes_to_plain_and_kernels_refuse_cpu():
