@@ -33,7 +33,14 @@ and profiles one MGRIT and one serial step. It checks the SSM training
 gradients the same way at reduced depth, then trains full-width
 ``falcon_mamba_7b`` at 26 layers (MGRIT, probe at step 2; full depth
 does not fit one card) and full-width, full-depth ``zamba2_1p2b``
-(serial) for three steps each, profiling one step of each mode.
+(serial) for three steps each, profiling one step of each mode. Last
+it checks the paper's encoder and encoder-decoder families' gradients
+at full width and reduced depth (bert128 at 8 layers, mt_marian at 3 +
+3, the encoder's leaves included) against the plain path, then trains
+full-width, full-depth ``bert128`` (MGRIT, probe at step 2), ``vit32``
+and ``mt_marian`` for three steps each. The flash kernels are also held
+non-causal at those models' shapes, mc_tiny's and a cross-attention
+shape (Sq != Sk), and timed at bert128's.
 Before serving (phase 2b) it times each training kernel beside its
 plain version, a library yardstick where one PyTorch call computes the
 same function, and its bound (the RMSNorm and scan kernels with their
@@ -105,6 +112,20 @@ SCAN_ROWS = {"falcon": (2, 8192, 16, 0), "zamba2": (1, 4096, 64, 64)}
 SCAN_TOL = {"y": 1e-5, "grad": 1e-4}
 SCAN_NAMES = ("dt", "x", "A", "B", "C", "D")
 FALCON_TRAIN_LAYERS = 26        # 1 open + 24 ParallelNet + 1 close
+# the paper's encoder and encoder-decoder attention, non-causal, as
+# (B, H, Hkv, Sq, Sk, hd, causal): bert128 (B 32, S 224), vit32 (B 64,
+# 193 tokens + 4 stub patches), mt_marian's self-attention (B 32, S 274)
+# and cross-attention (274 target rows on 190 source keys), mc_tiny (one
+# head of 128, S 2048)
+PAPER_FLASH = ((32, 12, 12, 224, 224, 64, False),
+               (64, 12, 12, 197, 197, 64, False),
+               (32, 8, 8, 274, 274, 64, False),
+               (32, 8, 8, 274, 190, 64, False),
+               (8, 1, 1, 2048, 2048, 128, False))
+# the paper's training runs: (arch, B, S); vit32's S is its tokens, the 4
+# stub patch embeddings come before them
+PAPER_TRAIN = (("bert128", 32, 224), ("vit32", 64, 193),
+               ("mt_marian", 32, 274))
 # (rows, width) the RMSNorm kernel sees: training ln / qk-norm rows; a
 # decode wave's ln, q-norm and k-norm rows; a 512-token prefill bucket's;
 # falcon-mamba-7b's training block norms and zamba2-1.2b's gated norm
@@ -447,17 +468,24 @@ def flash_tol_text(dname) -> str:
     return tol
 
 
-def check_train_kernels(gen):
+def check_train_kernels(gen, paper_gen):
     """Flash attention and RMSNorm, forward and backward, against their
     plain versions (autograd of the plain version for the gradients), in
     float32 and bf16; each backward twice, bit-identical. Attention also
-    runs at zamba2_1p2b's training shape, in bf16 (its dtype). Returns
-    the largest bf16 absolute error of each kernel at the training
-    shapes."""
+    runs at zamba2_1p2b's training shape, in bf16 (its dtype), and at
+    the paper's non-causal shapes (PAPER_FLASH) in both dtypes, whose
+    inputs come from ``paper_gen`` (so that every other case, and every
+    later phase that draws from ``gen``, sees the inputs it saw before
+    these cases were added). Returns the largest bf16 absolute error of
+    each kernel at the causal training shapes, and of flash at
+    PAPER_FLASH under "<kernel>@paper".
+    """
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     err = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0,
+           "flash_attention_fwd@paper": 0.0,
+           "flash_attention_bwd@paper": 0.0,
            "rmsnorm_fwd": 0.0, "rmsnorm_bwd": 0.0}
     grid = [(1, 4, 4, 128, 128, 64, True), (2, 4, 2, 128, 128, 32, True),
             (1, 8, 1, 256, 256, 64, True), (1, 2, 2, 128, 256, 64, False),
@@ -469,11 +497,14 @@ def check_train_kernels(gen):
         dname = str(dtype).split(".")[1]
         tol = FLASH_TOL[dname]
         bf16 = dtype == torch.bfloat16
-        cases = grid + ([zamba2_attn] if bf16 else [])
-        for B, h, hkv, Sq, Sk, hd, causal in cases:
-            q, do = (torch.randn((B, h, Sq, hd), generator=gen,
+        cases = grid + ([zamba2_attn] if bf16 else []) + list(PAPER_FLASH)
+        for case in cases:
+            B, h, hkv, Sq, Sk, hd, causal = case
+            paper = case in PAPER_FLASH
+            g = paper_gen if paper else gen
+            q, do = (torch.randn((B, h, Sq, hd), generator=g,
                                  device="cuda") * 0.5 for _ in range(2))
-            k, v = (torch.randn((B, hkv, Sk, hd), generator=gen,
+            k, v = (torch.randn((B, hkv, Sk, hd), generator=g,
                                 device="cuda") * 0.5 for _ in range(2))
             q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
             want = _attn_grads(lambda *a, c=causal: fa.flash_attention_ref(
@@ -492,21 +523,25 @@ def check_train_kernels(gen):
             if not (out_ok and e_grad <= tol):
                 fail(f"flash attention {shape} {dname} disagrees with its "
                      "plain version")
-            if bf16 and Sq >= 1024:
-                err["flash_attention_fwd"] = max(err["flash_attention_fwd"],
-                                                 e_out)
-                err["flash_attention_bwd"] = max(
-                    err["flash_attention_bwd"],
+            if bf16 and (paper or Sq >= 1024):
+                sfx = "@paper" if paper else ""
+                err[f"flash_attention_fwd{sfx}"] = max(
+                    err[f"flash_attention_fwd{sfx}"], e_out)
+                err[f"flash_attention_bwd{sfx}"] = max(
+                    err[f"flash_attention_bwd{sfx}"],
                     *((g.float() - w.float()).abs().max().item()
                       for g, w in zip(got[1:], want[1:])))
+            if paper or (bf16 and Sq >= 1024):
                 qm, km, vm, dom = (x.transpose(1, 2).contiguous()
                                    for x in (q, k, v, do))
-                o, lse = fa.flash_attention_fwd(qm, km, vm, True)
-                first = fa.flash_attention_bwd(qm, km, vm, o, lse, dom, True)
-                again = fa.flash_attention_bwd(qm, km, vm, o, lse, dom, True)
+                o, lse = fa.flash_attention_fwd(qm, km, vm, causal)
+                first = fa.flash_attention_bwd(qm, km, vm, o, lse, dom,
+                                               causal)
+                again = fa.flash_attention_bwd(qm, km, vm, o, lse, dom,
+                                               causal)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                    fail(f"flash attention backward {shape} is not "
+                    fail(f"flash attention backward {shape} {dname} is not "
                          "bit-repeatable")
                 del qm, km, vm, dom, o, lse, first, again
             del q, k, v, do, want, got
@@ -708,6 +743,80 @@ def check_train_grads():
     if not (cos > 0.9999 and nrel < 1e-2 and np.isfinite(cos)):
         fail("bf16 adjoint gradients lose direction or norm")
     del params, ga, gd, gk, gp
+
+
+def check_paper_train_grads():
+    """Full-width bert128 at 8 layers (S=224) and mt_marian at 3 + 3
+    layers (S=274), B=4, in their MGRIT mode (the config's cf, levels and
+    iterations; pad_to its cf): the kernel path's gradients against the
+    plain path's (flash's plain version, under ``plain_kernels``), every
+    leaf within GRAD_REL of its max in float32, and in bf16 the
+    direction-and-norm checks of ``check_train_grads``. mt_marian's
+    encoder leaves, which only the decoder's cross-attention cotangent
+    reaches, are also held alone and must not vanish."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.models import transformer
+
+    def flat(g):
+        return torch.cat([g[p].float().reshape(-1) for p in sorted(g)
+                          if p[-1] != "gate"])
+
+    for arch, layers, S in (("bert128", 8, 224), ("mt_marian", 3, 274)):
+        base = get_config(arch)
+        encdec = base.model.family == "encdec"
+
+        def rcfg_for(dtype, base=base, layers=layers, S=S, encdec=encdec):
+            return base.replace(
+                model=dataclasses.replace(
+                    base.model, n_layers=layers, dtype=dtype,
+                    n_dec_layers=layers if encdec else 0),
+                mgrit=dataclasses.replace(base.mgrit,
+                                          pad_to=base.mgrit.cf),
+                shape=ShapeConfig("grads", "train", S, 4), microbatches=1)
+        r32, r16 = rcfg_for("float32"), rcfg_for("bfloat16")
+        mg = r32.mgrit
+        depth = f"{layers} + {layers}" if encdec else f"{layers}"
+        what = (f"{arch}, {depth} layers, S={S}, MGRIT cf {mg.cf} fwd "
+                f"{mg.fwd_iters} / bwd {mg.bwd_iters}")
+        params = transformer.init_model(r32, seed=1, device="cuda")
+        batch = shard_batch(SyntheticLM(r32, seed=1).batch_at(0), "cuda")
+        lk, gk = grads_of(params, batch, r32, mode="lp")
+        with plain_kernels():
+            lp_, gp = grads_of(params, batch, r32, mode="lp")
+        e, leaf = leaf_errors(gk, gp)
+        print(f"train grads, {what} f32: kernel path vs plain path: loss "
+              f"{lk:.6f} vs {lp_:.6f}; worst leaf {leaf} {e:.3e} "
+              f"(tolerance {GRAD_REL:g})")
+        if not (e <= GRAD_REL and abs(lk - lp_) <= 1e-5 * abs(lp_)):
+            fail(f"{arch} gradients differ between the kernel and plain "
+                 "paths")
+        if encdec:
+            enc = {p: g for p, g in gp.items() if p[0] == "enc_mid"}
+            e, leaf = leaf_errors(gk, enc)
+            small = min(g.abs().max().item() for p, g in gk.items()
+                        if p[0] == "enc_mid" and p[-1] != "gate")
+            print(f"train grads, {what} f32: encoder leaves (through the "
+                  f"cross-attention cotangent only): worst {leaf} {e:.3e}"
+                  f"; smallest leaf max|grad| {small:.3e}")
+            if not (e <= GRAD_REL and small > 0):
+                fail(f"{arch}: the encoder's gradients are wrong or zero")
+        lk, gk = grads_of(params, batch, r16, mode="lp")
+        with plain_kernels():
+            lp_, gp = grads_of(params, batch, r16, mode="lp")
+        fk, fp = flat(gk), flat(gp)
+        cos = (fk @ fp / (fk.norm() * fp.norm() + 1e-30)).item()
+        nrel = abs(fk.norm().item() - fp.norm().item()) / fp.norm().item()
+        print(f"train grads, {what} bf16: kernel path vs plain path: loss "
+              f"{lk:.6f} vs {lp_:.6f}; cosine {cos:.6f} (> 0.9999), norm "
+              f"rel diff {nrel:.3e} (< 1e-2)")
+        if not (cos > 0.9999 and nrel < 1e-2 and np.isfinite(cos)):
+            fail(f"{arch} bf16 gradients lose direction or norm on the "
+                 "kernel path")
+        del params, gk, gp
 
 
 def scan_case(gen, fam, S):
@@ -1014,20 +1123,59 @@ def zamba2_train_config():
                         microbatches=1)
 
 
-def run_train(rcfg, required):
+def paper_train_config(arch, B, S):
+    """Full-width, full-depth ``arch`` (a paper config: bert128, vit32,
+    mt_marian) at B x S, its own MGRIT config probed every 2 steps,
+    microbatches 1."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    rcfg = get_config(arch)
+    return rcfg.replace(
+        shape=ShapeConfig(f"{arch}_B{B}_S{S}", "train", S, B),
+        microbatches=1,
+        mgrit=dataclasses.replace(rcfg.mgrit, check_every=2))
+
+
+def depth_text(rcfg) -> str:
+    """The stacked layers a training run holds, and its MGRIT config."""
+    from repro_torch.models import transformer
+    cfg, mg = rcfg.model, rcfg.mgrit
+    if cfg.family == "hybrid":
+        return (f"{cfg.n_layers} mamba2 layers + the shared attention "
+                f"block after every {cfg.hybrid_attn_every} "
+                f"({cfg.n_layers // cfg.hybrid_attn_every} applications), "
+                "serial (its config)")
+    mgrit = (f"MGRIT cf={mg.cf} levels={mg.levels} fwd_iters="
+             f"{mg.fwd_iters} bwd_iters={mg.bwd_iters}, probe every "
+             f"{mg.check_every}")
+    if cfg.family == "encdec":
+        enc = transformer.depth_plan(cfg.n_layers, mg)
+        dec = transformer.depth_plan(cfg.n_dec_layers, mg)
+        return (f"encoder ParallelNet {enc.n_mid_padded} (from "
+                f"{enc.n_mid_real}) + decoder ParallelNet "
+                f"{dec.n_mid_padded} (from {dec.n_mid_real}, "
+                f"cross-attending); {mgrit}")
+    n_layers = transformer.stacked_layer_depth(rcfg)
+    n_mid = n_layers - mg.n_open - mg.n_close
+    n_real = cfg.n_layers - mg.n_open - mg.n_close
+    return (f"{n_layers} stacked layers ({mg.n_open} open + {n_mid} "
+            f"ParallelNet, gate-0 padded from {n_real}, + {mg.n_close} "
+            f"close); {mgrit}")
+
+
+def run_train(rcfg, required, probe=True):
     """``Trainer.train(3)`` of ``rcfg``, every training launch counter set
     to 0 just before and read just after (the adaptive probe at step 2
-    when MGRIT is on); then one step of each mode under the profiler
-    (MGRIT and serial when MGRIT is on, else serial), each on the batch
-    after them. Fails unless each kernel in ``required`` launched, every loss
-    and forward residual norm is finite and, under MGRIT, the probe ran
-    at step 2. Returns (launches over the 3 steps, {mode: launches in
-    the profiled step}, peak GiB)."""
+    when MGRIT and ``probe`` are on); then one step of each mode under
+    the profiler (MGRIT and serial when MGRIT is on, else serial), each
+    on the batch after them. Fails unless each kernel in ``required``
+    launched, every loss and forward residual norm is finite and, under
+    MGRIT with ``probe``, the probe ran at step 2. Returns (launches over
+    the 3 steps, {mode: launches in the profiled step}, peak GiB)."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch.steps import make_train_fn
-    from repro_torch.models import transformer
     from repro_torch.train.trainer import Trainer
     from repro_torch.tree import leaves_with_paths
     from torch.autograd import DeviceType
@@ -1038,30 +1186,16 @@ def run_train(rcfg, required):
     t0 = time.perf_counter()
     trainer = Trainer(rcfg, seed=0)
     torch.cuda.synchronize()
-    if cfg.family == "hybrid":
-        depth = (f"{cfg.n_layers} mamba2 layers + the shared attention "
-                 f"block after every {cfg.hybrid_attn_every} "
-                 f"({cfg.n_layers // cfg.hybrid_attn_every} applications), "
-                 "serial (its config)")
-    else:
-        n_layers = transformer.stacked_layer_depth(rcfg)
-        n_mid = n_layers - mg.n_open - mg.n_close
-        n_real = cfg.n_layers - mg.n_open - mg.n_close
-        depth = (f"{n_layers} stacked layers ({mg.n_open} open + {n_mid} "
-                 f"ParallelNet, gate-0 padded from {n_real}, + "
-                 f"{mg.n_close} close); MGRIT cf={mg.cf} levels="
-                 f"{mg.levels} fwd_iters={mg.fwd_iters} bwd_iters="
-                 f"{mg.bwd_iters}, probe every {mg.check_every}")
     n_params = sum(p.numel() for _, p in
                    leaves_with_paths(trainer.params))
-    print(f"train: {cfg.name} d_model={cfg.d_model} {depth}; "
-          f"{n_params / 1e9:.3f} B params; B={B} S={S} (train_4k's global "
-          f"batch 256 cut to {B}, microbatches 1), {cfg.dtype} compute, "
+    print(f"train: {cfg.name} d_model={cfg.d_model} {depth_text(rcfg)}; "
+          f"{n_params / 1e9:.3f} B params; B={B} S={S} (shape "
+          f"{rcfg.shape.name}, microbatches 1), {cfg.dtype} compute, "
           f"f32 params; init {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
-    rep = trainer.train(3, log_every=0)
+    rep = trainer.train(3, log_every=0, probe=probe)
     torch.cuda.synchronize()
     launches = train_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1080,7 +1214,8 @@ def run_train(rcfg, required):
     if not all(np.all(np.isfinite(n)) for n in rep.fwd_norms):
         fail(f"{cfg.name}: non-finite forward residual norms "
              f"{rep.fwd_norms}")
-    if mg.enabled and [h[0] for h in rep.controller_history] != [2]:
+    if mg.enabled and probe and \
+            [h[0] for h in rep.controller_history] != [2]:
         fail(f"{cfg.name}: the probe did not run at step 2: "
              f"{rep.controller_history}")
     if min(launches[k] for k in required) <= 0:
@@ -1123,10 +1258,12 @@ def run_train(rcfg, required):
     return launches, per_mode, peak
 
 
-def flash_bound_ms(B, h, hkv, S, hd, itemsize, backward=False):
-    """Least time at a causal training shape: causal pairs x (4 fwd, 10
-    bwd) x hd flops over the bf16 peak, vs each input and output once."""
-    pairs = S * (S + 1) // 2
+def flash_bound_ms(B, h, hkv, S, hd, itemsize, backward=False,
+                   causal=True):
+    """Least time at a training shape (Sq = Sk = S): visible pairs (causal
+    or all) x (4 fwd, 10 bwd) x hd flops over the bf16 peak, vs each
+    input and output once."""
+    pairs = S * (S + 1) // 2 if causal else S * S
     ops = (10 if backward else 4) * hd * pairs * B * h
     n_q = B * S * h * hd * itemsize
     n_kv = 2 * B * S * hkv * hd * itemsize
@@ -1139,67 +1276,84 @@ def flash_bound_ms(B, h, hkv, S, hd, itemsize, backward=False):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def time_flash(gen, flush, err, name, B, h, hkv, hd):
-    """The bf16 flash kernels at one causal training shape (S=4096): held
-    against the plain version (``err`` takes the largest abs errors of
-    out and of dq/dk/dv), then kernel, plain, SDPA and bound times.
-    Returns {"fwd"/"bwd": (kernel, plain, library, bound ms, bound by)}."""
+def time_flash(gen, flush, err, name, B, h, hkv, hd, S=TRAIN_S,
+               causal=True, err_key=""):
+    """The bf16 flash kernels at one training shape (S=4096 causal unless
+    given): held against the plain version (``err``'s
+    "flash_attention_{fwd,bwd}<err_key>" take the largest abs errors of
+    out and of dq/dk/dv), then kernel, plain, SDPA and
+    bound times, and the device times of the kernel and of SDPA
+    (``device_ms``). Returns {"fwd"/"bwd": (kernel, plain, library,
+    bound ms, bound by, kernel device, library device ms)}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    bf, S = torch.bfloat16, TRAIN_S
+    bf = torch.bfloat16
     q, do = (torch.randn((B, S, h, hd), generator=gen,
                          device="cuda").to(bf) for _ in range(2))
     k, v = (torch.randn((B, S, hkv, hd), generator=gen,
                         device="cuda").to(bf) for _ in range(2))
-    o, lse = fa.flash_attention_fwd(q, k, v, True)
-    k_fwd = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 5, flush)
-    k_bwd = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                   True), 5, flush)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+
+    def kfwd():
+        return fa.flash_attention_fwd(q, k, v, causal)
+
+    def kbwd():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    k_fwd, k_bwd = time_ms(kfwd, 5, flush), time_ms(kbwd, 5, flush)
+    kd_fwd, kd_bwd = device_ms(kfwd, 5, flush), device_ms(kbwd, 5, flush)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
-    plain_fwd = time_ms(lambda: fa.flash_attention_ref(qt, kt, vt), 3,
+    plain_fwd = time_ms(lambda: fa.flash_attention_ref(qt, kt, vt,
+                                                       causal=causal), 3,
                         flush)
-    po = fa.flash_attention_ref(qr, kr, vr)
+    po = fa.flash_attention_ref(qr, kr, vr, causal=causal)
     plain_bwd = time_ms(lambda: torch.autograd.grad(
         po, (qr, kr, vr), dot, retain_graph=True), 3, flush)
     want = (po, *torch.autograd.grad(po, (qr, kr, vr), dot))
-    got = (o, *fa.flash_attention_bwd(q, k, v, o, lse, do, True))
+    got = (o, *fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
     got = [x.transpose(1, 2) for x in got]
     torch.cuda.synchronize()
     e_out, out_ok = flash_out_check(got[0], want[0], "bfloat16")
     e_grad = max(_scaled_err(g, w) for g, w in zip(got[1:], want[1:]))
-    shape = f"B={B} H={h}/{hkv} Sq=Sk={S} hd={hd} causal bfloat16"
+    shape = (f"B={B} H={h}/{hkv} Sq=Sk={S} hd={hd} "
+             f"{'causal' if causal else 'full'} bfloat16")
     print(f"flash_attention {shape} ({name}): out max|kernel-plain| "
           f"{e_out:.3e}, dq/dk/dv max|kernel-plain|/max|plain| {e_grad:.3e} "
           f"({flash_tol_text('bfloat16')})")
     if not (out_ok and e_grad <= FLASH_TOL["bfloat16"]):
         fail(f"flash attention disagrees with its plain version at {name}")
-    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], e_out)
-    err["flash_attention_bwd"] = max(
-        err["flash_attention_bwd"],
-        max((g.float() - w.float()).abs().max().item()
-            for g, w in zip(got[1:], want[1:])))
+    fk, bk = (f"flash_attention_{part}{err_key}" for part in ("fwd", "bwd"))
+    err[fk] = max(err[fk], e_out)
+    err[bk] = max(err[bk], max((g.float() - w.float()).abs().max().item()
+                               for g, w in zip(got[1:], want[1:])))
     del po, want, got
     sdpa = F.scaled_dot_product_attention
     qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
-    lib_fwd = time_ms(lambda: sdpa(qc, kc, vc, is_causal=True,
-                                   enable_gqa=True), 5, flush)
+
+    def lfwd():
+        return sdpa(qc, kc, vc, is_causal=causal, enable_gqa=True)
     ql, kl, vl = (x.detach().requires_grad_(True) for x in (qc, kc, vc))
-    lo = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lo, (ql, kl, vl), dot.contiguous(), retain_graph=True), 5, flush)
+    lo = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
+    doc = dot.contiguous()
+
+    def lbwd():
+        return torch.autograd.grad(lo, (ql, kl, vl), doc, retain_graph=True)
+    lib_fwd, lib_bwd = time_ms(lfwd, 5, flush), time_ms(lbwd, 5, flush)
+    ld_fwd, ld_bwd = device_ms(lfwd, 5, flush), device_ms(lbwd, 5, flush)
     del lo
-    pairs = B * h * S * (S + 1) // 2
+    pairs = B * h * (S * (S + 1) // 2 if causal else S * S)
     rows = {}
-    for part, km, pm, lm, per_pair in (("fwd", k_fwd, plain_fwd, lib_fwd, 6),
-                                       ("bwd", k_bwd, plain_bwd, lib_bwd,
-                                        16)):
-        bm, by = flash_bound_ms(B, h, hkv, S, hd, 2, backward=part == "bwd")
+    for part, km, pm, lm, kd, ld, per_pair in (
+            ("fwd", k_fwd, plain_fwd, lib_fwd, kd_fwd, ld_fwd, 6),
+            ("bwd", k_bwd, plain_bwd, lib_bwd, kd_bwd, ld_bwd, 16)):
+        bm, by = flash_bound_ms(B, h, hkv, S, hd, 2, backward=part == "bwd",
+                                causal=causal)
         design = 1e3 * per_pair * hd * pairs / PEAK_BF16_FLOP_S
-        rows[part] = (km, pm, lm, bm, by)
+        rows[part] = (km, pm, lm, bm, by, kd, ld)
         print(f"flash_attention_{part} {shape} ({name}): kernel {km:.4f} "
-              f"ms, plain {pm:.4f} ms, SDPA(enable_gqa) {lm:.4f} ms, bound "
+              f"ms (device {kd:.4f}), plain {pm:.4f} ms, SDPA(enable_gqa, "
+              f"is_causal={causal}) {lm:.4f} ms (device {ld:.4f}), bound "
               f"{bm:.5f} ms ({by}); the design's {per_pair} x hd flops a "
               f"pair take {design:.5f} ms at the bf16 peak")
     return rows
@@ -1211,8 +1365,9 @@ def time_train_kernels(gen, flush, err):
     zamba2_1p2b's B=1 H=32/32 hd=64 (each also held against the plain
     version, see ``time_flash``); RMSNorm forward and backward at (8192,
     2048) and at qk-norm's (131072, 128), with device times. Returns
-    {kernel: (kernel, plain, library, bound ms, bound by)}, with zamba2's
-    flash rows under "<kernel>@zamba2", the RMSNorm device times (kernel,
+    {kernel: (kernel, plain, library, bound ms, bound by)} (flash rows
+    add the kernel's and SDPA's device times), with zamba2's flash rows
+    under "<kernel>@zamba2", the RMSNorm device times (kernel,
     library) under "rmsnorm_{fwd,bwd}@device" and the qk-norm rows (the
     five, then both device times) under "rmsnorm_{fwd,bwd}@qk_norm"."""
     import torch
@@ -1831,6 +1986,10 @@ def main() -> int:
     # -- 2. kernels vs plain versions at the serve shapes -------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # the paper families' kernel cases draw from their own generator, so
+    # every earlier case keeps its inputs
+    paper_gen = torch.Generator(device="cuda")
+    paper_gen.manual_seed(20)
     attn_err = {}
     # qwen3_1p7b's GQA heads, then zamba2_1p2b's shared attention (MHA,
     # 32/32 heads of hd 64)
@@ -1892,7 +2051,7 @@ def main() -> int:
     edge_err, edge_tv = check_sampling(gen)
     samp_err = max(samp_err, edge_err)
     ssm_err = check_ssm_kernel(gen)
-    train_err = check_train_kernels(gen)
+    train_err = check_train_kernels(gen, paper_gen)
     train_err.update(check_scan_kernel(gen))
     gc.collect()
     torch.cuda.empty_cache()
@@ -1902,6 +2061,9 @@ def main() -> int:
     flush = torch.empty(64 * 2**20 // 4, device="cuda")   # > 50 MB L2
     train_rows = time_train_kernels(gen, flush, train_err)
     scan_rows = time_scan_kernels(gen, flush, train_err)
+    for part, row in time_flash(paper_gen, flush, train_err, "bert128", 32,
+                                12, 12, 64, 224, False, "@paper").items():
+        train_rows[f"flash_attention_{part}@bert128"] = row
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2027,6 +2189,22 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # -- 8. the paper's encoder and encoder-decoder families: gradients at
+    # reduced depth, then bert128 (MGRIT, probe at step 2), vit32 (serial
+    # forward, MGRIT backward, probe at step 2) and mt_marian (MGRIT; the
+    # reference has no encoder-decoder probe) at full width and depth ----
+    check_paper_train_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_kernels = ("flash_attention_fwd", "flash_attention_bwd")
+    paper_train = {}
+    for arch, B, S in PAPER_TRAIN:
+        paper_train[arch] = run_train(paper_train_config(arch, B, S),
+                                      flash_kernels,
+                                      probe=arch != "mt_marian")
+        gc.collect()
+        torch.cuda.empty_cache()
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [
@@ -2057,7 +2235,7 @@ def main() -> int:
             ("flash_attention_fwd", "flash_attention", 64),
             ("flash_attention_bwd", "flash_attention", 64),
             ("rmsnorm_fwd", "rmsnorm", 23), ("rmsnorm_bwd", "rmsnorm", 23)):
-        km, pm, lm, bm, by = train_rows[name]
+        km, pm, lm, bm, by = train_rows[name][:5]
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -2076,12 +2254,26 @@ def main() -> int:
                             "qk_norm_library_device_ms"),
                            train_rows[f"{name}@qk_norm"], strict=True))
         if src == "flash_attention":
-            # zamba2_1p2b's shape (B=1 H=32/32 hd=64) and its run's launches
-            kz, pz, lz, bz, byz = train_rows[f"{name}@zamba2"]
+            # device_* the device work alone (device_ms); zamba2_1p2b's
+            # shape (B=1 H=32/32 hd=64) and its run's launches; bert128's
+            # (B=32 S=224 H=12/12 hd=64, non-causal), the launches of the
+            # paper runs' Trainer.train(3) and the largest bf16 error at
+            # the paper's non-causal shapes (PAPER_FLASH and bert128's)
+            row["device_ms"], row["library_device_ms"] = \
+                train_rows[name][5:]
+            kz, pz, lz, bz, byz = train_rows[f"{name}@zamba2"][:5]
             row.update(zamba2_ms=kz, zamba2_plain_ms=pz,
                        zamba2_library_ms=lz, zamba2_bound_ms=bz,
                        zamba2_bound_by=byz,
                        launches_zamba2=ssm_train["zamba2"][0][name])
+            row.update(zip(("bert128_ms", "bert128_plain_ms",
+                            "bert128_library_ms", "bert128_bound_ms",
+                            "bert128_bound_by", "bert128_device_ms",
+                            "bert128_library_device_ms"),
+                           train_rows[f"{name}@bert128"], strict=True))
+            row.update({f"launches_{arch}": paper_train[arch][0][name]
+                        for arch in paper_train},
+                       paper_max_abs_err=train_err[f"{name}@paper"])
         kernels.append(row)
     # one row per product order: falcon-mamba-7b's path launches "dbx",
     # zamba2-1.2b's "dxb"; ms/plain_ms/bound_ms at decode (S=1), prefill_*
@@ -2132,6 +2324,8 @@ def main() -> int:
               "topk_topp_mask_falcon": samp["launches_falcon"],
               "topk_topp_mask_zamba2": samp["launches_zamba2"],
               **{k: train_launches[k] for k in attn_kernels},
+              **{f"{k}_{arch}": paper_train[arch][0][k]
+                 for arch in paper_train for k in flash_kernels},
               **{f"{k}_{fam}": ssm_train[fam][0][k]
                  for fam in ssm_train for k in scan_kernels},
               "paged_ssm_update_dbx":

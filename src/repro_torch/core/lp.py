@@ -16,9 +16,12 @@ What differs from the reference, and why:
 - ``jax.vmap`` over layers in ``_param_grads`` is a Python loop over the
   layers, each a VJP of one layer's F (see :mod:`repro_torch.core.mgrit`
   for why loops, not a stacked layer axis).
-- The extra inputs (rope cos/sin) are built from positions, not
-  parameters: they get no cotangent here (the reference computes one and
-  nothing consumes it).
+- Of the extra inputs, only ``xa`` (the encoder's output, read by the
+  ``encdec_dec`` kind's cross-attention) is differentiable: its
+  cotangent, summed over the layers, is the reference's ``d_extra`` and
+  flows into the encoder trunk's own adjoint. Rope cos/sin are built
+  from positions, not parameters: they get no cotangent here (the
+  reference computes one and nothing consumes it).
 - Sharding fields (``znames``, ``use_pallas``) are gone: one device, and
   on the card the kernels are the only path.
 """
@@ -34,14 +37,16 @@ from repro_torch.core import mgrit
 from repro_torch.models.blocks import block_F
 from repro_torch.tree import leaves_with_paths, tree_map, unflatten
 
-Extra = Dict[str, Any]  # per-call inputs: rope (cos, sin), None for mamba
+Extra = Dict[str, Any]  # per-call inputs: rope (cos, sin), None for
+                        # mamba; xa for encdec_dec
 
 
 @dataclasses.dataclass(frozen=True)
 class LPStatic:
     cfg: ModelConfig
     mgrit: MGRITConfig
-    kind: str               # block kind: attn_mlp, mamba1 or mamba2
+    kind: str               # block kind: attn_mlp, encdec_dec, mamba1 or
+                            # mamba2
     causal: bool = True
 
     def spec(self, iters: int) -> mgrit.MGRITSpec:
@@ -52,7 +57,8 @@ class LPStatic:
 def eval_F(static: LPStatic, params, z, extra: Extra):
     """The ODE right-hand side F(t_n, Z) of paper Eq. 1/2."""
     return block_F(params, z, static.cfg, kind=static.kind,
-                   causal=static.causal, rope=extra.get("rope"))
+                   causal=static.causal, rope=extra.get("rope"),
+                   xa=extra.get("xa"))
 
 
 def make_fwd_step(static: LPStatic, extra: Extra) -> mgrit.StepFn:
@@ -65,7 +71,8 @@ def make_fwd_step(static: LPStatic, extra: Extra) -> mgrit.StepFn:
 
 def make_adj_step(static: LPStatic, extra: Extra) -> mgrit.StepFn:
     """Adjoint propagator Psi(lam) = lam + h*gate*(dF/dZ)^T lam, evaluated
-    at the stored forward state. ``slot`` = {"params", "gate", "z"}."""
+    at the stored forward state. ``slot`` = {"params", "gate", "z"}. Only
+    z is differentiated (``xa`` is held fixed), as in the reference."""
     def step(slot, lam, h):
         z = slot["z"].detach().requires_grad_(True)
         with torch.enable_grad():
@@ -113,9 +120,16 @@ def _adjoint_solve(static: LPStatic, stacked: List, states, lamN, extra,
 def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
     """Per-layer gradients g_theta_n = h*gate_n*(dF/dtheta_n)^T
     lambda_{n+1}, one layer at a time, written into stacked (N, ...)
-    tensors in the order of ``leaves_with_paths(slot["params"])``."""
+    tensors in the order of ``leaves_with_paths(slot["params"])``; and
+    the cotangent of ``extra["xa"]`` (None where that is None): the sum
+    over the layers, in layer order and in float32, of
+    h*gate_n*(dF_n/dxa)^T lambda_{n+1}."""
     h = static.mgrit.h
-    out = None
+    xa = extra.get("xa")
+    if xa is not None:
+        xa = xa.detach().requires_grad_(True)
+        extra = dict(extra, xa=xa)
+    out, d_xa = None, None
     for n, slot in enumerate(stacked):
         paths, leaves = zip(*leaves_with_paths(slot["params"]))
         leaves = [p.detach().requires_grad_(True) for p in leaves]
@@ -123,12 +137,16 @@ def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
             f = eval_F(static, unflatten(zip(paths, leaves)), states[n],
                        extra)
         ct = (h * slot["gate"].to(rev_lam.dtype)) * rev_lam[n]
-        grads = torch.autograd.grad(f, leaves, ct)
+        grads = torch.autograd.grad(
+            f, leaves if xa is None else [*leaves, xa], ct)
+        if xa is not None:
+            *grads, g_xa = grads
+            d_xa = g_xa.float() if d_xa is None else d_xa + g_xa.float()
         if out is None:
             out = [g.new_empty((len(stacked), *g.shape)) for g in grads]
         for acc, g in zip(out, grads):
             acc[n] = g
-    return out
+    return out, None if d_xa is None else d_xa.to(xa.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -137,30 +155,34 @@ def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
 
 
 class _LPForward(torch.autograd.Function):
-    """(z0, gate, *param leaves) -> (zT, fwd_norms); backward = MGRIT
-    adjoint. Gate gradients are zero (structural constants)."""
+    """(z0, gate, xa, *param leaves) -> (zT, fwd_norms); backward = MGRIT
+    adjoint. Gate gradients are zero (structural constants); ``xa`` is
+    the encoder's output for ``encdec_dec`` trunks, else None."""
 
     @staticmethod
-    def forward(ctx, static, extra, paths, z0, gate, *leaves):
+    def forward(ctx, static, rope, paths, z0, gate, xa, *leaves):
         stacked = _layer_slots(unflatten(zip(paths, leaves)), gate)
+        extra = {"rope": rope, "xa": xa}
         states, zT, norms = _forward_solve(static, stacked, z0, extra,
                                            static.mgrit.fwd_iters)
-        ctx.save_for_backward(states, gate, *leaves)
-        ctx.static, ctx.extra, ctx.paths = static, extra, paths
+        ctx.save_for_backward(states, gate, xa, *leaves)
+        ctx.static, ctx.rope, ctx.paths = static, rope, paths
         ctx.mark_non_differentiable(norms)
         return zT, norms
 
     @staticmethod
     def backward(ctx, ct_zT, _ct_norms):
-        states, gate, *leaves = ctx.saved_tensors
-        static, extra = ctx.static, ctx.extra
+        states, gate, xa, *leaves = ctx.saved_tensors
+        static, extra = ctx.static, {"rope": ctx.rope, "xa": xa}
         stacked = _layer_slots(unflatten(zip(ctx.paths, leaves)), gate)
         # the adjoint runs in the trunk's compute dtype (lambda ~ z)
         rev_lam, lam0, _ = _adjoint_solve(static, stacked, states,
                                           ct_zT.to(states.dtype), extra,
                                           static.mgrit.bwd_iters)
-        d_leaves = _param_grads(static, stacked, states, rev_lam, extra)
-        return (None, None, None, lam0, torch.zeros_like(gate), *d_leaves)
+        d_leaves, d_xa = _param_grads(static, stacked, states, rev_lam,
+                                      extra)
+        return (None, None, None, lam0, torch.zeros_like(gate), d_xa,
+                *d_leaves)
 
 
 def _layer_slots(params, gate):
@@ -171,10 +193,11 @@ def _layer_slots(params, gate):
 
 def lp_forward(static: LPStatic, stacked, z0, extra: Extra):
     """Returns (zT, fwd_residual_norms). ``stacked`` = {"params": tree of
-    (N, ...) tensors, "gate": (N,)}. The gradient is the MGRIT adjoint."""
+    (N, ...) tensors, "gate": (N,)}; ``extra`` = {"rope"[, "xa"]}. The
+    gradient is the MGRIT adjoint, for ``xa`` too."""
     paths, leaves = zip(*leaves_with_paths(stacked["params"]))
-    return _LPForward.apply(static, extra, paths, z0, stacked["gate"],
-                            *leaves)
+    return _LPForward.apply(static, extra.get("rope"), paths, z0,
+                            stacked["gate"], extra.get("xa"), *leaves)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Grouped-query attention with RoPE and qk-norm: full-sequence (training)
-and over a paged KV cache (serving).
+"""Grouped-query attention with RoPE and qk-norm: full-sequence self- and
+cross-attention (training) and over a paged KV cache (serving).
 
-Port of :mod:`repro.models.attention` without its contiguous KV cache and
-cross-attention (encoder-decoder models come in a later slice). Layouts are
-the reference's: activations (B, S, D), q/k/v after projection
-(B, S, H, hd), page pools (L, n_pages, page_size, Hkv, hd).
+Port of :mod:`repro.models.attention` without its contiguous KV cache
+(the dense decode oracle, a later slice). Layouts are the reference's:
+activations (B, S, D), q/k/v after projection (B, S, H, hd), page pools
+(L, n_pages, page_size, Hkv, hd).
 
 Not ported: the fused ref-mode "view" path (``paged_view_gather`` /
 ``paged_view_attention_apply`` / ``paged_kv_commit``). It exists in the
@@ -25,8 +25,10 @@ from repro_torch.models.layers import (apply_rope, dense_init,
                                        torch_dtype)
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
-                   device=None):
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False, *, lead=(), device=None):
+    """Attention projections; ``cross`` (an encoder-decoder block's
+    cross-attention) draws the same leaves, as in the reference."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.n_heads, cfg.n_kv_heads
     pdt = torch_dtype(cfg.param_dtype)
@@ -138,26 +140,32 @@ ATTN_CHUNK_THRESHOLD = 8192
 
 
 def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
-                    rope=None):
-    """Self-attention without a cache (training / full-sequence forward).
+                    rope=None, xa=None):
+    """Self- or cross-attention without a cache (training / full-sequence
+    forward).
 
     x: (B, S, D). rope: precomputed (cos, sin), shared across layers.
-    On the card the attention core is the flash kernel
+    xa: (B, Sk, D) encoder output for cross-attention: K and V are
+    projected from it, no rope is applied and no mask either. On the card
+    the attention core is the flash kernel
     (:func:`repro_torch.kernels.ops.flash_attention`, the counterpart of
-    the reference's ``use_pallas=True``); on the CPU it takes the
-    reference's dense / chunked branches. Returns (B, S, D).
+    the reference's ``use_pallas=True``), cross-attention included; on
+    the CPU it takes the reference's dense / chunked branches. Returns
+    (B, S, D).
     """
     dt = torch_dtype(cfg.dtype)
     x = x.to(dt)
-    q, k, v = _project_qkv(params, x, None, cfg)
-    if rope is not None:
+    q, k, v = _project_qkv(params, x, xa, cfg)
+    if xa is None and rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    causal = causal and xa is None
     S = q.shape[1]
     if q.is_cuda:
         out = kops.flash_attention(q, k, v, causal=causal)
-    elif S >= (cfg.attn_chunk or ATTN_CHUNK_THRESHOLD) and S % 512 == 0:
+    elif S >= (cfg.attn_chunk or ATTN_CHUNK_THRESHOLD) \
+            and S == k.shape[1] and S % 512 == 0:
         out = chunked_attention(q, k, v, causal=causal)
     else:
         out = dot_attention(q, k, v, causal=causal)

@@ -1,12 +1,20 @@
-"""Pre-LN transformer blocks in neural-ODE form (paper Eq. 1).
+"""Pre-LN transformer blocks in neural-ODE form (paper Eq. 1-2).
 
-Port of the ``attn_mlp``, ``mamba1`` and ``mamba2`` kinds of
-:mod:`repro.models.blocks`: one layer is the forward-Euler step
-``Z_{n+1} = Z_n + gate * F(Z_n)`` with ``F = phi1(X) + phi2(X +
-phi1(X))``, phi1 = SA o LN, phi2 = MLP o LN (attn_mlp), or ``F = Mixer o
-LN`` (the mamba kinds; their paged serving step is
-``repro_torch.models.ssm``). Block params are homogeneous within a kind,
-so they stack over the layer axis (leading dim of every leaf).
+Port of the ``attn_mlp``, ``encdec_dec``, ``mamba1`` and ``mamba2``
+kinds of :mod:`repro.models.blocks` (``attn_moe`` comes with the MoE
+slice): one layer is the forward-Euler step ``Z_{n+1} = Z_n + gate *
+F(Z_n)`` with
+
+  attn_mlp (Eq. 1):    F = phi1(X) + phi2(X + phi1(X)),
+                       phi1 = SA o LN, phi2 = MLP o LN
+  encdec_dec (Eq. 2):  Ybar = phi1(Y) + phi3(Y + phi1(Y), X_enc),
+                       phi3 = CA o LN (cross-attention to X_enc),
+                       F = Ybar + phi2(Y + Ybar)
+  mamba1/mamba2:       F = Mixer o LN (their paged serving step is
+                       ``repro_torch.models.ssm``).
+
+Block params are homogeneous within a kind, so they stack over the layer
+axis (leading dim of every leaf).
 """
 from __future__ import annotations
 
@@ -41,16 +49,21 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
         init_mixer = init_mamba1 if kind == "mamba1" else init_mamba2
         return {"norm": init_norm(cfg, lead=lead, device=device),
                 "mixer": init_mixer(gen, cfg, lead=lead, device=device)}
-    if kind != "attn_mlp":
+    if kind not in ("attn_mlp", "encdec_dec"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (attn_mlp, mamba1 and "
-            "mamba2 only; the MoE family comes in a later slice)")
-    return {
+            f"block kind {kind!r} is not ported yet (attn_mlp, encdec_dec, "
+            "mamba1 and mamba2 only; the MoE family comes in a later slice)")
+    p = {
         "ln1": init_norm(cfg, lead=lead, device=device),
         "attn": init_attention(gen, cfg, lead=lead, device=device),
         "ln2": init_norm(cfg, lead=lead, device=device),
         "mlp": init_mlp(gen, cfg, lead=lead, device=device),
     }
+    if kind == "encdec_dec":
+        p["ln3"] = init_norm(cfg, lead=lead, device=device)
+        p["xattn"] = init_attention(gen, cfg, cross=True, lead=lead,
+                                    device=device)
+    return p
 
 
 def attn_block_F(params, z, a, cfg: ModelConfig, *, kind: str):
@@ -62,27 +75,35 @@ def attn_block_F(params, z, a, cfg: ModelConfig, *, kind: str):
 
 
 def block_F(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
-            rope=None):
+            rope=None, xa=None):
     """Evaluate the ODE right-hand side F(t, z) of one block (``rope`` is
-    read by the attention kinds only)."""
+    read by the attention kinds only, ``xa``, the encoder's output, by
+    ``encdec_dec`` only)."""
     if kind in ("mamba1", "mamba2"):
         mixer = mamba1_apply if kind == "mamba1" else mamba2_apply
         return mixer(params["mixer"], norm_apply(params["norm"], z, cfg), cfg)
-    if kind != "attn_mlp":
+    if kind not in ("attn_mlp", "encdec_dec"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     a = attention_apply(params["attn"], norm_apply(params["ln1"], z, cfg),
                         cfg, causal=causal, rope=rope)
+    if kind == "encdec_dec":
+        ca = attention_apply(params["xattn"],
+                             norm_apply(params["ln3"], z + a, cfg), cfg,
+                             causal=False, xa=xa)
+        ybar = a + ca
+        return ybar + mlp_apply(params["mlp"],
+                                norm_apply(params["ln2"], z + ybar, cfg), cfg)
     return attn_block_F(params, z, a, cfg, kind=kind)
 
 
 def block_step(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
-               h: float = 1.0, gate=None, rope=None):
+               h: float = 1.0, gate=None, rope=None, xa=None):
     """One Euler step Phi(z) = z + h*gate*F(z). ``gate`` (0/1) marks padded
     identity layers used for layer-parallel divisibility padding. The
     step sizes in use (1, 1/16 and their cf multiples) are exact in bf16,
     so scaling by the Python float equals the reference's cast-then-
     multiply."""
-    f = block_F(params, z, cfg, kind=kind, causal=causal, rope=rope)
+    f = block_F(params, z, cfg, kind=kind, causal=causal, rope=rope, xa=xa)
     if gate is None:
         return z + h * f
     return z + (h * gate.to(z.dtype)) * f

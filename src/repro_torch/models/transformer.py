@@ -1,18 +1,24 @@
 """The model around the layer stack: training and serving.
 
-Port of :mod:`repro.models.transformer` for the decoder family with
-``attn_mlp`` blocks and the SSM and hybrid families, training and paged
-serving. Params use the JAX pytree's key paths: ``embed``
-(``tok``, ``out``), ``final_norm``, ``open`` / ``close`` (serial buffer
-stacks) and ``mid`` (``params`` stack + ``gate``) — the ParallelNet's
-layers, padded with gate-0 identity layers to the MGRIT divisibility;
-the hybrid family has ``backbone`` (mamba2 stack) and ``shared_attn``
-(one ``attn_mlp`` block) instead. Training runs the buffers serially and
-the ParallelNet through :func:`repro_torch.core.lp.lp_forward` (MGRIT
-forward, MGRIT adjoint backward); the hybrid family trains serially
-(the shared attention block breaks the ODE form); serving runs every
-stacked layer in order, padded ones included. The remaining families
-(MoE, encoder, encoder-decoder) come in a later slice.
+Port of :mod:`repro.models.transformer` for the decoder, encoder and
+encoder-decoder families with ``attn_mlp`` blocks (``encdec_dec`` in the
+decoder of the last) and the SSM and hybrid families: training for all
+of them, paged serving for the decoder, SSM and hybrid ones. Params use
+the JAX pytree's key paths: ``embed`` (``tok``, ``out``),
+``final_norm``, ``open`` / ``close`` (serial buffer stacks) and ``mid``
+(``params`` stack + ``gate``) — the ParallelNet's layers, padded with
+gate-0 identity layers to the MGRIT divisibility. The encoder-decoder
+family has ``enc_mid`` and ``dec_mid`` instead (two ParallelNets, no
+buffers), the hybrid family ``backbone`` (mamba2 stack) and
+``shared_attn`` (one ``attn_mlp`` block). Training runs the buffers
+serially and each ParallelNet through
+:func:`repro_torch.core.lp.lp_forward` (MGRIT forward, MGRIT adjoint
+backward); the encoder-decoder is the paper's Eq. 3, one time grid
+solved as two chained trunks, the decoder's cross-attention input's
+cotangent flowing into the encoder's adjoint; the hybrid family trains
+serially (the shared attention block breaks the ODE form); serving runs
+every stacked layer in order, padded ones included. The MoE family
+comes in a later slice.
 """
 from __future__ import annotations
 
@@ -49,6 +55,11 @@ def make_gates(n_real: int, n_padded: int, dtype=torch.float32, device=None):
     return (torch.arange(n_padded, device=device) < n_real).to(dtype)
 
 
+MOE_SLICE = ("the MoE family (attn_moe blocks: grok1_314b, qwen3_moe_235b) "
+             "is not ported yet: it comes with the MoE slice (ROADMAP "
+             "Queue 1 item 3)")
+
+
 @dataclasses.dataclass(frozen=True)
 class DepthPlan:
     n_open: int
@@ -73,14 +84,26 @@ def depth_plan(n_layers: int, mg: MGRITConfig) -> DepthPlan:
 def _init_params(rcfg: RunConfig, gen, device) -> Dict[str, Any]:
     cfg, mg = rcfg.model, rcfg.mgrit
     kind = block_kind(cfg)
-    if cfg.family not in ("decoder", "ssm", "hybrid") or kind == "attn_moe":
-        raise NotImplementedError(
-            f"family={cfg.family!r} kind={kind!r} is not ported yet: the "
-            "port has decoder models with attn_mlp blocks and the SSM and "
-            "hybrid families")
+    if kind == "attn_moe":
+        raise NotImplementedError(MOE_SLICE)
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg, device=device),
         "final_norm": init_norm(cfg, device=device)}
+
+    def stack(n, kind=kind):
+        return init_block(gen, cfg, kind, lead=(n,), device=device) \
+            if n else None
+
+    def trunk(n_layers, kind):
+        plan = depth_plan(n_layers, mg)
+        return {"params": stack(plan.n_mid_padded, kind),
+                "gate": make_gates(plan.n_mid_real, plan.n_mid_padded,
+                                   device=device)}
+
+    if cfg.family == "encdec":
+        params["enc_mid"] = trunk(cfg.n_layers, "attn_mlp")
+        params["dec_mid"] = trunk(cfg.n_dec_layers, "encdec_dec")
+        return params
     if cfg.family == "hybrid":
         params["backbone"] = init_block(gen, cfg, "mamba2",
                                         lead=(cfg.n_layers,), device=device)
@@ -88,15 +111,9 @@ def _init_params(rcfg: RunConfig, gen, device) -> Dict[str, Any]:
                                            device=device)
         return params
     plan = depth_plan(cfg.n_layers, mg)
-
-    def stack(n):
-        return init_block(gen, cfg, lead=(n,), device=device) if n else None
-
     params["open"] = stack(plan.n_open)
     params["close"] = stack(plan.n_close)
-    params["mid"] = {
-        "params": stack(plan.n_mid_padded),
-        "gate": make_gates(plan.n_mid_real, plan.n_mid_padded, device=device)}
+    params["mid"] = trunk(cfg.n_layers, kind)
     return params
 
 
@@ -163,13 +180,14 @@ def _serial_buffer(stacked, z, cfg: ModelConfig, *, kind, causal, rope):
 
 
 def _trunk(params_mid, z, rcfg: RunConfig, *, kind, causal, rope,
-           mode: str):
-    """The ParallelNet: MGRIT layer-parallel or exact serial trunk."""
+           mode: str, xa=None):
+    """The ParallelNet: MGRIT layer-parallel or exact serial trunk.
+    ``xa``: the encoder's output, for an ``encdec_dec`` trunk."""
     cfg, mg = rcfg.model, rcfg.mgrit
     if mode == "serial" or not mg.enabled:
         mg = dataclasses.replace(mg, fwd_iters=0, bwd_iters=0)
     static = LPStatic(cfg=cfg, mgrit=mg, kind=kind, causal=causal)
-    return lp_forward(static, params_mid, z, {"rope": rope})
+    return lp_forward(static, params_mid, z, {"rope": rope, "xa": xa})
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
@@ -193,29 +211,52 @@ def _hybrid_trunk(params, z, cfg: ModelConfig, rope):
     return z
 
 
+def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
+    """Paper Eq. 3: the encoder grid over the source (``src_tokens``, or
+    the audio stub's ``src_embeds``), then the decoder grid over
+    ``tokens`` cross-attending to the encoder's output X_{N_enc}.
+    Returns (Y_N, both trunks' forward residual norms)."""
+    cfg = rcfg.model
+    if cfg.frontend == "audio" and "src_embeds" in batch:
+        xe = batch["src_embeds"].to(torch_dtype(cfg.dtype))
+    else:
+        xe = _embed_inputs(params, {"tokens": batch["src_tokens"]}, cfg)
+    xN, n1 = _trunk(params["enc_mid"], xe, rcfg, kind="attn_mlp",
+                    causal=False, rope=_rope_for(cfg, xe.shape[1],
+                                                 xe.device), mode=mode)
+    y = embed_tokens(params["embed"], batch["tokens"], cfg)
+    yN, n2 = _trunk(params["dec_mid"], y, rcfg, kind="encdec_dec",
+                    causal=True, rope=_rope_for(cfg, y.shape[1], y.device),
+                    mode=mode, xa=xN)
+    return yN, torch.cat([n1, n2])
+
+
 def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
-    """Returns (logits, diagnostics). batch: tokens (B, S) [+ mm_embeds]."""
+    """Returns (logits, diagnostics). batch: tokens (B, S) [+ mm_embeds
+    for the vision stub; + src_tokens, or src_embeds for the audio stub,
+    for the encoder-decoder family]."""
     cfg = rcfg.model
     kind = block_kind(cfg)
-    if cfg.family not in ("decoder", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port trains "
-            "decoder, SSM and hybrid models; it comes with the "
-            "remaining-families slice (ROADMAP Queue 1)")
-    z = _embed_inputs(params, batch, cfg)
-    if cfg.family == "hybrid":
+    if kind == "attn_moe":
+        raise NotImplementedError(MOE_SLICE)
+    if cfg.family == "encdec":
+        z, norms = _encdec_trunks(params, batch, rcfg, mode)
+    elif cfg.family == "hybrid":
+        z = _embed_inputs(params, batch, cfg)
         z = _hybrid_trunk(params, z, cfg,
                           _rope_for(cfg, z.shape[1], z.device))
         norms = torch.zeros((1,), dtype=torch.float32, device=z.device)
     else:
+        causal = cfg.family != "encoder"
+        z = _embed_inputs(params, batch, cfg)
         rope = None if kind in ("mamba1", "mamba2") else \
             _rope_for(cfg, z.shape[1], z.device)
         z = _serial_buffer(params.get("open"), z, cfg, kind=kind,
-                           causal=True, rope=rope)
-        z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=True,
+                           causal=causal, rope=rope)
+        z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=causal,
                           rope=rope, mode=mode)
         z = _serial_buffer(params.get("close"), z, cfg, kind=kind,
-                           causal=True, rope=rope)
+                           causal=causal, rope=rope)
     z = norm_apply(params["final_norm"], z, cfg)
     logits = unembed(params["embed"], z, cfg)
     return logits, {"fwd_norms": norms}

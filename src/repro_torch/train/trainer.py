@@ -8,6 +8,8 @@ Port of :mod:`repro.train.trainer`:
     and switch LP -> serial when it crosses 1;
   * straggler watch: EWMA of step wall-time, slow steps logged.
 
+The probe of an encoder-decoder model raises ``NotImplementedError``:
+the reference has none to port (its probe reads ``params["mid"]``).
 Checkpoints (``ckpt_dir``) and meshes come in later slices and raise
 here. The LP and serial steps are two step functions; switching is a
 host-side decision. The entry point runs on ``cuda`` unless the caller
@@ -80,21 +82,28 @@ class Trainer:
 
     def _probe(self, batch):
         """Paper's indicator probe: doubled iterations, measure rho."""
-        fwd_it, bwd_it = self.controller.probe_iters()
         rcfg = self.rcfg
         cfg = rcfg.model
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "the adaptive probe of an encoder-decoder model is not "
+                "ported: the reference's Trainer._probe has none (it reads "
+                "params['mid'], which an encdec model lacks, and raises "
+                "KeyError; ROADMAP Queue 3). Train it with probe=False or "
+                "a check_every beyond the steps run")
+        fwd_it, bwd_it = self.controller.probe_iters()
         kind = block_kind(cfg)
         static = lp_mod.LPStatic(
             cfg=cfg,
             mgrit=dataclasses.replace(rcfg.mgrit, fwd_iters=fwd_it,
                                       bwd_iters=bwd_it),
-            kind=kind, causal=True)
+            kind=kind, causal=cfg.family != "encoder")
         with torch.no_grad():
             z = transformer._embed_inputs(self.params, batch, cfg)
             rope = None if kind in ("mamba1", "mamba2") else \
                 transformer._rope_for(cfg, z.shape[1], z.device)
             z = transformer._serial_buffer(self.params.get("open"), z, cfg,
-                                           kind=kind, causal=True,
+                                           kind=kind, causal=static.causal,
                                            rope=rope)
         return lp_mod.lp_diagnose(
             static, self.params["mid"], z, {"rope": rope},

@@ -456,6 +456,33 @@ def test_flash_attention_bf16_training_shapes_match_plain_on_card(
     _check_flash_on_card(B, H, Hkv, Sq, Sk, hd, causal, torch.bfloat16, 2e-2)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,hd", [
+    (32, 12, 12, 224, 224, 64),         # bert128
+    (64, 12, 12, 197, 197, 64),         # vit32: 193 tokens + 4 patches
+    (32, 8, 8, 274, 274, 64),           # mt_marian self-attention
+    (32, 8, 8, 274, 190, 64),           # mt_marian cross-attention
+    (8, 1, 1, 2048, 2048, 128)])        # mc_tiny
+def test_flash_attention_paper_shapes_match_plain_on_card(
+        B, H, Hkv, Sq, Sk, hd, dtype, tol):
+    """The paper's encoder and encoder-decoder attention: non-causal,
+    ragged last tiles, B > 1 (TMA's zero fill at each batch's edge);
+    a second backward bit-identical."""
+    _need_card()
+    _check_flash_on_card(B, H, Hkv, Sq, Sk, hd, False, dtype, tol)
+    q, k, v, do = (x.to(dtype).transpose(1, 2).contiguous()
+                   for x in to_torch(*flash_case(Sq + 1, B, H, Hkv, Sq, Sk,
+                                                 hd), device="cuda"))
+    o, lse = tfa.flash_attention_fwd(q, k, v, False)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do, False)
+    second = tfa.flash_attention_bwd(q, k, v, o, lse, do, False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _check_flash_on_card(B, H, Hkv, Sq, Sk, hd, causal, dtype, tol):
     q, k, v, do = (x.to(dtype) for x in to_torch(
         *flash_case(Sq + hd, B, H, Hkv, Sq, Sk, hd), device="cuda"))

@@ -556,9 +556,11 @@ def test_train_entry_points_default_to_cuda():
 
 
 def test_unported_families_raise_naming_their_slice():
-    rcfg = t_reduce(t_get_config("seamless_m4t_v2"))
-    with pytest.raises(NotImplementedError, match="remaining-families"):
+    rcfg = t_reduce(t_get_config("qwen3_moe_235b"))
+    with pytest.raises(NotImplementedError, match="MoE slice"):
         ttr.forward({}, {}, rcfg)
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        ttr.init_model(rcfg, device="cpu")
     from repro_torch.models import ssm as tssm
     for arch, apply in (("falcon_mamba_7b", tssm.mamba1_apply),
                         ("zamba2_1p2b", tssm.mamba2_apply)):
