@@ -25,7 +25,22 @@ paths, each with the launch counters set to 0 just before and read just
 after: it serves ``qwen3_1p7b``, then ``falcon_mamba_7b`` and
 ``zamba2_1p2b``, each at full width and full depth (random weights from
 a seed) through ``ServeEngine``, compares one fused step with the
-gathered plain path and profiles a decode wave; it checks the training
+gathered plain path and profiles a decode wave. Then speculative
+decoding: paged attention at the verify and ingest widths S = 2, 3, 5
+and the paged SSM update's every-step plan (the verify recurrence) at
+S = 5 against their plain versions, a commit of 1, 3 or 5 verified steps
+against as many decode calls bit for bit; then each of the three models
+at full width and depth in the trained regime (residual output
+projections damped as ``benchmarks/bench_spec.py`` does), a plain
+engine and a ``SpecConfig(cf=4, k=4)`` engine on the same weights over
+the smoke queue's greedy requests (verify's logits within SPEC_GAP of
+plain decode's wherever the two share a context, the streams equal
+except at a first divergence on a near-tie, the draft's tokens held
+against a serial forward of its params), a sampled request, and one
+profiled spec wave, its draft and verify calls apart; then the same
+weights damped to SPEC_ACCEPT_DAMP, where drafts are accepted, through
+the same checks (accept rate above 0, a draft wave with a catch-up
+ingest). It checks the training
 gradients at full width and reduced depth (kernel path vs plain path vs
 direct autograd), then trains full-width, full-depth ``qwen3_1p7b`` for
 three MGRIT steps through ``Trainer.train`` (adaptive probe at step 2)
@@ -86,6 +101,11 @@ H, HKV, HD, PAGE, MAX_LEN, MAX_BATCH = 16, 8, 128, 16, 512, 4
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # grads: x max|tensor|
 FLASH_OUT_BF16 = (1e-3, 1e-2)   # bf16 out, per element: atol + rtol|plain|
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the bf16 RMSNorm output y is held in bf16 ulps of the plain output: at
+# |y| >= 4 one ulp (0.03125) exceeds RMS_TOL's 0.02, so an absolute limit
+# fails a one-ulp rounding difference there; below 4 an ulp is at most
+# 0.0156, so this is no looser than 0.02 anywhere
+RMS_Y_BF16_ULPS = 1.0
 GRAD_REL = 1e-4                 # per leaf, x max|leaf| (float32)
 TRAIN_B, TRAIN_S = 2, 4096      # train_4k's sequence, its batch cut to 2
 PEAK_F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -302,6 +322,42 @@ def attn_case(gen, B, S, lengths, dtype, n_slot_pages, poison, heads=None):
     return q, pk, pv, table, lens
 
 
+def check_paged_case(gen, heads, S, lengths, dtype) -> float:
+    """Paged attention against its plain version at one shape, within
+    ATTN_TOL; the live-bucket table and a table of 48 pages a slot (wider
+    than the bucket's 32, so the split-KV path runs different grids) and
+    a second launch give the same bits. Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    dname = str(dtype).split(".")[1]
+    case = attn_case(gen, MAX_BATCH, S, lengths, dtype, MAX_LEN // PAGE + 16,
+                     poison=1e30, heads=heads)
+    q, pk, pv, table, lens = case
+    cut = table[:, :live_bucket(lengths, S)]
+    want = pa.paged_attention_ref(q, pk, pv, cut, lens).float()
+    got = pa.paged_flash_attention(q, pk, pv, cut, lens)
+    full = pa.paged_flash_attention(q, pk, pv, table, lens)
+    again = pa.paged_flash_attention(q, pk, pv, cut, lens)
+    torch.cuda.synchronize()
+    path = "split-KV" if pa.plan(dtype, MAX_BATCH, S, *heads, PAGE,
+                                 cut.shape[1]).split else "multi-row"
+    shape = f"H={heads[0]}/{heads[1]} hd={heads[2]} S={S:3d}"
+    if not torch.equal(got, full):
+        fail(f"paged attention {shape} {dname}: the live-bucket table "
+             "changed the output")
+    if not torch.equal(got, again):
+        fail(f"paged attention {shape} {dname}: a second launch changed the "
+             "output")
+    err = (got.float() - want).abs().max().item()
+    print(f"paged_flash_attention {shape} {dname:8s} ({path}) "
+          f"max|kernel-plain| = {err:.3e} (tolerance {ATTN_TOL[dname]:g}); "
+          f"live-bucket table ({cut.shape[1]} pages) == full "
+          f"({table.shape[1]}) == second launch, bitwise")
+    if not err <= ATTN_TOL[dname]:
+        fail(f"paged attention {shape} {dname} error {err:.3e}")
+    return err
+
+
 def live_bucket(lengths, S) -> int:
     need = max(int(x) + S for x in lengths)
     return 1 << (max(-(-need // PAGE), 1) - 1).bit_length()
@@ -425,6 +481,22 @@ def flipped_mass(logits, keep_a, keep_b) -> float:
                         torch.full_like(logits.float(), -float("inf")))
     prob = torch.softmax(union, dim=-1)
     return float((prob * (keep_a != keep_b)).sum(-1).max())
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x|."""
+    import math
+    return 2.0 ** (math.frexp(abs(x))[1] - 8)
+
+
+def bf16_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of |want|: the spacing of bf16
+    values at |want|, 2**(e-8) for |want| in [2**(e-1), 2**e)."""
+    import torch
+    w = want.float()
+    _, e = torch.frexp(w.abs())
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    return ((got.float() - w).abs() / ulp).max().item()
 
 
 def _scaled_err(got, want) -> float:
@@ -562,10 +634,20 @@ def check_train_kernels(gen, paper_gen):
             e_dx, e_dw = _scaled_err(got[1], want[1]), _scaled_err(got[2],
                                                                    want[2])
             tol = RMS_TOL[dname]
+            if dtype == torch.bfloat16:
+                u_y = bf16_ulps(got[0], want[0])
+                y_ok = u_y <= RMS_Y_BF16_ULPS
+                y_tol = f"y tolerance {RMS_Y_BF16_ULPS:g} bf16 ulp of |plain|"
+            else:
+                u_y, y_ok = None, e_y <= tol
+                y_tol = f"y tolerance {tol:g}"
             print(f"rmsnorm ({R}, {D}) {dname:8s}: y max|kernel-plain| "
-                  f"{e_y:.3e}, dx {e_dx:.3e}, dw {e_dw:.3e} of max|plain| "
-                  f"(tolerance {tol:g})")
-            if not (e_y <= tol and e_dx <= tol and e_dw <= tol):
+                  f"{e_y:.3e}"
+                  + (f" ({u_y:g} bf16 ulp of |plain|)" if u_y is not None
+                     else "")
+                  + f", dx {e_dx:.3e}, dw {e_dw:.3e} of max|plain| "
+                  f"({y_tol}; dx, dw tolerance {tol:g})")
+            if not (y_ok and e_dx <= tol and e_dw <= tol):
                 fail(f"rmsnorm ({R}, {D}) {dname} disagrees with its plain "
                      "version")
             _, rstd = rn.rmsnorm_fwd(x, w)
@@ -1941,6 +2023,666 @@ def time_ssm_kernel(gen, flush):
     return rows
 
 
+# -- speculative decoding (phase 5b) -------------------------------------
+
+# the paper's near-identity "trained regime", in which the coarse grid is
+# a useful draft: every residual output projection (and mamba2's gated
+# norm gain) damped per family; copied from benchmarks/bench_spec.py:65-83
+# (this script imports only repro_torch, torch and numpy)
+_RESIDUAL_OUT = ("out_proj", "wo", "w_out", "norm_scale")
+TRAINED_REGIME_DAMP = {"attn": 0.1, "ssm": 0.1, "hybrid": 0.05}
+
+
+def trained_regime(params, factor: float):
+    """Damp every residual output projection by ``factor``."""
+    if isinstance(params, dict):
+        return {k: (v * factor if k in _RESIDUAL_OUT
+                    else trained_regime(v, factor))
+                for k, v in params.items()}
+    return params
+
+
+SPEC_CF, SPEC_K = 4, 4
+SPEC_S = (2, 3, 5)              # verify / ingest widths the kernels take
+# verify runs the bf16 projections at M = B(k+1) rows where decode runs
+# M = B (and the draft's ingest at M = B(k+1) where a serial forward runs
+# M = its length), so cuBLAS may round differently: at every position
+# whose context two paths share, max|logits of one - logits of the other|
+# over the vocab must stay within SPEC_GAP. A greedy first divergence of
+# spec from plain decode (or of the draft from a serial forward of the
+# draft's params) is allowed only where the token taken lies within
+# SPEC_TIE = 2 SPEC_GAP of the reference path's top logit: two logit
+# vectors within SPEC_GAP of each other can flip only such a pair.
+# SPEC_GAP is the largest gap read on an H100 between any two of these
+# paths, 0.3047 (falcon_mamba_7b in the trained regime: a serial forward
+# vs plain decode at a divergence; verify vs decode 0.2891 there),
+# rounded up to 12 bf16 ulps at |logit| in [4, 8).
+SPEC_GAP = 0.375
+SPEC_TIE = 2 * SPEC_GAP
+# the trained regime's damping was set on toy widths, where the coarse
+# draft agrees with the fine model; at full width its drafts are almost
+# never accepted, so every family is also served at this damping, where
+# drafts are accepted and the accept-and-commit half runs
+SPEC_ACCEPT_DAMP = 0.001
+SPEC_REQS = 4                   # the smoke queue's greedy requests
+SPEC_LENS = [16, 31, 0, 300]    # slots at a page boundary, mid-page, empty
+SPEC_NNEW = [5, 3, 5, 0]        # ... and idle, at S = 5
+SPEC_FAMILIES = (("qwen3_1p7b", "attn"), ("falcon_mamba_7b", "ssm"),
+                 ("zamba2_1p2b", "hybrid"))
+
+
+@contextlib.contextmanager
+def plain_paged_ssm():
+    """Route ``kernels.ops.paged_ssm_update`` to its plain version for the
+    duration; fails if the kernel launches meanwhile."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_ssm as ps
+    saved, before = ops.paged_ssm_update, ps.paged_ssm_update.launches
+    ops.paged_ssm_update = ps.paged_ssm_update_ref
+    try:
+        yield
+    finally:
+        ops.paged_ssm_update = saved
+    if ps.paged_ssm_update.launches != before:
+        fail("the paged SSM kernel launched on the plain path")
+
+
+def spec_ssm_case(gen, order):
+    """Full-width rows-layout inputs at S = 5 (SPEC_LENS / SPEC_NNEW) on
+    a random table, as ``ssm_kernel_case`` builds them."""
+    import torch
+    table = ssm_table(gen)
+    dt, x, Bm, Cm, A, pool, _, nn = ssm_kernel_case(
+        gen, order, 5, SPEC_LENS, SPEC_NNEW, table)
+    lens = torch.tensor(SPEC_LENS, dtype=torch.int32, device="cuda")
+    return (dt, x, Bm, Cm, A), pool, table, lens, nn
+
+
+def check_spec_kernels(gen):
+    """The kernels at the spec path's new shapes: paged attention at
+    S = 2, 3, 5 (qwen3_1p7b's and zamba2_1p2b's heads, bf16 and float32)
+    as ``check_paged_case`` holds it; the paged SSM update's every-step
+    plan (``models.ssm.every_step_update``, the verify recurrence) at
+    S = 5 for both orders against the plain deferred recurrence (y on
+    valid rows and every step's state within SSM_TOL of max|plain|, the
+    pool untouched, a second launch bitwise); and a commit of n_write in
+    {1, 3, 5} verified steps, whose pool must equal bit for bit what
+    n_write plain decode calls (S = 1, the decode kernel) leave. Returns
+    the largest abs errors."""
+    import torch
+    from repro_torch.kernels import paged_ssm as ps
+    from repro_torch.models import ssm as tssm
+    err = {"attn": 0.0}
+    for heads in ((H, HKV, HD), (32, 32, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for S in SPEC_S:
+                e = check_paged_case(gen, heads, S, SPEC_LENS, dtype)
+                if dtype == torch.bfloat16:
+                    err["attn"] = max(err["attn"], e)
+    for order in ("dbx", "dxb"):
+        rows, pool, table, lens, nn = spec_ssm_case(gen, order)
+        kept = pool.clone()
+        got = tssm.every_step_update(*rows, pool, table, lens, nn, PAGE,
+                                     order=order)
+        again = tssm.every_step_update(*rows, pool, table, lens, nn, PAGE,
+                                       order=order)
+        with plain_paged_ssm():
+            want = tssm.every_step_update(*rows, pool, table, lens, nn,
+                                          PAGE, order=order)
+        torch.cuda.synchronize()
+        valid = (torch.arange(5, device="cuda")[None, :]
+                 < nn[:, None])[..., None]
+        e_y = _scaled_err(got[0] * valid, want[0] * valid)
+        e_h = _scaled_err(got[1] * valid[..., None], want[1] * valid[..., None])
+        abs_y = ((got[0] - want[0]) * valid).abs().max().item()
+        same = all(torch.equal(a, b)
+                   for a, b in zip(got, again, strict=True))
+        untouched = torch.equal(pool, kept)
+        print(f"paged_ssm_update {order} every-step plan (verify) S=5 "
+              f"lengths {SPEC_LENS} n_new {SPEC_NNEW}: y max|kernel-plain| "
+              f"{abs_y:.3e} = {e_y:.3e} of max|plain|, states {e_h:.3e} "
+              f"(tolerance {SSM_TOL:g}); pool untouched {untouched}, second "
+              f"launch bit-identical {same}")
+        if not (e_y <= SSM_TOL and e_h <= SSM_TOL and same and untouched):
+            fail(f"paged_ssm_update {order}: the every-step plan disagrees "
+                 "with the plain deferred recurrence")
+        err[order] = abs_y
+        for n_write in (1, 3, 5):
+            nw = torch.clamp(nn, max=n_write)
+            committed, decoded = pool.clone(), pool.clone()
+            hs = tssm.every_step_update(*rows, committed, table, lens, nn,
+                                        PAGE, order=order)[1]
+            t, phys = tssm.snapshot_steps(table, lens, nw, PAGE)
+            tssm.paged_state_write(
+                committed, hs[torch.arange(MAX_BATCH, device="cuda")[:, None],
+                              t], phys)
+            at = lens.clone()
+            for step in range(n_write):
+                live = (nw > step).to(torch.int32)
+                part = [a[:, step:step + 1].contiguous() for a in rows[:4]]
+                ps.paged_ssm_update(*part, rows[4], decoded,
+                                    *ssm_plan_of(table, at, live, 1), live,
+                                    order=order)
+                at = (at + live).to(torch.int32)
+            torch.cuda.synchronize()
+            same = torch.equal(committed[1:], decoded[1:])
+            print(f"paged_ssm_update {order}: commit of {n_write} verified "
+                  f"steps == {n_write} decode calls, bitwise on every page "
+                  f"but scratch: {same}")
+            if not same:
+                fail(f"paged_ssm_update {order}: a commit of {n_write} "
+                     "verified steps differs from plain decode")
+    return err
+
+
+def time_spec_kernels(gen, flush):
+    """Rows 3c and 6c: paged attention at verify's S = 5 (B = 4, qwen3's
+    heads, contexts DECODE_LENS) beside SDPA on the gathered view, and the
+    paged SSM update's every-step plan at S = 5 (both orders; the kernel
+    call on the prepared scratch buffer, its device time, the plain
+    version; no single PyTorch call computes it)."""
+    import torch
+    from repro_torch.kernels import paged_ssm as ps
+    from repro_torch.models import ssm as tssm
+    q, pk, pv, table, lens = attn_case(gen, MAX_BATCH, 5, DECODE_LENS,
+                                       torch.bfloat16, MAX_LEN // PAGE,
+                                       poison=0.0)
+    P = live_bucket(DECODE_LENS, 5)
+    attn = time_paged(flush, q, pk, pv, table[:, :P], lens, DECODE_LENS, 5)
+    print(f"paged_flash_attention verify B=4 S=5 bf16 P={P}: kernel "
+          f"{attn['ms']:.4f} ms (device {attn['device_ms']:.4f}), plain "
+          f"{attn['plain_ms']:.4f} ms, SDPA on the gathered view "
+          f"{attn['library_ms']:.4f} ms (device "
+          f"{attn['library_device_ms']:.4f}), bound {attn['bound_ms']:.5f}"
+          f" ms ({attn['bound_by']})")
+    rows = {}
+    n_new = [5] * MAX_BATCH
+    for order in ("dbx", "dxb"):
+        R, ds = SSM_ROWS[order]
+        table = ssm_table(gen)
+        dt, x, Bm, Cm, A, pool, _, nn = ssm_kernel_case(
+            gen, order, 5, DECODE_LENS, n_new, table)
+        lns = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+        read_page, live = tssm.paged_read_plan(table, lns, PAGE)
+        seed = torch.arange(MAX_BATCH, device="cuda") * 6
+        buf = torch.empty((MAX_BATCH * 6, R, ds), device="cuda")
+        buf[seed] = pool[read_page.long()]
+        steps = torch.arange(5, device="cuda")
+        plan = (seed.to(torch.int32), live.to(torch.int32),
+                (seed[:, None] + 1 + steps).to(torch.int32),
+                steps[None, :].expand(MAX_BATCH, 5).to(torch.int32).contiguous())
+        args = (dt, x, Bm, Cm, A, buf, *plan, nn)
+        k_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update(
+            *a, order=o), flush=flush)
+        d_ms = device_ms(lambda a=args, o=order: ps.paged_ssm_update(
+            *a, order=o), 20, flush)
+        p_ms = time_ms(lambda a=args, o=order: ps.paged_ssm_update_ref(
+            *a, order=o), flush=flush)
+        b_ms, by = ssm_bound_ms(order, 5, DECODE_LENS, n_new, plan)
+        print(f"paged_ssm_update {order} every-step plan R={R} ds={ds} "
+              f"B={MAX_BATCH} S=5: kernel {k_ms:.4f} ms (device {d_ms:.4f} "
+              f"ms, plan int32), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({by}), library none")
+        rows[order] = dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, bound_by=by)
+    return attn, rows
+
+
+def profile_spec_wave(engine, reqs, card):
+    """One steady speculative wave of ``engine`` (``reqs`` admitted and
+    decoding), its draft call and its verify call each timed alone (wall
+    with a device sync, three unprofiled waves) and then under the
+    profiler (device busy, device ops, the kernels' launches in each
+    call). Returns {call: launches in the profiled wave}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sched = engine.scheduler
+    name = engine.rcfg.model.name
+    for r in reqs:
+        engine.submit(r)
+    sched.step()                         # admission wave + a spec wave
+    walls = {"draft": [], "verify": []}
+    prof_rows, launches = {}, {}
+
+    def timed(label, fn, profiled):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            before = serve_counts()
+            if not profiled:
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                walls[label].append(time.perf_counter() - t0)
+                return out
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA]
+            prof_rows[label] = (sum(dev_us(e) for e in kern) / 1e6,
+                                sum(e.count for e in kern))
+            launches[label] = {k: v - before[k]
+                               for k, v in serve_counts().items()}
+            return out
+        return call
+
+    draft, verify = sched.spec.wave, engine.backend.verify
+    for profiled in (False, False, False, True):
+        if sched.n_active < len(reqs):
+            fail(f"{name}: a request finished before the profiled spec wave")
+        sched.spec.wave = timed("draft", draft, profiled)
+        engine.backend.verify = timed("verify", verify, profiled)
+        try:
+            sched.step()
+        finally:
+            del sched.spec.wave, engine.backend.verify
+    sched.run()
+    for label in ("draft", "verify"):
+        wall = sum(walls[label]) / len(walls[label])
+        busy, ops = prof_rows.get(label, (0.0, 0))
+        print(f"[{card}] {name} spec wave, {label} call: {1e3 * wall:.2f} ms "
+              f"wall, "
+              + (f"device busy {1e3 * busy:.2f} ms = {100 * busy / wall:.1f}%"
+                 f", {ops} device ops" if ops else
+                 "device busy not measured (no device events)")
+              + f"; launches {launches[label]}")
+    return launches
+
+
+@contextlib.contextmanager
+def record_spec_logits():
+    """Keep a reference to every logits tensor the serve steps draw a
+    token from (``sample_tokens`` under ``CacheBackend.prefill`` /
+    ``step``; ``speculative_accept``: verify; ``draft_sample_tokens``: the
+    draft wave), with its slots' seeds, emission counters and occupancy
+    (``n_new``: the backend call's for prefill and decode, the window
+    widths for verify). No device work is added: the tensors are read
+    after the run."""
+    from repro_torch.launch import steps
+    from repro_torch.serve.cache import CacheBackend
+    calls, live = [], [None]
+    saved = (steps.sample_tokens, steps.speculative_accept,
+             steps.draft_sample_tokens, CacheBackend.prefill,
+             CacheBackend.step)
+
+    def sample(logits, temps, top_ks, top_ps, seeds, counters, **kw):
+        if live[0] is not None:          # not the draft's own prefill
+            calls.append(("emit", logits, seeds, counters,
+                          (live[0] > 0).astype(np.int64)))
+        return saved[0](logits, temps, top_ks, top_ps, seeds, counters,
+                        **kw)
+
+    def accept(logits, tokens, draft_probs, temps, top_ks, top_ps, seeds,
+               counters, n_new, **kw):
+        calls.append(("emit", logits, seeds, counters, n_new))
+        return saved[1](logits, tokens, draft_probs, temps, top_ks, top_ps,
+                        seeds, counters, n_new, **kw)
+
+    def draft(logits, temps, top_ks, top_ps, seeds, counters, **kw):
+        calls.append(("draft", logits, seeds, counters, None))
+        return saved[2](logits, temps, top_ks, top_ps, seeds, counters,
+                        **kw)
+
+    def occupied(call):
+        def run(self, state, slots, tokens):
+            live[0] = np.asarray(slots.n_new)
+            try:
+                return call(self, state, slots, tokens)
+            finally:
+                live[0] = None
+        return run
+
+    import numpy as np
+    (steps.sample_tokens, steps.speculative_accept,
+     steps.draft_sample_tokens) = sample, accept, draft
+    CacheBackend.prefill = occupied(saved[3])
+    CacheBackend.step = occupied(saved[4])
+    try:
+        yield calls
+    finally:
+        (steps.sample_tokens, steps.speculative_accept,
+         steps.draft_sample_tokens, CacheBackend.prefill,
+         CacheBackend.step) = saved
+
+
+def emitted_rows(calls, seeds):
+    """{(seed, emission index): the logits row the token was drawn from}
+    for the requests whose (nonzero, distinct) seeds are given. Window
+    row i of an occupied slot is emission index counter + i; the last
+    call covering an index is the one that emitted it (a rejected suffix
+    is verified again by the next wave, a chunked prefill ends with its
+    last chunk)."""
+    rows = {}
+    for kind, lg, sd, ct, nn in calls:
+        if kind != "emit":
+            continue
+        sd, ct, nn = sd.tolist(), ct.tolist(), nn.tolist()
+        for b, seed in enumerate(sd):
+            if seed in seeds:
+                for i in range(nn[b]):
+                    rows[(seed, ct[b] + i)] = (lg[b] if lg.dim() == 2
+                                               else lg[b, i])
+    return rows
+
+
+def _row_gap(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check_greedy_spec(served, rcfg, greedy, outs, rows, label, card):
+    """Greedy spec against plain decode on one card. At every emission
+    index whose context the two runs share (up to and including a first
+    divergence), the logits spec drew its token from (verify's, or the
+    prefill's) must lie within SPEC_GAP of plain decode's, each run's
+    token must be the argmax of its own row, and at a first divergence
+    the spec token must lie within SPEC_TIE of the top logit of plain
+    decode's row and of a teacher-forced serial forward's (itself within
+    SPEC_GAP of decode's). Returns (bitwise
+    matches, the largest verify-vs-decode gap, divergences)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    name = rcfg.model.name
+    matched, worst, divergences = 0, 0.0, []
+    for i, (a, b) in enumerate(zip(outs["plain"], outs["spec"],
+                                   strict=True)):
+        seed = greedy[i].seed
+        j = int(np.argmax(a != b)) if not np.array_equal(a, b) else None
+        shared = len(a) if j is None else j + 1
+        for m in range(shared):
+            pl, sp = rows["plain"][(seed, m)], rows["spec"][(seed, m)]
+            if int(pl.float().argmax()) != a[m] or \
+                    int(sp.float().argmax()) != b[m]:
+                fail(f"{name} {label} request {i} token {m}: the emitted "
+                     "token is not the argmax of the logits it was drawn "
+                     "from")
+            gap = _row_gap(pl, sp)
+            worst = max(worst, gap)
+            if gap > SPEC_GAP:
+                fail(f"{name} {label} request {i} token {m}: verify's "
+                     f"logits lie {gap:.4f} from plain decode's (limit "
+                     f"{SPEC_GAP:g})")
+        if j is None:
+            matched += 1
+            continue
+        dec = rows["plain"][(seed, j)].float()
+        seq = np.concatenate([greedy[i].prompt, a]).astype(np.int64)
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                served, {"tokens": torch.from_numpy(seq[None]).to(
+                    dec.device)}, rcfg, mode="serial")
+        ser = logits[0, len(greedy[i].prompt) + j - 1].float()
+        d_tie = (dec.max() - dec[b[j]]).item()
+        s_tie = (ser.max() - ser[b[j]]).item()
+        gap = _row_gap(rows["spec"][(seed, j)], dec)
+        divergences.append(dict(request=i, token=j, decode_margin=d_tie,
+                                serial_margin=s_tie, gap=gap,
+                                serial_gap=_row_gap(ser, dec)))
+        print(f"[{card}] spec {name} {label} request {i}: first divergence "
+              f"at token {j} ({a[j]} plain, {b[j]} spec); the spec token "
+              f"lies {d_tie:.4f} below plain decode's top logit "
+              f"{dec.max().item():.4f} ({d_tie / bf16_ulp(dec.max().item()):g}"
+              f" bf16 ulp) and {s_tie:.4f} below the serial forward's; "
+              f"max|verify - decode| there {gap:.4f}, max|serial - decode| "
+              f"{divergences[-1]['serial_gap']:.4f} (limits: tie "
+              f"{SPEC_TIE:g}, gap {SPEC_GAP:g})")
+        if not (d_tie < SPEC_TIE and s_tie < SPEC_TIE):
+            fail(f"{name} {label}: greedy spec diverged from plain decode "
+                 f"away from a near-tie ({d_tie:.4f} / {s_tie:.4f})")
+        if divergences[-1]["serial_gap"] > SPEC_GAP:
+            fail(f"{name} {label}: the serial forward's logits lie "
+                 f"{divergences[-1]['serial_gap']:.4f} from plain decode's")
+    print(f"[{card}] spec {name} {label}: {matched}/{len(greedy)} greedy "
+          f"requests bitwise equal to plain decode, the rest diverged on "
+          f"near-ties; max|verify - decode| over every shared-context "
+          f"position {worst:.4f} (limit {SPEC_GAP:g})")
+    return matched, worst, divergences
+
+
+def check_draft_tokens(engine, greedy, outs, waves, calls, card, label,
+                       catch_up: bool):
+    """Hold the draft's greedy tokens of one wave against a teacher-forced
+    serial forward of the draft's own params: the wave (of a greedy
+    request) with the longest catch-up ingest, its context the prompt and
+    the canonical output up to the wave; each drafted token must be the
+    serial forward's argmax or within SPEC_TIE of it, and the wave's
+    logits within SPEC_GAP of the serial forward's. ``catch_up`` requires
+    an ingest of two tokens or more (a draft accepted the wave before).
+    Returns (n_in, max gap)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves_with_paths, unflatten
+    draft = engine.scheduler.spec
+    name = engine.rcfg.model.name
+    by_seed = {r.seed: i for i, r in enumerate(greedy)}
+    best = None
+    for n_in, n_draft, seeds, counters, window, lo, hi in waves:
+        for b, seed in enumerate(seeds.tolist()):
+            if seed in by_seed and n_draft[b] >= 1 and (
+                    best is None or n_in[b] > best[0]):
+                best = (int(n_in[b]), b, by_seed[seed], int(counters[b]),
+                        int(n_draft[b]), window, lo, hi)
+    if best is None or (catch_up and best[0] < 2):
+        fail(f"{name} {label}: no draft wave ingested "
+             f"{'two or more tokens' if catch_up else 'a token'}")
+    n_in, b, i, c, n, window, lo, hi = best
+    steps = [lg for kind, lg, *_ in calls[lo:hi] if kind == "draft"]
+    drafted = window[b, 1:1 + n].tolist()
+    ctx = np.concatenate([greedy[i].prompt, outs["spec"][i][:c]])
+    seq = np.concatenate([ctx, drafted[:-1]]).astype(np.int64)
+    params = draft.params
+    if isinstance(params.get("mid", {}).get("params"), list):
+        # forward takes a stacked trunk: stack the per-layer views
+        layers = [leaves_with_paths(p) for p in params["mid"]["params"]]
+        params = {**params, "mid": {**params["mid"], "params": unflatten(
+            (path, torch.stack([ls[n][1] for ls in layers]))
+            for n, (path, _) in enumerate(layers[0]))}}
+    with torch.no_grad():
+        logits, _ = transformer.forward(
+            params, {"tokens": torch.from_numpy(seq[None]).to(
+                window.device)}, draft.rcfg, mode="serial")
+    del params
+    gap, ties = 0.0, []
+    for t in range(n):
+        ser = logits[0, len(ctx) - 1 + t].float()
+        gap = max(gap, _row_gap(steps[t][b], ser))
+        ties.append((ser.max() - ser[drafted[t]]).item())
+    print(f"[{card}] spec {name} {label}: draft wave of request {i} at "
+          f"token {c} (ingest {n_in}, {n} drafted {drafted}) vs a serial "
+          f"forward of the {draft.n_coarse}-layer draft: the drafted "
+          f"tokens lie {[round(x, 4) for x in ties]} below its top logits,"
+          f" max|wave - serial| {gap:.4f} (limits: tie {SPEC_TIE:g}, gap "
+          f"{SPEC_GAP:g})")
+    if gap > SPEC_GAP or max(ties) >= SPEC_TIE:
+        fail(f"{name} {label}: the draft's greedy tokens disagree with a "
+             "serial forward of its params")
+    return n_in, gap
+
+
+def spec_greedy(rcfg, served, greedy, card, label):
+    """A plain engine and a ``SpecConfig(SPEC_CF, SPEC_K)`` engine on
+    ``served``, both warmed; the greedy requests through each, timed
+    (counters set to 0 just before, the logits recorded), each request
+    finishing with its budget; then ``check_greedy_spec`` and
+    ``check_draft_tokens``. Returns (engines, numbers, launch counts)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+    name = rcfg.model.name
+    seeds = {r.seed for r in greedy}
+    if len(seeds) != len(greedy) or 0 in seeds:
+        fail(f"{name}: the greedy requests' seeds do not tell them apart")
+    kw = dict(max_batch=MAX_BATCH, page_size=PAGE, max_len=MAX_LEN,
+              device="cuda")
+    engines = {"plain": ServeEngine(rcfg, served, **kw),
+               "spec": ServeEngine(rcfg, served,
+                                   spec=SpecConfig(cf=SPEC_CF, k=SPEC_K),
+                                   **kw)}
+    for e in engines.values():               # warm-up
+        e.generate([dataclasses.replace(greedy[0], max_new_tokens=6)])
+    torch.cuda.synchronize()
+    res, outs, launches, rows, waves = {}, {}, {}, {}, []
+    sched = engines["spec"].scheduler
+    wave = sched.spec.wave
+
+    def recorded_wave(ingest, n_in, n_draft, temps, top_ks, top_ps, seeds,
+                      counters):
+        lo = len(calls)
+        window, q = wave(ingest, n_in, n_draft, temps, top_ks, top_ps,
+                         seeds, counters)
+        waves.append((np.array(n_in), np.array(n_draft), np.array(seeds),
+                      np.array(counters), window, lo, len(calls)))
+        return window, q
+
+    for mode, e in engines.items():
+        st = e.scheduler.stats
+        for k in st:
+            st[k] = type(st[k])(0)
+        with record_spec_logits() as calls:
+            if mode == "spec":
+                sched.spec.wave = recorded_wave
+            reset_serve_counts()
+            t0 = time.perf_counter()
+            try:
+                out = e.generate([dataclasses.replace(r) for r in greedy])
+                torch.cuda.synchronize()
+            finally:
+                if mode == "spec":
+                    del sched.spec.wave
+            wall = time.perf_counter() - t0
+            launches[mode] = serve_counts()
+            rows[mode] = emitted_rows(calls, seeds)
+            if mode == "spec":
+                spec_calls = calls
+        outs[mode] = [r.output for r in out]
+        thr = e.scheduler.throughput()
+        res[mode] = dict(decode_tok_s=thr["decode_tok_s"],
+                         ttft_p50_s=statistics.median(r.ttft_s for r in out),
+                         tokens=sum(len(r.output) for r in out),
+                         wall_s=wall,
+                         accept_rate=e.stats["accept_rate"],
+                         verify_waves=e.stats["verify_calls"],
+                         draft_calls=e.stats["draft_calls"],
+                         decode_waves=e.stats["decode_steps"])
+        for i, r in enumerate(out):
+            if r.error is not None or len(r.output) != r.max_new_tokens:
+                fail(f"{name} {label} {mode} request {i}: error={r.error} "
+                     f"tokens={len(r.output)}/{r.max_new_tokens}")
+    sp, pl = res["spec"], res["plain"]
+    print(f"[{card}] spec {name} {label} (cf={SPEC_CF}, k={SPEC_K}, "
+          f"{sched.spec.n_coarse} coarse layers): {len(greedy)} greedy "
+          f"requests, {sp['tokens']} tokens; decode {pl['decode_tok_s']:.1f}"
+          f" tok/s plain vs {sp['decode_tok_s']:.1f} tok/s spec "
+          f"({sp['decode_tok_s'] / pl['decode_tok_s']:.2f}x); accept rate "
+          f"{sp['accept_rate']:.3f}; {sp['verify_waves']} verify waves and "
+          f"{sp['draft_calls']} draft calls (plain: {pl['decode_waves']} "
+          f"decode waves); TTFT p50 {pl['ttft_p50_s']:.3f} s plain, "
+          f"{sp['ttft_p50_s']:.3f} s spec; wall {pl['wall_s']:.2f} / "
+          f"{sp['wall_s']:.2f} s")
+    res["matched"], res["max_gap"], res["divergences"] = check_greedy_spec(
+        served, rcfg, greedy, outs, rows, label, card)
+    res["draft_ingest"], res["draft_gap"] = check_draft_tokens(
+        engines["spec"], greedy, outs, waves, spec_calls, card, label,
+        catch_up=label == "accepting")
+    return engines, res, launches["spec"]
+
+
+def serve_spec(arch, family, seed, card):
+    """Speculative decoding at full width and depth. In the trained
+    regime: ``spec_greedy`` (plain vs spec greedy streams, verify's logits
+    against decode's, the draft against a serial forward of its params),
+    every kernel of the path launched, one sampled request finishing with
+    its budget, one spec wave profiled. Then the same weights damped to
+    SPEC_ACCEPT_DAMP, where drafts are accepted: ``spec_greedy`` again,
+    the accept rate above 0 and a draft wave with a catch-up ingest held
+    against the serial forward. Returns (spec-engine launch counts, the
+    profiled wave's per-call launches, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    rcfg = get_config(arch, "decode_32k")
+    cfg = rcfg.model
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params = trained_regime(transformer.init_model(rcfg, seed=seed,
+                                                   device="cuda"),
+                            TRAINED_REGIME_DAMP[family])
+    served = transformer.serving_params(params, cfg)
+    del params
+    gc.collect()
+    queue = make_queue(np.random.default_rng(seed), V)
+    greedy = [r for r in queue if r.temperature == 0.0][:SPEC_REQS]
+    sampled = next(r for r in queue if r.temperature > 0.0)
+    engines, res, launches = spec_greedy(
+        rcfg, served, greedy, card, f"damp {TRAINED_REGIME_DAMP[family]:g}")
+    res = {"trained": res}
+    need = {"attn": ("paged_flash_attention", "rmsnorm_fwd"),
+            "ssm": ("paged_ssm_update", "rmsnorm_fwd"),
+            "hybrid": ("paged_flash_attention", "paged_ssm_update",
+                       "rmsnorm_fwd")}[family]
+    if any(launches[k] <= 0 for k in need):
+        fail(f"{cfg.name}: a kernel of the spec path never launched: "
+             f"{launches}")
+    (out,) = engines["spec"].generate([dataclasses.replace(sampled)])
+    if out.error is not None or len(out.output) != out.max_new_tokens or \
+            not ((out.output >= 0) & (out.output < V)).all():
+        fail(f"{cfg.name}: the sampled spec request did not finish with its "
+             f"budget ({out.error}, {len(out.output)}/{out.max_new_tokens})")
+    print(f"[{card}] spec {cfg.name}: sampled request (temperature "
+          f"{sampled.temperature}, top-k {sampled.top_k}, top-p "
+          f"{sampled.top_p}) emitted {len(out.output)}/"
+          f"{out.max_new_tokens} tokens")
+    wave = profile_spec_wave(
+        engines["spec"], [dataclasses.replace(r, max_new_tokens=32)
+                          for r in greedy], card)
+    # each call launches a kernel once a layer and model call: verify one
+    # fine forward, the draft wave k coarse ones (ingest + k-1 steps)
+    draft = engines["spec"].scheduler.spec
+    dcfg = draft.rcfg.model
+    if family == "hybrid":
+        want = {"verify": {"paged_ssm_update": cfg.n_layers,
+                           "paged_flash_attention":
+                               cfg.n_layers // cfg.hybrid_attn_every},
+                "draft": {"paged_ssm_update": SPEC_K * dcfg.n_layers,
+                          "paged_flash_attention": SPEC_K * (
+                              dcfg.n_layers // dcfg.hybrid_attn_every)}}
+    else:
+        kernel = "paged_flash_attention" if family == "attn" \
+            else "paged_ssm_update"
+        want = {"verify": {kernel: transformer.stacked_layer_depth(rcfg)},
+                "draft": {kernel: SPEC_K * draft.n_coarse}}
+    for call, counts in want.items():
+        for k, n in counts.items():
+            if wave[call][k] != n:
+                fail(f"{cfg.name} spec {call} call: {k} launched "
+                     f"{wave[call][k]} times, want {n}")
+        if wave[call]["rmsnorm_fwd"] <= 0:
+            fail(f"{cfg.name} spec {call} call: RMSNorm never launched")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] spec {cfg.name}: peak memory {peak:.1f} GiB (both "
+          "engines)")
+    res["peak_gib"] = peak
+    del engines, draft
+    gc.collect()
+    accepting = trained_regime(served,
+                               SPEC_ACCEPT_DAMP / TRAINED_REGIME_DAMP[family])
+    del served
+    gc.collect()
+    _, res["accepting"], _ = spec_greedy(
+        rcfg, accepting, greedy, card, "accepting")
+    if not res["accepting"]["spec"]["accept_rate"] > 0.0:
+        fail(f"{cfg.name}: no draft was accepted at damping "
+             f"{SPEC_ACCEPT_DAMP:g}")
+    return launches, wave, res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2002,38 +2744,9 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             for S, lengths in cases:
-                # a full table of 48 pages a slot, wider than the live
-                # bucket's 32, so the two tables give the split-KV path
-                # different grids
-                case = attn_case(gen, MAX_BATCH, S, lengths, dtype,
-                                 MAX_LEN // PAGE + 16, poison=1e30,
-                                 heads=heads)
-                q, pk, pv, table, lens = case
-                cut = table[:, :live_bucket(lengths, S)]
-                want = pa.paged_attention_ref(q, pk, pv, cut, lens).float()
-                got = pa.paged_flash_attention(q, pk, pv, cut, lens)
-                full = pa.paged_flash_attention(q, pk, pv, table, lens)
-                again = pa.paged_flash_attention(q, pk, pv, cut, lens)
-                torch.cuda.synchronize()
-                path = "split-KV" if pa.plan(dtype, MAX_BATCH, S, *heads,
-                                             PAGE, cut.shape[1]).split \
-                    else "multi-row"
-                shape = f"H={heads[0]}/{heads[1]} hd={heads[2]} S={S:3d}"
-                if not torch.equal(got, full):
-                    fail(f"paged attention {shape} {dname}: the live-bucket "
-                         "table changed the output")
-                if not torch.equal(got, again):
-                    fail(f"paged attention {shape} {dname}: a second launch "
-                         "changed the output")
-                err = (got.float() - want).abs().max().item()
-                print(f"paged_flash_attention {shape} {dname:8s} ({path}) "
-                      f"max|kernel-plain| = {err:.3e} (tolerance "
-                      f"{ATTN_TOL[dname]:g}); live-bucket table ({cut.shape[1]}"
-                      f" pages) == full ({table.shape[1]}) == second launch, "
-                      "bitwise")
-                if not err <= ATTN_TOL[dname]:
-                    fail(f"paged attention {shape} {dname} error {err:.3e}")
-                attn_err[dname] = max(attn_err.get(dname, 0.0), err)
+                attn_err[dname] = max(
+                    attn_err.get(dname, 0.0),
+                    check_paged_case(gen, heads, S, lengths, dtype))
     logits, ks, ps = sampling_case(gen, 8, 151936)
     want = sp.topk_topp_mask_ref(logits, ks, ps)
     got = sp.topk_topp_mask(logits, ks, ps)
@@ -2164,6 +2877,21 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # -- 5b. speculative decoding: the kernels at the spec path's shapes,
+    # then the three families at full width and depth, plain vs spec ------
+    spec_gen = torch.Generator(device="cuda")
+    spec_gen.manual_seed(21)
+    spec_err = check_spec_kernels(spec_gen)
+    spec_attn, spec_ssm = time_spec_kernels(spec_gen, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_launches, spec_waves, spec_res = {}, {}, {}
+    for arch, family in SPEC_FAMILIES:
+        spec_launches[family], spec_waves[family], spec_res[family] = \
+            serve_spec(arch, family, seed=2, card=card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- 6. training: gradients at reduced depth, then full depth ----------
     check_train_grads()
     gc.collect()
@@ -2214,8 +2942,16 @@ def main() -> int:
          "launches": launches["paged_flash_attention"],
          "max_abs_err": attn_err["bfloat16"],
          # decode (S=1, split-KV; device_ms counts the combine kernel
-         # too), prefill_* a 256-token chunk (tensor cores)
-         **attn, **{f"prefill_{k}": v for k, v in pre.items()}},
+         # too), prefill_* a 256-token chunk (tensor cores), verify_* the
+         # spec verify window (S=5, split-KV); launches_spec_* the spec
+         # phase's queue (zamba2's shared attention too)
+         **attn, **{f"prefill_{k}": v for k, v in pre.items()},
+         **{f"verify_{k}": v for k, v in spec_attn.items()},
+         "spec_max_abs_err": spec_err["attn"],
+         "launches_spec_qwen3": spec_launches["attn"][
+             "paged_flash_attention"],
+         "launches_spec_zamba2": spec_launches["hybrid"][
+             "paged_flash_attention"]},
         # launches: qwen3_1p7b's serve queue, the falcon and zamba2 queues'
         # beside it (below); device_* the device work alone (device_ms);
         # sort_* the sort-based apply_top_k_top_p (several PyTorch ops, no
@@ -2292,7 +3028,13 @@ def main() -> int:
             "bound_ms": bm, "bound_by": by, "library_ms": None,
             "device_ms": dm, "kernel_device_ms": am, "prefill_ms": kp,
             "prefill_device_ms": dp, "prefill_kernel_device_ms": ap,
-            "prefill_plain_ms": pp, "prefill_bound_ms": bp})
+            "prefill_plain_ms": pp, "prefill_bound_ms": bp,
+            # verify_*: the every-step plan at S=5 (spec verify);
+            # launches_spec: the spec phase's queue of this order's model
+            **{f"verify_{k}": v for k, v in spec_ssm[order].items()},
+            "verify_max_abs_err": spec_err[order],
+            "launches_spec": spec_launches[
+                "ssm" if order == "dbx" else "hybrid"]["paged_ssm_update"]})
     # path A (falcon-mamba-7b, MGRIT) and path B (zamba2-1.2b, serial):
     # launches over Trainer.train(3) summed, per path, and per profiled
     # step; ms/plain_ms/bound_ms/device_ms at path A's shape, zamba2_* at
@@ -2331,7 +3073,16 @@ def main() -> int:
               "paged_ssm_update_dbx":
                   ssm_launches["dbx"]["paged_ssm_update"],
               "paged_ssm_update_dxb":
-                  ssm_launches["dxb"]["paged_ssm_update"]}
+                  ssm_launches["dxb"]["paged_ssm_update"],
+              **{f"{k}_spec_{fam}": spec_launches[fam][k]
+                 for fam in spec_launches
+                 for k in ("paged_flash_attention", "paged_ssm_update",
+                           "rmsnorm_fwd")}}
+    for row in kernels:
+        if row["name"] == "rmsnorm_fwd":
+            row.update({f"launches_spec_{fam}": spec_launches[fam][
+                "rmsnorm_fwd"] for fam in spec_launches})
+    print("spec: " + json.dumps(spec_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,8 @@
       [--priority 0,1] [--ttft-slo 0.5] [--tpot-slo 0.1] \\
       [--preempt-policy auto] \\
       [--shared-prefix-len 0] [--no-share-prefix] [--stream] \\
-      [--no-partial-prefix] [--prefill-chunk-tokens 0] [--stats] \\
+      [--no-partial-prefix] [--prefill-chunk-tokens 0] \\
+      [--spec-cf 4 --spec-k 4] [--stats] \\
       [--metrics-json metrics.json] [--trace-out trace.json]
 
 Port of :mod:`repro.launch.serve` for attention decoders and the SSM
@@ -16,8 +17,12 @@ zamba2_1p2b``), on one card: the model runs at the config's full width
 from random weights made from
 ``--seed`` (``--reduced`` shrinks it for CPU runs with ``--device
 cpu``). Without a CUDA device and without ``--device cpu`` it exits with
-an error instead of running on the CPU. Speculative decoding
-(``--spec-*``) and meshes (``--mesh``) are not ported yet.
+an error instead of running on the CPU. ``--spec-cf`` turns on
+coarse-propagator speculative decoding (:mod:`repro_torch.serve.spec`):
+the paper's coarse grid — every cf-th layer, ODE step rescaled — drafts
+``--spec-k`` tokens per wave and the full model verifies them in one
+call (greedy output is plain decode's). Meshes (``--mesh``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -77,6 +82,11 @@ def main(argv=None):
                          "scheduler wave")
     ap.add_argument("--stream", action="store_true",
                     help="stream the first request token-by-token")
+    ap.add_argument("--spec-cf", type=int, default=0,
+                    help="> 0 enables coarse-propagator speculative "
+                         "decoding with this layer-coarsening factor")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per verify wave")
     ap.add_argument("--stats", action="store_true",
                     help="print the engine's full counter dict")
     ap.add_argument("--metrics-json", default="",
@@ -91,6 +101,7 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
 
     try:
         device = resolve_device(args.device)
@@ -100,16 +111,22 @@ def main(argv=None):
     if args.reduced:
         rcfg = reduce_config(rcfg)
     params = transformer.init_model(rcfg, seed=args.seed, device=device)
+    spec = SpecConfig(cf=args.spec_cf, k=args.spec_k) \
+        if args.spec_cf > 0 else None
     engine = ServeEngine(rcfg, params, max_len=args.max_len,
                          max_batch=args.max_batch,
                          page_size=args.page_size, n_pages=args.n_pages,
                          share_prefix=not args.no_share_prefix,
                          partial_prefix=not args.no_partial_prefix,
                          prefill_chunk_tokens=args.prefill_chunk_tokens,
-                         preempt_policy=args.preempt_policy, device=device)
+                         spec=spec, preempt_policy=args.preempt_policy,
+                         device=device)
     del params                       # the backend holds its serving copy
     print(f"engine: paged continuous-batching via "
-          f"{type(engine.backend).__name__} on {device}")
+          f"{type(engine.backend).__name__} on {device}"
+          + (f" + spec decode (cf={spec.cf}, k={spec.k}, "
+             f"{engine.scheduler.spec.n_coarse} coarse layers)"
+             if spec else ""))
     rng = np.random.default_rng(args.seed)
     common = rng.integers(0, rcfg.model.vocab_size,
                           size=args.shared_prefix_len).astype(np.int32)
@@ -193,6 +210,13 @@ def main(argv=None):
         for key, val in sorted(engine.stats.items()):
             print(f"  {key} = {val:.4f}" if isinstance(val, float)
                   else f"  {key} = {val}")
+    if spec:
+        es = engine.stats
+        print(f"spec decode: {es['tokens_accepted']}/"
+              f"{es['tokens_drafted']} drafted tokens accepted "
+              f"({100 * es['accept_rate']:.0f}%), "
+              f"{es['draft_calls']} draft calls, "
+              f"{es['verify_calls']} verify waves")
     if args.metrics_json:
         import json
         with open(args.metrics_json, "w") as f:

@@ -1,10 +1,12 @@
 """Step functions — port of :mod:`repro.launch.steps`: the train step
 (gradients, microbatch accumulation, optimizer), top-k/top-p masking,
-per-slot sampling and the paged serve step.
+per-slot sampling, the paged serve step and speculative decoding's
+draft wave, acceptance and verify step.
 
 The JAX package traces these into one jitted call; the port runs them
 eagerly on the tensors' device. Host inputs (numpy slot arrays) are
-uploaded once per wave in :func:`make_paged_serve_fn`.
+uploaded once per call in :func:`make_paged_serve_fn`,
+:func:`make_paged_verify_fn` and :func:`make_draft_wave_fn`.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch import prng
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers
+from repro_torch.serve.kv_pages import state_leaves
 from repro_torch.tree import leaves_with_paths, unflatten
 
 _MASKED = -1e30          # matches the attention-mask convention
@@ -80,6 +83,16 @@ def apply_top_k_top_p(logits, k, p):
     return torch.zeros_like(logits).scatter_(1, idx, masked_sorted)
 
 
+def temper_and_mask(lf, temps, top_ks, top_ps, *, fused: bool = False):
+    """The sampled rows' target logits: (B, V) float32 logits scaled by
+    temperature, then the top-k/top-p mask (``fused``: the sort-free
+    threshold mask, the CUDA kernel on the card; else the sort)."""
+    scaled = lf / torch.clamp(temps, min=1e-6)[:, None]
+    if fused:
+        return kops.topk_topp_mask(scaled, top_ks, top_ps)
+    return apply_top_k_top_p(scaled, top_ks, top_ps)
+
+
 def sample_tokens(logits, temps, top_ks, top_ps, seeds, counters, *,
                   any_sampled: bool, fused: bool = False):
     """Vectorized per-slot sampling: (B, V) logits -> (B,) int32 tokens.
@@ -100,11 +113,7 @@ def sample_tokens(logits, temps, top_ks, top_ps, seeds, counters, *,
     greedy = torch.argmax(lf, dim=-1).to(torch.int32)
     if not any_sampled:
         return greedy
-    scaled = lf / torch.clamp(temps, min=1e-6)[:, None]
-    if fused:
-        scaled = kops.topk_topp_mask(scaled, top_ks, top_ps)
-    else:
-        scaled = apply_top_k_top_p(scaled, top_ks, top_ps)
+    scaled = temper_and_mask(lf, temps, top_ks, top_ps, fused=fused)
     keys = prng.fold_in(prng.PRNGKey(seeds), counters)
     sampled = torch.argmax(scaled + prng.gumbel(keys, lf.shape[-1]), dim=-1)
     return torch.where(temps <= 0.0, greedy, sampled.to(torch.int32))
@@ -124,8 +133,7 @@ def make_paged_serve_fn(rcfg: RunConfig, decode_fn, fused: bool = False,
     (B, 1) int32 on the device, state).
     """
 
-    def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+    up = _uploader(device)
 
     def paged_serve_step(params, state, tokens, lengths, n_new, page_table,
                          temps, top_ks, top_ps, seeds, counters):
@@ -142,3 +150,212 @@ def make_paged_serve_fn(rcfg: RunConfig, decode_fn, fused: bool = False,
         return nxt[:, None], state
 
     return paged_serve_step
+
+
+def _uploader(device):
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+    return up
+
+
+def _sampling_args(up, temps, top_ks, top_ps, seeds):
+    return (up(temps, torch.float32), up(top_ks, torch.int32),
+            up(top_ps, torch.float32), up(seeds, torch.long))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: draft sampling + acceptance (the paper's coarse
+# propagator as a self-speculative draft, see repro_torch.serve.spec)
+# ---------------------------------------------------------------------------
+
+
+def draft_sample_tokens(logits, temps, top_ks, top_ps, seeds, counters, *,
+                        any_sampled: bool):
+    """Draft-side sampling: (B, V) logits -> (tokens (B,) int32, probs
+    (B, V) float32), ``probs`` the draft's true proposal distribution
+    (the verifier's rejection sampling needs q(d) and the whole q).
+
+    Greedy slots propose the argmax with a one-hot q. Sampled slots draw
+    from the temperature-scaled, top-k/top-p-masked (sort-based)
+    distribution with the request's draft stream ``fold_in(fold_in(
+    PRNGKey(seed), counter), 2)``, disjoint from the canonical stream
+    (fold 0: acceptance uniforms and the bonus Gumbel; fold 1: the
+    leftover Gumbel). ``any_sampled`` is the all-greedy skip, decided on
+    the host."""
+    lf = logits.float()
+    V = lf.shape[-1]
+    greedy = torch.argmax(lf, dim=-1)
+    g_probs = torch.nn.functional.one_hot(greedy, V).float()
+    if not any_sampled:
+        return greedy.to(torch.int32), g_probs
+    masked = temper_and_mask(lf, temps, top_ks, top_ps)
+    probs = torch.softmax(masked, dim=-1)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(seeds), counters), 2)
+    samp = torch.argmax(masked + prng.gumbel(keys, V), dim=-1)
+    greedy_row = temps <= 0.0
+    tok = torch.where(greedy_row, greedy, samp)
+    return (tok.to(torch.int32),
+            torch.where(greedy_row[:, None], g_probs, probs))
+
+
+def speculative_accept(logits, tokens, draft_probs, temps, top_ks, top_ps,
+                       seeds, counters, n_new, *, any_sampled: bool):
+    """Accept a drafted prefix against the fine model's own targets.
+
+    logits: (B, S, V) fine logits over the verify window; tokens: (B, S)
+    = [pending, d_1..d_k]; draft_probs: (B, k, V); n_new: (B,) = drafted
+    count + 1 (0 = idle slot). Position i of the window is the request's
+    emission index ``counters[b] + i``, so every draw is keyed exactly as
+    plain decode keys it.
+
+    Greedy slots accept the longest prefix where d_{i+1} equals the fine
+    argmax: the emitted tokens are plain decode's. Sampled slots run
+    speculative rejection sampling: accept d with probability min(1,
+    p(d)/q(d)); at the first rejection draw from the normalized leftover
+    max(p - q, 0); when every draft survives, draw the bonus token from p
+    at the next position with plain decode's key. The emitted
+    distribution is exactly p (Leviathan et al. 2023).
+
+    Returns (accepted (B,) int32 in [0, n_new-1], next_token (B,) int32).
+    """
+    B, S, V = logits.shape
+    k = S - 1
+    dev = logits.device
+    lf = logits.float()
+    drafts = tokens[:, 1:].long()
+    n_draft = torch.clamp(n_new.long() - 1, min=0)
+    pos_ok = torch.arange(k, device=dev)[None, :] < n_draft[:, None]
+    greedy_t = torch.argmax(lf, dim=-1)                           # (B, S)
+    g_match = (drafts == greedy_t[:, :k]) & pos_ok
+    g_acc = torch.cumprod(g_match.long(), dim=1).sum(dim=1)
+    g_next = torch.gather(greedy_t, 1, g_acc[:, None])[:, 0]
+    if not any_sampled:
+        return g_acc.to(torch.int32), g_next.to(torch.int32)
+
+    rows = torch.arange(B, device=dev)
+    masked = temper_and_mask(
+        lf.reshape(B * S, V), temps.repeat_interleave(S),
+        top_ks.repeat_interleave(S),
+        top_ps.repeat_interleave(S)).reshape(B, S, V)
+    p = torch.softmax(masked, dim=-1)
+    q = draft_probs.float()                                       # (B, k, V)
+    keys = prng.fold_in(
+        prng.PRNGKey(seeds)[:, None, :].expand(B, S, 2),
+        counters.long()[:, None] + torch.arange(S, device=dev)[None, :])
+    u = prng.uniform(keys[:, :k].reshape(B * k, 2), 1).reshape(B, k)
+    p_d = torch.gather(p[:, :k], 2, drafts[..., None])[..., 0]
+    q_d = torch.gather(q, 2, drafts[..., None])[..., 0]
+    ok = (u < p_d / torch.clamp(q_d, min=1e-30)) & pos_ok
+    j = torch.cumprod(ok.long(), dim=1).sum(dim=1)    # first rejection
+    p_j = p[rows, j]
+    q_j = torch.cat([q, q.new_zeros(B, 1, V)], dim=1)[rows, j]
+    rejected = j < n_draft
+    res = torch.clamp(p_j - q_j, min=0.0)
+    rs = res.sum(dim=-1, keepdim=True)
+    res = torch.where(rs > 0, res / torch.clamp(rs, min=1e-30), p_j)
+    dist = torch.where(rejected[:, None], res, p_j)
+    key_j = keys[rows, j]
+    gkey = torch.where(rejected[:, None], prng.fold_in(key_j, 1), key_j)
+    s_next = torch.argmax(torch.log(torch.clamp(dist, min=1e-30))
+                          + prng.gumbel(gkey, V), dim=-1)
+    sampled = temps > 0.0
+    acc = torch.where(sampled, j, g_acc)
+    nxt = torch.where(sampled, s_next, g_next)
+    return acc.to(torch.int32), nxt.to(torch.int32)
+
+
+def make_paged_verify_fn(rcfg: RunConfig, verify_fn, commit_fn=None,
+                         device=None):
+    """Speculative verification: one occupancy-masked call of the full
+    model over each slot's pending token + k drafted tokens, the
+    per-position targets and the accepted prefix
+    (:func:`speculative_accept`), then the state commit for exactly the
+    accepted prefix.
+
+    ``verify_fn`` is the family's verify forward
+    (``transformer.{paged,ssm_paged,hybrid_paged}_verify_step``);
+    ``commit_fn`` its deferred snapshot commit, or None where rollback is
+    host-side length truncation (attention KV). The returned callable
+    takes the verify tokens (B, k+1) and draft_probs (B, k, V) on the
+    device and the host slot arrays, and returns (accepted (B,), next
+    token (B,), state) — the tokens on the device, the pools updated in
+    place."""
+    up = _uploader(device)
+
+    def paged_verify_step(params, state, tokens, lengths, n_new, page_table,
+                          temps, top_ks, top_ps, seeds, counters,
+                          draft_probs):
+        any_sampled = bool(np.any(np.asarray(temps) > 0.0))
+        lengths_d = up(lengths, torch.int32)
+        n_new_d = up(n_new, torch.long)
+        table = up(page_table, torch.int32)
+        logits, state, art = verify_fn(params, state, tokens, lengths_d,
+                                       n_new_d, table, rcfg)
+        acc, nxt = speculative_accept(
+            logits, tokens, draft_probs,
+            *_sampling_args(up, temps, top_ks, top_ps, seeds),
+            up(counters, torch.long), n_new_d, any_sampled=any_sampled)
+        if commit_fn is not None:
+            n_write = torch.where(n_new_d > 0,
+                                  torch.minimum(acc.long() + 1, n_new_d), 0)
+            state = commit_fn(state, art, table, lengths_d, n_write)
+        return acc, nxt, state
+
+    return paged_verify_step
+
+
+def make_draft_wave_fn(rcfg: RunConfig, decode_fn, *, k: int, page_size: int,
+                       snapshot_state: bool, device=None):
+    """A whole draft wave of the coarse propagator: (1) the catch-up
+    ingest (canonical tokens the draft has not cached yet plus the
+    pending token, S = k+1 occupancy-masked), which commits true state
+    and proposes d_1; (2) k-1 autoregressive speculative steps (a Python
+    loop where the reference scans) proposing d_2..d_k. Slots stop at
+    their own ``n_draft``, so near-finished requests never write past
+    their pages.
+
+    On snapshot backends the page holding the post-ingest state is saved
+    before speculation and copied back (``index_copy_``) before
+    returning, so the next wave's ingest resumes from true state (KV
+    drafts skip this: rows beyond the committed length are masked and
+    later overwritten). Returns (drafted (B, k) int32, draft_probs
+    (B, k, V), state), on the device."""
+    up = _uploader(device)
+
+    def draft_wave(params, state, tokens, lengths, n_in, page_table,
+                   temps, top_ks, top_ps, seeds, counters, n_draft):
+        any_sampled = bool(np.any(np.asarray(temps) > 0.0))
+        samp = _sampling_args(up, temps, top_ks, top_ps, seeds)
+        counters_d = up(counters, torch.long)
+        table = up(page_table, torch.int32)
+        logits, state = decode_fn(params, state, up(tokens, torch.long),
+                                  up(lengths, torch.int32),
+                                  up(n_in, torch.long), table, rcfg)
+        tok, probs = draft_sample_tokens(logits, *samp, counters_d,
+                                         any_sampled=any_sampled)
+        committed = np.asarray(lengths) + np.asarray(n_in)
+        if snapshot_state:
+            P = page_table.shape[1]
+            slot = np.clip((committed - 1) // page_size, 0, P - 1)
+            part = up(np.asarray(page_table)[np.arange(len(slot)), slot],
+                      torch.long)
+            saved = [leaf[:, part] for leaf in state_leaves(state)]
+        toks, qs = [tok], [probs]
+        ln = committed
+        for i in range(k - 1):
+            live = ((np.asarray(n_in) > 0)
+                    & (np.asarray(n_draft) >= i + 2)).astype(np.int32)
+            lg, state = decode_fn(params, state, toks[-1][:, None].long(),
+                                  up(ln, torch.int32), up(live, torch.long),
+                                  table, rcfg)
+            t2, p2 = draft_sample_tokens(lg, *samp, counters_d + i + 1,
+                                         any_sampled=any_sampled)
+            toks.append(t2)
+            qs.append(p2)
+            ln = ln + live
+        if snapshot_state:
+            for leaf, s in zip(state_leaves(state), saved, strict=True):
+                leaf.index_copy_(1, part, s)
+        return torch.stack(toks, dim=1), torch.stack(qs, dim=1), state
+
+    return draft_wave

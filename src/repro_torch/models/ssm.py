@@ -18,16 +18,23 @@ positions land there, and reads at position 0 are masked to the zero
 state.
 
 The pools are updated **in place** (the JAX package returns new pools
-and donates the old ones), so the mixers return their output only. Only
-the commit mode is ported; the deferred mode (``commit=False``,
-``state_in``) belongs to speculative decoding.
+and donates the old ones), so in commit mode the mixers return their
+output only. The deferred mode (``commit=False``, speculative
+verification) leaves the pools untouched and returns ``(out, xp, hs_b)``:
+every local step's state is a snapshot candidate, and
+:func:`paged_pool_commit` later publishes the accepted prefix. The
+reference's ``state_in`` view path is not ported (the port writes pools
+in place).
 
-``fused=True`` runs the recurrence and the snapshot commit through
+``fused=True`` runs the recurrence through
 :func:`repro_torch.kernels.ops.paged_ssm_update` (the CUDA kernel on the
-card, its plain version on the CPU) from the *compact* plan; the
-gathered path runs the masked scan here and commits every (slot,
-table-column) pair. On the CPU the two give bitwise-equal outputs and
-non-scratch pool pages.
+card, its plain version on the CPU): in commit mode from the *compact*
+plan, which also commits the snapshots; in deferred mode from the
+every-step plan of :func:`every_step_update`, which stores each step's
+state in a scratch buffer instead of the pool. The gathered path runs
+the masked scan here and commits every (slot, table-column) pair. On the
+CPU the two give bitwise-equal outputs, artifacts and non-scratch pool
+pages.
 """
 from __future__ import annotations
 
@@ -228,6 +235,31 @@ def paged_pool_commit(conv_pool, h_pool, xp, hs_b, *, page_table, lengths,
     paged_state_write(conv_pool, _gather_windows(xp, t, K), phys)
 
 
+def every_step_update(dt, x, Bm, Cm, A, h_rows, page_table, lengths, n_new,
+                      page_size: int, *, order: str):
+    """The deferred (verify) mode of the fused path: one
+    ``ops.paged_ssm_update`` call whose write plan stores *every* local
+    step, ``t_w = arange(S)``, into a scratch buffer of B x (S+1) pages
+    instead of the pool. Page ``b*(S+1)`` of the buffer is seeded with
+    slot b's incoming state and is its read page; pages ``b*(S+1)+1+t``
+    receive the state after step t. h_rows: (n_pages, R, ds), read only.
+    Returns (y (B, S, R) float32, hs_b (B, S, R, ds), a view of the
+    buffer)."""
+    B, S, R = dt.shape
+    ds = h_rows.shape[-1]
+    dev = dt.device
+    read_page, live = paged_read_plan(page_table, lengths, page_size)
+    buf = torch.empty((B * (S + 1), R, ds), dtype=h_rows.dtype, device=dev)
+    seed = torch.arange(B, device=dev) * (S + 1)
+    buf.index_copy_(0, seed, h_rows[read_page])
+    steps = torch.arange(S, device=dev)
+    y = kops.paged_ssm_update(dt, x, Bm, Cm, A, buf, seed, live,
+                              seed[:, None] + 1 + steps[None, :],
+                              steps[None, :].expand(B, S), n_new,
+                              order=order)
+    return y, buf.view(B, S + 1, R, ds)[:, 1:]
+
+
 # ---------------------------------------------------------------------------
 # Dense mixers (training)
 # ---------------------------------------------------------------------------
@@ -332,7 +364,7 @@ def _commit_conv_fused(conv_pool, xp, t_w, phys_w):
 
 def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
                        page_table, lengths, n_new, page_size: int,
-                       fused: bool = False):
+                       commit: bool = True, fused: bool = False):
     """One layer's mamba1 mixer against the paged state pool.
 
     x: (B, S, D) normed block input; slot b contributes ``n_new[b] <= S``
@@ -341,6 +373,11 @@ def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
     di, d_state) — both written in place. Returns the mixer output
     (B, S, D); rows at padded positions are garbage (the caller reads
     position n_new-1 only).
+
+    ``commit=False`` (speculative verification) leaves both pools
+    untouched and returns ``(out, xp, hs_b)``: the padded conv input and
+    every local step's state (B, S, di, d_state), for
+    :func:`paged_pool_commit` to publish an accepted prefix later.
     """
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
@@ -362,7 +399,7 @@ def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
     dt32, xc32 = dt.float(), xc.float()
     B32, C32 = Bm.float(), Cm.float()
 
-    if fused:
+    if fused and commit:
         t_w, phys_w = compact_snapshot_steps(page_table, lengths, n_new,
                                              page_size, S)
         read_page, live = paged_read_plan(page_table, lengths, page_size)
@@ -370,6 +407,12 @@ def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
             dt32.contiguous(), xc32.contiguous(), B32.contiguous(),
             C32.contiguous(), A, h_pool, read_page, live, phys_w, t_w,
             n_new, order="dbx")
+        y = ys.to(dt_)
+    elif fused:
+        ys, hs_b = every_step_update(
+            dt32.contiguous(), xc32.contiguous(), B32.contiguous(),
+            C32.contiguous(), A, h_pool, page_table, lengths, n_new,
+            page_size, order="dbx")
         y = ys.to(dt_)
     else:
         valid = torch.arange(S, device=x.device)[None, :] < n_new[:, None]
@@ -384,25 +427,27 @@ def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
             ys.append(torch.einsum("bes,bs->be", h, c_t))
             hs.append(h)
         y = torch.stack(ys, dim=1).to(dt_)
+        hs_b = torch.stack(hs, dim=1)
     y = y + params["D"].to(dt_)[None, None, :] * xc
     y = y * F.silu(z)
     out = y @ params["out_proj"].to(dt_)
 
+    if not commit:
+        return out, xp, hs_b
     if fused:
         _commit_conv_fused(conv_pool, xp, t_w, phys_w)
     else:
-        paged_pool_commit(conv_pool, h_pool, xp, torch.stack(hs, dim=1),
-                          page_table=page_table, lengths=lengths,
-                          n_new=n_new, page_size=page_size)
+        paged_pool_commit(conv_pool, h_pool, xp, hs_b, page_table=page_table,
+                          lengths=lengths, n_new=n_new, page_size=page_size)
     return out
 
 
 def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
                        page_table, lengths, n_new, page_size: int,
-                       fused: bool = False):
-    """Mamba2 twin of :func:`mamba1_paged_apply` (same pool contract; the
-    conv runs over the concatenated x/B/C channels, h is per head:
-    (n_pages, nh, headdim, d_state)).
+                       commit: bool = True, fused: bool = False):
+    """Mamba2 twin of :func:`mamba1_paged_apply` (same pool contract,
+    ``commit=False`` included; the conv runs over the concatenated x/B/C
+    channels, h is per head: (n_pages, nh, headdim, d_state)).
 
     The fused path flattens (heads, headdim) to the kernel's rows axis:
     per-head dt repeats across headdim and A is a stride-0 broadcast of
@@ -433,17 +478,23 @@ def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
 
     if fused:
         R = nh * s.headdim
-        t_w, phys_w = compact_snapshot_steps(page_table, lengths, n_new,
-                                             page_size, S)
-        read_page, live = paged_read_plan(page_table, lengths, page_size)
         A_rows = A.repeat_interleave(s.headdim)[:, None].expand(
             R, s.d_state)
         h_rows = h_pool.view(-1, R, s.d_state)
-        ys = kops.paged_ssm_update(
-            dt.repeat_interleave(s.headdim, dim=-1).contiguous(),
-            xh.reshape(B, S, R).contiguous(), B32.contiguous(),
-            C32.contiguous(), A_rows, h_rows, read_page, live, phys_w, t_w,
-            n_new, order="dxb")
+        rows = (dt.repeat_interleave(s.headdim, dim=-1).contiguous(),
+                xh.reshape(B, S, R).contiguous(), B32.contiguous(),
+                C32.contiguous(), A_rows)
+        if commit:
+            t_w, phys_w = compact_snapshot_steps(page_table, lengths, n_new,
+                                                 page_size, S)
+            read_page, live = paged_read_plan(page_table, lengths,
+                                              page_size)
+            ys = kops.paged_ssm_update(*rows, h_rows, read_page, live,
+                                       phys_w, t_w, n_new, order="dxb")
+        else:
+            ys, hs_b = every_step_update(*rows, h_rows, page_table, lengths,
+                                         n_new, page_size, order="dxb")
+            hs_b = hs_b.reshape(B, S, *h_pool.shape[1:])
         y = ys.reshape(B, S, nh, s.headdim)
     else:
         valid = torch.arange(S, device=x.device)[None, :] < n_new[:, None]
@@ -458,16 +509,18 @@ def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
             ys.append(torch.einsum("bhes,bs->bhe", h, c_t))
             hs.append(h)
         y = torch.stack(ys, dim=1)
+        hs_b = torch.stack(hs, dim=1)
     y = y + params["D"].float()[None, None, :, None] * xh
     y = y.reshape(B, S, di).to(dt_)
     y = y * F.silu(z)
     y = kops.rmsnorm(y, params["norm_scale"])                 # gated RMSNorm
     out = y @ params["out_proj"].to(dt_)
 
+    if not commit:
+        return out, xp, hs_b
     if fused:
         _commit_conv_fused(conv_pool, xp, t_w, phys_w)
     else:
-        paged_pool_commit(conv_pool, h_pool, xp, torch.stack(hs, dim=1),
-                          page_table=page_table, lengths=lengths,
-                          n_new=n_new, page_size=page_size)
+        paged_pool_commit(conv_pool, h_pool, xp, hs_b, page_table=page_table,
+                          lengths=lengths, n_new=n_new, page_size=page_size)
     return out

@@ -38,7 +38,7 @@ from repro_torch.models.blocks import (block_kind, block_step, init_block,
 from repro_torch.models.layers import (embed_tokens, init_embedding,
                                        init_norm, norm_apply, rope_freqs,
                                        torch_dtype, unembed)
-from repro_torch.tree import leaves_with_paths
+from repro_torch.tree import leaves_with_paths, tree_map
 
 # ---------------------------------------------------------------------------
 # Depth bookkeeping (pad_depth / make_gates: own copies of repro.core.lp's)
@@ -57,7 +57,7 @@ def make_gates(n_real: int, n_padded: int, dtype=torch.float32, device=None):
 
 MOE_SLICE = ("the MoE family (attn_moe blocks: grok1_314b, qwen3_moe_235b) "
              "is not ported yet: it comes with the MoE slice (ROADMAP "
-             "Queue 1 item 3)")
+             "Queue 1 item 2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,7 +301,9 @@ def _all_layers_stacked(params) -> Tuple[List[Dict[str, Any]], torch.Tensor]:
         if stack is None:
             continue
         n = len(layers)
-        layers.extend(mgrit.slots(stack))
+        # a list is already per-layer (the coarse draft's restriction)
+        layers.extend(stack if isinstance(stack, list)
+                      else mgrit.slots(stack))
         gates.append(gate if gate is not None else torch.ones(
             len(layers) - n, dtype=torch.float32,
             device=leaves_with_paths(stack)[0][1].device))
@@ -330,6 +332,14 @@ def _paged_last_logits(params, z, n_new, cfg: ModelConfig):
     # the norm is per row, so normalizing after the gather is the same
     return unembed(params["embed"],
                    norm_apply(params["final_norm"], z_last, cfg), cfg)
+
+
+def _paged_all_logits(params, z, cfg: ModelConfig):
+    """Logits at every position of the step window (B, S, V): the
+    speculative verifier needs a target per drafted token. Positions
+    >= n_new carry garbage; callers mask them."""
+    return unembed(params["embed"], norm_apply(params["final_norm"], z, cfg),
+                   cfg)
 
 
 def _paged_attn_forward(params, pages, tokens, lengths, n_new, page_table,
@@ -373,6 +383,21 @@ def paged_decode_step(params, pages, tokens, lengths, n_new, page_table,
     return _paged_last_logits(params, z, n_new, rcfg.model), pages
 
 
+def paged_verify_step(params, pages, tokens, lengths, n_new, page_table,
+                      rcfg: RunConfig, *, fused: bool = False):
+    """Speculative-verify forward for the attention family: one call over
+    the pending token + k drafted tokens, logits at every position.
+    Returns (logits (B, S, V), pages, None).
+
+    KV rollback is host-side length truncation: the k+1 K/V rows are
+    written positionally, and rows beyond the accepted length stay masked
+    (``kpos > qpos``) until the next wave overwrites them. The trailing
+    ``None`` is the artifact slot the snapshot families fill."""
+    z = _paged_attn_forward(params, pages, tokens, lengths, n_new,
+                            page_table, rcfg, fused=fused)
+    return _paged_all_logits(params, z, rcfg.model), pages, None
+
+
 def init_paged_ssm_cache(rcfg: RunConfig, n_pages: int, *, device=None):
     """State-snapshot page pools for the ssm family's full stacked layer
     stack (open+mid+close)."""
@@ -399,10 +424,14 @@ def init_paged_hybrid_cache(rcfg: RunConfig, n_pages: int, page_size: int,
 
 def _ssm_paged_forward(params, pools, tokens, lengths, n_new, page_table,
                        rcfg: RunConfig, *, page_size: int,
-                       fused: bool = False):
+                       commit: bool = True, fused: bool = False):
     """Embeds and runs every stacked mamba layer against its state pools
-    (written in place); returns z (B, S, D). ``fused`` routes each
-    mixer's recurrence and commit through the paged SSM kernel."""
+    (written in place); returns (z (B, S, D), artifacts). ``fused``
+    routes each mixer's recurrence (and commit) through the paged SSM
+    kernel. ``commit=False`` leaves the pools untouched and returns every
+    layer's snapshot candidates, ``{"xp": [...], "hs": [...]}`` (one
+    entry a layer), for :func:`ssm_paged_commit_step`; else artifacts
+    is None."""
     cfg = rcfg.model
     kind = block_kind(cfg)
     if kind not in ("mamba1", "mamba2"):
@@ -414,13 +443,18 @@ def _ssm_paged_forward(params, pools, tokens, lengths, n_new, page_table,
         raise ValueError(f"{len(layers)} layers but the state pools stack "
                          f"{pools['h'].shape[0]}")
     z = embed_tokens(params["embed"], tokens, cfg)
+    art = {"xp": [], "hs": []}
     for i, p in enumerate(layers):
         f = mixer(p["mixer"], norm_apply(p["norm"], z, cfg), cfg,
                   conv_pool=pools["conv"][i], h_pool=pools["h"][i],
                   page_table=page_table, lengths=lengths, n_new=n_new,
-                  page_size=page_size, fused=fused)
+                  page_size=page_size, commit=commit, fused=fused)
+        if not commit:
+            f, xp, hs_b = f
+            art["xp"].append(xp)
+            art["hs"].append(hs_b)
         z = z + gates[i].to(z.dtype) * f
-    return z
+    return z, None if commit else art
 
 
 def ssm_paged_decode_step(params, pools, tokens, lengths, n_new, page_table,
@@ -431,18 +465,50 @@ def ssm_paged_decode_step(params, pools, tokens, lengths, n_new, page_table,
     pages. Padded positions (>= n_new) freeze the recurrent state, so one
     call advances a whole prompt chunk. Returns (last_logits (B, V),
     pools) — the pools updated in place."""
-    z = _ssm_paged_forward(params, pools, tokens, lengths, n_new,
-                           page_table, rcfg, page_size=page_size,
-                           fused=fused)
+    z, _ = _ssm_paged_forward(params, pools, tokens, lengths, n_new,
+                              page_table, rcfg, page_size=page_size,
+                              fused=fused)
     return _paged_last_logits(params, z, n_new, rcfg.model), pools
+
+
+def ssm_paged_verify_step(params, pools, tokens, lengths, n_new, page_table,
+                          rcfg: RunConfig, *, page_size: int,
+                          fused: bool = False):
+    """Speculative-verify forward for the ssm family: advances the masked
+    recurrence over the pending + k drafted tokens without touching the
+    pools. Returns (logits (B, S, V), pools, artifacts); after acceptance
+    :func:`ssm_paged_commit_step` publishes the accepted prefix only (the
+    snapshot-page twin of truncating KV lengths: every local step's state
+    is a snapshot candidate). ``fused`` runs each layer's recurrence
+    through the paged SSM kernel with the every-step write plan."""
+    z, art = _ssm_paged_forward(params, pools, tokens, lengths, n_new,
+                                page_table, rcfg, page_size=page_size,
+                                commit=False, fused=fused)
+    return _paged_all_logits(params, z, rcfg.model), pools, art
+
+
+def ssm_paged_commit_step(pools, art, page_table, lengths, n_write, *,
+                          page_size: int):
+    """Deferred snapshot commit for every layer of the stack, in place:
+    writes the states after exactly ``n_write[b]`` of the verified tokens
+    (``accepted + 1``; 0 skips the slot) through
+    :func:`repro_torch.models.ssm.paged_pool_commit`. Returns the pools."""
+    for i, (xp, hs_b) in enumerate(zip(art["xp"], art["hs"], strict=True)):
+        ssm_mod.paged_pool_commit(
+            pools["conv"][i], pools["h"][i], xp, hs_b, page_table=page_table,
+            lengths=lengths, n_new=n_write, page_size=page_size)
+    return pools
 
 
 def _hybrid_paged_forward(params, state, tokens, lengths, n_new, page_table,
                           rcfg: RunConfig, *, page_size: int,
-                          fused: bool = False):
+                          commit: bool = True, fused: bool = False):
     """The mamba2 backbone against its snapshot pools, with the shared
     attention block after every ``hybrid_attn_every`` layers against its
-    KV pools (all written in place); returns z (B, S, D)."""
+    KV pools (all written in place); returns (z (B, S, D), artifacts).
+    ``commit=False`` defers only the backbone's snapshot writes (the
+    artifacts, as in :func:`_ssm_paged_forward`); the shared attention
+    block writes its KV in line either way (truncation rollback)."""
     cfg = rcfg.model
     k = cfg.hybrid_attn_every
     n_seg, rem = divmod(cfg.n_layers, k)
@@ -452,22 +518,28 @@ def _hybrid_paged_forward(params, state, tokens, lengths, n_new, page_table,
     z = embed_tokens(params["embed"], tokens, cfg)
     backbone = mgrit.slots(params["backbone"])
     mamba, attn = state["mamba"], state["attn"]
+    art = {"xp": [], "hs": []}
     li = 0
     for s_i in range(n_seg + (1 if rem else 0)):
         for _ in range(k if s_i < n_seg else rem):
             p = backbone[li]
-            z = z + ssm_mod.mamba2_paged_apply(
+            f = ssm_mod.mamba2_paged_apply(
                 p["mixer"], norm_apply(p["norm"], z, cfg), cfg,
                 conv_pool=mamba["conv"][li], h_pool=mamba["h"][li],
                 page_table=page_table, lengths=lengths, n_new=n_new,
-                page_size=page_size, fused=fused)
+                page_size=page_size, commit=commit, fused=fused)
+            if not commit:
+                f, xp, hs_b = f
+                art["xp"].append(xp)
+                art["hs"].append(hs_b)
+            z = z + f
             li += 1
         if s_i < n_seg:
             z = paged_attn_block(
                 params["shared_attn"], z, cfg, kind="attn_mlp", rope=rope,
                 pk=attn["k"][s_i], pv=attn["v"][s_i], page_table=page_table,
                 lengths=lengths, n_new=n_new, fused=fused)
-    return z
+    return z, None if commit else art
 
 
 def hybrid_paged_decode_step(params, state, tokens, lengths, n_new,
@@ -477,7 +549,84 @@ def hybrid_paged_decode_step(params, state, tokens, lengths, n_new,
     state-snapshot pages, the interleaved shared-attention block reads
     and writes its KV pages — one page table, one physical page id space.
     Returns (last_logits (B, V), state) — the pools updated in place."""
-    z = _hybrid_paged_forward(params, state, tokens, lengths, n_new,
-                              page_table, rcfg, page_size=page_size,
-                              fused=fused)
+    z, _ = _hybrid_paged_forward(params, state, tokens, lengths, n_new,
+                                 page_table, rcfg, page_size=page_size,
+                                 fused=fused)
     return _paged_last_logits(params, z, n_new, rcfg.model), state
+
+
+def hybrid_paged_verify_step(params, state, tokens, lengths, n_new,
+                             page_table, rcfg: RunConfig, *, page_size: int,
+                             fused: bool = False):
+    """Speculative-verify forward for the hybrid family: shared-attention
+    KV is written in line (length-truncation rollback), the backbone's
+    snapshot writes are deferred to :func:`hybrid_paged_commit_step`.
+    Returns (logits (B, S, V), state, artifacts)."""
+    z, art = _hybrid_paged_forward(params, state, tokens, lengths, n_new,
+                                   page_table, rcfg, page_size=page_size,
+                                   commit=False, fused=fused)
+    return _paged_all_logits(params, z, rcfg.model), state, art
+
+
+def hybrid_paged_commit_step(state, art, page_table, lengths, n_write, *,
+                             page_size: int):
+    """Deferred backbone snapshot commit for the hybrid family, in place
+    (the verify forward already wrote the attention half)."""
+    ssm_paged_commit_step(state["mamba"], art, page_table, lengths, n_write,
+                          page_size=page_size)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Coarse-propagator draft model (speculative decoding)
+# ---------------------------------------------------------------------------
+
+
+def coarse_draft_params(params, rcfg: RunConfig, cf: int):
+    """The paper's coarse propagator as a zero-parameter draft model: the
+    network restricted to every ``cf``-th layer with the ODE step
+    rescaled by ``cf`` (:func:`repro_torch.core.mgrit.coarse_restrict`).
+    Returns ``(draft_params, draft_rcfg, n_coarse)``.
+
+    - decoder / ssm: the serial stack (open + mid + close with gates) is
+      restricted to every ``cf``-th layer, a list of per-layer views (no
+      weight is copied); the coarse gate is the sum of the chunk's fine
+      gates, so Phi_c(z) = z + (real layers in the chunk) * F(z), and
+      fully padded chunks stay identity. ``draft_rcfg`` is ``rcfg``.
+    - hybrid: the mamba2 backbone is restricted (strided views) and the
+      chunk span scales each coarse layer's ``out_proj`` (the mixer is
+      linear in it; those weights alone are new tensors); the shared
+      attention block runs at a proportionally coarsened cadence.
+      ``draft_rcfg`` carries the coarse ``n_layers`` /
+      ``hybrid_attn_every``.
+
+    Embeddings and the final norm are shared by reference."""
+    cfg = rcfg.model
+    if cf < 1:
+        raise ValueError("cf must be >= 1")
+    if cfg.family == "hybrid":
+        N = cfg.n_layers
+        n_coarse = -(-N // cf)
+        bb = tree_map(lambda a: a[::cf], params["backbone"])
+        op = bb["mixer"]["out_proj"]
+        sizes = torch.clamp(N - cf * torch.arange(n_coarse, device=op.device),
+                            max=cf)
+        bb["mixer"]["out_proj"] = op * sizes.to(op.dtype)[:, None, None]
+        hae = min(max(1, cfg.hybrid_attn_every // cf), n_coarse)
+        cfg_c = dataclasses.replace(cfg, n_layers=n_coarse,
+                                    hybrid_attn_every=hae)
+        draft = {"embed": params["embed"],
+                 "final_norm": params["final_norm"],
+                 "backbone": bb,
+                 "shared_attn": params["shared_attn"]}
+        return draft, rcfg.replace(model=cfg_c), n_coarse
+
+    layers, gates = _all_layers_stacked(params)
+    N = len(layers)
+    n_coarse = -(-N // cf)
+    gpad = torch.cat([gates, gates.new_zeros(n_coarse * cf - N)])
+    draft = {"embed": params["embed"],
+             "final_norm": params["final_norm"],
+             "mid": {"params": mgrit.coarse_restrict(layers, cf),
+                     "gate": gpad.reshape(n_coarse, cf).sum(dim=1)}}
+    return draft, rcfg, n_coarse

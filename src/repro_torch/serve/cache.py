@@ -13,12 +13,16 @@ never mention model families; they talk to a backend, which owns
   host half    the page ops ``alloc_view / share / fork / release`` over a
                refcounted :class:`~repro_torch.serve.kv_pages.PageAllocator`.
 
+Speculative decoding's device half is here too: ``verify`` (the fine
+model over a drafted window, acceptance, the commit of the accepted
+prefix), ``coarse_draft`` and ``init_draft_state``
+(:mod:`repro_torch.serve.spec`).
+
 The pools are updated in place, where the JAX package donates them to a
 jitted call: every method that takes ``state`` returns the same tensors.
-Not ported: meshes (one card; multi-device is the last slice) and
-speculative decoding (``verify`` / ``coarse_draft``, a later slice).
-Without a mesh the reference's ``shard_state`` / ``pool_pages`` are
-identities, so callers skip them.
+Not ported: meshes (one card; multi-device is the last slice). Without a
+mesh the reference's ``shard_state`` / ``pool_pages`` are identities, so
+callers skip them.
 """
 from __future__ import annotations
 
@@ -32,13 +36,13 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer
 from repro_torch.models.blocks import block_kind
 from repro_torch.obs import profile as obs_profile
 from repro_torch.serve.kv_pages import PageAllocator, state_leaves
 
-SPEC_SLICE = ("speculative decoding is not ported yet: it comes with the "
-              "serve-features slice of the port (ROADMAP Queue 1)")
 MESH_SLICE = ("meshes and sharding are not ported: the port serves on one "
               "card (multi-device is the last slice, ROADMAP Queue 1)")
 
@@ -130,6 +134,7 @@ class CacheBackend:
             else obs_profile.span_factory(False)
         self._step_fn = steps_mod.make_paged_serve_fn(
             rcfg, self._decode_fn(), fused=fused, device=self.device)
+        self._verify_fn = None          # built on first use (spec only)
 
     # -- device half --------------------------------------------------------
 
@@ -184,14 +189,50 @@ class CacheBackend:
         (B, 1)). The same step as prefill at S == 1."""
         return self._apply(state, slots, tokens, "serve.decode")
 
-    # -- device half: speculative decoding (not ported) --------------------
+    # -- device half: speculative decoding ----------------------------------
 
     def _verify_fns(self):
-        raise NotImplementedError(SPEC_SLICE)
+        """(verify forward, deferred commit or None) for this family: the
+        two halves :func:`repro_torch.launch.steps.make_paged_verify_fn`
+        joins into the verify call."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support speculative decoding")
+
+    def verify(self, state, slots: SlotBatch, tokens, draft_probs):
+        """Multi-token speculative verification: tokens (B, k+1) =
+        [pending, d_1..d_k] per slot on the device, with ``slots.n_new``
+        real entries (0 = idle); draft_probs (B, k, V) the drafts'
+        proposal distributions. One occupancy-masked call scores every
+        position with the full model, accepts the longest valid prefix
+        (greedy: exact match, so plain decode's tokens; sampled:
+        rejection sampling with leftover redraws) and commits state for
+        exactly the accepted prefix (KV: rows beyond ``lengths`` stay
+        masked; snapshot pools: the deferred commit never writes the
+        rejected suffix). Returns (state, accepted (B,), next_token (B,))
+        as host arrays; the host advances each slot by ``accepted + 1``
+        tokens."""
+        if self._verify_fn is None:
+            self._verify_fn = steps_mod.make_paged_verify_fn(
+                self.rcfg, *self._verify_fns(), device=self.device)
+        with self._span("serve.verify"):
+            acc, nxt, state = self._verify_fn(
+                self.params, state, tokens, slots.lengths, slots.n_new,
+                self._table_view(slots), slots.temps, slots.top_ks,
+                slots.top_ps, slots.seeds, slots.counters, draft_probs)
+            acc, nxt = acc.cpu().numpy(), nxt.cpu().numpy()
+        return state, acc, nxt
+
+    def coarse_draft(self, cf: int):
+        """(draft_params, draft_rcfg, n_coarse): the paper's coarse
+        propagator over this backend's weights (every cf-th layer, ODE
+        step rescaled); see ``transformer.coarse_draft_params``."""
+        return transformer.coarse_draft_params(self.params, self.rcfg, cf)
 
     def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
                          n_pages: int):
-        raise NotImplementedError(SPEC_SLICE)
+        """Fresh page pools for a coarse-depth twin of this backend's
+        state (the draft's private, allocator-free pool)."""
+        raise NotImplementedError
 
     # -- host half: page ops ------------------------------------------------
     # Refcount lifecycle: alloc_view -> 1 per page, share -> +1, release
@@ -292,6 +333,18 @@ class PagedKVBackend(CacheBackend):
                                             self.page_size,
                                             device=self.device)
 
+    def _verify_fns(self):
+        # rollback = truncate lengths: stale KV beyond them is masked
+        return (functools.partial(transformer.paged_verify_step,
+                                  fused=self.fused),
+                None)
+
+    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
+                         n_pages: int):
+        return attn_mod.init_paged_kv_cache(
+            draft_rcfg.model, n_layers, n_pages, self.page_size,
+            device=self.device)
+
 
 class SSMStateBackend(CacheBackend):
     """Mamba1/mamba2 models: recurrent state as snapshot pages."""
@@ -306,6 +359,21 @@ class SSMStateBackend(CacheBackend):
     def init_state(self, n_pages: int):
         return transformer.init_paged_ssm_cache(self.rcfg, n_pages,
                                                 device=self.device)
+
+    def _verify_fns(self):
+        # rollback = the deferred commit publishes the accepted prefix only
+        return (functools.partial(transformer.ssm_paged_verify_step,
+                                  page_size=self.page_size,
+                                  fused=self.fused),
+                functools.partial(transformer.ssm_paged_commit_step,
+                                  page_size=self.page_size))
+
+    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
+                         n_pages: int):
+        cfg = draft_rcfg.model
+        return ssm_mod.init_paged_ssm_pool(cfg, n_layers, n_pages,
+                                           cfg.ssm.version,
+                                           device=self.device)
 
 
 class HybridBackend(CacheBackend):
@@ -322,6 +390,19 @@ class HybridBackend(CacheBackend):
     def init_state(self, n_pages: int):
         return transformer.init_paged_hybrid_cache(
             self.rcfg, n_pages, self.page_size, device=self.device)
+
+    def _verify_fns(self):
+        return (functools.partial(transformer.hybrid_paged_verify_step,
+                                  page_size=self.page_size,
+                                  fused=self.fused),
+                functools.partial(transformer.hybrid_paged_commit_step,
+                                  page_size=self.page_size))
+
+    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
+                         n_pages: int):
+        # draft_rcfg carries the coarse n_layers / attention cadence
+        return transformer.init_paged_hybrid_cache(
+            draft_rcfg, n_pages, self.page_size, device=self.device)
 
 
 def make_backend(rcfg: RunConfig, params, mesh=None, page_size: int = 16,

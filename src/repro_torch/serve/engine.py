@@ -14,6 +14,10 @@ mid-decode, refill — fixed batch shape, dynamic occupancy mask). The
 engine and scheduler are family-blind: everything state-shaped lives
 behind the :class:`repro_torch.serve.cache.CacheBackend` protocol. The
 engine runs on ``cuda`` unless built with ``device="cpu"``.
+``spec=SpecConfig(cf, k)`` turns on coarse-propagator speculative
+decoding (:mod:`repro_torch.serve.spec`): the paper's coarse grid drafts
+k tokens per wave from the same weights and the full model verifies
+them in one call (greedy output is plain decode's).
 
 :meth:`ServeEngine.submit` with ``stream=True`` returns an iterator
 yielding ``(token_id, text_piece)`` as tokens are emitted, with
@@ -34,8 +38,9 @@ import numpy as np
 from repro_torch.configs.base import RunConfig
 from repro_torch.obs import Observability
 from repro_torch.obs import profile as obs_profile
-from repro_torch.serve.cache import MESH_SLICE, SPEC_SLICE, SlotBatch
+from repro_torch.serve.cache import MESH_SLICE, SlotBatch
 from repro_torch.serve.scheduler import Scheduler, bucket_len
+from repro_torch.serve.spec import SpecConfig
 
 
 @dataclasses.dataclass
@@ -110,7 +115,7 @@ class ServeEngine:
                  max_len: int = 0, max_batch: int = 8, page_size: int = 16,
                  n_pages: int = 0, share_prefix: bool = True, sharding=None,
                  detokenize: Optional[Callable] = None,
-                 spec=None,
+                 spec: Optional[SpecConfig] = None,
                  prefix_cache_path: Optional[str] = None,
                  fused: bool = True, preempt_policy: str = "auto",
                  partial_prefix: bool = True,
@@ -130,8 +135,7 @@ class ServeEngine:
                 handling: rejection, skip-ahead, preemption).
             detokenize: ids -> text callable for streaming (defaults to
                 rendering each id as ``⟨id⟩``).
-            spec: must be None (speculative decoding is not ported
-                yet; raises).
+            spec: SpecConfig enabling speculative decoding.
             prefix_cache_path: restore a persisted prefix cache npz.
             fused: the paged kernels (default: the CUDA kernels on the
                 card, their plain versions on the CPU — bitwise-identical
@@ -162,8 +166,6 @@ class ServeEngine:
             device: None means ``cuda`` (raises without a CUDA device);
                 ``"cpu"`` runs the plain PyTorch versions.
         """
-        if spec is not None:
-            raise NotImplementedError(SPEC_SLICE)
         if mesh is not None or sharding is not None:
             raise NotImplementedError(MESH_SLICE)
         self.rcfg = rcfg

@@ -1,8 +1,7 @@
 """Continuous-batching scheduler over a :class:`~repro_torch.serve.cache.CacheBackend`.
 
 Port of :mod:`repro.serve.scheduler`: host Python, ported whole except
-speculative decoding (``spec`` raises ``NotImplementedError`` naming the
-later slice) and meshes (``mesh`` / ``sharding`` raise in the backend).
+meshes (``mesh`` / ``sharding`` raise in the backend).
 
 The scheduler is backend-agnostic: it never mentions model families. All
 decode state (attention KV pages, SSM state-snapshot pages, hybrid
@@ -23,7 +22,12 @@ request never recompiles. One scheduler iteration:
      pages and yields each one's first token (prompt remainder padded to
      a power-of-two bucket clamped at max_len, so compile count is
      O(log max_len), not O(T) and not O(queue)).
-  2. decode — one lock-step call over all occupied slots.
+  2. decode — one lock-step call over all occupied slots; with
+     ``spec=SpecConfig(cf, k)`` this becomes a **speculative wave**
+     (:mod:`repro_torch.serve.spec`): the coarse-propagator draft proposes
+     k tokens per slot and one full-model verify call accepts a per-slot
+     prefix, so each slot advances by ``accepted + 1`` tokens per
+     iteration (greedy output stays plain decode's).
   3. reap — finished sequences (max_new reached or EOS) release their
      pages and slot immediately; the next iteration refills them.
 
@@ -97,10 +101,10 @@ import numpy as np
 from repro_torch.configs.base import RunConfig
 from repro_torch.obs import Observability
 from repro_torch.obs import profile as obs_profile
-from repro_torch.serve.cache import (SPEC_SLICE, CacheBackend, SlotBatch,
-                                     make_backend)
+from repro_torch.serve.cache import CacheBackend, SlotBatch, make_backend
 from repro_torch.serve.kv_pages import (SCRATCH_PAGE, PrefixCache,
                                         SpilledPages, pages_needed)
+from repro_torch.serve.spec import CoarseDraft, SpecConfig
 
 #: assumed host->device replay bandwidth (bytes/s) for the preemption
 #: cost model's restore side when no better estimate exists — only the
@@ -231,7 +235,7 @@ class Scheduler:
                  partial_prefix: bool = True,
                  prefill_chunk_tokens: int = 0,
                  backend: Optional[CacheBackend] = None,
-                 spec=None, fused: bool = True,
+                 spec: Optional[SpecConfig] = None, fused: bool = True,
                  admit_lookahead: int = 8, starvation_limit: int = 16,
                  age_every: int = 4, preempt_policy: str = "auto",
                  debug_checks: Optional[bool] = None,
@@ -270,8 +274,8 @@ class Scheduler:
                 exactly the pre-chunking path).
             backend: pre-built CacheBackend (tests); otherwise built via
                 ``make_backend``.
-            spec: must be None — speculative decoding is not ported
-                yet (raises ``NotImplementedError``).
+            spec: SpecConfig to enable coarse-propagator speculative
+                decoding.
             fused: forwarded to ``make_backend`` — fused paged-decode
                 kernels (default) vs the gathered dense-view path.
             admit_lookahead: how many unservable queue entries one admit
@@ -299,8 +303,6 @@ class Scheduler:
             device: where the backend's pools and weights live (None
                 means ``cuda``; ``"cpu"`` runs the plain versions).
         """
-        if spec is not None:
-            raise NotImplementedError(SPEC_SLICE)
         self.rcfg, self.params = rcfg, params
         self.max_len = max_len or min(rcfg.model.max_seq_len, 4096)
         self.page_size = page_size
@@ -358,6 +360,10 @@ class Scheduler:
         self.top_ks = np.zeros((max_batch,), np.int32)
         self.top_ps = np.ones((max_batch,), np.float32)
         self.seeds = np.zeros((max_batch,), np.int32)
+        self.spec: Optional[CoarseDraft] = None
+        if spec is not None:
+            self.spec = CoarseDraft(self.backend, spec, max_batch,
+                                    self.pages_per_slot)
         self.queue: Deque[ScheduledRequest] = collections.deque()
         self.finished: Dict[int, ScheduledRequest] = {}
         self._next_rid = 0
@@ -835,6 +841,8 @@ class Scheduler:
             plans.append((slot, req, cached))
         self.queue.extendleft(reversed(deferred))
         if plans:
+            if self.spec is not None:
+                self._draft_prefill(plans)
             if self.prefill_chunk_tokens > 0:
                 # chunked mode: the admission wave only maps pages; the
                 # prompts ingest in budget-bounded chunks between decode
@@ -856,6 +864,22 @@ class Scheduler:
         return SlotBatch(self.lengths.copy(), n_new, self.page_table,
                          self.temps, self.top_ks, self.top_ps, self.seeds,
                          counters)
+
+    def _draft_prefill(self, plans) -> None:
+        """Mirror an admission wave into the coarse draft: one
+        coarse-model call writes every admitted slot's full sequence into
+        the draft's private pages (the draft has no prefix trie and no
+        spill state, so its bucket is the whole prompt — or, for a
+        resumed request, prompt + committed output)."""
+        seqs = [(slot, req.resume_seq) for slot, req, _ in plans]
+        S = bucket_len(max(len(s) for _, s in seqs), hi=self.max_len)
+        toks = np.zeros((self.max_batch, S), np.int32)
+        n_new = np.zeros((self.max_batch,), np.int32)
+        for slot, seq in seqs:
+            toks[slot, :len(seq)] = seq
+            n_new[slot] = len(seq)
+        self.spec.prefill(toks, n_new)
+        self.stats["draft_calls"] += 1
 
     def _batched_prefill(self, plans) -> None:
         """One jitted (max_batch, bucket) call writes every admitted
@@ -1037,6 +1061,78 @@ class Scheduler:
             if self._is_done(req, tok):
                 self._reap(slot)
 
+    def _spec_wave(self) -> None:
+        """One speculative decode wave: a coarse-propagator draft of up
+        to ``k`` tokens per slot + one full-model verify call; each slot
+        advances by ``accepted + 1`` tokens (greedy slots emit what plain
+        decode would). Two device calls and one host sync for up to k+1
+        tokens per slot."""
+        sp = self.spec
+        k = sp.spec.k
+        B = self.max_batch
+        n_draft = np.zeros((B,), np.int32)
+        n_in = np.zeros((B,), np.int32)
+        ingest = np.zeros((B, k + 1), np.int32)
+        counters = np.zeros((B,), np.int32)
+        for b, req in enumerate(self.slot_req):
+            if req is None or b in self._ingest:
+                # mid-ingest slots (chunked prefill) have nothing to
+                # verify yet: masked out like empty slots (n_in == 0)
+                continue
+            # never draft past the request's budget: accepted+1 <= room
+            n_draft[b] = min(k, req.max_new_tokens - len(req.out) - 1)
+            # canonical tokens the draft has not cached yet + the pending
+            # token (position L); the catch-up is <= last wave's accepted
+            # count, so k+1 columns always suffice
+            row = req.out[int(sp.lengths[b]) - len(req.prompt):]
+            if not 1 <= len(row) <= k + 1:
+                raise COWViolationError(
+                    f"spec ingest row for slot {b} has {len(row)} tokens "
+                    f"(want 1..{k + 1}): draft cache length "
+                    f"{int(sp.lengths[b])} drifted from the canonical "
+                    "output — a previous wave committed the wrong count")
+            ingest[b, :len(row)] = row
+            n_in[b] = len(row)
+            counters[b] = len(req.out)
+            if self._debug_checks:
+                self._check_cow(b, req)
+        t0 = time.perf_counter()
+        # verify window [pending, d_1..d_k]: the drafts never leave the
+        # device before verification
+        window, q = sp.wave(ingest, n_in, n_draft, self.temps,
+                            self.top_ks, self.top_ps, self.seeds, counters)
+        slots = self._slot_batch(np.where(n_in > 0, n_draft + 1, 0),
+                                 counters)
+        self.state, acc, nxt = self.backend.verify(self.state, slots,
+                                                   window, q)
+        d_host = window[:, 1:].cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.stats["draft_calls"] += 1
+        self.stats["verify_calls"] += 1
+        self.stats["tokens_drafted"] += int(n_draft.sum())
+        self.stats["decode_s"] += dt
+        self.stats["decode_steps"] += 1
+        self.obs.metrics.observe("wave.decode_s", dt)
+        if self.trace is not None:
+            self.trace.span("spec_wave", t0, t0 + dt, wave=self._wave,
+                            args={"drafted": int(n_draft.sum())})
+            for b, req in enumerate(self.slot_req):
+                if req is not None and b not in self._ingest:
+                    self.trace.span("spec_wave", t0, t0 + dt, req.rid,
+                                    b, self._wave)
+        for b, req in enumerate(self.slot_req):
+            if req is None or b in self._ingest:
+                continue
+            a = int(acc[b])
+            self.stats["tokens_accepted"] += a
+            self.lengths[b] += a + 1   # committed: pending + accepted
+            for tok in [*d_host[b, :a], nxt[b]]:
+                req.out.append(int(tok))
+                self.stats["decode_tokens"] += 1
+                if self._is_done(req, int(tok)):
+                    self._reap(b)
+                    break
+
     def _is_done(self, req: ScheduledRequest, tok: int) -> bool:
         return (len(req.out) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id))
@@ -1053,6 +1149,8 @@ class Scheduler:
         self.top_ks[slot] = 0
         self.top_ps[slot] = 1.0
         self.seeds[slot] = 0
+        if self.spec is not None:
+            self.spec.reset_slot(slot)
 
     def _reap(self, slot: int, outcome: str = "finish") -> None:
         """Release a slot and finish its request. ``outcome`` names the
@@ -1144,7 +1242,10 @@ class Scheduler:
             # ingesting its prompt (nothing has a pending token)
             if any(r is not None and s not in self._ingest
                    for s, r in enumerate(self.slot_req)):
-                self._decode_once()
+                if self.spec is not None:
+                    self._spec_wave()
+                else:
+                    self._decode_once()
         elif self.queue and admitted == 0:
             # nothing running and nothing admissible: the ordered head
             # cannot get pages even with the machine to itself (e.g.
@@ -1167,8 +1268,8 @@ class Scheduler:
     # -- reporting ----------------------------------------------------------
 
     def accept_rate(self) -> float:
-        """Fraction of spec-drafted tokens the verifier accepted — always
-        0 here (spec decode is not ported); kept for the stats dict."""
+        """Fraction of spec-drafted tokens the verifier accepted (0 when
+        spec decode is off) — the single owner of this derivation."""
         return self.stats["tokens_accepted"] / max(
             self.stats["tokens_drafted"], 1)
 

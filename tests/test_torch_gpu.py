@@ -656,6 +656,87 @@ def test_paged_ssm_update_matches_plain_on_card(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("S,H,Hkv,hd", [(2, 16, 8, 128), (5, 16, 8, 128),
+                                        (3, 32, 32, 64), (5, 32, 32, 64)])
+def test_paged_flash_attention_at_verify_widths_matches_plain_on_card(
+        S, H, Hkv, hd, dtype, tol):
+    """Speculative decoding's verify and draft-ingest windows (S = k+1 at
+    k = 4, and shorter) at qwen3_1p7b's and zamba2_1p2b's heads: within
+    the tolerance of the plain version, the live-page table and a second
+    launch bit-identical to a wider table."""
+    _need_card()
+    q, pk, pv, table, lengths = to_torch(*attn_case(
+        7 * S + H, 4, S, H, Hkv, hd, 16, 8), device="cuda")
+    if dtype == "bfloat16":
+        q, pk, pv = (t.to(torch.bfloat16) for t in (q, pk, pv))
+    lengths = torch.tensor([95, 16, 0, 31], dtype=torch.int32,
+                           device="cuda")
+    want = tpa.paged_attention_ref(q, pk, pv, table, lengths).float()
+    got = tpa.paged_flash_attention(q, pk, pv, table[:, :7], lengths)
+    wide = tpa.paged_flash_attention(q, pk, pv, table, lengths)
+    again = tpa.paged_flash_attention(q, pk, pv, table[:, :7], lengths)
+    torch.cuda.synchronize()
+    assert (got.float() - want).abs().max().item() <= tol
+    assert torch.equal(got, wide) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order,R,ds", [("dbx", 8192, 16), ("dxb", 4096, 64)])
+def test_every_step_plan_matches_plain_on_card(order, R, ds):
+    """The verify recurrence (``models.ssm.every_step_update``: the
+    kernel with a write plan storing every local step into a scratch
+    buffer) at S = 5 against the same call on the plain version: y on
+    valid rows and every step's state within 1e-5 of max|plain|, the pool
+    untouched, a second launch bit-identical; and the state after each
+    step bit-identical to one-step decode calls on the pool."""
+    _need_card()
+    S, lengths, n_new = 5, [16, 31, 0, 7], [5, 3, 5, 0]
+    dt, x, Bm, Cm, A, pool, table, lens, nn = to_torch(*ssm_case(
+        R + 5, 4, S, R, ds, 4, lengths, n_new), device="cuda")
+    if order == "dxb":            # mamba2: one decay per row, stride 0
+        A = A[:, :1].expand(R, ds)
+    rows = (dt, x, Bm, Cm, A)
+    kept = pool.clone()
+
+    def run():
+        return tssm.every_step_update(*rows, pool, table, lens, nn, 16,
+                                      order=order)
+    got, again = run(), run()
+    from repro_torch.kernels import ops
+    saved, ops.paged_ssm_update = ops.paged_ssm_update, \
+        tps.paged_ssm_update_ref
+    try:
+        want = run()
+    finally:
+        ops.paged_ssm_update = saved
+    torch.cuda.synchronize()
+    valid = (torch.arange(S, device="cuda")[None, :] < nn[:, None])
+    assert _scaled_err(got[0] * valid[..., None],
+                       want[0] * valid[..., None]) <= 1e-5
+    assert _scaled_err(got[1] * valid[..., None, None],
+                       want[1] * valid[..., None, None]) <= 1e-5
+    assert torch.equal(pool, kept)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    # one decode call (S = 1) from each step's predecessor state
+    read_page, live = tssm.paged_read_plan(table, lens, 16)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    for b in range(4):
+        for t in range(int(nn[b])):
+            scratch = torch.zeros((2, R, ds), device="cuda")
+            if t:
+                scratch[1] = got[1][b, t - 1]
+            elif live[b]:
+                scratch[1] = pool[read_page[b]]
+            tps.paged_ssm_update(
+                *(a[b:b + 1, t:t + 1].contiguous() for a in rows[:4]), A,
+                scratch, one, one if t or live[b] else 0 * one,
+                one[:, None], 0 * one[:, None], one, order=order)
+            assert torch.equal(scratch[1], got[1][b, t]), (b, t)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("split", [1, 7, 25, 39])
 @pytest.mark.parametrize("order,R,ds", [("dbx", 8192, 16), ("dxb", 4096, 64)])
 def test_paged_ssm_update_split_call_is_bitwise_one_call_on_card(

@@ -2,7 +2,7 @@
 the JAX package's ``ServeEngine`` on the same queue, plus the engine
 contracts the port keeps internally (fused == gathered, preemption and
 chunked prefill bitwise-neutral, streaming/cancel, prefix-cache
-persistence) and its refusals (no card, spec, mesh).
+persistence) and its refusals (no card, mesh).
 
 Cross-framework tolerance: emitted tokens identical — greedy and seeded
 sampled (the port's threefry stream is bit-exact with ``jax.random``).
@@ -216,7 +216,7 @@ def test_tiny_layernorm_gelu_greedy_equals_jax():
 
 def test_entry_points_refuse_to_leave_the_card(qwen, monkeypatch):
     """Without a CUDA device, the default device raises (never a silent
-    CPU run); spec decoding and meshes are refused by name."""
+    CPU run); meshes are refused by name."""
     tr, tp, *_ = qwen
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -226,8 +226,6 @@ def test_entry_points_refuse_to_leave_the_card(qwen, monkeypatch):
         ttr.init_model(tr)
     with pytest.raises(SystemExit):
         serve_cli.main(["--arch", "qwen3_1p7b", "--reduced"])
-    with pytest.raises(NotImplementedError, match="speculative"):
-        t_engine(tr, tp, spec=object())
     with pytest.raises(NotImplementedError, match="one card"):
         t_engine(tr, tp, mesh=object())
 

@@ -546,15 +546,23 @@ def test_params_from_jax_checks_paths_and_shapes(fam):
 
 
 def test_make_backend_picks_the_family_and_refuses_spec(fam):
+    """The family's backend, with its speculative-decoding hooks: a
+    verify forward and a deferred commit, and coarse-depth draft pools
+    (the name predates the spec slice, when both were refused)."""
     name, _, _, tr, tp = fam
     be = make_backend(tr, tp, page_size=PAGE, device="cpu")
     assert type(be) is (SSMStateBackend if name == "falcon"
                         else HybridBackend)
     assert be.snapshot_state
-    with pytest.raises(NotImplementedError, match="speculative"):
-        be._verify_fns()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        be.init_draft_state(tr, 2, 4)
+    verify, commit = be._verify_fns()
+    assert verify.func is (ttr.ssm_paged_verify_step if name == "falcon"
+                           else ttr.hybrid_paged_verify_step)
+    assert commit.func is (ttr.ssm_paged_commit_step if name == "falcon"
+                           else ttr.hybrid_paged_commit_step)
+    _, rcfg_d, n_coarse = be.coarse_draft(2)
+    state = be.init_draft_state(rcfg_d, n_coarse, 4)
+    mamba = state if name == "falcon" else state["mamba"]
+    assert mamba["h"].shape[:2] == (n_coarse, 4)
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
