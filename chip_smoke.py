@@ -40,7 +40,24 @@ against a serial forward of its params), a sampled request, and one
 profiled spec wave, its draft and verify calls apart; then the same
 weights damped to SPEC_ACCEPT_DAMP, where drafts are accepted, through
 the same checks (accept rate above 0, a draft wave with a catch-up
-ingest). It checks the training
+ingest). Then the dense-cache decode path (phase 5c): paged attention
+over a dense cache (one page of max_len rows a slot; qwen3_1p7b's and
+zamba2_1p2b's heads, B 1 / 4, max_len 512 / 4096, a decode step at the
+first, 63rd and last row, a 300-token chunked prefill), the paged SSM
+decode kernel in place on a dense state at both full-width row shapes,
+and flash at Sq = 1 / 17 against the encoder-decoder models' source
+lengths, each against its plain version (writes landing only in their
+layer and rows, a second launch bitwise), and timed; the three serve
+models at full width and depth, the smoke queue's greedy requests and
+a sampled one through the port's dense oracle (``decode_step`` +
+``sample_tokens``) and the paged engine (logits within DENSE_GAP at
+every shared-context position, a divergence only on a near-tie) and
+``throughput_probe(paged=False)`` beside the paged probe for
+qwen3_1p7b; then full-width ``mt_marian`` (B=32, 274 source tokens) and
+``seamless_m4t_v2`` (B=4, 256 stub frames) encoding a source batch and
+greedy-decoding 32 tokens through ``make_serve_fn`` with the encoder's
+output, each step's logits against a teacher-forced serial forward
+(ENCDEC_GAP), and one sampled seamless request. It checks the training
 gradients at full width and reduced depth (kernel path vs plain path vs
 direct autograd), then trains full-width, full-depth ``qwen3_1p7b`` for
 three MGRIT steps through ``Trainer.train`` (adaptive probe at step 2)
@@ -2683,6 +2700,792 @@ def serve_spec(arch, family, seed, card):
     return launches, wave, res
 
 
+# -- dense-cache decode (phase 5c) ---------------------------------------
+#
+# The dense cache's routes through the hand-written kernels, each against
+# its plain version: paged attention over the cache seen as B pages of
+# max_len rows (one a slot), at qwen3_1p7b's and zamba2_1p2b's heads, B 1
+# and 4, max_len 512 and 4096, a decode step at the first row, at row 63
+# and at the last row and a 300-token chunked prefill from row 0 and 37;
+# the paged SSM update's decode kernel in place on a dense state at
+# falcon_mamba_7b's and zamba2_1p2b's rows; flash attention non-causal at
+# Sq = 1 and 17 new rows against mt_marian's 274 source keys and
+# seamless_m4t_v2's 256 stub frames (name, B, heads, Sk; hd 64).
+DENSE_HEADS = ((H, HKV, HD), (32, 32, 64))
+DENSE_LENS = (512, 4096)
+DENSE_CROSS = (("mt_marian", 32, 8, 274), ("seamless_m4t_v2", 4, 16, 256))
+DENSE_CROSS_SQ = (1, 17)
+# dense vs paged at full width and depth: the smoke queue's first
+# DENSE_REQS greedy requests and its first sampled one through the
+# port's dense oracle (B = 1, MAX_LEN) and through the paged engine; the
+# SSM and hybrid prompts cut to DENSE_SSM_PROMPT tokens (their dense
+# cache takes a token a call). The two paths run the bf16 projections at
+# other row counts (M = 1 against M = the engine's slots or a prefill
+# bucket), so cuBLAS may round differently: at every emission index whose
+# context the two share, max|dense - paged| over the vocab must stay
+# within DENSE_GAP, and a first divergence is allowed only where the
+# dense token lies within DENSE_TIE = 2 DENSE_GAP of the paged row's top
+# logit (for the sampled request: within DENSE_TIE / temperature of the
+# paged token's Gumbel-perturbed score, or either token sits on the edge
+# of the top-k / top-p mask, kept by one row's mask and dropped by the
+# other's). DENSE_GAP is the largest gap read on an H100 between the two
+# paths, 0.3242 (falcon_mamba_7b), rounded up to 12 bf16 ulps at |logit|
+# in [4, 8), as SPEC_GAP is; the greedy divergences there took tokens
+# 0-0.0312 below the paged top logit.
+DENSE_REQS = 2
+DENSE_SSM_PROMPT = 48
+DENSE_GAP = 0.375
+DENSE_TIE = 2 * DENSE_GAP
+# encoder-decoder decoding at full width and depth, seeded random
+# weights: (arch, B, source length), ENCDEC_NEW greedy tokens through
+# make_serve_fn with the encoder's output, each step's logits against a
+# teacher-forced serial forward over the decoded tokens within
+# ENCDEC_GAP, a greedy token other than the serial argmax only within
+# ENCDEC_TIE = 2 ENCDEC_GAP of its top logit. ENCDEC_GAP is the largest
+# gap read on an H100, 0.0508 (seamless_m4t_v2; mt_marian 0.0234),
+# rounded up to 4 bf16 ulps at |logit| in [4, 8); the greedy tokens off
+# the serial argmax there lay 0-0.0078 below it (exact bf16 ties among
+# 32000 random-weight logits are common).
+ENCDEC_DECODE = (("mt_marian", 32, 274), ("seamless_m4t_v2", 4, 256))
+ENCDEC_NEW = 32
+ENCDEC_GAP = 0.125
+ENCDEC_TIE = 2 * ENCDEC_GAP
+SAMPLED_SEAMLESS = dict(temperature=0.8, top_k=40, top_p=0.95, seed=5)
+
+
+def dense_cases(max_len):
+    """(S, index): a decode step at the first row, at row 63 and at the
+    last row; a 300-token chunked prefill from row 0 and from row 37."""
+    return ((1, 0), (1, 63), (1, max_len - 1), (300, 0), (300, 37))
+
+
+def check_dense_attention(gen):
+    """The dense cache's attention route (``attention._cached_core``: the
+    S new K/V rows written in place into the middle layer of a 3-layer
+    cache, then paged attention over that layer seen as B pages of
+    max_len rows) against ``dot_attention(q_offset=index)`` over the
+    written layer, within ATTN_TOL. Rows past index + S hold 1e30 (never
+    read); the other layers and the layer's rows outside the write must
+    keep their bits, the written rows hold the new K/V bit for bit, and a
+    second launch gives the same bits. Returns the max abs error per
+    dtype."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention as tattn
+    err = {}
+    for h, hkv, hd in DENSE_HEADS:
+        for max_len in DENSE_LENS:
+            for B in (1, MAX_BATCH):
+                for dtype in (torch.bfloat16, torch.float32):
+                    dname = str(dtype).split(".")[1]
+                    line = []
+                    for S, index in dense_cases(max_len):
+                        def r(*shape):
+                            return (torch.randn(shape, generator=gen,
+                                                device="cuda") * 0.5
+                                    ).to(dtype)
+                        ck = r(3, B, max_len, hkv, hd)
+                        cv = r(3, B, max_len, hkv, hd)
+                        ck[:, :, index + S:] = 1e30
+                        cv[:, :, index + S:] = 1e30
+                        q, kn, vn = r(B, S, h, hd), r(B, S, hkv, hd), \
+                            r(B, S, hkv, hd)
+                        exp_k, exp_v = ck.clone(), cv.clone()
+                        exp_k[1, :, index:index + S] = kn
+                        exp_v[1, :, index:index + S] = vn
+                        idx = torch.tensor(index, dtype=torch.int32,
+                                           device="cuda")
+                        got = tattn._cached_core(
+                            q, kn, vn, {"k": ck[1], "v": cv[1],
+                                        "index": idx})
+                        table = torch.arange(B, dtype=torch.int32,
+                                             device="cuda")[:, None]
+                        again = kops.paged_attention(q, ck[1], cv[1], table,
+                                                     idx.expand(B))
+                        want = tattn.dot_attention(q, ck[1], cv[1],
+                                                   causal=True,
+                                                   q_offset=idx)
+                        torch.cuda.synchronize()
+                        shape = (f"H={h}/{hkv} hd={hd} max_len={max_len} "
+                                 f"B={B} S={S} index={index} {dname}")
+                        if not (torch.equal(ck, exp_k)
+                                and torch.equal(cv, exp_v)):
+                            fail(f"dense cache {shape}: the write touched "
+                                 "rows outside its layer and range, or "
+                                 "did not land")
+                        if not torch.equal(got, again):
+                            fail(f"dense cache attention {shape}: a second "
+                                 "launch changed the output")
+                        e = (got.float() - want.float()).abs().max().item()
+                        if not e <= ATTN_TOL[dname]:
+                            fail(f"dense cache attention {shape}: "
+                                 f"max|kernel-plain| {e:.3e}")
+                        path = "split" if pa.plan(dtype, B, S, h, hkv, hd,
+                                                  max_len, 1).split \
+                            else "rows"
+                        line.append(f"S={S}@{index} ({path}) {e:.2e}")
+                        err[dname] = max(err.get(dname, 0.0), e)
+                    print(f"paged_flash_attention over a dense cache H={h}/"
+                          f"{hkv} hd={hd} max_len={max_len} B={B} {dname}:"
+                          f" max|kernel-plain| {', '.join(line)} "
+                          f"(tolerance {ATTN_TOL[dname]:g}); other layers "
+                          "and rows kept, written rows exact, second launch "
+                          "bitwise")
+    return err
+
+
+def check_dense_ssm(gen):
+    """The dense state's route (``ssm._cached_scan``: one paged SSM
+    update over the middle layer of a 3-layer state seen as B pages,
+    slot b reading and rewriting page b in place; the decode kernel at
+    S = 1) at both full-width row shapes, B 1 and 4: y and the layer's
+    state within SSM_TOL of max|plain| (the plain version on a copy), the
+    other layers bit-identical, a second run from the same state
+    bit-identical. Returns the max abs error of y per order."""
+    import torch
+    from repro_torch.kernels import paged_ssm as ps
+    from repro_torch.models import ssm as tssm
+    err = {}
+    for order in ("dbx", "dxb"):
+        R, ds = SSM_ROWS[order]
+        for B in (1, MAX_BATCH):
+            dt, x, Bm, Cm, A, h = dense_ssm_case(gen, order, B)
+            h = torch.stack([h, h * 0.5, h * 2.0])
+            runs = [h.clone() for _ in range(3)]
+            got, again = (tssm._cached_scan(dt, x, Bm, Cm, A, s[1],
+                                            order=order) for s in runs[:2])
+            slots = torch.arange(B, device="cuda")
+            want = ps.paged_ssm_update_ref(
+                dt, x, Bm, Cm, A, runs[2][1], slots, torch.ones_like(slots),
+                slots[:, None], torch.zeros_like(slots)[:, None],
+                torch.ones_like(slots), order=order)
+            torch.cuda.synchronize()
+            e_y = _scaled_err(got, want)
+            e_h = _scaled_err(runs[0][1], runs[2][1])
+            kept = (torch.equal(runs[0][0], h[0])
+                    and torch.equal(runs[0][2], h[2]))
+            same = torch.equal(got, again) and torch.equal(runs[0], runs[1])
+            abs_y = (got - want).abs().max().item()
+            print(f"paged_ssm_update {order} in place on a dense state R={R}"
+                  f" ds={ds} B={B} S=1: y max|kernel-plain| {abs_y:.3e} = "
+                  f"{e_y:.3e} of max|plain|, state {e_h:.3e} (tolerance "
+                  f"{SSM_TOL:g}); other layers kept {kept}, second run "
+                  f"bit-identical {same}")
+            if not (e_y <= SSM_TOL and e_h <= SSM_TOL and kept and same):
+                fail(f"paged_ssm_update {order} on a dense state disagrees "
+                     "with its plain version")
+            err[order] = max(err.get(order, 0.0), abs_y)
+    return err
+
+
+def dense_ssm_case(gen, order, B):
+    """One decode step's rows-layout inputs at ``order``'s full-width rows
+    and a dense state (B, R, ds), as ``ssm_kernel_case`` draws them; the
+    state has the page of storage before it that ``init_mamba*_cache``
+    gives every layer."""
+    import torch
+    from repro_torch.models import ssm as tssm
+    R, ds = SSM_ROWS[order]
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(r(B, 1, R)) * 0.2
+    if order == "dbx":
+        A = -torch.exp(r(R, ds))
+    else:
+        A = (-torch.exp(r(R // 64))).repeat_interleave(64)[:, None] \
+            .expand(R, ds)
+    h = tssm._dense_state((1, B, R, ds), "cuda")[0].copy_(r(B, R, ds))
+    return dt, r(B, 1, R), r(B, 1, ds), r(B, 1, ds), A, h
+
+
+def check_cross_flash(gen):
+    """Cross-attention at decode: the flash kernel non-causal at Sq = 1
+    and 17 new rows against mt_marian's and seamless_m4t_v2's source
+    lengths at their heads (DENSE_CROSS), bf16 and float32, against the
+    plain version (``flash_out_check``); a second launch bit-identical.
+    Returns the max abs error per dtype."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    err = {}
+    for name, B, h, Sk in DENSE_CROSS:
+        for Sq in DENSE_CROSS_SQ:
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype).split(".")[1]
+
+                def r(*shape):
+                    return (torch.randn(shape, generator=gen, device="cuda")
+                            * 0.5).to(dtype)
+                q, k, v = r(B, Sq, h, 64), r(B, Sk, h, 64), r(B, Sk, h, 64)
+                with torch.no_grad():
+                    got = kops.flash_attention(q, k, v, causal=False)
+                    again = kops.flash_attention(q, k, v, causal=False)
+                want = fa.flash_attention_ref(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=False).transpose(1, 2)
+                torch.cuda.synchronize()
+                e, ok = flash_out_check(got, want, dname)
+                same = torch.equal(got, again)
+                print(f"flash_attention cross-attention at decode ({name}) "
+                      f"B={B} H={h} Sq={Sq} Sk={Sk} hd=64 {dname}: "
+                      f"max|kernel-plain| {e:.3e} ({flash_tol_text(dname)});"
+                      f" second launch bitwise {same}")
+                if not (ok and same):
+                    fail(f"flash cross-attention {name} Sq={Sq} {dname} "
+                         "disagrees with its plain version")
+                err[dname] = max(err.get(dname, 0.0), e)
+    return err
+
+
+def time_dense_kernels(gen, flush):
+    """Times of the three routes at the dense path's bf16 shapes: paged
+    attention over a dense cache (qwen3_1p7b's heads, B=4, max_len 512) at
+    a decode step (S=1, index 300) and a 300-token prefill from row 0,
+    beside SDPA on ``cache[:, :index+S]`` (K/V repeated over the g heads
+    beforehand; causal for the prefill); the paged SSM update on a dense
+    state (B=4, S=1) at both orders, the call as the mixer makes it (the
+    plan built there) and the kernel alone (plan already int32), no
+    library call computing it; flash cross-attention at mt_marian's decode
+    shape (B=32, H=8, Sq=1, Sk=274, hd 64) beside SDPA. Each with its
+    plain version and bound. Returns {route: numbers}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_ssm as ps
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import ssm as tssm
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    B, g = MAX_BATCH, H // HKV
+    for label, S, index in (("decode", 1, 300), ("prefill", 300, 0)):
+        def r(*shape):
+            return (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                    ).to(torch.bfloat16)
+        ck, cv, q = r(B, MAX_LEN, HKV, HD), r(B, MAX_LEN, HKV, HD), \
+            r(B, S, H, HD)
+        idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+        table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+        lens = idx.expand(B)
+        kd = ck[:, :index + S].transpose(1, 2).repeat_interleave(g, dim=1)
+        vd = cv[:, :index + S].transpose(1, 2).repeat_interleave(g, dim=1)
+        qd = q.transpose(1, 2)
+
+        def kernel(q=q, ck=ck, cv=cv, table=table, lens=lens):
+            return kops.paged_attention(q, ck, cv, table, lens)
+
+        def library(qd=qd, kd=kd, vd=vd, S=S):
+            return sdpa(qd, kd, vd, is_causal=S > 1)
+        bound, by = attn_bound_ms(B, S, [index] * B, 1, 2)
+        rows[f"attn_{label}"] = {
+            "ms": time_ms(kernel, flush=flush),
+            "device_ms": device_ms(kernel, 20, flush),
+            "plain_ms": time_ms(lambda q=q, ck=ck, cv=cv, idx=idx:
+                                tattn.dot_attention(q, ck, cv, causal=True,
+                                                    q_offset=idx),
+                                flush=flush),
+            "library_ms": time_ms(library, flush=flush),
+            "library_device_ms": device_ms(library, 20, flush),
+            "bound_ms": bound, "bound_by": by}
+        a = rows[f"attn_{label}"]
+        print(f"paged_flash_attention over a dense cache, {label} B={B} "
+              f"S={S} index={index} max_len={MAX_LEN} bf16: kernel "
+              f"{a['ms']:.4f} ms (device {a['device_ms']:.4f}), plain "
+              f"{a['plain_ms']:.4f} ms, SDPA on cache[:, :index+S] "
+              f"{a['library_ms']:.4f} ms (device "
+              f"{a['library_device_ms']:.4f}), bound {bound:.5f} ms ({by})")
+    for order in ("dbx", "dxb"):
+        R, ds = SSM_ROWS[order]
+        dt, x, Bm, Cm, A, h = dense_ssm_case(gen, order, B)
+        # the route's pool: one page before h, the slots its pages 1..B
+        pool = h.as_strided((B + 1, R, ds), (R * ds, ds, 1),
+                            h.storage_offset() - R * ds)
+        slots = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+        one = torch.ones_like(slots)
+        plan = (slots, one, slots[:, None], 0 * slots[:, None], one)
+
+        def call(a=(dt, x, Bm, Cm, A, h), o=order):
+            return tssm._cached_scan(*a, order=o)
+
+        def alone(a=(dt, x, Bm, Cm, A, pool), o=order, plan=plan):
+            return ps.paged_ssm_update(*a, *plan, order=o)
+        a_bytes = R * ds * 4 if order == "dbx" else R * 4
+        nbytes = (3 * B * R * 4 + 2 * B * ds * 4 + a_bytes
+                  + 2 * B * R * ds * 4 + 5 * B * 4)
+        t_b, t_o = nbytes / PEAK_BYTES_S, 7 * B * R * ds / PEAK_F32_FLOP_S
+        row = {"ms": time_ms(call, flush=flush),
+               "device_ms": device_ms(call, 20, flush),
+               "kernel_device_ms": device_ms(alone, 20, flush),
+               "plain_ms": time_ms(lambda a=(dt, x, Bm, Cm, A,
+                                             pool.clone()), o=order,
+                                   plan=plan: ps.paged_ssm_update_ref(
+                                       *a, *plan, order=o), flush=flush),
+               "bound_ms": 1e3 * max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations"}
+        rows[f"ssm_{order}"] = row
+        print(f"paged_ssm_update {order} in place on a dense state R={R} "
+              f"ds={ds} B={B} S=1: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}; kernel alone "
+              f"{row['kernel_device_ms']:.4f}), plain {row['plain_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              "library none")
+    _, Bc, hc, Sk = DENSE_CROSS[0]
+
+    def r(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                ).to(torch.bfloat16)
+    q, k, v = r(Bc, 1, hc, 64), r(Bc, Sk, hc, 64), r(Bc, Sk, hc, 64)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        with torch.no_grad():
+            return kops.flash_attention(q, k, v, causal=False)
+
+    def library():
+        return sdpa(qt, kt, vt)
+    nbytes = 2 * (2 * Bc * hc * 64 + 2 * Bc * Sk * hc * 64) + Bc * hc * 4
+    t_b, t_o = nbytes / PEAK_BYTES_S, 4 * 64 * Sk * Bc * hc / PEAK_BF16_FLOP_S
+    row = {"ms": time_ms(kernel, flush=flush),
+           "device_ms": device_ms(kernel, 20, flush),
+           "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+               qt, kt, vt, causal=False), flush=flush),
+           "library_ms": time_ms(library, flush=flush),
+           "library_device_ms": device_ms(library, 20, flush),
+           "bound_ms": 1e3 * max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    rows["cross"] = row
+    print(f"flash_attention cross-attention at decode (mt_marian) B={Bc} "
+          f"H={hc} Sq=1 Sk={Sk} hd=64 bf16: kernel {row['ms']:.4f} ms "
+          f"(device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms,"
+          f" SDPA {row['library_ms']:.4f} ms (device "
+          f"{row['library_device_ms']:.4f}), bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']})")
+    return rows
+
+
+def dense_counts():
+    return {**serve_counts(),
+            "flash_attention_fwd": train_counts()["flash_attention_fwd"]}
+
+
+def dense_stream(served, rcfg, req, chunked):
+    """The port's dense oracle for one request on the card: a dense cache
+    of batch 1 and MAX_LEN rows, the prompt by one chunked-prefill call
+    (``chunked``) or a token a call, then one ``sample_tokens(fused=
+    True)`` draw per emitted token keyed (seed, n), each fed back.
+    Returns (tokens, the logits row of each emission, decode calls)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import sample_tokens
+    from repro_torch.models import transformer
+
+    def vec(x, dtype):
+        return torch.tensor([x], dtype=dtype, device="cuda")
+    cache = transformer.init_cache(rcfg, 1, MAX_LEN, device="cuda")
+    prompt = torch.from_numpy(req.prompt.astype(np.int64)).cuda()[None]
+    feeds = [prompt] if chunked else [prompt[:, i:i + 1]
+                                      for i in range(prompt.shape[1])]
+    samp = (vec(req.temperature, torch.float32), vec(req.top_k, torch.int32),
+            vec(req.top_p, torch.float32), vec(req.seed, torch.long))
+    out, rows = [], []
+    with torch.no_grad():
+        for f in feeds:
+            lg, cache = transformer.decode_step(served, cache, f, rcfg)
+        for n in range(req.max_new_tokens):
+            rows.append(lg[0, -1])
+            tok = sample_tokens(lg[:, -1], *samp, vec(n, torch.long),
+                                any_sampled=req.temperature > 0, fused=True)
+            out.append(int(tok[0]))
+            if n < req.max_new_tokens - 1:
+                lg, cache = transformer.decode_step(
+                    served, cache, tok[:, None].long(), rcfg)
+    return np.asarray(out, np.int32), rows, len(feeds) + len(out) - 1
+
+
+def sampled_scores(row, req, n):
+    """The Gumbel-perturbed, temperature-scaled, masked scores
+    ``sample_tokens`` drew emission n of ``req`` from (``row``: that
+    emission's logits), and the mask (True: kept)."""
+    import torch
+    from repro_torch.launch import prng
+    from repro_torch.launch.steps import temper_and_mask
+
+    def vec(x, dtype):
+        return torch.tensor([x], dtype=dtype, device=row.device)
+    scaled = temper_and_mask(row.float()[None],
+                             vec(req.temperature, torch.float32),
+                             vec(req.top_k, torch.int32),
+                             vec(req.top_p, torch.float32), fused=True)[0]
+    keys = prng.fold_in(prng.PRNGKey(vec(req.seed, torch.long)),
+                        vec(n, torch.long))
+    return scaled + prng.gumbel(keys, row.shape[-1])[0], scaled > -1e30
+
+
+def check_dense_streams(name, reqs, paged, dense, card):
+    """Dense oracle vs paged engine, one request at a time: at every
+    emission index whose context the two share (up to and including a
+    first divergence) max|dense - paged| over the vocab within DENSE_GAP;
+    a greedy token the argmax of its own row; a first divergence only on
+    a near-tie (the dense token within DENSE_TIE of the paged row's top
+    logit; sampled: within DENSE_TIE / temperature of the paged token's
+    perturbed score, or a token on the edge of the two rows' masks).
+    ``paged``/``dense``: (streams, rows by (seed, n) or lists). Returns
+    (bitwise-equal streams, largest gap, divergences)."""
+    import numpy as np
+    matched, worst, divergences = 0, 0.0, []
+    for i, req in enumerate(reqs):
+        a, b = paged[0][i], dense[0][i]
+        j = int(np.argmax(a != b)) if not np.array_equal(a, b) else None
+        for m in range(len(a) if j is None else j + 1):
+            pl, dn = paged[1][(req.seed, m)], dense[1][i][m]
+            gap = _row_gap(pl, dn)
+            worst = max(worst, gap)
+            if gap > DENSE_GAP:
+                fail(f"{name} request {i} token {m}: the dense oracle's "
+                     f"logits lie {gap:.4f} from the paged engine's (limit "
+                     f"{DENSE_GAP:g})")
+            if req.temperature == 0 and (
+                    int(pl.float().argmax()) != a[m]
+                    or int(dn.float().argmax()) != b[m]):
+                fail(f"{name} request {i} token {m}: a greedy token is not "
+                     "the argmax of the logits it was drawn from")
+        if j is None:
+            matched += 1
+            continue
+        pl = paged[1][(req.seed, j)].float()
+        ta, tb = int(a[j]), int(b[j])
+        edge = False
+        if req.temperature == 0:
+            tie, limit = (pl.max() - pl[tb]).item(), DENSE_TIE
+        else:
+            s_p, keep_p = sampled_scores(pl, req, j)
+            s_d, keep_d = sampled_scores(dense[1][i][j], req, j)
+            if int(s_p.argmax()) != ta or int(s_d.argmax()) != tb:
+                fail(f"{name} request {i} token {j}: a sampled token is not "
+                     "the draw from the scores of its own row")
+            tie, limit = (s_p[ta] - s_p[tb]).item(), \
+                DENSE_TIE / req.temperature
+            edge = bool(keep_p[ta] != keep_d[ta] or keep_p[tb] != keep_d[tb])
+        divergences.append(dict(request=i, token=j, margin=tie,
+                                sampled=req.temperature > 0,
+                                mask_edge=edge))
+        print(f"[{card}] dense {name} request {i}: first divergence at "
+              f"token {j} ({ta} paged, {tb} dense); the dense token lies "
+              f"{tie:.4f} below the paged row's "
+              f"{'perturbed score' if req.temperature else 'top logit'} "
+              f"(limit {limit:g})"
+              + ("; one of the two tokens is kept by one row's top-k / "
+                 "top-p mask and dropped by the other's" if edge else ""))
+        if not (tie < limit or edge):
+            fail(f"{name}: the dense oracle diverged from the paged engine "
+                 f"away from a near-tie ({tie:.4f})")
+    return matched, worst, divergences
+
+
+def dense_vs_paged(arch, seed, card):
+    """Full width and depth: the smoke queue's first DENSE_REQS greedy
+    requests and first sampled one through the paged engine (the logits
+    each token was drawn from recorded) and through the port's dense
+    oracle (qwen3's prompt by one chunked-prefill call, SSM and hybrid
+    prompts cut to DENSE_SSM_PROMPT tokens a call), counters set to 0
+    just before the dense runs and read just after; every kernel of the
+    dense route launched once a layer and call, the sampling mask once a
+    sampled emission; ``check_dense_streams``. For the attention decoder
+    also ``throughput_probe(paged=False)`` beside the paged probe at
+    B = 4. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    rcfg = get_config(arch, "decode_32k")
+    cfg = rcfg.model
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_model(rcfg, seed=seed, device="cuda")
+    served = transformer.serving_params(params, cfg)
+    del params
+    gc.collect()
+    engine = ServeEngine(rcfg, served, max_batch=MAX_BATCH, page_size=PAGE,
+                         max_len=MAX_LEN, device="cuda")
+    queue = make_queue(np.random.default_rng(seed), cfg.vocab_size)
+    reqs = [r for r in queue if r.temperature == 0.0][:DENSE_REQS] \
+        + [next(r for r in queue if r.temperature > 0.0)]
+    chunked = cfg.family == "decoder"
+    if not chunked:
+        reqs = [dataclasses.replace(r, prompt=r.prompt[:DENSE_SSM_PROMPT])
+                for r in reqs]
+    seeds = {r.seed for r in reqs}
+    if len(seeds) != len(reqs) or 0 in seeds:
+        fail(f"{cfg.name}: the requests' seeds do not tell them apart")
+    engine.generate([dataclasses.replace(reqs[0], max_new_tokens=4)])
+    with record_spec_logits() as calls:
+        out = engine.generate([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+    paged = ([r.output for r in out], emitted_rows(calls, seeds))
+    del calls
+    reset_serve_counts()
+    t0 = time.perf_counter()
+    dense = ([], [])
+    n_calls = 0
+    for r in reqs:
+        toks, rows, n = dense_stream(served, rcfg, r, chunked)
+        dense[0].append(toks)
+        dense[1].append(rows)
+        n_calls += n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dense_counts()
+    if cfg.family == "hybrid":
+        want = {"paged_ssm_update": cfg.n_layers,
+                "paged_flash_attention": cfg.n_layers // cfg.hybrid_attn_every}
+    else:
+        want = {"paged_flash_attention" if chunked else "paged_ssm_update":
+                transformer.stacked_layer_depth(rcfg)}
+    for k, n in want.items():
+        if launches[k] != n * n_calls:
+            fail(f"{cfg.name} dense: {k} launched {launches[k]} times, want "
+                 f"{n} a call x {n_calls} calls")
+    n_sampled = sum(r.max_new_tokens for r in reqs if r.temperature > 0)
+    if launches["topk_topp_mask"] != n_sampled or \
+            launches["rmsnorm_fwd"] <= 0:
+        fail(f"{cfg.name} dense: launches {launches}")
+    for i, (r, a, b) in enumerate(zip(reqs, paged[0], dense[0],
+                                      strict=True)):
+        if len(a) != r.max_new_tokens or len(b) != r.max_new_tokens:
+            fail(f"{cfg.name} request {i}: {len(a)} paged / {len(b)} dense "
+                 f"tokens of {r.max_new_tokens}")
+    matched, worst, div = check_dense_streams(cfg.name, reqs, paged, dense,
+                                              card)
+    n_tok = sum(len(b) for b in dense[0])
+    res = dict(matched=matched, requests=len(reqs), max_gap=worst,
+               divergences=div, dense_calls=n_calls, dense_wall_s=wall,
+               dense_tok_s=n_tok / wall)
+    if chunked:
+        res["probe_dense_tok_s"] = engine.throughput_probe(MAX_BATCH,
+                                                           paged=False)
+        res["probe_paged_tok_s"] = engine.throughput_probe(MAX_BATCH)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] dense {cfg.name}: {matched}/{len(reqs)} streams "
+          f"bitwise equal to the paged engine's ({len(reqs) - 1} greedy, 1 "
+          f"sampled; prompts {[len(r.prompt) for r in reqs]}), max|dense - "
+          f"paged| over every shared-context position {worst:.4f} (limit "
+          f"{DENSE_GAP:g}); {n_calls} dense decode calls, {n_tok} tokens in "
+          f"{wall:.2f} s; launches {launches}"
+          + (f"; throughput_probe B={MAX_BATCH}: dense "
+             f"{res['probe_dense_tok_s']:.1f} tok/s, paged "
+             f"{res['probe_paged_tok_s']:.1f} tok/s" if chunked else "")
+          + f"; peak memory {res['peak_gib']:.1f} GiB")
+    return launches, res
+
+
+@contextlib.contextmanager
+def record_decode_logits():
+    """Keep every logits tensor ``transformer.decode_step`` returns (the
+    serve step reads it by module attribute), without device work."""
+    from repro_torch.models import transformer
+    saved, kept = transformer.decode_step, []
+
+    def step(*a, **kw):
+        lg, cache = saved(*a, **kw)
+        kept.append(lg)
+        return lg, cache
+    transformer.decode_step = step
+    try:
+        yield kept
+    finally:
+        transformer.decode_step = saved
+
+
+def encdec_decode(arch, B, S_src, card):
+    """Full-width, full-depth ``arch`` from seeded random weights: the
+    encoder over a source batch (token ids, or the audio stub's frames),
+    then ENCDEC_NEW greedy tokens through ``make_serve_fn(rcfg)(params,
+    cache, tokens, xa)`` on a dense cache, each call timed to a device
+    sync; each step's logits against a teacher-forced serial forward over
+    the decoded tokens (ENCDEC_GAP, ENCDEC_TIE). seamless_m4t_v2 also
+    decodes one sampled request (SAMPLED_SEAMLESS) a token a call through
+    ``decode_step`` and ``sample_tokens(fused=True)``, each token inside
+    its row's mask. Counters set to 0 just before the decode loops and
+    read after: paged attention and flash once a decoder layer and call,
+    the sampling mask once a sampled token. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_serve_fn
+    from repro_torch.models import transformer
+    rcfg = get_config(arch)
+    cfg = rcfg.model
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_model(rcfg, seed=3, device="cuda")
+    served = transformer.serving_params(params, cfg)
+    del params
+    gc.collect()
+    rng = np.random.default_rng(3)
+    if cfg.frontend == "audio":
+        batch = {"src_embeds": torch.from_numpy(
+            (rng.standard_normal((B, S_src, cfg.d_model)) * 0.1)
+            .astype(np.float32)).cuda()}
+    else:
+        batch = {"src_tokens": torch.from_numpy(
+            rng.integers(0, V, (B, S_src))).cuda()}
+    start = torch.from_numpy(rng.integers(0, V, (B, 1))).cuda()
+    n_dec = transformer.depth_plan(cfg.n_dec_layers, rcfg.mgrit).n_mid_padded
+    reset_serve_counts()
+    with torch.no_grad():
+        xa, _ = transformer.encode(served, batch, rcfg)
+        torch.cuda.synchronize()
+        enc_flash = dense_counts()["flash_attention_fwd"]
+        print(f"model: {cfg.name} {cfg.n_layers} + {cfg.n_dec_layers} layers "
+              f"({n_dec} decoder layers stacked) d_model={cfg.d_model} heads="
+              f"{cfg.n_heads} vocab={V} dtype={cfg.dtype}; init + encoder "
+              f"(B={B}, {S_src} source positions, {enc_flash} flash "
+              f"launches) {time.perf_counter() - t0:.1f} s")
+        step = make_serve_fn(rcfg)
+        cache = transformer.init_cache(rcfg, B, ENCDEC_NEW, device="cuda")
+        tok, toks, walls = start, [], []
+        reset_serve_counts()
+        with record_decode_logits() as logits:
+            for _ in range(ENCDEC_NEW):
+                t1 = time.perf_counter()
+                tok, cache = step(served, cache, tok, xa)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+                toks.append(tok)
+        launches = dense_counts()
+        seq = torch.cat([start] + toks[:-1], dim=1)
+        serial, _ = transformer.forward(served, {**batch, "tokens": seq},
+                                        rcfg, mode="serial")
+        out = torch.cat(toks, dim=1)
+        gap, ties = 0.0, []
+        for n in range(ENCDEC_NEW):
+            ser = serial[:, n].float()
+            gap = max(gap, _row_gap(logits[n][:, -1], ser))
+            differ = (out[:, n] != ser.argmax(-1)).nonzero()[:, 0].tolist()
+            for b in differ:
+                ties.append((ser[b].max() - ser[b, out[b, n]]).item())
+        for k, n in (("paged_flash_attention", n_dec),
+                     ("flash_attention_fwd", n_dec)):
+            if launches[k] != n * ENCDEC_NEW:
+                fail(f"{cfg.name} decode: {k} launched {launches[k]} times, "
+                     f"want {n} a call x {ENCDEC_NEW} calls")
+        res = dict(B=B, src=S_src, tokens=B * ENCDEC_NEW,
+                   decode_s=sum(walls), tok_s=B * ENCDEC_NEW / sum(walls),
+                   call_ms=[round(1e3 * w, 3) for w in walls], max_gap=gap,
+                   ties=ties)
+        print(f"[{card}] encdec {cfg.name}: {ENCDEC_NEW} greedy tokens x "
+              f"B={B} through make_serve_fn(xa) in {sum(walls):.3f} s "
+              f"({res['tok_s']:.1f} tok/s); decode call wall ms "
+              f"{res['call_ms']}; max|decode - teacher-forced serial| "
+              f"{gap:.4f} (limit {ENCDEC_GAP:g}); {len(ties)} greedy tokens "
+              f"off the serial argmax, margins {[round(x, 4) for x in ties]} "
+              f"(limit {ENCDEC_TIE:g}); launches {launches}")
+        if gap > ENCDEC_GAP or any(x >= ENCDEC_TIE for x in ties):
+            fail(f"{cfg.name}: dense decode disagrees with the teacher-forced "
+                 "serial forward")
+        if cfg.frontend == "audio":
+            res["sampled"] = encdec_sampled(served, rcfg, batch, xa, start,
+                                            card)
+            launches["topk_topp_mask"] = res["sampled"]["launches"]
+    torch.cuda.synchronize()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] encdec {cfg.name}: peak memory {res['peak_gib']:.1f} GiB")
+    del served, cache, xa, serial
+    return launches, res
+
+
+def encdec_sampled(served, rcfg, batch, xa, start, card):
+    """One sampled request (source row 0, SAMPLED_SEAMLESS) decoded a
+    token a call: ``decode_step`` and ``sample_tokens(fused=True)``, the
+    sampling kernel at the model's whole vocabulary; every token inside
+    its row's mask and in the vocab, the logits against a teacher-forced
+    serial forward within ENCDEC_GAP. Returns its numbers."""
+    import torch
+    from repro_torch.launch.steps import sample_tokens, temper_and_mask
+    from repro_torch.models import transformer
+    cfg = rcfg.model
+    sp = SAMPLED_SEAMLESS
+
+    def vec(x, dtype):
+        return torch.tensor([x], dtype=dtype, device="cuda")
+    samp = (vec(sp["temperature"], torch.float32),
+            vec(sp["top_k"], torch.int32), vec(sp["top_p"], torch.float32),
+            vec(sp["seed"], torch.long))
+    cache = transformer.init_cache(rcfg, 1, ENCDEC_NEW, device="cuda")
+    tok, toks, rows = start[:1], [], []
+    reset_serve_counts()
+    t0 = time.perf_counter()
+    for n in range(ENCDEC_NEW):
+        lg, cache = transformer.decode_step(served, cache, tok, rcfg,
+                                            xa=xa[:1])
+        rows.append(lg[0, -1])
+        nxt = sample_tokens(lg[:, -1], *samp, vec(n, torch.long),
+                            any_sampled=True, fused=True)
+        tok = nxt[:, None].long()
+        toks.append(int(nxt[0]))
+    wall = time.perf_counter() - t0
+    n_mask = dense_counts()["topk_topp_mask"]
+    src = {k: v[:1] for k, v in batch.items()}
+    seq = torch.cat([start[:1], torch.tensor([toks[:-1]], device="cuda")],
+                    dim=1)
+    serial, _ = transformer.forward(served, {**src, "tokens": seq}, rcfg,
+                                    mode="serial")
+    gap = max(_row_gap(rows[n], serial[0, n]) for n in range(ENCDEC_NEW))
+    inside = all(
+        bool(temper_and_mask(rows[n].float()[None], *samp[:3], fused=True)
+             [0, toks[n]] > -1e30) for n in range(ENCDEC_NEW))
+    print(f"[{card}] encdec {cfg.name}: sampled request (temperature "
+          f"{sp['temperature']}, top-k {sp['top_k']}, top-p {sp['top_p']}) "
+          f"{ENCDEC_NEW} tokens in {wall:.3f} s, every token inside its "
+          f"row's mask {inside}, max|decode - serial| {gap:.4f} (limit "
+          f"{ENCDEC_GAP:g}); sampling mask launches {n_mask}")
+    if not inside or gap > ENCDEC_GAP or n_mask != ENCDEC_NEW or \
+            not all(0 <= x < cfg.vocab_size for x in toks):
+        fail(f"{cfg.name}: the sampled decode failed its checks")
+    return dict(tokens=toks, wall_s=wall, max_gap=gap, launches=n_mask)
+
+
+def dense_kernel_rows(dl, err, rows):
+    """The ``kernels`` line's rows of the dense cache's routes (phase 5c):
+    launches of the dense oracle's and the encoder-decoder decode runs,
+    by model (``dl``); ms/plain_ms/bound_ms at a decode step (S=1),
+    prefill_* a 300-token chunked prefill, device_* the device work
+    alone (device_ms); max_abs_err bf16, f32_max_abs_err float32."""
+    out = [{
+        "name": "paged_flash_attention@dense", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:88",
+        "launches": sum(n["paged_flash_attention"] for n in dl.values()),
+        "launches_by_model": {a: n["paged_flash_attention"]
+                              for a, n in dl.items()},
+        "max_abs_err": err["attn"]["bfloat16"],
+        "f32_max_abs_err": err["attn"]["float32"],
+        **rows["attn_decode"],
+        **{f"prefill_{k}": v for k, v in rows["attn_prefill"].items()}}]
+    for order, arch in (("dbx", "falcon_mamba_7b"), ("dxb", "zamba2_1p2b")):
+        out.append({
+            "name": f"paged_ssm_update_{order}@dense", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_ssm.cu",
+            "replaces": "src/repro/kernels/paged_ssm.py:92",
+            "launches": dl[arch]["paged_ssm_update"],
+            "max_abs_err": err["ssm"][order], "library_ms": None,
+            **rows[f"ssm_{order}"]})
+    out.append({
+        "name": "flash_attention_fwd@cross_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:64",
+        "launches": sum(dl[a]["flash_attention_fwd"]
+                        for a, _, _ in ENCDEC_DECODE),
+        "launches_by_model": {a: dl[a]["flash_attention_fwd"]
+                              for a, _, _ in ENCDEC_DECODE},
+        "max_abs_err": err["cross"]["bfloat16"],
+        "f32_max_abs_err": err["cross"]["float32"],
+        **rows["cross"]})
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2892,6 +3695,32 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # -- 5c. dense-cache decode: the dense cache's routes through the
+    # kernels, dense vs paged at full width and depth, then decoding the
+    # encoder-decoder family ---------------------------------------------
+    t_dense = time.perf_counter()
+    dense_gen = torch.Generator(device="cuda")
+    dense_gen.manual_seed(22)
+    dense_err = {"attn": check_dense_attention(dense_gen),
+                 "ssm": check_dense_ssm(dense_gen),
+                 "cross": check_cross_flash(dense_gen)}
+    dense_rows = time_dense_kernels(dense_gen, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_launches, dense_res = {}, {}
+    for arch, seed in (("qwen3_1p7b", 0), ("falcon_mamba_7b", 1),
+                       ("zamba2_1p2b", 1)):
+        dense_launches[arch], dense_res[arch] = dense_vs_paged(arch, seed,
+                                                               card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, B, S_src in ENCDEC_DECODE:
+        dense_launches[arch], dense_res[arch] = encdec_decode(arch, B, S_src,
+                                                              card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"dense decode phase: {time.perf_counter() - t_dense:.1f} s")
+
     # -- 6. training: gradients at reduced depth, then full depth ----------
     check_train_grads()
     gc.collect()
@@ -3058,7 +3887,10 @@ def main() -> int:
             "zamba2_ms": kz, "zamba2_plain_ms": pz, "zamba2_bound_ms": bz,
             "zamba2_bound_by": byz, "device_ms": dm,
             "zamba2_device_ms": dz})
+    kernels += dense_kernel_rows(dense_launches, dense_err, dense_rows)
+    dl = dense_launches
     samp = kernels[1]
+    samp["launches_dense"] = {a: n["topk_topp_mask"] for a, n in dl.items()}
     samp["launches_falcon"] = ssm_launches["dbx"]["topk_topp_mask"]
     samp["launches_zamba2"] = ssm_launches["dxb"]["topk_topp_mask"]
     counts = {"paged_flash_attention": launches["paged_flash_attention"],
@@ -3077,12 +3909,17 @@ def main() -> int:
               **{f"{k}_spec_{fam}": spec_launches[fam][k]
                  for fam in spec_launches
                  for k in ("paged_flash_attention", "paged_ssm_update",
-                           "rmsnorm_fwd")}}
+                           "rmsnorm_fwd")},
+              **{f"{k}_dense_{arch}": n[k] for arch, n in dl.items()
+                 for k in ("paged_flash_attention", "paged_ssm_update",
+                           "flash_attention_fwd", "topk_topp_mask")
+                 if n[k]}}
     for row in kernels:
         if row["name"] == "rmsnorm_fwd":
             row.update({f"launches_spec_{fam}": spec_launches[fam][
                 "rmsnorm_fwd"] for fam in spec_launches})
     print("spec: " + json.dumps(spec_res))
+    print("dense: " + json.dumps(dense_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))

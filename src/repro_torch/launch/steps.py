@@ -1,5 +1,6 @@
 """Step functions — port of :mod:`repro.launch.steps`: the train step
-(gradients, microbatch accumulation, optimizer), top-k/top-p masking,
+(gradients, microbatch accumulation, optimizer), the prefill step, the
+dense-cache serve step (the serial-forward oracle), top-k/top-p masking,
 per-slot sampling, the paged serve step and speculative decoding's
 draft wave, acceptance and verify step.
 
@@ -62,6 +63,61 @@ def make_train_fn(rcfg: RunConfig):
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_fn(rcfg: RunConfig):
+    """Returns prefill_step(params, batch) -> (next (B,) greedy tokens at
+    the last position, logits (B, S, V)): the serial forward."""
+    def prefill_step(params, batch):
+        logits = transformer.prefill(params, batch, rcfg)
+        return torch.argmax(logits[:, -1].float(), dim=-1), logits
+
+    return prefill_step
+
+
+def make_serve_fn(rcfg: RunConfig):
+    """Dense greedy decode step: (params, cache, tokens (B, T)) -> (next
+    (B, 1), cache), tokens and cache on one device. T > 1 chunk-prefills
+    the prompt into the cache in one call (attention kinds). This is the
+    serial-forward oracle the paged backends are held against, and the
+    engine's dense comparison probe; production decode goes through
+    :func:`make_paged_serve_fn` and a ``repro_torch.serve.cache``
+    backend. The encoder-decoder family's step takes the encoder output
+    too: (params, cache, tokens, xa)."""
+    def serve_step(params, cache, tokens, xa=None):
+        logits, cache = transformer.decode_step(params, cache, tokens, rcfg,
+                                                xa=xa)
+        return torch.argmax(logits[:, -1].float(), dim=-1)[:, None], cache
+
+    if rcfg.model.family == "encdec":
+        return serve_step
+    return lambda params, cache, tokens: serve_step(params, cache, tokens)
+
+
+def apply_top_k(logits, k):
+    """Mask all but each row's k highest logits to -1e30. logits: (B, V);
+    k: (B,) int, ``k <= 0`` (or ``>= V``) disables the row's filter.
+    Ties at the k-th value are kept."""
+    V = logits.shape[-1]
+    srt = torch.sort(logits, dim=-1).values                 # ascending
+    k = k.long()
+    k_eff = torch.where(k <= 0, torch.full_like(k, V), k).clamp(1, V)
+    kth = torch.gather(srt, 1, (V - k_eff)[:, None])
+    return torch.where(logits < kth, torch.full_like(logits, _MASKED),
+                       logits)
+
+
+def apply_top_p(logits, p):
+    """Nucleus mask: keep each row's smallest descending-probability set
+    whose cumulative mass reaches p (the argmax always survives), mask
+    the rest to -1e30. logits: (B, V); p: (B,) in (0, 1]."""
+    srt, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    probs = torch.softmax(srt.float(), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < p.float()[:, None]   # mass before token < p
+    keep[:, 0] = True
+    masked_sorted = torch.where(keep, srt, torch.full_like(srt, _MASKED))
+    return torch.zeros_like(logits).scatter_(1, idx, masked_sorted)
 
 
 def apply_top_k_top_p(logits, k, p):

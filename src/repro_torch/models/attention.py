@@ -1,9 +1,10 @@
 """Grouped-query attention with RoPE and qk-norm: full-sequence self- and
-cross-attention (training) and over a paged KV cache (serving).
+cross-attention (training), over a contiguous KV cache (dense decode,
+the serial-forward oracle) and over a paged KV cache (serving).
 
-Port of :mod:`repro.models.attention` without its contiguous KV cache
-(the dense decode oracle, a later slice). Layouts are the reference's:
-activations (B, S, D), q/k/v after projection (B, S, H, hd), page pools
+Port of :mod:`repro.models.attention`. Layouts are the reference's:
+activations (B, S, D), q/k/v after projection (B, S, H, hd), the dense
+cache (L, B, max_len, Hkv, hd) with a 0-d int32 ``index``, page pools
 (L, n_pages, page_size, Hkv, hd).
 
 Not ported: the fused ref-mode "view" path (``paged_view_gather`` /
@@ -140,18 +141,25 @@ ATTN_CHUNK_THRESHOLD = 8192
 
 
 def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
-                    rope=None, xa=None):
-    """Self- or cross-attention without a cache (training / full-sequence
-    forward).
+                    rope=None, xa=None, cache=None):
+    """Self- or cross-attention, over the sequence or over a KV cache.
 
     x: (B, S, D). rope: precomputed (cos, sin), shared across layers.
     xa: (B, Sk, D) encoder output for cross-attention: K and V are
-    projected from it, no rope is applied and no mask either. On the card
-    the attention core is the flash kernel
+    projected from it, no rope is applied and no mask either. Without a
+    cache the core on the card is the flash kernel
     (:func:`repro_torch.kernels.ops.flash_attention`, the counterpart of
     the reference's ``use_pallas=True``), cross-attention included; on
     the CPU it takes the reference's dense / chunked branches. Returns
     (B, S, D).
+
+    ``cache``: one layer's dense KV cache for autoregressive decode,
+    dict(k, v: (B, max_len, Hkv, hd), index: 0-d int tensor) — causal
+    self-attention only. The S new K/V rows are written at positions
+    ``index .. index+S-1`` **in place** (the reference returns an updated
+    copy), and the query rows at those positions attend over the whole
+    cache (:func:`_cached_core`). Returns (y, new_cache), new_cache
+    holding the same k/v tensors and ``index + S``.
     """
     dt = torch_dtype(cfg.dtype)
     x = x.to(dt)
@@ -162,7 +170,14 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
         k = apply_rope(k, cos, sin)
     causal = causal and xa is None
     S = q.shape[1]
-    if q.is_cuda:
+    new_cache = None
+    if cache is not None:
+        if not causal:
+            raise ValueError("a KV cache takes causal self-attention only")
+        out = _cached_core(q, k, v, cache)
+        new_cache = {"k": cache["k"], "v": cache["v"],
+                     "index": cache["index"] + S}
+    elif q.is_cuda:
         out = kops.flash_attention(q, k, v, causal=causal)
     elif S >= (cfg.attn_chunk or ATTN_CHUNK_THRESHOLD) \
             and S == k.shape[1] and S % 512 == 0:
@@ -170,8 +185,48 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
     else:
         out = dot_attention(q, k, v, causal=causal)
     h, hd, d = params["wo"].shape
-    return out.reshape(*out.shape[:2], h * hd) \
+    y = out.reshape(*out.shape[:2], h * hd) \
         @ params["wo"].to(dt).reshape(h * hd, d)
+    return y if cache is None else (y, new_cache)
+
+
+def _cached_core(q, k, v, cache):
+    """Writes the new rows k/v (B, S, Hkv, hd) into the layer's cache at
+    ``cache["index"]`` in place, then attends q (B, S, H, hd), whose row i
+    sits at position index + i, over the whole cache. The write start is
+    clamped to ``max_len - S``, as ``jax.lax.dynamic_update_slice``
+    clamps it; nothing reads ``index`` on the host.
+
+    On the CPU the core is the reference's ``dot_attention(q, cache,
+    q_offset=index)``. On the card it is the paged attention kernel
+    (:func:`repro_torch.kernels.ops.paged_attention`) over the cache seen
+    as a pool of B pages of ``max_len`` rows, slot b reading page b
+    (``page_table = arange(B)[:, None]``, ``lengths = index`` for every
+    slot): the kernel resolves each row's page itself, so one page of any
+    length is a valid table, and its masking is ``dot_attention``'s."""
+    ck, cv, idx = cache["k"], cache["v"], cache["index"]
+    B, S = q.shape[:2]
+    start = torch.clamp(idx, max=ck.shape[1] - S)
+    rows = (start + torch.arange(S, device=ck.device)).long()
+    ck.index_copy_(1, rows, k.to(ck.dtype))
+    cv.index_copy_(1, rows, v.to(cv.dtype))
+    if not q.is_cuda:
+        return dot_attention(q, ck, cv, causal=True, q_offset=idx)
+    table = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    return kops.paged_attention(q, ck, cv, table,
+                                idx.to(torch.int32).expand(B))
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  *, device=None):
+    """Stacked-over-layers dense KV cache: k/v (L, B, max_len, Hkv, hd) in
+    ``cfg.dtype`` and a 0-d int32 ``index``, all on ``device``."""
+    hd = cfg.resolved_head_dim
+    dt = torch_dtype(cfg.dtype)
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,10 @@ F(Z_n)`` with
   mamba1/mamba2:       F = Mixer o LN (their paged serving step is
                        ``repro_torch.models.ssm``).
 
+With a dense decode cache, ``block_F`` / ``block_step`` return
+``(value, new_cache)``, as the reference's do; without one, the value
+alone.
+
 Block params are homogeneous within a kind, so they stack over the layer
 axis (leading dim of every leaf).
 """
@@ -75,38 +79,48 @@ def attn_block_F(params, z, a, cfg: ModelConfig, *, kind: str):
 
 
 def block_F(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
-            rope=None, xa=None):
+            rope=None, xa=None, cache=None):
     """Evaluate the ODE right-hand side F(t, z) of one block (``rope`` is
     read by the attention kinds only, ``xa``, the encoder's output, by
-    ``encdec_dec`` only)."""
+    ``encdec_dec`` only). ``cache``: the layer's dense decode cache (the
+    self-attention's KV, or the mixer's conv window and state), updated
+    in place; then returns (F, new_cache), else F."""
     if kind in ("mamba1", "mamba2"):
         mixer = mamba1_apply if kind == "mamba1" else mamba2_apply
-        return mixer(params["mixer"], norm_apply(params["norm"], z, cfg), cfg)
+        return mixer(params["mixer"], norm_apply(params["norm"], z, cfg),
+                     cfg, cache=cache)
     if kind not in ("attn_mlp", "encdec_dec"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     a = attention_apply(params["attn"], norm_apply(params["ln1"], z, cfg),
-                        cfg, causal=causal, rope=rope)
+                        cfg, causal=causal, rope=rope, cache=cache)
+    if cache is not None:
+        a, cache = a
     if kind == "encdec_dec":
         ca = attention_apply(params["xattn"],
                              norm_apply(params["ln3"], z + a, cfg), cfg,
                              causal=False, xa=xa)
         ybar = a + ca
-        return ybar + mlp_apply(params["mlp"],
-                                norm_apply(params["ln2"], z + ybar, cfg), cfg)
-    return attn_block_F(params, z, a, cfg, kind=kind)
+        f = ybar + mlp_apply(params["mlp"],
+                             norm_apply(params["ln2"], z + ybar, cfg), cfg)
+    else:
+        f = attn_block_F(params, z, a, cfg, kind=kind)
+    return f if cache is None else (f, cache)
 
 
 def block_step(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
-               h: float = 1.0, gate=None, rope=None, xa=None):
+               h: float = 1.0, gate=None, rope=None, xa=None, cache=None):
     """One Euler step Phi(z) = z + h*gate*F(z). ``gate`` (0/1) marks padded
     identity layers used for layer-parallel divisibility padding. The
     step sizes in use (1, 1/16 and their cf multiples) are exact in bf16,
     so scaling by the Python float equals the reference's cast-then-
-    multiply."""
-    f = block_F(params, z, cfg, kind=kind, causal=causal, rope=rope, xa=xa)
-    if gate is None:
-        return z + h * f
-    return z + (h * gate.to(z.dtype)) * f
+    multiply. With a ``cache`` (see :func:`block_F`) returns (z_next,
+    new_cache)."""
+    f = block_F(params, z, cfg, kind=kind, causal=causal, rope=rope, xa=xa,
+                cache=cache)
+    if cache is not None:
+        f, cache = f
+    z = z + h * f if gate is None else z + (h * gate.to(z.dtype)) * f
+    return z if cache is None else (z, cache)
 
 
 def paged_attn_block(params, z, cfg: ModelConfig, *, kind: str, rope,

@@ -4,8 +4,10 @@
 Port of :mod:`repro.models.ssm`. The dense mixers ``mamba{1,2}_apply``
 run the whole sequence through :func:`repro_torch.kernels.ops.ssm_scan`
 (the selective-scan kernel on the card, its plain version on the CPU;
-the JAX package runs the same recurrence as a ``lax.scan``); their
-cache argument (the dense decode oracle) is not ported. The serve engine
+the JAX package runs the same recurrence as a ``lax.scan``). Given a
+dense cache (conv window + h per slot, the decode oracle's) they advance
+the recurrence through :func:`repro_torch.kernels.ops.paged_ssm_update`
+instead (:func:`_cached_scan`). The serve engine
 treats SSM decode state like paged KV: a pool of fixed-size pages
 managed by the refcounted allocator. A page here is a per-slot state
 *snapshot* — page p of a slot holds the (conv window, h) state after
@@ -261,13 +263,8 @@ def every_step_update(dt, x, Bm, Cm, A, h_rows, page_table, lengths, n_new,
 
 
 # ---------------------------------------------------------------------------
-# Dense mixers (training)
+# Dense mixers (training, and decode over a dense cache)
 # ---------------------------------------------------------------------------
-
-_NO_CACHE = ("the dense decode oracle (a mixer with a cache) is not ported "
-             "yet: it stays queued in ROADMAP Queue 1 item 1; serving "
-             "uses mamba{1,2}_paged_apply")
-
 
 def _conv_sum(xp, w, S: int):
     """sum_i xp[:, i:i+S] * w[i]: the depthwise causal conv over a
@@ -276,20 +273,103 @@ def _conv_sum(xp, w, S: int):
                for i in range(w.shape[0]))
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv with zero history. x: (B, S, C), w: (K, C),
-    b: (C,)."""
-    xp = F.pad(x, (0, 0, w.shape[0] - 1, 0))
+def _causal_conv(x, w, b, conv_cache=None):
+    """Depthwise causal conv. x: (B, S, C), w: (K, C), b: (C,). History:
+    zeros, or ``conv_cache`` (B, K-1, C), the last K-1 inputs, which is
+    then overwritten in place with the window after these S inputs."""
+    K = w.shape[0]
+    if conv_cache is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([conv_cache, x], dim=1)
+        if K > 1:
+            conv_cache.copy_(xp[:, -(K - 1):])
     return _conv_sum(xp, w, x.shape[1]) + b[None, None, :]
 
 
-def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
-    """Mamba1 mixer over a whole sequence. x: (B, S, D) -> (B, S, D).
+def _cached_scan(dt, x, Bm, Cm, A, h, *, order: str):
+    """The recurrence over S steps from the dense state h (B, R, ds)
+    float32, rows layout, written back into h in place; returns y (B, S,
+    R) float32 without the D skip. It is one
+    :func:`repro_torch.kernels.ops.paged_ssm_update` call over h seen as
+    a pool of pages, slot b reading and rewriting its own page (the
+    state after its last step): on the card the paged SSM kernel (the
+    decode kernel at S = 1; reading and writing one page is safe in
+    place, see ``csrc/paged_ssm.cu``), on the CPU its plain version, the
+    reference's recurrence in the same product ``order``. The kernel
+    never writes pool page 0, the paged pools' scratch page, so the pool
+    starts one page before h and the slots are its pages 1..B: h must be
+    contiguous with a page of storage before it, as every layer of
+    :func:`init_mamba1_cache` / :func:`init_mamba2_cache` is; that page
+    is neither read nor written."""
+    B, S = dt.shape[:2]
+    dev = dt.device
+    page = h[0].numel()
+    if h.storage_offset() < page or not h.is_contiguous():
+        raise ValueError("a dense SSM state must be contiguous with a page "
+                         "of storage before it (init_mamba1_cache / "
+                         "init_mamba2_cache allocate one)")
+    pool = h.as_strided((B + 1, *h.shape[1:]), (page, *h.stride()[1:]),
+                        h.storage_offset() - page)
+    slots = torch.arange(1, B + 1, device=dev)
+    return kops.paged_ssm_update(
+        dt.contiguous(), x.contiguous(), Bm.contiguous(), Cm.contiguous(),
+        A, pool, slots, torch.ones_like(slots), slots[:, None],
+        torch.full((B, 1), S - 1, dtype=torch.long, device=dev),
+        torch.full((B,), S, dtype=torch.long, device=dev), order=order)
 
-    The scan adds ``D * xc`` in float32 and rounds once; the reference
-    rounds the scan to ``cfg.dtype`` first (ulps in float32)."""
-    if cache is not None:
-        raise NotImplementedError(_NO_CACHE)
+
+def _dense_state(shape, device):
+    """Zeros of ``shape`` (L, B, ...) float32 starting one page (a slot's
+    state) into their storage, so that every layer's slots have the page
+    of storage before them that :func:`_cached_scan` takes on the card."""
+    page = math.prod(shape[2:])
+    flat = torch.zeros(page + math.prod(shape), dtype=torch.float32,
+                       device=device)
+    return flat[page:].view(shape)
+
+
+def init_mamba1_cache(cfg: ModelConfig, batch: int, n_layers: int, *,
+                      device=None):
+    """Dense decode state stacked over layers: conv (L, B, K-1, di) in
+    ``cfg.dtype``, h (L, B, di, d_state) float32 (one spare page of
+    storage before it, :func:`_dense_state`)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((n_layers, batch, s.d_conv - 1, di),
+                            dtype=torch_dtype(cfg.dtype), device=device),
+        "h": _dense_state((n_layers, batch, di, s.d_state), device),
+    }
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, n_layers: int, *,
+                      device=None):
+    """Mamba2's dense decode state: conv (L, B, K-1, di + 2 d_state) in
+    ``cfg.dtype``, h (L, B, heads, headdim, d_state) float32 (one spare
+    page of storage before it)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    nh = di // s.headdim
+    return {
+        "conv": torch.zeros((n_layers, batch, s.d_conv - 1,
+                             di + 2 * s.d_state),
+                            dtype=torch_dtype(cfg.dtype), device=device),
+        "h": _dense_state((n_layers, batch, nh, s.headdim, s.d_state),
+                          device),
+    }
+
+
+def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
+    """Mamba1 mixer. x: (B, S, D) -> (B, S, D).
+
+    Without a cache: the whole sequence through the scan, which adds
+    ``D * xc`` in float32 and rounds once; the reference rounds the scan
+    to ``cfg.dtype`` first (ulps in float32). With ``cache`` = one
+    layer's {"conv": (B, K-1, di), "h": (B, di, d_state)} (both updated
+    in place) the recurrence continues from it (:func:`_cached_scan`,
+    order "dbx") and, as in the reference and the paged mixer, rounds
+    before adding ``D * xc`` in ``cfg.dtype``; returns (out, cache)."""
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
@@ -297,49 +377,69 @@ def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
 
     xin, z = (x @ params["in_proj"].to(dt_)).chunk(2, dim=-1)
     xc = F.silu(_causal_conv(xin, params["conv_w"].to(dt_),
-                             params["conv_b"].to(dt_)))
+                             params["conv_b"].to(dt_),
+                             None if cache is None else cache["conv"]))
     dtr_v, Bm, Cm = torch.split(xc @ params["x_proj"].to(dt_),
                                 [dtr, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dtr_v @ params["dt_proj"].to(dt_)
                     + params["dt_bias"].to(dt_))
     A = -torch.exp(params["A_log"].float())
-    y = kops.ssm_scan(dt.float(), xc.float(), A, Bm.float(), Cm.float(),
-                      params["D"].float()).to(dt_)
+    if cache is None:
+        y = kops.ssm_scan(dt.float(), xc.float(), A, Bm.float(), Cm.float(),
+                          params["D"].float()).to(dt_)
+    else:
+        y = _cached_scan(dt.float(), xc.float(), Bm.float(), Cm.float(), A,
+                         cache["h"], order="dbx").to(dt_)
+        y = y + params["D"].to(dt_)[None, None, :] * xc
     y = y * F.silu(z)
-    return y @ params["out_proj"].to(dt_)
+    out = y @ params["out_proj"].to(dt_)
+    return out if cache is None else (out, cache)
 
 
 def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
-    """Mamba2 mixer over a whole sequence. x: (B, S, D) -> (B, S, D).
+    """Mamba2 mixer. x: (B, S, D) -> (B, S, D).
 
     The scan runs in rows layout, as the paged kernel does: rows = heads
     x headdim, the per-head dt and D repeated across headdim and the
     per-head decay a stride-0 (rows, d_state) view; autograd sums the
     repeated cotangents back to each head. The gated RMSNorm goes
-    through ``ops.rmsnorm`` (the same function)."""
-    if cache is not None:
-        raise NotImplementedError(_NO_CACHE)
+    through ``ops.rmsnorm`` (the same function). With ``cache`` = one
+    layer's {"conv": (B, K-1, di + 2 d_state), "h": (B, heads, headdim,
+    d_state)} (both updated in place) the recurrence continues from it
+    (:func:`_cached_scan` over h viewed as rows, order "dxb"); returns
+    (out, cache)."""
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
+    B, S = x.shape[:2]
     di = s.expand * x.shape[-1]
     nh = di // s.headdim
 
     z, xbc, dt = torch.split(x @ params["in_proj"].to(dt_),
                              [di, di + 2 * s.d_state, nh], dim=-1)
     xbc = F.silu(_causal_conv(xbc, params["conv_w"].to(dt_),
-                              params["conv_b"].to(dt_)))
+                              params["conv_b"].to(dt_),
+                              None if cache is None else cache["conv"]))
     xin, Bm, Cm = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())   # (B, S, nh)
     A = -torch.exp(params["A_log"].float())                   # (nh,)
-    y = kops.ssm_scan(
-        dt.repeat_interleave(s.headdim, dim=-1), xin.float(),
-        A.repeat_interleave(s.headdim)[:, None].expand(di, s.d_state),
-        Bm.float(), Cm.float(),
-        params["D"].float().repeat_interleave(s.headdim)).to(dt_)
+    dt_rows = dt.repeat_interleave(s.headdim, dim=-1)
+    A_rows = A.repeat_interleave(s.headdim)[:, None].expand(di, s.d_state)
+    if cache is None:
+        y = kops.ssm_scan(
+            dt_rows, xin.float(), A_rows, Bm.float(), Cm.float(),
+            params["D"].float().repeat_interleave(s.headdim)).to(dt_)
+    else:
+        xh = xin.reshape(B, S, nh, s.headdim).float()
+        ys = _cached_scan(dt_rows, xin.float(), Bm.float(), Cm.float(),
+                          A_rows, cache["h"].view(B, di, s.d_state),
+                          order="dxb").reshape(B, S, nh, s.headdim)
+        y = ys + params["D"].float()[None, None, :, None] * xh
+        y = y.reshape(B, S, di).to(dt_)
     y = y * F.silu(z)
     y = kops.rmsnorm(y, params["norm_scale"])                 # gated RMSNorm
-    return y @ params["out_proj"].to(dt_)
+    out = y @ params["out_proj"].to(dt_)
+    return out if cache is None else (out, cache)
 
 
 # ---------------------------------------------------------------------------

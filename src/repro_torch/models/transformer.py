@@ -16,9 +16,9 @@ serially and each ParallelNet through
 backward); the encoder-decoder is the paper's Eq. 3, one time grid
 solved as two chained trunks, the decoder's cross-attention input's
 cotangent flowing into the encoder's adjoint; the hybrid family trains
-serially (the shared attention block breaks the ODE form); serving runs
-every stacked layer in order, padded ones included. The MoE family
-comes in a later slice.
+serially (the shared attention block breaks the ODE form); decode and
+serving run every stacked layer in order, padded ones included. The MoE
+family comes in a later slice.
 """
 from __future__ import annotations
 
@@ -211,19 +211,27 @@ def _hybrid_trunk(params, z, cfg: ModelConfig, rope):
     return z
 
 
-def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
-    """Paper Eq. 3: the encoder grid over the source (``src_tokens``, or
-    the audio stub's ``src_embeds``), then the decoder grid over
-    ``tokens`` cross-attending to the encoder's output X_{N_enc}.
-    Returns (Y_N, both trunks' forward residual norms)."""
+def encode(params, batch, rcfg: RunConfig, mode: str = "serial"):
+    """The encoder-decoder family's encoder grid over the source
+    (``src_tokens``, or the audio stub's ``src_embeds``). Returns
+    (X_{N_enc} (B, S_src, D), its forward residual norms); X_{N_enc} is
+    the ``xa`` that :func:`decode_step` cross-attends to."""
     cfg = rcfg.model
     if cfg.frontend == "audio" and "src_embeds" in batch:
         xe = batch["src_embeds"].to(torch_dtype(cfg.dtype))
     else:
         xe = _embed_inputs(params, {"tokens": batch["src_tokens"]}, cfg)
-    xN, n1 = _trunk(params["enc_mid"], xe, rcfg, kind="attn_mlp",
-                    causal=False, rope=_rope_for(cfg, xe.shape[1],
-                                                 xe.device), mode=mode)
+    return _trunk(params["enc_mid"], xe, rcfg, kind="attn_mlp",
+                  causal=False, rope=_rope_for(cfg, xe.shape[1], xe.device),
+                  mode=mode)
+
+
+def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
+    """Paper Eq. 3: the encoder grid (:func:`encode`), then the decoder
+    grid over ``tokens`` cross-attending to the encoder's output
+    X_{N_enc}. Returns (Y_N, both trunks' forward residual norms)."""
+    cfg = rcfg.model
+    xN, n1 = encode(params, batch, rcfg, mode)
     y = embed_tokens(params["embed"], batch["tokens"], cfg)
     yN, n2 = _trunk(params["dec_mid"], y, rcfg, kind="encdec_dec",
                     causal=True, rope=_rope_for(cfg, y.shape[1], y.device),
@@ -276,6 +284,131 @@ def loss_fn(params, batch, rcfg: RunConfig, mode: str = "lp"):
     if logits.shape[1] != labels.shape[1]:  # vlm: mm positions carry no loss
         logits = logits[:, -labels.shape[1]:]
     return lm_loss(logits, labels), diagnostics
+
+
+def prefill(params, batch, rcfg: RunConfig):
+    """Prefill forward (no loss): the serial forward's logits. The serve
+    engine populates its caches itself."""
+    logits, _ = forward(params, batch, rcfg, mode="serial")
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Dense-cache decode (the serial-forward oracle)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(rcfg: RunConfig, batch: int, max_len: int, *, device=None):
+    """The dense decode cache of every stacked layer, on ``cuda`` unless
+    ``device="cpu"`` (see ``resolve_device``): KV (L, B, max_len, Hkv, hd)
+    + ``index`` for attention stacks (the encoder-decoder's decoder
+    trunk), conv window + state for SSM stacks, both for the hybrid
+    family (its shared attention block keeps one KV layer a position)."""
+    cfg = rcfg.model
+    kind = block_kind(cfg)
+    dev = resolve_device(device)
+    if kind == "attn_moe":
+        raise NotImplementedError(MOE_SLICE)
+    if cfg.family == "encdec":
+        plan = depth_plan(cfg.n_dec_layers, rcfg.mgrit)
+        return attn_mod.init_kv_cache(cfg, batch, max_len,
+                                      plan.n_mid_padded, device=dev)
+    if cfg.family == "hybrid":
+        return {"mamba": ssm_mod.init_mamba2_cache(cfg, batch, cfg.n_layers,
+                                                   device=dev),
+                "attn": attn_mod.init_kv_cache(
+                    cfg, batch, max_len,
+                    cfg.n_layers // cfg.hybrid_attn_every, device=dev)}
+    n = stacked_layer_depth(rcfg)
+    if kind == "mamba1":
+        return ssm_mod.init_mamba1_cache(cfg, batch, n, device=dev)
+    if kind == "mamba2":
+        return ssm_mod.init_mamba2_cache(cfg, batch, n, device=dev)
+    return attn_mod.init_kv_cache(cfg, batch, max_len, n, device=dev)
+
+
+def decode_step(params, cache, tokens, rcfg: RunConfig, xa=None):
+    """Cached decode: tokens (B, T) on the cache's device. Returns
+    (logits (B, T, V), cache) — the cache updated **in place** (the
+    reference returns a new one) and returned.
+
+    T == 1 is the steady-state decode step. T > 1 is **chunked
+    prefill**: the whole chunk is written into the KV cache by one call
+    (attention kinds only; SSM and hybrid caches advance one token a
+    call). Every stacked layer runs in order, gate-0 padded ones
+    included. ``xa``: the encoder's output (B, S_src, D) for the
+    encoder-decoder family, whose decoder trunk (``dec_mid``) runs here.
+    Positions come from ``cache["index"]`` on the device; nothing is read
+    back to the host."""
+    cfg = rcfg.model
+    kind = block_kind(cfg)
+    if tokens.shape[1] != 1 and (cfg.family == "hybrid"
+                                 or kind in ("mamba1", "mamba2")):
+        raise NotImplementedError(
+            "chunked prefill requires attention blocks; SSM/hybrid caches "
+            "advance token-by-token")
+    z = embed_tokens(params["embed"], tokens, cfg)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, cache, z, rcfg)
+    if cfg.family == "encdec":
+        layers = mgrit.slots(params["dec_mid"]["params"])
+        gates = params["dec_mid"]["gate"]
+        kind = "encdec_dec"
+    else:
+        layers, gates = _all_layers_stacked(params)
+    if kind in ("mamba1", "mamba2"):
+        rope = None
+        layer_cache = [{"conv": c, "h": h}
+                       for c, h in zip(cache["conv"], cache["h"], strict=True)]
+    else:
+        idx = cache["index"]
+        pos = idx + torch.arange(tokens.shape[1], device=tokens.device)
+        rope = rope_freqs(cfg.resolved_head_dim, cfg.rope_theta, pos)
+        layer_cache = [{"k": k, "v": v, "index": idx}
+                       for k, v in zip(cache["k"], cache["v"], strict=True)]
+    if len(layers) != len(layer_cache):
+        raise ValueError(f"{len(layers)} layers but the cache stacks "
+                         f"{len(layer_cache)}")
+    for i, p in enumerate(layers):
+        z, _ = block_step(p, z, cfg, kind=kind, causal=True, h=1.0,
+                          gate=gates[i], rope=rope, xa=xa,
+                          cache=layer_cache[i])
+    if "index" in cache:
+        cache["index"] += tokens.shape[1]
+    logits = unembed(params["embed"],
+                     norm_apply(params["final_norm"], z, cfg), cfg)
+    return logits, cache
+
+
+def _decode_hybrid(params, cache, z, rcfg: RunConfig):
+    """One token of the hybrid family: the mamba2 backbone against its
+    dense states, the shared attention block after every
+    ``hybrid_attn_every`` layers against its KV layer."""
+    cfg = rcfg.model
+    k = cfg.hybrid_attn_every
+    n_seg, rem = divmod(cfg.n_layers, k)
+    mamba, attn = cache["mamba"], cache["attn"]
+    idx = attn["index"]
+    rope = rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
+                      torch.atleast_1d(idx))
+    backbone = mgrit.slots(params["backbone"])
+    li = 0
+    for s_i in range(n_seg + (1 if rem else 0)):
+        for _ in range(k if s_i < n_seg else rem):
+            z, _ = block_step(backbone[li], z, cfg, kind="mamba2",
+                              causal=True,
+                              cache={"conv": mamba["conv"][li],
+                                     "h": mamba["h"][li]})
+            li += 1
+        if s_i < n_seg:
+            z, _ = block_step(params["shared_attn"], z, cfg, kind="attn_mlp",
+                              causal=True, rope=rope,
+                              cache={"k": attn["k"][s_i],
+                                     "v": attn["v"][s_i], "index": idx})
+    attn["index"] += 1
+    logits = unembed(params["embed"],
+                     norm_apply(params["final_norm"], z, cfg), cfg)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -420,7 +420,13 @@ def make_backend(rcfg: RunConfig, params, mesh=None, page_size: int = 16,
     if cfg.family == "hybrid":
         return HybridBackend(rcfg, params, mesh, page_size, sharding,
                              fused, obs, device)
+    if cfg.family in ("encoder", "encdec"):
+        raise NotImplementedError(
+            f"no CacheBackend for family={cfg.family!r} (kind={kind!r}): "
+            "encoder models have no autoregressive decode, and encdec needs "
+            "per-request encoder state — use transformer.decode_step "
+            "directly")
     raise NotImplementedError(
         f"no CacheBackend for family={cfg.family!r} (kind={kind!r}) in the "
-        "port yet: it serves attn_mlp decoders and the SSM and hybrid "
-        "families; the MoE backend comes in a later slice")
+        "port yet: the MoE backend comes with the MoE slice (ROADMAP "
+        "Queue 1)")

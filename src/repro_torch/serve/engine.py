@@ -34,8 +34,11 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import transformer
 from repro_torch.obs import Observability
 from repro_torch.obs import profile as obs_profile
 from repro_torch.serve.cache import MESH_SLICE, SlotBatch
@@ -184,6 +187,9 @@ class ServeEngine:
             device=device)
         self.backend = self.scheduler.backend
         self.device = self.backend.device
+        # dense-cache decode fn: the serial-forward oracle and the
+        # comparison probe (throughput_probe(paged=False))
+        self._decode = steps_mod.make_serve_fn(self.backend.rcfg)
         if prefix_cache_path and os.path.exists(prefix_cache_path):
             self.load_prefix_cache(prefix_cache_path)
 
@@ -353,13 +359,23 @@ class ServeEngine:
         widens each slot's page table to the given production width and
         starts decode at a quarter of that context depth, so
         fused-vs-gathered probes measure realistic mid-sequence decode
-        rather than an empty-table best case. ``paged=False`` (the dense
-        cache) is not ported yet and raises."""
-        if not paged:
-            raise NotImplementedError(
-                "the dense-cache decode probe is not ported yet (it needs "
-                "transformer.decode_step, ROADMAP Queue 1)")
-        return self._paged_probe(batch, steps, table_pages)
+        rather than an empty-table best case. Both probes run the
+        weights the backend serves with and end synchronized with the
+        device: the paged step reads its tokens back, the dense one
+        synchronizes before and after its steps."""
+        if paged:
+            return self._paged_probe(batch, steps, table_pages)
+        cache = transformer.init_cache(self.rcfg, batch, self.max_len,
+                                       device=self.device)
+        tok = torch.ones((batch, 1), dtype=torch.long, device=self.device)
+        params = self.backend.params
+        tok, cache = self._decode(params, cache, tok)          # warm-up
+        _sync(self.device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, cache = self._decode(params, cache, tok)
+        _sync(self.device)
+        return batch * steps / (time.perf_counter() - t0)
 
     def _scratch_table(self, batch: int, n_tokens: int,
                        min_pages: int = 0) -> np.ndarray:
@@ -412,3 +428,8 @@ class ServeEngine:
             call()
             ts.append(time.perf_counter() - t0)
         return batch * prompt_len / float(np.median(ts))
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -940,3 +940,115 @@ def test_ssm_scan_fwd_vector_and_scalar_paths_match_plain_on_card(
     torch.cuda.synchronize()
     assert _scaled_err(y, want_y) <= 1e-5
     assert _scaled_err(hc, want_hc) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The dense decode cache's routes through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,Hkv,hd", [(16, 8, 128), (32, 32, 64)])
+@pytest.mark.parametrize("max_len", [512, 4096])
+@pytest.mark.parametrize("S,where", [(1, "first"), (1, "mid"), (1, "last"),
+                                     (300, "first"), (300, "mid")])
+def test_paged_attention_over_dense_cache_matches_plain_on_card(
+        S, where, max_len, H, Hkv, hd, dtype, tol):
+    """The dense cache's attention (``models.attention._cached_core``:
+    the new rows written in place into one layer of a stacked cache, then
+    the paged kernel over it as one page of max_len rows a slot) against
+    ``dot_attention(q_offset=index)`` over the written layer, at a decode
+    step on the first, a middle (63) and the last row and a 300-token
+    prefill from rows 0 and 37; rows past index + S hold 1e30; the other
+    layer and rows outside the write keep their bits; a second launch is
+    bit-identical."""
+    _need_card()
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as tattn
+    index = {"first": 0, "mid": 63 if S == 1 else 37,
+             "last": max_len - 1}[where]
+    B = 2
+    g = torch.Generator(device="cuda").manual_seed(S + max_len + H)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.5) \
+            .to(dtype)
+    ck, cv = r(2, B, max_len, Hkv, hd), r(2, B, max_len, Hkv, hd)
+    ck[:, :, index + S:] = 1e30
+    cv[:, :, index + S:] = 1e30
+    q, kn, vn = r(B, S, H, hd), r(B, S, Hkv, hd), r(B, S, Hkv, hd)
+    want_k, want_v = ck.clone(), cv.clone()
+    want_k[1, :, index:index + S] = kn
+    want_v[1, :, index:index + S] = vn
+    idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+    got = tattn._cached_core(q, kn, vn, {"k": ck[1], "v": cv[1],
+                                         "index": idx})
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    again = ops.paged_attention(q, ck[1], cv[1], table, idx.expand(B))
+    want = tattn.dot_attention(q, ck[1], cv[1], causal=True, q_offset=idx)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, want_k) and torch.equal(cv, want_v)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order,R,ds", [("dbx", 8192, 16), ("dxb", 4096, 64)])
+def test_ssm_decode_in_place_on_dense_state_on_card(order, R, ds):
+    """The dense state's recurrence (``models.ssm._cached_scan``: the
+    paged SSM decode kernel over one layer of a stacked state seen as B
+    pages, slot b reading and rewriting page b in place) against the same
+    plan on the plain version: y and the updated state within 1e-5 of
+    max|plain|, the other layer bit-unchanged, a second run from the same
+    state bit-identical."""
+    _need_card()
+    B = 4
+    dt, x, Bm, Cm, A, pool, *_ = to_torch(*ssm_case(
+        R + 3, B, 1, R, ds, 1, [0] * B, [1] * B), device="cuda")
+    if order == "dxb":            # mamba2: one decay per row, stride 0
+        A = A[:, :1].expand(R, ds)
+    h = torch.stack([pool[1:], pool[1:] * 0.5])            # (2, B, R, ds)
+    runs = [h.clone() for _ in range(3)]
+    got, again = (tssm._cached_scan(dt, x, Bm, Cm, A, s[1], order=order)
+                  for s in runs[:2])
+    slots = torch.arange(B, device="cuda")
+    want = tps.paged_ssm_update_ref(
+        dt, x, Bm, Cm, A, runs[2][1], slots, torch.ones_like(slots),
+        slots[:, None], torch.zeros_like(slots)[:, None],
+        torch.ones_like(slots), order=order)
+    torch.cuda.synchronize()
+    assert _scaled_err(got, want) <= 1e-5
+    assert _scaled_err(runs[0][1], runs[2][1]) <= 1e-5
+    assert torch.equal(runs[0][0], h[0])
+    assert torch.equal(got, again) and torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Sq,Sk", [(32, 8, 1, 274), (32, 8, 17, 274),
+                                       (4, 16, 1, 256)])
+def test_flash_cross_attention_at_decode_matches_plain_on_card(
+        B, H, Sq, Sk, dtype, tol):
+    """Encoder-decoder decoding's cross-attention: the flash forward
+    non-causal at Sq = 1 and 17 new rows against mt_marian's 274 source
+    keys and seamless_m4t_v2's 256 frames (hd 64), against the plain
+    version (bf16 also per element to 1e-3 + 1e-2 |plain|); a second
+    launch bit-identical."""
+    _need_card()
+    from repro_torch.kernels import ops
+    q, k, v, _ = (x.to(dtype) for x in to_torch(
+        *flash_case(Sq + Sk, B, H, H, Sq, Sk, 64), device="cuda"))
+    qm, km, vm = (t.transpose(1, 2) for t in (q, k, v))  # model layout
+    with torch.no_grad():
+        got = ops.flash_attention(qm, km, vm, causal=False)
+        again = ops.flash_attention(qm, km, vm, causal=False)
+    want = tfa.flash_attention_ref(q, k, v, causal=False).transpose(1, 2)
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    assert d.max().item() <= tol
+    if dtype == torch.bfloat16:
+        assert bool((d <= 1e-3 + 1e-2 * want.float().abs()).all())
+    assert torch.equal(got, again)

@@ -561,11 +561,9 @@ def test_unported_families_raise_naming_their_slice():
         ttr.forward({}, {}, rcfg)
     with pytest.raises(NotImplementedError, match="MoE slice"):
         ttr.init_model(rcfg, device="cpu")
-    from repro_torch.models import ssm as tssm
-    for arch, apply in (("falcon_mamba_7b", tssm.mamba1_apply),
-                        ("zamba2_1p2b", tssm.mamba2_apply)):
-        cfg = t_reduce(t_get_config(arch)).model
-        with pytest.raises(NotImplementedError,
-                           match="dense decode oracle.*Queue 1 item 1"):
-            apply({}, torch.zeros(1, 1, cfg.d_model), cfg, cache={})
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        ttr.init_cache(rcfg, 1, 8, device="cpu")
+    from repro_torch.serve.cache import make_backend
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        make_backend(rcfg, {}, device="cpu")
 
