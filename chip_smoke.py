@@ -57,7 +57,21 @@ qwen3_1p7b; then full-width ``mt_marian`` (B=32, 274 source tokens) and
 ``seamless_m4t_v2`` (B=4, 256 stub frames) encoding a source batch and
 greedy-decoding 32 tokens through ``make_serve_fn`` with the encoder's
 output, each step's logits against a teacher-forced serial forward
-(ENCDEC_GAP), and one sampled seamless request. It checks the training
+(ENCDEC_GAP), and one sampled seamless request. Then the MoE family
+(phase 5d): the MoE module at qwen3_moe_235b's and grok1_314b's full
+widths against its literal one-hot twin (a biased router drops tokens;
+float32 dispatch bits equal; output and every cotangent within MOE_TOL;
+a second call and backward bitwise) and timed; paged attention, flash,
+RMSNorm and the sampling mask at the shapes these models give them
+(GQA groups 16 and 6, width 6144, V = 131072) against their plain
+versions; qwen3_moe_235b at 8 and grok1_314b at 4 stacked layers (full
+width, bf16 storage) served through ``ServeEngine`` on the smoke queue
+(qwen3-moe also the step check with its routing replayed), a profiled
+decode wave, the dense oracle against the engine and, for qwen3-moe, a
+``SpecConfig(4, 4)`` engine against a plain one, with the routing-flip
+accounting (MOE_FLIP_MARGIN, MOE_FLIP_GAP); the gradients of qwen3-moe
+at full width and 5 stacked layers (kernel path vs plain path with the
+routing replayed) and three reduced-config ``Trainer`` steps. It checks the training
 gradients at full width and reduced depth (kernel path vs plain path vs
 direct autograd), then trains full-width, full-depth ``qwen3_1p7b`` for
 three MGRIT steps through ``Trainer.train`` (adaptive probe at step 2)
@@ -635,51 +649,61 @@ def check_train_kernels(gen, paper_gen):
                 del qm, km, vm, dom, o, lse, first, again
             del q, k, v, do, want, got
         for R, D in RMS_SHAPES:
-            x = (torch.randn((R, D), generator=gen, device="cuda") * 2.0) \
-                .to(dtype)
-            dy = torch.randn((R, D), generator=gen, device="cuda").to(dtype)
-            w = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
-
-            def run(fn, x=x, w=w, dy=dy):
-                xx = x.detach().requires_grad_(True)
-                ww = w.detach().requires_grad_(True)
-                y = fn(xx, ww)
-                return (y, *torch.autograd.grad(y, (xx, ww), dy))
-            want, got = run(rn.rmsnorm_ref), run(rn.rmsnorm)
-            torch.cuda.synchronize()
-            e_y = (got[0].float() - want[0].float()).abs().max().item()
-            e_dx, e_dw = _scaled_err(got[1], want[1]), _scaled_err(got[2],
-                                                                   want[2])
-            tol = RMS_TOL[dname]
-            if dtype == torch.bfloat16:
-                u_y = bf16_ulps(got[0], want[0])
-                y_ok = u_y <= RMS_Y_BF16_ULPS
-                y_tol = f"y tolerance {RMS_Y_BF16_ULPS:g} bf16 ulp of |plain|"
-            else:
-                u_y, y_ok = None, e_y <= tol
-                y_tol = f"y tolerance {tol:g}"
-            print(f"rmsnorm ({R}, {D}) {dname:8s}: y max|kernel-plain| "
-                  f"{e_y:.3e}"
-                  + (f" ({u_y:g} bf16 ulp of |plain|)" if u_y is not None
-                     else "")
-                  + f", dx {e_dx:.3e}, dw {e_dw:.3e} of max|plain| "
-                  f"({y_tol}; dx, dw tolerance {tol:g})")
-            if not (y_ok and e_dx <= tol and e_dw <= tol):
-                fail(f"rmsnorm ({R}, {D}) {dname} disagrees with its plain "
-                     "version")
-            _, rstd = rn.rmsnorm_fwd(x, w)
-            first, again = (rn.rmsnorm_bwd(x, w, rstd, dy) for _ in range(2))
-            torch.cuda.synchronize()
-            if not (torch.equal(first[0], again[0])
-                    and torch.equal(first[1], again[1])):
-                fail("rmsnorm backward is not bit-repeatable")
+            e_y, e_dx = check_rmsnorm_shape(gen, R, D, dtype)
             if dtype == torch.bfloat16:
                 err["rmsnorm_fwd"] = max(err["rmsnorm_fwd"], e_y)
-                err["rmsnorm_bwd"] = max(
-                    err["rmsnorm_bwd"],
-                    (got[1].float() - want[1].float()).abs().max().item())
+                err["rmsnorm_bwd"] = max(err["rmsnorm_bwd"], e_dx)
     print("training kernels: every backward bit-identical on a second run")
     return err
+
+
+def check_rmsnorm_shape(gen, R, D, dtype):
+    """RMSNorm forward and backward at (R, D) against the plain version
+    (autograd of it for dx and dw), y in bf16 ulps (RMS_Y_BF16_ULPS) or
+    within RMS_TOL, dx and dw within RMS_TOL of max|plain|; the backward
+    twice, bit-identical. Returns (max|y error|, max|dx error|)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    dname = str(dtype).split(".")[1]
+    x = (torch.randn((R, D), generator=gen, device="cuda") * 2.0) \
+        .to(dtype)
+    dy = torch.randn((R, D), generator=gen, device="cuda").to(dtype)
+    w = 1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+
+    def run(fn, x=x, w=w, dy=dy):
+        xx = x.detach().requires_grad_(True)
+        ww = w.detach().requires_grad_(True)
+        y = fn(xx, ww)
+        return (y, *torch.autograd.grad(y, (xx, ww), dy))
+    want, got = run(rn.rmsnorm_ref), run(rn.rmsnorm)
+    torch.cuda.synchronize()
+    e_y = (got[0].float() - want[0].float()).abs().max().item()
+    e_dx, e_dw = _scaled_err(got[1], want[1]), _scaled_err(got[2],
+                                                           want[2])
+    tol = RMS_TOL[dname]
+    if dtype == torch.bfloat16:
+        u_y = bf16_ulps(got[0], want[0])
+        y_ok = u_y <= RMS_Y_BF16_ULPS
+        y_tol = f"y tolerance {RMS_Y_BF16_ULPS:g} bf16 ulp of |plain|"
+    else:
+        u_y, y_ok = None, e_y <= tol
+        y_tol = f"y tolerance {tol:g}"
+    print(f"rmsnorm ({R}, {D}) {dname:8s}: y max|kernel-plain| "
+          f"{e_y:.3e}"
+          + (f" ({u_y:g} bf16 ulp of |plain|)" if u_y is not None
+             else "")
+          + f", dx {e_dx:.3e}, dw {e_dw:.3e} of max|plain| "
+          f"({y_tol}; dx, dw tolerance {tol:g})")
+    if not (y_ok and e_dx <= tol and e_dw <= tol):
+        fail(f"rmsnorm ({R}, {D}) {dname} disagrees with its plain "
+             "version")
+    _, rstd = rn.rmsnorm_fwd(x, w)
+    first, again = (rn.rmsnorm_bwd(x, w, rstd, dy) for _ in range(2))
+    torch.cuda.synchronize()
+    if not (torch.equal(first[0], again[0])
+            and torch.equal(first[1], again[1])):
+        fail("rmsnorm backward is not bit-repeatable")
+    return e_y, (got[1].float() - want[1].float()).abs().max().item()
 
 
 @contextlib.contextmanager
@@ -1567,33 +1591,39 @@ def time_train_kernels(gen, flush, err):
     return rows
 
 
-def time_paged(flush, q, pk, pv, table, lens, lengths, S):
-    """Paged attention at one bf16 serve shape (qwen3_1p7b's heads): the
-    kernel (CUDA events, and the call's device work alone,
-    ``device_ms``), the plain version, SDPA on the gathered view (the
-    pages gathered beforehand, K/V repeated over the g heads, a boolean
-    causal mask; events and device time) and the bound."""
+def gathered_sdpa(q, pk, pv, table, lens, S):
+    """SDPA on the gathered view of a paged call (the pages gathered
+    beforehand, K/V repeated over the g heads, a boolean causal mask):
+    the library yardstick of paged attention, as a callable."""
     import torch
-    from repro_torch.kernels import paged_attention as pa
-    B, P = q.shape[0], table.shape[1]
+    B, hkv, hd = q.shape[0], pk.shape[2], pk.shape[3]
     rows_idx = (table.long()[:, :, None] * PAGE
                 + torch.arange(PAGE, device="cuda")).reshape(B, -1)
-    g = H // HKV
-    kd = pk.view(-1, HKV, HD)[rows_idx].transpose(1, 2) \
+    g = q.shape[2] // hkv
+    kd = pk.view(-1, hkv, hd)[rows_idx].transpose(1, 2) \
         .repeat_interleave(g, dim=1)
-    vd = pv.view(-1, HKV, HD)[rows_idx].transpose(1, 2) \
+    vd = pv.view(-1, hkv, hd)[rows_idx].transpose(1, 2) \
         .repeat_interleave(g, dim=1)
     qd = q.transpose(1, 2)
     qpos = lens.long()[:, None] + torch.arange(S, device="cuda")
     mask = (torch.arange(kd.shape[2], device="cuda")[None, None, None, :]
             <= qpos[:, None, :, None])
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qd, kd, vd, attn_mask=mask)
+
+
+def time_paged(flush, q, pk, pv, table, lens, lengths, S):
+    """Paged attention at one bf16 serve shape (qwen3_1p7b's heads): the
+    kernel (CUDA events, and the call's device work alone,
+    ``device_ms``), the plain version, SDPA on the gathered view (the
+    pages gathered beforehand, K/V repeated over the g heads, a boolean
+    causal mask; events and device time) and the bound."""
+    from repro_torch.kernels import paged_attention as pa
+    B, P = q.shape[0], table.shape[1]
 
     def kernel():
         return pa.paged_flash_attention(q, pk, pv, table, lens)
-
-    def library():
-        return sdpa(qd, kd, vd, attn_mask=mask)
+    library = gathered_sdpa(q, pk, pv, table, lens, S)
     bound, by = attn_bound_ms(B, S, lengths, P, 2)
     return {"ms": time_ms(kernel, flush=flush),
             "device_ms": device_ms(kernel, 20, flush),
@@ -1691,13 +1721,17 @@ def serve_queue(engine, rng, per_wave):
     return launches
 
 
-def step_check(engine, step, init_pool, rng):
+def step_check(engine, step, init_pool, rng, moe_replay=False):
     """One prefill (S=64) and one decode step, fused kernels vs the
     gathered path with every plain version (norms included). In float32
     the two must agree closely; in bf16 the kernel path must be no
     further from the float32 reference than the plain bf16 path is
     (times STEP_BF16_FACTOR) — bf16 rounding through a random-weight
-    model's layers moves logits by a few percent either way."""
+    model's layers moves logits by a few percent either way. With
+    ``moe_replay`` (an MoE model) every variant replays the float32
+    gathered path's routing (``record_routes``): a routing flip between
+    two variants would move a token to another expert, a difference no
+    kernel made."""
     import torch
     be = engine.backend
     rcfg = engine.rcfg
@@ -1712,14 +1746,22 @@ def step_check(engine, step, init_pool, rng):
         MAX_BATCH, 8).to(torch.int32)
     lengths = torch.zeros(MAX_BATCH, dtype=torch.int32, device="cuda")
     n_new = torch.tensor([64, 50, 33, 10], device="cuda")
+    order = sorted(variants, key=lambda k: moe_replay and k != "f32 gathered")
     for i, S in enumerate((64, 1)):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                              (MAX_BATCH, S))).cuda()
-        lg = {}
-        for k, (prm, r, fused) in variants.items():
-            with contextlib.nullcontext() if fused else plain_kernels():
+        lg, routes = {}, None
+        for k in order:
+            prm, r, fused = variants[k]
+            with contextlib.ExitStack() as ctx:
+                if not fused:
+                    ctx.enter_context(plain_kernels())
+                if moe_replay:
+                    plans = ctx.enter_context(record_routes(replay=routes))
                 logit, _ = step(prm, pools[k], toks, lengths, n_new, table,
                                 r, fused=fused)
+            if moe_replay and routes is None:
+                routes = plans
             lg[k] = logit.float()
             if not torch.isfinite(lg[k]).all():
                 fail(f"{cfg.name}: non-finite logits ({k})")
@@ -1731,7 +1773,9 @@ def step_check(engine, step, init_pool, rng):
         print(f"{cfg.name} fused vs gathered step {i} (S={S}): float32 "
               f"max|diff|/max|logit| = {e32:.3e} (tolerance {STEP_F32_TOL:g});"
               f" bf16 vs the float32 reference: kernel path {ek:.3e}, plain "
-              f"path {ep:.3e} (tolerance {STEP_BF16_FACTOR:g}x plain)")
+              f"path {ep:.3e} (tolerance {STEP_BF16_FACTOR:g}x plain)"
+              + ("; every variant on the f32 gathered path's routing"
+                 if moe_replay else ""))
         if not e32 <= STEP_F32_TOL or not ek <= STEP_BF16_FACTOR * ep:
             fail(f"{cfg.name}: fused and gathered steps disagree at step {i}")
         lengths = lengths + n_new.to(torch.int32)
@@ -2388,7 +2432,8 @@ def _row_gap(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def check_greedy_spec(served, rcfg, greedy, outs, rows, label, card):
+def check_greedy_spec(served, rcfg, greedy, outs, rows, label, card,
+                      allow=None):
     """Greedy spec against plain decode on one card. At every emission
     index whose context the two runs share (up to and including a first
     divergence), the logits spec drew its token from (verify's, or the
@@ -2396,8 +2441,12 @@ def check_greedy_spec(served, rcfg, greedy, outs, rows, label, card):
     token must be the argmax of its own row, and at a first divergence
     the spec token must lie within SPEC_TIE of the top logit of plain
     decode's row and of a teacher-forced serial forward's (itself within
-    SPEC_GAP of decode's). Returns (bitwise
-    matches, the largest verify-vs-decode gap, divergences)."""
+    SPEC_GAP of decode's). ``allow`` (an MoE model, ``moe_allowance``):
+    where the two runs' routes over the context differ, MOE_FLIP_GAP in
+    place of SPEC_GAP and any divergence; no serial forward (its capacity
+    comes from the whole sequence's S). Returns (bitwise matches, the
+    largest verify-vs-decode gap over the positions whose routes agree,
+    divergences)."""
     import numpy as np
     import torch
     from repro_torch.models import transformer
@@ -2416,15 +2465,38 @@ def check_greedy_spec(served, rcfg, greedy, outs, rows, label, card):
                      "token is not the argmax of the logits it was drawn "
                      "from")
             gap = _row_gap(pl, sp)
-            worst = max(worst, gap)
-            if gap > SPEC_GAP:
+            routed = allow(seed, m) if allow is not None else None
+            limit = SPEC_GAP if routed is None else MOE_FLIP_GAP
+            if routed is None:
+                worst = max(worst, gap)
+            else:
+                print(f"[{card}] spec {name} {label} request {i} token {m}: "
+                      f"routes differ ({routed[0]}, margin {routed[1]}), "
+                      f"gap {gap:.4f} (limit {limit:g})")
+            if gap > limit:
                 fail(f"{name} {label} request {i} token {m}: verify's "
                      f"logits lie {gap:.4f} from plain decode's (limit "
-                     f"{SPEC_GAP:g})")
+                     f"{limit:g})")
         if j is None:
             matched += 1
             continue
         dec = rows["plain"][(seed, j)].float()
+        if allow is not None:
+            routed = allow(seed, j)
+            d_tie = (dec.max() - dec[b[j]]).item()
+            divergences.append(dict(request=i, token=j, decode_margin=d_tie,
+                                    routes=None if routed is None
+                                    else routed[0]))
+            print(f"[{card}] spec {name} {label} request {i}: first "
+                  f"divergence at token {j} ({a[j]} plain, {b[j]} spec); "
+                  f"the spec token lies {d_tie:.4f} below plain decode's "
+                  f"top logit; routes "
+                  + ("agree" if routed is None else
+                     f"differ ({routed[0]}, margin {routed[1]})"))
+            if routed is None and not d_tie < SPEC_TIE:
+                fail(f"{name} {label}: greedy spec diverged from plain "
+                     f"decode away from a near-tie ({d_tie:.4f})")
+            continue
         seq = np.concatenate([greedy[i].prompt, a]).astype(np.int64)
         with torch.no_grad():
             logits, _ = transformer.forward(
@@ -2519,12 +2591,17 @@ def check_draft_tokens(engine, greedy, outs, waves, calls, card, label,
     return n_in, gap
 
 
-def spec_greedy(rcfg, served, greedy, card, label):
+def spec_greedy(rcfg, served, greedy, card, label, engine_kw=None,
+                wrap_run=None, allow=None):
     """A plain engine and a ``SpecConfig(SPEC_CF, SPEC_K)`` engine on
     ``served``, both warmed; the greedy requests through each, timed
     (counters set to 0 just before, the logits recorded), each request
     finishing with its budget; then ``check_greedy_spec`` and
-    ``check_draft_tokens``. Returns (engines, numbers, launch counts)."""
+    ``check_draft_tokens``. For the MoE family: ``engine_kw`` (more
+    engine options), ``wrap_run(mode, run)`` around each timed run, and
+    ``allow`` for ``check_greedy_spec``, which also skips
+    ``check_draft_tokens`` (a serial forward of the draft would call the
+    MoE at another S). Returns (engines, numbers, launch counts)."""
     import statistics
 
     import numpy as np
@@ -2536,7 +2613,7 @@ def spec_greedy(rcfg, served, greedy, card, label):
     if len(seeds) != len(greedy) or 0 in seeds:
         fail(f"{name}: the greedy requests' seeds do not tell them apart")
     kw = dict(max_batch=MAX_BATCH, page_size=PAGE, max_len=MAX_LEN,
-              device="cuda")
+              device="cuda", **(engine_kw or {}))
     engines = {"plain": ServeEngine(rcfg, served, **kw),
                "spec": ServeEngine(rcfg, served,
                                    spec=SpecConfig(cf=SPEC_CF, k=SPEC_K),
@@ -2567,8 +2644,12 @@ def spec_greedy(rcfg, served, greedy, card, label):
             reset_serve_counts()
             t0 = time.perf_counter()
             try:
-                out = e.generate([dataclasses.replace(r) for r in greedy])
-                torch.cuda.synchronize()
+                def run(e=e):
+                    out = e.generate([dataclasses.replace(r)
+                                      for r in greedy])
+                    torch.cuda.synchronize()
+                    return out
+                out = wrap_run(mode, run) if wrap_run else run()
             finally:
                 if mode == "spec":
                     del sched.spec.wave
@@ -2603,10 +2684,11 @@ def spec_greedy(rcfg, served, greedy, card, label):
           f"{sp['ttft_p50_s']:.3f} s spec; wall {pl['wall_s']:.2f} / "
           f"{sp['wall_s']:.2f} s")
     res["matched"], res["max_gap"], res["divergences"] = check_greedy_spec(
-        served, rcfg, greedy, outs, rows, label, card)
-    res["draft_ingest"], res["draft_gap"] = check_draft_tokens(
-        engines["spec"], greedy, outs, waves, spec_calls, card, label,
-        catch_up=label == "accepting")
+        served, rcfg, greedy, outs, rows, label, card, allow=allow)
+    if allow is None:
+        res["draft_ingest"], res["draft_gap"] = check_draft_tokens(
+            engines["spec"], greedy, outs, waves, spec_calls, card, label,
+            catch_up=label == "accepting")
     return engines, res, launches["spec"]
 
 
@@ -3122,7 +3204,7 @@ def sampled_scores(row, req, n):
     return scaled + prng.gumbel(keys, row.shape[-1])[0], scaled > -1e30
 
 
-def check_dense_streams(name, reqs, paged, dense, card):
+def check_dense_streams(name, reqs, paged, dense, card, allow=None):
     """Dense oracle vs paged engine, one request at a time: at every
     emission index whose context the two share (up to and including a
     first divergence) max|dense - paged| over the vocab within DENSE_GAP;
@@ -3130,8 +3212,11 @@ def check_dense_streams(name, reqs, paged, dense, card):
     a near-tie (the dense token within DENSE_TIE of the paged row's top
     logit; sampled: within DENSE_TIE / temperature of the paged token's
     perturbed score, or a token on the edge of the two rows' masks).
-    ``paged``/``dense``: (streams, rows by (seed, n) or lists). Returns
-    (bitwise-equal streams, largest gap, divergences)."""
+    ``paged``/``dense``: (streams, rows by (seed, n) or lists). ``allow``
+    (an MoE model, ``moe_allowance``): where the two paths' routes over
+    the context differ, MOE_FLIP_GAP in place of DENSE_GAP and any
+    divergence. Returns (bitwise-equal streams, largest gap over the
+    positions whose routes agree, divergences)."""
     import numpy as np
     matched, worst, divergences = 0, 0.0, []
     for i, req in enumerate(reqs):
@@ -3140,11 +3225,18 @@ def check_dense_streams(name, reqs, paged, dense, card):
         for m in range(len(a) if j is None else j + 1):
             pl, dn = paged[1][(req.seed, m)], dense[1][i][m]
             gap = _row_gap(pl, dn)
-            worst = max(worst, gap)
-            if gap > DENSE_GAP:
+            routed = allow(req.seed, m) if allow is not None else None
+            limit = DENSE_GAP if routed is None else MOE_FLIP_GAP
+            if routed is None:
+                worst = max(worst, gap)
+            else:
+                print(f"[{card}] dense {name} request {i} token {m}: routes "
+                      f"differ ({routed[0]}, margin {routed[1]}), gap "
+                      f"{gap:.4f} (limit {limit:g})")
+            if gap > limit:
                 fail(f"{name} request {i} token {m}: the dense oracle's "
                      f"logits lie {gap:.4f} from the paged engine's (limit "
-                     f"{DENSE_GAP:g})")
+                     f"{limit:g})")
             if req.temperature == 0 and (
                     int(pl.float().argmax()) != a[m]
                     or int(dn.float().argmax()) != b[m]):
@@ -3167,9 +3259,12 @@ def check_dense_streams(name, reqs, paged, dense, card):
             tie, limit = (s_p[ta] - s_p[tb]).item(), \
                 DENSE_TIE / req.temperature
             edge = bool(keep_p[ta] != keep_d[ta] or keep_p[tb] != keep_d[tb])
+        routed = allow(req.seed, j) if allow is not None else None
         divergences.append(dict(request=i, token=j, margin=tie,
                                 sampled=req.temperature > 0,
-                                mask_edge=edge))
+                                mask_edge=edge,
+                                routes=None if routed is None
+                                else routed[0]))
         print(f"[{card}] dense {name} request {i}: first divergence at "
               f"token {j} ({ta} paged, {tb} dense); the dense token lies "
               f"{tie:.4f} below the paged row's "
@@ -3177,7 +3272,7 @@ def check_dense_streams(name, reqs, paged, dense, card):
               f"(limit {limit:g})"
               + ("; one of the two tokens is kept by one row's top-k / "
                  "top-p mask and dropped by the other's" if edge else ""))
-        if not (tie < limit or edge):
+        if not (tie < limit or edge or routed is not None):
             fail(f"{name}: the dense oracle diverged from the paged engine "
                  f"away from a near-tie ({tie:.4f})")
     return matched, worst, divergences
@@ -3486,6 +3581,841 @@ def dense_kernel_rows(dl, err, rows):
     return out
 
 
+# -- the MoE family (phase 5d) ---------------------------------------------
+#
+# The MoE module at both full widths against its literal one-hot twin
+# (``moe.moe_apply_onehot``, the reference's dense (B, S, E, C) dispatch):
+# (name, arch); B x S = 2 x 512 and 4 x 1, the router's first two
+# columns raised by MOE_ROUTER_BIAS in every weight, so that tokens whose
+# input sums high crowd experts 0 and 1 past their capacity and are
+# dropped. float32: the plan's slots are the one-hot dispatch's set bits,
+# bit for bit. Both dtypes: the output and the cotangents of x, the router
+# and the three expert leaves within MOE_TOL x max|one-hot| (the index
+# design sums a token's K slots in float32 in k order, the one-hot
+# einsum over E x C in cuBLAS's order; bf16 also rounds products where
+# the one-hot GEMM accumulates in float32); a second call and a second
+# backward bit for bit.
+MOE_ARCHS = ("qwen3_moe_235b", "grok1_314b")
+MOE_SHAPES = ((2, 512), (4, 1))
+MOE_ROUTER_BIAS = 0.05
+MOE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the new shapes the MoE models give the kernels: paged attention at
+# qwen3-moe's GQA group of 16 (64/4 heads of 128: split-KV at decode,
+# multi-row at verify S = 5 and prefill) and grok-1's 6 (48/8), flash at
+# both groups (B 2, S 512, the gradient check's), RMSNorm at grok-1's
+# width 6144 (a prefill bucket, the training rows, a decode wave) and
+# the sampling mask at grok-1's vocabulary of 131072
+MOE_HEADS = {"qwen3_moe_235b": (64, 4, 128), "grok1_314b": (48, 8, 128)}
+MOE_PAGED_CASES = ((1, [300, 17, 129, 0]), (5, [95, 16, 0, 31]),
+                   (256, [0, 37, 200, 256]))
+MOE_RMS_SHAPES = ((1024, 6144), (4, 6144), (4 * 32, 6144))
+MOE_VOCAB = 131072
+# served at full width, depth cut to fit one card with bf16 storage:
+# qwen3-moe 8 stacked layers (1 open + 6 ParallelNet + 1 close, pad_to 3
+# = its cf: no gate-0 layer), grok-1 4 (1 + 2 + 1, pad_to 2)
+MOE_SERVE = {"qwen3_moe_235b": (8, 3), "grok1_314b": (4, 2)}
+# the dense-vs-paged and spec-vs-plain comparisons call the MoE at the
+# same S on both paths, since capacity comes from the S of a call: every
+# prompt cut to its last MOE_PROMPT tokens (a power of two, so a prefill
+# bucket holds it without padding), prefix sharing off
+MOE_PROMPT = 32
+# routing-flip accounting: at every compared position, the two paths'
+# routing plans (each layer's experts in order and kept bits) over every
+# token of the context. Where they agree, DENSE_GAP / SPEC_GAP and their
+# tie rules hold. Where they do not, the first layer that differs is
+# read: an expert chosen by one path and not the other is a flip, whose
+# margin is the larger of the two paths' router-logit gaps between the
+# swapped experts; a layer that differs only in kept bits is a capacity
+# difference (a verify window queues its drafted tokens before the
+# verified ones). Such positions may lie up to MOE_FLIP_GAP apart and
+# diverge, provided every flip of that layer lies within MOE_FLIP_MARGIN.
+# Read on an H100 with both limits lifted: flips at router-logit margins
+# of 0.0078-0.0312 (1-2 bf16 ulps; qwen3-moe spec vs plain, grok-1 dense
+# vs paged), gaps after them up to 1.1953 (qwen3-moe spec vs plain, a
+# flip in the first verified token); MOE_FLIP_MARGIN is twice the
+# largest margin, 2 bf16 ulps at |logit| in [4, 8), MOE_FLIP_GAP the
+# largest gap rounded up.
+MOE_FLIP_MARGIN = 0.0625
+MOE_FLIP_GAP = 2.0
+# the gradient check at full width and reduced depth: qwen3-moe at 5
+# stacked layers (1 + 3 + 1, cf 3, pad_to 3), bf16 storage, B 2, S 512,
+# MGRIT; the plain path replays the kernel path's routing (a flip between
+# them would move whole tokens between experts), direction and norm as
+# tests/test_lp_grads.py
+MOE_GRAD_LAYERS = 5
+MOE_GRAD_COS, MOE_GRAD_NORM = 0.9999, 1e-2
+
+
+def moe_cfg(arch, dtype):
+    """The full-width model config of ``arch``, compute and storage in
+    ``dtype``."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch).model, dtype=dtype,
+                               param_dtype=dtype)
+
+
+def moe_module_case(gen, cfg, B, S):
+    """Full-width MoE params (router biased), x and a cotangent."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import torch_dtype
+    params = moe.init_moe(gen, cfg, device="cuda")
+    params["router"][:, :2] += MOE_ROUTER_BIAS
+    dt = torch_dtype(cfg.dtype)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda") \
+        .to(dt)
+    ct = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda") \
+        .to(dt)
+    return params, x, ct
+
+
+def moe_fwd_bwd(fn, params, x, ct, cfg):
+    """(y, {name: cotangent}) of ``fn`` for x and every leaf."""
+    import torch
+    names = ["x", *params]
+    leaves = [t.detach().requires_grad_(True)
+              for t in (x, *params.values())]
+    y = fn(dict(zip(params, leaves[1:], strict=True)), leaves[0], cfg)
+    grads = torch.autograd.grad(y, leaves, ct)
+    return y.detach(), dict(zip(names, grads, strict=True))
+
+
+def check_moe_module(gen):
+    """The index design against the one-hot twin at both full widths and
+    both shapes, in float32 and bf16 (see MOE_TOL); the plan's slots
+    against the one-hot dispatch bits in float32; a second call and
+    backward bit for bit. Prints the dropped choices. Returns the largest
+    bf16 error of the output and of the cotangents, and the dropped
+    count per case."""
+    import torch
+    from repro_torch.models import moe
+    err = {"out": 0.0, "grad": 0.0}
+    dropped = {}
+    for arch in MOE_ARCHS:
+        for dname in ("float32", "bfloat16"):
+            cfg = moe_cfg(arch, dname)
+            for B, S in MOE_SHAPES:
+                params, x, ct = moe_module_case(gen, cfg, B, S)
+                plan = moe.routing_plan(params, x, cfg)
+                n_drop = plan.n_dropped()
+                dropped[f"{arch} {dname} {B}x{S}"] = n_drop
+                if dname == "float32":
+                    dispatch, _ = moe.onehot_dispatch(params, x, cfg)
+                    E, C = cfg.moe.num_experts, plan.capacity
+                    bits = torch.zeros(E * B * C + 1, dtype=torch.bool,
+                                       device="cuda")
+                    bits[plan.slot.reshape(-1)] = True
+                    want = dispatch.permute(2, 0, 3, 1).any(-1).reshape(-1)
+                    if not torch.equal(bits[:-1], want):
+                        fail(f"MoE {arch} {B}x{S}: the routing plan's "
+                             "slots are not the one-hot dispatch's bits")
+                    del dispatch, want, bits
+                del plan
+                y1, g1 = moe_fwd_bwd(moe.moe_apply, params, x, ct, cfg)
+                y2, g2 = moe_fwd_bwd(moe.moe_apply, params, x, ct, cfg)
+                torch.cuda.synchronize()
+                same = torch.equal(y1, y2) and all(
+                    torch.equal(g1[k], g2[k]) for k in g1)
+                del y2, g2
+                if not same:
+                    fail(f"MoE {arch} {dname} {B}x{S}: a second call or "
+                         "backward changed a bit")
+                y0, g0 = moe_fwd_bwd(moe.moe_apply_onehot, params, x, ct,
+                                     cfg)
+                torch.cuda.synchronize()
+                e_out = _scaled_err(y1, y0)
+                e_grad = {k: _scaled_err(g1[k], g0[k]) for k in g1}
+                tol = MOE_TOL[dname]
+                print(f"moe {arch} E={cfg.moe.num_experts} K="
+                      f"{cfg.moe.top_k} D={cfg.d_model} ff={cfg.moe.d_ff} "
+                      f"{dname:8s} B x S = {B} x {S} (C = "
+                      f"{moe.capacity(S, cfg)}): {n_drop} of "
+                      f"{B * S * cfg.moe.top_k} choices dropped; index vs "
+                      f"one-hot max|diff|/max|one-hot|: out {e_out:.3e}, "
+                      + ", ".join(f"d{k} {v:.3e}" for k, v in e_grad.items())
+                      + f" (tolerance {tol:g}); second call and backward "
+                      "bitwise equal")
+                if not (e_out <= tol and max(e_grad.values()) <= tol):
+                    fail(f"MoE {arch} {dname} {B}x{S}: the index design "
+                         "disagrees with the one-hot version")
+                if dname == "bfloat16":
+                    err["out"] = max(err["out"], e_out)
+                    err["grad"] = max(err["grad"], *e_grad.values())
+                del params, x, ct, y1, g1, y0, g0
+                gc.collect()
+                torch.cuda.empty_cache()
+    if not any(v > 0 for k, v in dropped.items() if "512" in k):
+        fail("MoE: the biased router dropped no choice at B x S = 2 x 512")
+    return err, dropped
+
+
+def profiled_device_ms(fn, n: int = 5):
+    """Device time (ms) and device ops of one ``fn()`` call, from the
+    profiler's device rows over ``n`` calls (a call with a host sync
+    cannot be queued behind ``device_ms``'s sleep)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    return (sum(dev_us(e) for e in kern) / n / 1e3,
+            sum(e.count for e in kern) // n)
+
+
+def time_moe_layer(gen, flush):
+    """One bf16 MoE call at each full width and shape: its time (CUDA
+    events, L2 flushed), its device time and device ops (the profiler),
+    the device time of each of its four parts (routing plan, dispatch,
+    experts, combine) and of the one-hot version. Bound: every expert's
+    weights (empty slots are computed too) and the activations over the
+    HBM rate, or the expert products over the bf16 peak."""
+    import torch
+    from repro_torch.models import moe
+    rows = {}
+    for arch in MOE_ARCHS:
+        cfg = moe_cfg(arch, "bfloat16")
+        E, D, ff = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+        for B, S in MOE_SHAPES:
+            params, x, _ = moe_module_case(gen, cfg, B, S)
+            with torch.no_grad():
+                plan = moe.routing_plan(params, x, cfg)
+                C = plan.capacity
+                xe = moe._Dispatch.apply(x, plan.slot, plan.src)
+                ye = moe._experts(params, xe.view(E, B * C, D),
+                                  torch.bfloat16)
+                parts = {
+                    "plan": lambda: moe.routing_plan(params, x, cfg),
+                    "dispatch": lambda: moe._Dispatch.apply(
+                        x, plan.slot, plan.src),
+                    "experts": lambda: moe._experts(
+                        params, xe.view(E, B * C, D), torch.bfloat16),
+                    "combine": lambda: moe._Combine.apply(
+                        ye.reshape(-1, D), plan.gate.to(torch.bfloat16),
+                        plan.slot, plan.src)}
+                part_ms = {k: profiled_device_ms(f)[0]
+                           for k, f in parts.items()}
+                call = time_ms(lambda: moe.moe_apply(params, x, cfg),
+                               flush=flush)
+                dev, ops = profiled_device_ms(
+                    lambda: moe.moe_apply(params, x, cfg))
+                onehot = profiled_device_ms(
+                    lambda: moe.moe_apply_onehot(params, x, cfg))[0]
+            nbytes = 2 * (3 * E * D * ff + D * E + 2 * B * S * D)
+            flops = 2 * 3 * E * B * C * D * ff
+            t_b, t_o = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+            row = rows[(arch, B, S)] = dict(
+                ms=call, device_ms=dev, device_ops=ops, parts_ms=part_ms,
+                onehot_device_ms=onehot, bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations")
+            print(f"moe {arch} bf16 B x S = {B} x {S} (C = {C}): "
+                  f"{call:.4f} ms a call, device {dev:.4f} ms in {ops} "
+                  f"device ops (plan {part_ms['plan']:.4f}, dispatch "
+                  f"{part_ms['dispatch']:.4f}, experts "
+                  f"{part_ms['experts']:.4f}, combine "
+                  f"{part_ms['combine']:.4f}); one-hot version device "
+                  f"{onehot:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}: every expert's weights, "
+                  f"{nbytes / 1e9:.2f} GB)")
+            del params, x, plan, xe, ye, parts
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_moe_kernels(gen):
+    """The kernels at the shapes the MoE models give them, each against
+    its plain version with the phase-2 tolerances: paged attention at
+    GQA groups 16 and 6 (decode, verify S = 5, prefill S = 256; split-KV
+    where S x g <= 64), flash forward and backward at both groups
+    (bitwise second backward), RMSNorm at width 6144, the sampling mask
+    at V = 131072. Returns the largest bf16 error of each kernel."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampling as sp
+    err = {}
+    for arch, heads in MOE_HEADS.items():
+        h, hkv, hd = heads
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for S, lengths in MOE_PAGED_CASES:
+                e = check_paged_case(gen, heads, S, lengths, dtype)
+                want_split = S * (h // hkv) <= 64
+                if pa.plan(dtype, MAX_BATCH, S, h, hkv, hd, PAGE,
+                           live_bucket(lengths, S)).split != want_split:
+                    fail(f"paged attention {arch} S={S}: the launcher did "
+                         "not pick the design its shape asks for")
+                if dname == "bfloat16":
+                    err["paged_flash_attention"] = max(
+                        err.get("paged_flash_attention", 0.0), e)
+            B, Sq = TRAIN_B, 512
+            q, do = (torch.randn((B, h, Sq, hd), generator=gen,
+                                 device="cuda") * 0.5 for _ in range(2))
+            k, v = (torch.randn((B, hkv, Sq, hd), generator=gen,
+                                device="cuda") * 0.5 for _ in range(2))
+            q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+            want = _attn_grads(lambda *a: fa.flash_attention_ref(
+                *a, causal=True), q, k, v, do)
+            got = _attn_grads(lambda *a: _kernel_bhsd(*a, True), q, k, v,
+                              do)
+            qm, km, vm, dom = (x.transpose(1, 2).contiguous()
+                               for x in (q, k, v, do))
+            o, lse = fa.flash_attention_fwd(qm, km, vm, True)
+            first = fa.flash_attention_bwd(qm, km, vm, o, lse, dom, True)
+            again = fa.flash_attention_bwd(qm, km, vm, o, lse, dom, True)
+            torch.cuda.synchronize()
+            e_out, out_ok = flash_out_check(got[0], want[0], dname)
+            e_grad = max(_scaled_err(g, w) for g, w in zip(got[1:],
+                                                           want[1:]))
+            print(f"flash_attention {arch} B={B} H={h}/{hkv} (g={h // hkv})"
+                  f" S={Sq} hd={hd} causal {dname:8s}: out max|kernel-"
+                  f"plain| {e_out:.3e}, dq/dk/dv max|kernel-plain|/max|"
+                  f"plain| {e_grad:.3e} ({flash_tol_text(dname)})")
+            if not (out_ok and e_grad <= FLASH_TOL[dname]):
+                fail(f"flash attention at {arch}'s heads disagrees with its "
+                     "plain version")
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                fail(f"flash attention backward at {arch}'s heads is not "
+                     "bit-repeatable")
+            if dname == "bfloat16":
+                err["flash_attention_fwd"] = max(
+                    err.get("flash_attention_fwd", 0.0), e_out)
+                err["flash_attention_bwd"] = max(
+                    err.get("flash_attention_bwd", 0.0),
+                    *((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got[1:], want[1:])))
+            del q, k, v, do, want, got, qm, km, vm, dom, o, lse, first, again
+    for dtype in (torch.float32, torch.bfloat16):
+        for R, D in MOE_RMS_SHAPES:
+            e_y, e_dx = check_rmsnorm_shape(gen, R, D, dtype)
+            if dtype == torch.bfloat16:
+                err["rmsnorm_fwd"] = max(err.get("rmsnorm_fwd", 0.0), e_y)
+                err["rmsnorm_bwd"] = max(err.get("rmsnorm_bwd", 0.0), e_dx)
+    for B in (1, 4, 64):
+        for kind in SAMPLING_KINDS:
+            logits, ks, ps = sampling_edge(gen, kind, B, MOE_VOCAB)
+            want = sp.topk_topp_mask_ref(logits, ks, ps)
+            got = sp.topk_topp_mask(logits, ks, ps)
+            again = sp.topk_topp_mask(logits, ks, ps)
+            torch.cuda.synchronize()
+            keep_w, keep_g = want > -1e30, got > -1e30
+            both = keep_w & keep_g
+            e = (got[both] - want[both]).abs().max().item()
+            tv = flipped_mass(logits, keep_w, keep_g)
+            what = f"topk_topp_mask {kind} B={B} V={MOE_VOCAB}"
+            if e != 0.0 or not tv <= SAMPLING_TV:
+                fail(f"{what}: survivors differ by {e:.3e} or flipped mass "
+                     f"{tv:.3e} > {SAMPLING_TV:g}")
+            if top_k_set_differs(logits, ks, ps, keep_g):
+                fail(f"{what}: the survivors miss the plain tau_k")
+            if not torch.equal(got, again):
+                fail(f"{what}: a second launch changed the output")
+            err["topk_topp_mask"] = 0.0            # survivors bitwise
+            err["topk_topp_mask_tv"] = max(err.get("topk_topp_mask_tv", 0.0),
+                                           tv)
+        print(f"topk_topp_mask V={MOE_VOCAB} B={B:2d}: {len(SAMPLING_KINDS)}"
+              f" kinds survivors, tau_k and second launch bitwise; flipped "
+              f"mass max {err['topk_topp_mask_tv']:.3e} (tolerance "
+              f"{SAMPLING_TV:g})")
+    return err
+
+
+def time_moe_kernels(gen, flush):
+    """Device times at the MoE models' new shapes: paged attention decode
+    (split-KV) and a 256-token prefill chunk at groups 16 and 6 beside
+    SDPA on the gathered view, and the sampling mask at V = 131072 at the
+    serve wave's rows."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import sampling as sp
+    rows = {}
+    for arch, heads in MOE_HEADS.items():
+        h, hkv, hd = heads
+        for S, lengths in ((1, DECODE_LENS), (256, [0, 37, 100, 200])):
+            q, pk, pv, table, lens = attn_case(
+                gen, MAX_BATCH, S, lengths, torch.bfloat16, MAX_LEN // PAGE,
+                0.0, heads=heads)
+            cut = table[:, :live_bucket(lengths, S)]
+            kernel = device_ms(lambda: pa.paged_flash_attention(
+                q, pk, pv, cut, lens), 20, flush)
+            lib = device_ms(gathered_sdpa(q, pk, pv, cut, lens, S), 20,
+                            flush)
+            plain = time_ms(lambda: pa.paged_attention_ref(
+                q, pk, pv, cut, lens), flush=flush)
+            keys = sum(int(x) + S for x in lengths)
+            nbytes = 2 * MAX_BATCH * S * h * hd * 2 + 2 * keys * hkv * hd * 2
+            rows[(arch, S)] = dict(device_ms=kernel, plain_ms=plain,
+                                   library_device_ms=lib,
+                                   bound_ms=1e3 * nbytes / PEAK_BYTES_S)
+            print(f"paged_flash_attention {arch} H={h}/{hkv} S={S} bf16 "
+                  f"contexts {lengths}: device {kernel:.4f} ms, plain "
+                  f"{plain:.4f} ms, SDPA on the gathered view {lib:.4f} ms "
+                  f"(device), byte bound {rows[(arch, S)]['bound_ms']:.5f} "
+                  "ms")
+            del q, pk, pv, table, lens, cut
+    logits, _, _ = sampling_case(gen, MAX_BATCH, MOE_VOCAB)
+    wks = torch.tensor([0, 40, 0, 40], dtype=torch.int32, device="cuda")
+    wps = torch.tensor([1.0, 0.95, 1.0, 0.95], device="cuda")
+    rows["sampling"] = dict(
+        device_ms=device_ms(lambda: sp.topk_topp_mask(logits, wks, wps), 20,
+                            flush),
+        plain_ms=time_ms(lambda: sp.topk_topp_mask_ref(logits, wks, wps),
+                         flush=flush),
+        bound_ms=1e3 * (2 * MAX_BATCH * MOE_VOCAB * 4) / PEAK_BYTES_S)
+    print(f"topk_topp_mask B=4 V={MOE_VOCAB} (k 0/40, p 1/0.95): device "
+          f"{rows['sampling']['device_ms']:.4f} ms, plain "
+          f"{rows['sampling']['plain_ms']:.4f} ms, byte bound "
+          f"{rows['sampling']['bound_ms']:.5f} ms")
+    return rows
+
+
+# -- routing plans: recording, replay, and the flip accounting --------------
+
+
+@contextlib.contextmanager
+def record_routes(replay=None):
+    """Keep every routing plan ``moe.routing_plan`` returns, in call
+    order (references only: no device work). With ``replay`` (an earlier
+    recording of the same sequence of calls), each call takes the
+    recorded plan's experts, positions and kept bits, its gates computed
+    from this call's own router logits: two paths then route alike, and
+    a difference between them is their kernels' alone."""
+    import torch
+    from repro_torch.models import moe
+    saved, kept = moe.routing_plan, []
+
+    def plan(params, x, cfg):
+        if replay is None:
+            p = saved(params, x, cfg)
+        else:
+            rec = replay[len(kept)]
+            if tuple(rec.expert.shape[:2]) != tuple(x.shape[:2]):
+                fail("routing replay: the calls do not line up")
+            logits = x @ params["router"].to(x.dtype)
+            gate = torch.softmax(logits.float(), -1).gather(-1, rec.expert)
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            p = dataclasses.replace(rec, gate=gate, logits=logits)
+        kept.append(p)
+        return p
+    moe.routing_plan = plan
+    try:
+        yield kept
+    finally:
+        moe.routing_plan = saved
+
+
+def _host_plans(plans):
+    """A call's per-layer plans as host arrays: experts (L, B, S, K), kept
+    bits (L, B, S, K), router logits (L, B, S, E) in float32."""
+    import numpy as np
+    return (np.stack([p.expert.cpu().numpy() for p in plans]),
+            np.stack([p.keep.cpu().numpy() for p in plans]),
+            np.stack([p.logits.float().cpu().numpy() for p in plans]))
+
+
+@contextlib.contextmanager
+def record_moe_calls():
+    """Every fine-model serve call (``CacheBackend.prefill`` / ``step`` /
+    ``verify``) with its slots' seeds, lengths and occupancy and the
+    routing plans of its layers (the draft's calls run outside these).
+    Yields a list of (seeds, lengths, n_new, plans)."""
+    import numpy as np
+    from repro_torch.serve.cache import CacheBackend
+    calls = []
+    saved = {k: getattr(CacheBackend, k) for k in ("prefill", "step",
+                                                   "verify")}
+
+    def wrap(fn):
+        def run(self, state, slots, tokens, *a):
+            with record_routes() as plans:
+                out = fn(self, state, slots, tokens, *a)
+            calls.append((np.array(slots.seeds), np.array(slots.lengths),
+                          np.array(slots.n_new), plans))
+            return out
+        return run
+    for k, fn in saved.items():
+        setattr(CacheBackend, k, wrap(fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(CacheBackend, k, fn)
+
+
+def position_routes(calls, seeds):
+    """{seed: {position: (experts (L, K), kept (L, K), logits (L, E))}}
+    of the given requests, from recorded serve calls: window row s of an
+    occupied slot is position lengths + s, the last call covering a
+    position the one whose K/V stayed (a rejected draft is verified
+    again)."""
+    out = {s: {} for s in seeds}
+    for sd, ln, nn, plans in calls:
+        if not plans:
+            continue
+        ex, kp, lg = _host_plans(plans)
+        for b, seed in enumerate(sd.tolist()):
+            if seed in out:
+                for s in range(int(nn[b])):
+                    out[seed][int(ln[b]) + s] = (ex[:, b, s], kp[:, b, s],
+                                                 lg[:, b, s])
+    return out
+
+
+def dense_routes(plans, n_layers, prompt_len):
+    """The same map for one dense-oracle run (batch 1): the first call a
+    chunked prefill of the prompt, then a token a call."""
+    out = {}
+    for c in range(len(plans) // n_layers):
+        ex, kp, lg = _host_plans(plans[c * n_layers:(c + 1) * n_layers])
+        first = 0 if c == 0 else prompt_len + c - 1
+        for s in range(ex.shape[2]):
+            out[first + s] = (ex[:, 0, s], kp[:, 0, s], lg[:, 0, s])
+    return out
+
+
+def flip_account(a, b, upto):
+    """Compare two paths' routes over positions 0..``upto``: ("equal",
+    None) where every layer's experts and kept bits agree; else the
+    first layer that differs: ("flip", the largest margin of its flips)
+    or ("capacity", None) where it differs in kept bits alone."""
+    import numpy as np
+    n_layers = a[0][0].shape[0]
+    for layer in range(n_layers):
+        flips, keep_only = [], False
+        for p in range(upto + 1):
+            ea, ka, la = a[p]
+            eb, kb, lb = b[p]
+            diff = ea[layer] != eb[layer]
+            for k in np.nonzero(diff)[0]:
+                x, y = int(ea[layer, k]), int(eb[layer, k])
+                flips.append(max(abs(la[layer, x] - la[layer, y]),
+                                 abs(lb[layer, x] - lb[layer, y])))
+            if not diff.any() and (ka[layer] != kb[layer]).any():
+                keep_only = True
+        if flips:
+            return "flip", float(max(flips))
+        if keep_only:
+            return "capacity", None
+    return "equal", None
+
+
+def moe_allowance(routes_a, routes_b, prompt_len):
+    """``allow(i, m, seed)`` for the stream checks: None where the two
+    paths' routes agree over the context of emission m (the normal
+    limits hold), else (category, margin) after failing any flip beyond
+    MOE_FLIP_MARGIN; also a tally of the categories."""
+    tally = {"equal": 0, "flip": 0, "capacity": 0, "margins": []}
+    seen = {}
+
+    def allow(seed, m):
+        if (seed, m) in seen:
+            return seen[seed, m]
+        cat, margin = flip_account(routes_a[seed], routes_b[seed],
+                                   prompt_len + m - 1)
+        tally[cat] += 1
+        if margin is not None:
+            tally["margins"].append(margin)
+            if margin > MOE_FLIP_MARGIN:
+                fail(f"MoE routing flip at margin {margin:.4f} (limit "
+                     f"{MOE_FLIP_MARGIN:g}): a flip away from a near-tie")
+        seen[seed, m] = None if cat == "equal" else (cat, margin)
+        return seen[seed, m]
+    return allow, tally
+
+
+# -- the MoE phase's serving and training runs ------------------------------
+
+
+def moe_serve_config(arch):
+    """``arch``'s decode config at full width, MOE_SERVE's depth and
+    pad_to, bf16 storage."""
+    from repro_torch.configs.registry import get_config
+    n_layers, pad_to = MOE_SERVE[arch]
+    rcfg = get_config(arch, "decode_32k")
+    return rcfg.replace(
+        model=dataclasses.replace(rcfg.model, n_layers=n_layers,
+                                  param_dtype="bfloat16"),
+        mgrit=dataclasses.replace(rcfg.mgrit, pad_to=pad_to))
+
+
+def moe_requests(rng, V, n_greedy, sampled):
+    """The smoke queue's first ``n_greedy`` greedy requests (and its first
+    sampled one), each prompt cut to its last MOE_PROMPT tokens."""
+    queue = make_queue(rng, V)
+    reqs = [r for r in queue if r.temperature == 0.0][:n_greedy]
+    if sampled:
+        reqs.append(next(r for r in queue if r.temperature > 0.0))
+    reqs = [dataclasses.replace(r, prompt=r.prompt[-MOE_PROMPT:])
+            for r in reqs]
+    if len({r.seed for r in reqs}) != len(reqs) or 0 in {r.seed
+                                                         for r in reqs}:
+        fail("the MoE requests' seeds do not tell them apart")
+    return reqs
+
+
+def moe_dense_vs_paged(rcfg, served, reqs, card):
+    """The port's dense oracle (B = 1, the prompt one chunked prefill)
+    against the paged engine (prefix sharing off) on ``reqs``, with the
+    routing-flip accounting; counters set to 0 just before the dense runs
+    and read just after. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    cfg = rcfg.model
+    n_layers = transformer.stacked_layer_depth(rcfg)
+    engine = ServeEngine(rcfg, served, max_batch=MAX_BATCH, page_size=PAGE,
+                         max_len=MAX_LEN, share_prefix=False, device="cuda")
+    engine.generate([dataclasses.replace(reqs[0], max_new_tokens=4)])
+    seeds = [r.seed for r in reqs]
+    with record_spec_logits() as calls, record_moe_calls() as moe_calls:
+        out = engine.generate([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+    paged = ([r.output for r in out], emitted_rows(calls, set(seeds)))
+    paged_routes = position_routes(moe_calls, seeds)
+    del calls, moe_calls, engine
+    reset_serve_counts()
+    dense, dense_routes_by_seed, n_calls = ([], []), {}, 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        with record_routes() as plans:
+            toks, rows, n = dense_stream(served, rcfg, r, True)
+        dense[0].append(toks)
+        dense[1].append(rows)
+        dense_routes_by_seed[r.seed] = dense_routes(plans, n_layers,
+                                                    len(r.prompt))
+        n_calls += n
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dense_counts()
+    if launches["paged_flash_attention"] != n_layers * n_calls:
+        fail(f"{cfg.name} dense: paged attention launched "
+             f"{launches['paged_flash_attention']} times, want {n_layers} a "
+             f"call x {n_calls} calls")
+    allow, tally = moe_allowance(paged_routes, dense_routes_by_seed,
+                                 MOE_PROMPT)
+    matched, worst, div = check_dense_streams(cfg.name, reqs, paged, dense,
+                                              card, allow=allow)
+    res = dict(matched=matched, requests=len(reqs), max_gap=worst,
+               divergences=div, routes=tally, dense_calls=n_calls,
+               dense_tok_s=sum(len(b) for b in dense[0]) / wall)
+    print(f"[{card}] dense {cfg.name}: {matched}/{len(reqs)} streams bitwise "
+          f"equal to the paged engine's; max|dense - paged| {worst:.4f}; "
+          f"routes over each compared context: {tally['equal']} equal, "
+          f"{tally['flip']} with a flip (margins "
+          f"{[round(x, 4) for x in tally['margins']]}), {tally['capacity']} "
+          f"capacity; launches {launches}")
+    return launches, res
+
+
+def moe_spec_vs_plain(rcfg, served, reqs, card):
+    """A plain and a ``SpecConfig(SPEC_CF, SPEC_K)`` engine (prefix sharing
+    off) on the greedy ``reqs``: ``spec_greedy``'s streams, timing and
+    verify-vs-decode check, with the routing-flip accounting."""
+    seeds = [r.seed for r in reqs]
+    routes = {}
+
+    def accounted(mode, run):
+        with record_moe_calls() as calls:
+            out = run()
+        routes[mode] = position_routes(calls, seeds)
+        return out
+
+    acct = {}
+
+    def allow(seed, m):
+        if not acct:                # both runs' routes are recorded by now
+            acct["allow"], acct["tally"] = moe_allowance(
+                routes["plain"], routes["spec"], MOE_PROMPT)
+        return acct["allow"](seed, m)
+    _, res, launches = spec_greedy(
+        rcfg, served, reqs, card, "random init",
+        engine_kw=dict(share_prefix=False), wrap_run=accounted,
+        allow=allow)
+    res["routes"] = tally = acct["tally"]
+    print(f"[{card}] spec {rcfg.model.name}: routes over each compared "
+          f"context: {tally['equal']} equal, {tally['flip']} with a flip "
+          f"(margins {[round(x, 4) for x in tally['margins']]}), "
+          f"{tally['capacity']} capacity")
+    return res, launches
+
+
+def serve_moe(arch, seed, card, full):
+    """Serve ``arch`` at full width (MOE_SERVE's depth) through
+    ``ServeEngine``: the smoke queue (decode tok/s, TTFT; counters set to
+    0 just before), the fused-vs-gathered step check with the reference
+    path's routing replayed (with ``full``), a profiled decode wave, the
+    dense oracle against the engine (DENSE_REQS greedy requests and a
+    sampled one with ``full``, else one greedy) and with ``full`` a
+    SpecConfig engine against a plain one. Returns (launches of each
+    run, numbers)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import leaves_with_paths
+    rcfg = moe_serve_config(arch)
+    cfg = rcfg.model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_model(rcfg, seed=seed, device="cuda")
+    engine = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
+                         max_len=MAX_LEN, device="cuda")
+    torch.cuda.synchronize()
+    n_layers = transformer.stacked_layer_depth(rcfg)
+    n_params = sum(p.numel() for _, p in leaves_with_paths(params))
+    print(f"model: {cfg.name} d_model={cfg.d_model} {n_layers} stacked "
+          f"layers of {cfg.n_layers} (cut from "
+          f"{get_config(arch).model.n_layers}; "
+          f"MGRIT pad_to {rcfg.mgrit.pad_to}, no gate-0 layer) heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} experts={cfg.moe.num_experts} "
+          f"top-{cfg.moe.top_k} expert d_ff={cfg.moe.d_ff} vocab="
+          f"{cfg.vocab_size}; {n_params / 1e9:.2f} B params stored in "
+          f"bf16; init + engine {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    rng = np.random.default_rng(seed)
+    launches = {"queue": serve_queue(engine, rng, {"paged_flash_attention":
+                                                   n_layers})}
+    res = {"decode_tok_s": engine.scheduler.throughput()["decode_tok_s"]}
+    if full:
+        step_check(engine, transformer.paged_decode_step,
+                   lambda r: transformer.init_paged_cache(
+                       r, 1 + MAX_BATCH * 8, PAGE, device="cuda"), rng,
+                   moe_replay=True)
+    profile_decode_wave(engine.backend, cfg.name)
+    served = engine.backend.params
+    del engine, params
+    gc.collect()
+    reqs = moe_requests(np.random.default_rng(seed), cfg.vocab_size,
+                        DENSE_REQS if full else 1, sampled=full)
+    launches["dense"], res["dense"] = moe_dense_vs_paged(rcfg, served, reqs,
+                                                         card)
+    if full:
+        greedy = moe_requests(np.random.default_rng(seed), cfg.vocab_size,
+                              SPEC_REQS, sampled=False)
+        res["spec"], launches["spec"] = moe_spec_vs_plain(rcfg, served,
+                                                          greedy, card)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{card}] {cfg.name}: peak memory {res['peak_gib']:.1f} GiB")
+    return launches, res
+
+
+def check_moe_train_grads():
+    """qwen3-moe at full width and MOE_GRAD_LAYERS stacked layers (bf16
+    storage, B 2, S 512, its MGRIT config): the kernel path's gradient
+    (the MGRIT adjoint), moved to host memory, against the plain path's
+    with the kernel path's routing replayed: cosine and norm as
+    tests/test_lp_grads.py. Returns (launches of the kernel path, cosine,
+    norm difference)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves_with_paths
+    rcfg = get_config("qwen3_moe_235b", "train_4k")
+    mg = rcfg.mgrit
+    rcfg = rcfg.replace(
+        model=dataclasses.replace(rcfg.model, n_layers=MOE_GRAD_LAYERS,
+                                  param_dtype="bfloat16"),
+        mgrit=dataclasses.replace(mg, pad_to=mg.cf),
+        shape=ShapeConfig("s512", "train", 512, 2), microbatches=1)
+    params = transformer.init_model(rcfg, seed=1, device="cuda")
+    batch = shard_batch(SyntheticLM(rcfg, seed=1).batch_at(0), "cuda")
+    n = sum(p.numel() for _, p in leaves_with_paths(params))
+    reset_train_counts()
+    with record_routes() as plans:
+        lk, gk = grads_of(params, batch, rcfg, mode="lp")
+    torch.cuda.synchronize()
+    launches = train_counts()
+    gk = {p: g.cpu() for p, g in gk.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with plain_kernels(), record_routes(replay=plans):
+        lp_, gp = grads_of(params, batch, rcfg, mode="lp")
+    dot = na = nb = 0.0
+    for p, g in gp.items():
+        if p[-1] == "gate":
+            continue
+        for a, b in zip(gk[p].reshape(-1).split(2**27),
+                        g.reshape(-1).split(2**27), strict=True):
+            a, b = a.to("cuda").double(), b.double()
+            dot += float((a * b).sum())
+            na += float((a * a).sum())
+            nb += float((b * b).sum())
+    cos = dot / (np.sqrt(na * nb) + 1e-30)
+    nrel = abs(np.sqrt(na) - np.sqrt(nb)) / np.sqrt(nb)
+    print(f"moe train grads, qwen3-moe full width, {MOE_GRAD_LAYERS} stacked "
+          f"layers ({n / 1e9:.2f} B params, bf16), B=2 S=512, MGRIT fwd "
+          f"{mg.fwd_iters} / bwd {mg.bwd_iters}: kernel path vs plain path "
+          f"(routing replayed, {len(plans)} MoE calls): loss {lk:.6f} vs "
+          f"{lp_:.6f}; cosine {cos:.6f} (> {MOE_GRAD_COS}), norm rel diff "
+          f"{nrel:.3e} (< {MOE_GRAD_NORM:g}); launches {launches}")
+    if not (np.isfinite(cos) and cos > MOE_GRAD_COS
+            and nrel < MOE_GRAD_NORM):
+        fail("MoE gradients lose direction or norm between the kernel and "
+             "plain paths")
+    if min(launches[k] for k in ("flash_attention_fwd", "flash_attention_bwd",
+                                 "rmsnorm_fwd", "rmsnorm_bwd")) <= 0:
+        fail(f"MoE gradient check: a training kernel never launched: "
+             f"{launches}")
+    del params, gk, gp, plans
+    return launches, cos, nrel
+
+
+def moe_reduced_train_config():
+    """The reduced qwen3-moe config (4 experts, top-2, 10 layers) at its
+    smoke shape, bf16 compute, probe at step 2."""
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.configs.registry import get_config
+    rcfg = reduce_config(get_config("qwen3_moe_235b"))
+    return rcfg.replace(mgrit=dataclasses.replace(rcfg.mgrit,
+                                                  check_every=2))
+
+
+def moe_phase(gen, flush, card):
+    """Phase 5d: the MoE module, the kernels at the MoE shapes, serving
+    qwen3-moe and grok-1, the gradient check and three reduced Trainer
+    steps. Returns (launches by run, errors, numbers)."""
+    import torch
+    t0 = time.perf_counter()
+    mod_err, dropped = check_moe_module(gen)
+    layer_rows = time_moe_layer(gen, flush)
+    kern_err = check_moe_kernels(gen)
+    kern_rows = time_moe_kernels(gen, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {}
+    res = {"dropped": dropped,
+           "layer": {f"{a} {b}x{s}": v for (a, b, s), v in layer_rows.items()},
+           "kernels": {" S=".join(map(str, k)) if isinstance(k, tuple) else k:
+                       v for k, v in kern_rows.items()}}
+    for arch, full in (("qwen3_moe_235b", True), ("grok1_314b", False)):
+        launches[arch], res[arch] = serve_moe(arch, 23, card, full)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches["grads"], res["grad_cos"], res["grad_norm_rel"] = \
+        check_moe_train_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = run_train(moe_reduced_train_config(),
+                      ("flash_attention_fwd", "flash_attention_bwd",
+                       "rmsnorm_fwd", "rmsnorm_bwd"))
+    launches["train"] = train[0]
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"MoE phase: {res['wall_s']:.1f} s")
+    return launches, {**mod_err, **kern_err}, res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -3721,6 +4651,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"dense decode phase: {time.perf_counter() - t_dense:.1f} s")
 
+    # -- 5d. the MoE family: the module at both full widths, the kernels at
+    # the MoE shapes, serving qwen3-moe and grok-1, gradients, Trainer ----
+    moe_gen = torch.Generator(device="cuda")
+    moe_gen.manual_seed(23)
+    moe_launches, moe_err, moe_res = moe_phase(moe_gen, flush, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 6. training: gradients at reduced depth, then full depth ----------
     check_train_grads()
     gc.collect()
@@ -3918,8 +4856,34 @@ def main() -> int:
         if row["name"] == "rmsnorm_fwd":
             row.update({f"launches_spec_{fam}": spec_launches[fam][
                 "rmsnorm_fwd"] for fam in spec_launches})
+    # the MoE phase (5d): each kernel's launches in every MoE run (the
+    # serve queue, the dense oracle, the spec engine, the gradient check's
+    # kernel path, the reduced Trainer), its largest bf16 error at the MoE
+    # shapes, and the times taken there
+    moe_runs = {f"{arch}_{run}": n for arch in ("qwen3_moe_235b",
+                                                "grok1_314b")
+                for run, n in moe_launches[arch].items()}
+    moe_runs.update(grads=moe_launches["grads"],
+                    train=moe_launches["train"])
+    for row in kernels:
+        name = row["name"]
+        if name in ("paged_flash_attention", "topk_topp_mask",
+                    "flash_attention_fwd", "flash_attention_bwd",
+                    "rmsnorm_fwd", "rmsnorm_bwd"):
+            row["launches_moe"] = {run: n.get(name, 0)
+                                   for run, n in moe_runs.items()}
+            row["moe_max_abs_err"] = moe_err.get(name)
+    kernels[0]["moe_shapes_ms"] = {k: v for k, v in moe_res[
+        "kernels"].items() if k != "sampling"}
+    kernels[1]["moe_shapes_ms"] = moe_res["kernels"]["sampling"]
+    kernels[1]["moe_flipped_mass"] = moe_err["topk_topp_mask_tv"]
+    counts.update({f"{k}_moe_{run}": n[k] for run, n in moe_runs.items()
+                   for k in ("paged_flash_attention", "topk_topp_mask",
+                             "flash_attention_fwd", "flash_attention_bwd",
+                             "rmsnorm_fwd", "rmsnorm_bwd") if n.get(k)})
     print("spec: " + json.dumps(spec_res))
     print("dense: " + json.dumps(dense_res))
+    print("moe: " + json.dumps(moe_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))

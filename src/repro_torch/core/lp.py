@@ -45,8 +45,8 @@ Extra = Dict[str, Any]  # per-call inputs: rope (cos, sin), None for
 class LPStatic:
     cfg: ModelConfig
     mgrit: MGRITConfig
-    kind: str               # block kind: attn_mlp, encdec_dec, mamba1 or
-                            # mamba2
+    kind: str               # block kind: attn_mlp, attn_moe, encdec_dec,
+                            # mamba1 or mamba2
     causal: bool = True
 
     def spec(self, iters: int) -> mgrit.MGRITSpec:

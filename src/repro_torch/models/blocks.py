@@ -1,12 +1,12 @@
 """Pre-LN transformer blocks in neural-ODE form (paper Eq. 1-2).
 
-Port of the ``attn_mlp``, ``encdec_dec``, ``mamba1`` and ``mamba2``
-kinds of :mod:`repro.models.blocks` (``attn_moe`` comes with the MoE
-slice): one layer is the forward-Euler step ``Z_{n+1} = Z_n + gate *
-F(Z_n)`` with
+Port of :mod:`repro.models.blocks` (every kind: ``attn_mlp``,
+``attn_moe``, ``encdec_dec``, ``mamba1``, ``mamba2``): one layer is the
+forward-Euler step ``Z_{n+1} = Z_n + gate * F(Z_n)`` with
 
   attn_mlp (Eq. 1):    F = phi1(X) + phi2(X + phi1(X)),
                        phi1 = SA o LN, phi2 = MLP o LN
+  attn_moe:            the same with phi2 = MoE o LN
   encdec_dec (Eq. 2):  Ybar = phi1(Y) + phi3(Y + phi1(Y), X_enc),
                        phi3 = CA o LN (cross-attention to X_enc),
                        F = Ybar + phi2(Y + Ybar)
@@ -31,6 +31,7 @@ from repro_torch.models.attention import (attention_apply, init_attention,
                                           paged_attention_apply)
 from repro_torch.models.layers import init_norm, norm_apply
 from repro_torch.models.mlp import init_mlp, mlp_apply
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import (init_mamba1, init_mamba2, mamba1_apply,
                                    mamba2_apply)
 
@@ -53,16 +54,15 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
         init_mixer = init_mamba1 if kind == "mamba1" else init_mamba2
         return {"norm": init_norm(cfg, lead=lead, device=device),
                 "mixer": init_mixer(gen, cfg, lead=lead, device=device)}
-    if kind not in ("attn_mlp", "encdec_dec"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (attn_mlp, encdec_dec, "
-            "mamba1 and mamba2 only; the MoE family comes in a later slice)")
     p = {
         "ln1": init_norm(cfg, lead=lead, device=device),
         "attn": init_attention(gen, cfg, lead=lead, device=device),
         "ln2": init_norm(cfg, lead=lead, device=device),
-        "mlp": init_mlp(gen, cfg, lead=lead, device=device),
     }
+    if kind == "attn_moe":
+        p["moe"] = init_moe(gen, cfg, lead=lead, device=device)
+        return p
+    p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
     if kind == "encdec_dec":
         p["ln3"] = init_norm(cfg, lead=lead, device=device)
         p["xattn"] = init_attention(gen, cfg, cross=True, lead=lead,
@@ -71,10 +71,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig,
 
 
 def attn_block_F(params, z, a, cfg: ModelConfig, *, kind: str):
-    """F = phi1 + phi2(z + phi1) given the attention output ``a`` = phi1(z)."""
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    """F = phi1 + phi2(z + phi1) given the attention output ``a`` = phi1(z).
+    Single owner of the attn_mlp / attn_moe block formula: the paged
+    serving path (:func:`paged_attn_block`) computes the attention
+    differently and keeps this form."""
     h_in = norm_apply(params["ln2"], z + a, cfg)
+    if kind == "attn_moe":
+        return a + moe_apply(params["moe"], h_in, cfg)
     return a + mlp_apply(params["mlp"], h_in, cfg)
 
 
@@ -89,8 +92,6 @@ def block_F(params, z, cfg: ModelConfig, *, kind: str, causal: bool,
         mixer = mamba1_apply if kind == "mamba1" else mamba2_apply
         return mixer(params["mixer"], norm_apply(params["norm"], z, cfg),
                      cfg, cache=cache)
-    if kind not in ("attn_mlp", "encdec_dec"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     a = attention_apply(params["attn"], norm_apply(params["ln1"], z, cfg),
                         cfg, causal=causal, rope=rope, cache=cache)
     if cache is not None:

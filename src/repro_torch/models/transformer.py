@@ -1,9 +1,10 @@
 """The model around the layer stack: training and serving.
 
-Port of :mod:`repro.models.transformer` for the decoder, encoder and
-encoder-decoder families with ``attn_mlp`` blocks (``encdec_dec`` in the
-decoder of the last) and the SSM and hybrid families: training for all
-of them, paged serving for the decoder, SSM and hybrid ones. Params use
+Port of :mod:`repro.models.transformer` for every family: the decoder
+(``attn_mlp`` blocks, or ``attn_moe`` for the MoE configs), encoder and
+encoder-decoder families (``encdec_dec`` in the decoder of the last) and
+the SSM and hybrid families: training for all of them, paged serving for
+the decoder, SSM and hybrid ones. Params use
 the JAX pytree's key paths: ``embed`` (``tok``, ``out``),
 ``final_norm``, ``open`` / ``close`` (serial buffer stacks) and ``mid``
 (``params`` stack + ``gate``) — the ParallelNet's layers, padded with
@@ -17,8 +18,7 @@ backward); the encoder-decoder is the paper's Eq. 3, one time grid
 solved as two chained trunks, the decoder's cross-attention input's
 cotangent flowing into the encoder's adjoint; the hybrid family trains
 serially (the shared attention block breaks the ODE form); decode and
-serving run every stacked layer in order, padded ones included. The MoE
-family comes in a later slice.
+serving run every stacked layer in order, padded ones included.
 """
 from __future__ import annotations
 
@@ -55,11 +55,6 @@ def make_gates(n_real: int, n_padded: int, dtype=torch.float32, device=None):
     return (torch.arange(n_padded, device=device) < n_real).to(dtype)
 
 
-MOE_SLICE = ("the MoE family (attn_moe blocks: grok1_314b, qwen3_moe_235b) "
-             "is not ported yet: it comes with the MoE slice (ROADMAP "
-             "Queue 1 item 2)")
-
-
 @dataclasses.dataclass(frozen=True)
 class DepthPlan:
     n_open: int
@@ -84,8 +79,6 @@ def depth_plan(n_layers: int, mg: MGRITConfig) -> DepthPlan:
 def _init_params(rcfg: RunConfig, gen, device) -> Dict[str, Any]:
     cfg, mg = rcfg.model, rcfg.mgrit
     kind = block_kind(cfg)
-    if kind == "attn_moe":
-        raise NotImplementedError(MOE_SLICE)
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg, device=device),
         "final_norm": init_norm(cfg, device=device)}
@@ -135,8 +128,8 @@ def param_shapes(rcfg: RunConfig) -> Dict[str, Any]:
 
 def serving_params(params, cfg: ModelConfig):
     """A copy of ``params`` whose matmul weights (embeddings, attention,
-    MLP and Mamba projections, the Mamba conv) are held in the compute
-    dtype. The reference casts them to ``cfg.dtype`` at every use;
+    MLP, MoE router and expert, and Mamba projections, the Mamba conv)
+    are held in the compute dtype. The reference casts them to ``cfg.dtype`` at every use;
     casting once gives the same numbers without re-reading the float32
     weights every wave. Everything else keeps its dtype and is cast where
     the reference casts it: norm scales and gates are read in float32,
@@ -144,7 +137,7 @@ def serving_params(params, cfg: ModelConfig):
     ``cfg.dtype`` by mamba1 but read in float32 by mamba2."""
     dt = torch_dtype(cfg.dtype)
     matmul = {"tok", "out", "wq", "wk", "wv", "wo", "w_in", "w_out",
-              "w_gate", "in_proj", "x_proj", "dt_proj", "out_proj",
+              "w_gate", "router", "in_proj", "x_proj", "dt_proj", "out_proj",
               "conv_w", "conv_b"}
 
     def walk(tree):
@@ -245,8 +238,6 @@ def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
     for the encoder-decoder family]."""
     cfg = rcfg.model
     kind = block_kind(cfg)
-    if kind == "attn_moe":
-        raise NotImplementedError(MOE_SLICE)
     if cfg.family == "encdec":
         z, norms = _encdec_trunks(params, batch, rcfg, mode)
     elif cfg.family == "hybrid":
@@ -307,8 +298,6 @@ def init_cache(rcfg: RunConfig, batch: int, max_len: int, *, device=None):
     cfg = rcfg.model
     kind = block_kind(cfg)
     dev = resolve_device(device)
-    if kind == "attn_moe":
-        raise NotImplementedError(MOE_SLICE)
     if cfg.family == "encdec":
         plan = depth_plan(cfg.n_dec_layers, rcfg.mgrit)
         return attn_mod.init_kv_cache(cfg, batch, max_len,
@@ -482,8 +471,9 @@ def _paged_attn_forward(params, pages, tokens, lengths, n_new, page_table,
     attention core through the paged kernel."""
     cfg = rcfg.model
     kind = block_kind(cfg)
-    if kind != "attn_mlp":
-        raise NotImplementedError("paged KV decode requires attn_mlp blocks")
+    if kind not in ("attn_mlp", "attn_moe"):
+        raise NotImplementedError(
+            "paged KV decode requires attn_mlp or attn_moe blocks")
     layers, gates = _all_layers_stacked(params)
     if len(layers) != pages["k"].shape[0]:
         raise ValueError(f"{len(layers)} layers but the page pools stack "

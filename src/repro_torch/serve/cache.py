@@ -320,7 +320,7 @@ def _to_device(tree, device):
 
 
 class PagedKVBackend(CacheBackend):
-    """Attention decoders (attn_mlp): block/paged KV cache."""
+    """Attention decoders (attn_mlp / attn_moe): block/paged KV cache."""
 
     snapshot_state = False
 
@@ -411,7 +411,7 @@ def make_backend(rcfg: RunConfig, params, mesh=None, page_size: int = 16,
     """The only family dispatch in the serve stack."""
     cfg = rcfg.model
     kind = block_kind(cfg)
-    if cfg.family == "decoder" and kind == "attn_mlp":
+    if cfg.family == "decoder" and kind in ("attn_mlp", "attn_moe"):
         return PagedKVBackend(rcfg, params, mesh, page_size, sharding,
                               fused, obs, device)
     if cfg.family == "ssm" and kind in ("mamba1", "mamba2"):
@@ -420,13 +420,8 @@ def make_backend(rcfg: RunConfig, params, mesh=None, page_size: int = 16,
     if cfg.family == "hybrid":
         return HybridBackend(rcfg, params, mesh, page_size, sharding,
                              fused, obs, device)
-    if cfg.family in ("encoder", "encdec"):
-        raise NotImplementedError(
-            f"no CacheBackend for family={cfg.family!r} (kind={kind!r}): "
-            "encoder models have no autoregressive decode, and encdec needs "
-            "per-request encoder state — use transformer.decode_step "
-            "directly")
     raise NotImplementedError(
-        f"no CacheBackend for family={cfg.family!r} (kind={kind!r}) in the "
-        "port yet: the MoE backend comes with the MoE slice (ROADMAP "
-        "Queue 1)")
+        f"no CacheBackend for family={cfg.family!r} (kind={kind!r}): "
+        "encoder models have no autoregressive decode, and encdec needs "
+        "per-request encoder state — use transformer.decode_step "
+        "directly")

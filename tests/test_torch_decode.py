@@ -221,6 +221,12 @@ def test_decode_step_matches_jax(jax_decode, arch):
     2e-5 and the port's greedy token equal to JAX's at every step; then
     every leaf of the cache (KV and index, or conv window and state),
     within 2e-5 too."""
+    check_decode_step(jax_decode, arch)
+
+
+def check_decode_step(jax_decode, arch):
+    """The body of :func:`test_decode_step_matches_jax` (the MoE family's
+    case is in ``test_torch_moe_serve.py``)."""
     tr, tp, xa, feeds, want, jcache = jax_decode(arch)
     cache = ttr.init_cache(tr, B, MAX_LEN, device="cpu")
     xa_t = None if xa is None else t(xa)
@@ -242,11 +248,11 @@ def test_decode_step_matches_jax(jax_decode, arch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_7b", "falcon_mamba_7b",
-                                  "zamba2_1p2b", "seamless_m4t_v2"])
+                                  "zamba2_1p2b", "seamless_m4t_v2",
+                                  "qwen3_moe_235b"])
 def test_decode_step(arch):
-    """``test_smoke_archs.py::test_decode_step`` (its MoE case waits for
-    the MoE slice): two steps at the reduced bf16 config, finite logits
-    of shape (B, 1, V)."""
+    """``test_smoke_archs.py::test_decode_step``: two steps at the reduced
+    bf16 config, finite logits of shape (B, 1, V)."""
     rcfg = t_reduce(t_get_config(arch))
     cfg = rcfg.model
     params = ttr.init_model(rcfg, seed=0, device="cpu")

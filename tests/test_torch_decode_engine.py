@@ -24,12 +24,13 @@ import torch
 
 from repro.configs.base import MGRITConfig as JMGRIT
 from repro.configs.base import ModelConfig as JModel
+from repro.configs.base import MoEConfig as JMoE
 from repro.configs.base import OptimizerConfig as JOpt
 from repro.configs.base import RunConfig as JRun
 from repro.configs.base import ShapeConfig as JShape
 from repro.configs.base import SSMConfig as JSSM
 from repro.models import transformer as jtr
-from repro_torch.configs.base import (MGRITConfig, ModelConfig,
+from repro_torch.configs.base import (MGRITConfig, ModelConfig, MoEConfig,
                                       OptimizerConfig, RunConfig,
                                       ShapeConfig, SSMConfig)
 from repro_torch.configs.reduce import reduce_config as t_reduce
@@ -46,10 +47,12 @@ torch.set_num_threads(2)
 VOCAB = 64
 MAX_LEN = 32
 
-# test_serve_backends.py's FAMILY_MODELS (its MoE case waits for the MoE
-# slice), as keyword arguments of either package's configs
+# test_serve_backends.py's FAMILY_MODELS, as keyword arguments of either
+# package's configs
 FAMILIES = {
     "decoder": dict(family="decoder"),
+    "decoder_moe": dict(family="decoder",
+                        moe=dict(num_experts=4, top_k=2, d_ff=64)),
     "ssm_mamba1": dict(family="ssm", n_layers=4, act="silu", norm="rmsnorm",
                        ssm=(1, dict(d_state=8, d_conv=3))),
     "ssm_mamba2": dict(family="ssm", n_layers=4, act="silu", norm="rmsnorm",
@@ -58,16 +61,19 @@ FAMILIES = {
                    act="silu", norm="rmsnorm",
                    ssm=(2, dict(d_state=8, d_conv=3, headdim=16))),
 }
-EXPECTED_BACKEND = {"decoder": PagedKVBackend, "ssm_mamba1": SSMStateBackend,
+EXPECTED_BACKEND = {"decoder": PagedKVBackend,
+                    "decoder_moe": PagedKVBackend,
+                    "ssm_mamba1": SSMStateBackend,
                     "ssm_mamba2": SSMStateBackend, "hybrid": HybridBackend}
 
 
 def family_rcfg(name, *, port=True, vocab=VOCAB, **over):
     """The reference's tiny float32 family config (``test_serve_backends.
     py``'s; ``over`` gives ``test_serve_fuzz.py``'s narrower one)."""
-    Model, SSM, MG, Opt, Shape, Run = (
-        (ModelConfig, SSMConfig, MGRITConfig, OptimizerConfig, ShapeConfig,
-         RunConfig) if port else (JModel, JSSM, JMGRIT, JOpt, JShape, JRun))
+    Model, SSM, MoE, MG, Opt, Shape, Run = (
+        (ModelConfig, SSMConfig, MoEConfig, MGRITConfig, OptimizerConfig,
+         ShapeConfig, RunConfig) if port
+        else (JModel, JSSM, JMoE, JMGRIT, JOpt, JShape, JRun))
     kw = dict(name=name, family="decoder", n_layers=8, d_model=32,
               n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=vocab,
               act="gelu", norm="layernorm", dtype="float32")
@@ -76,6 +82,8 @@ def family_rcfg(name, *, port=True, vocab=VOCAB, **over):
     if "ssm" in kw:
         version, skw = kw["ssm"]
         kw["ssm"] = SSM(version=version, **skw)
+    if "moe" in kw:
+        kw["moe"] = MoE(**kw["moe"])
     return Run(model=Model(**kw),
                mgrit=MG(enabled=True, cf=2, levels=2, fwd_iters=1,
                         bwd_iters=1, n_open=1, n_close=1, pad_to=2),

@@ -53,6 +53,7 @@ from repro_torch.kernels import paged_ssm as tps
 from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import sampling as tsp
 from repro_torch.kernels import ssm_scan as tss
+from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 
 
@@ -259,7 +260,11 @@ def _need_card():
     (4, 64, 32, 32, 64, 16, 8),         # zamba2_1p2b prefill chunk
     (4, 128, 32, 32, 64, 16, 16),       # zamba2_1p2b prefill, multi-row
     (2, 1, 48, 1, 128, 16, 8),          # MQA decode: 12 split row tiles
-    (2, 4, 48, 1, 128, 16, 8)])         # MQA verify: 192 multi-row rows
+    (2, 4, 48, 1, 128, 16, 8),          # MQA verify: 192 multi-row rows
+    (4, 1, 64, 4, 128, 16, 8),          # qwen3-moe decode: g = 16, split
+    (4, 5, 64, 4, 128, 16, 8),          # qwen3-moe verify: 80 rows
+    (4, 1, 48, 8, 128, 16, 8),          # grok-1 decode: g = 6
+    (4, 5, 48, 8, 128, 16, 8)])         # grok-1 verify: 30 rows, split
 def test_paged_flash_attention_matches_plain_on_card(
         B, S, H, Hkv, hd, page_size, pages, dtype, tol):
     _need_card()
@@ -369,7 +374,7 @@ def test_topk_topp_mask_matches_plain_on_card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [1, 4, 64])
-@pytest.mark.parametrize("V", [151936, 65024, 32000, 256206])
+@pytest.mark.parametrize("V", [151936, 65024, 32000, 256206, 131072])
 @pytest.mark.parametrize("kind", SAMPLING_KINDS)
 def test_topk_topp_mask_edge_cases_on_card(kind, V, B):
     """The served vocabs (qwen3_1p7b's 151936, falcon_mamba_7b's 65024,
@@ -439,7 +444,9 @@ def _scaled_err(got, want):
     (1, 4, 2, 100, 77, 64, True),       # ragged tiles, top-left causal
     (1, 4, 2, 77, 100, 16, False),
     (1, 4, 2, 200, 333, 128, True),     # Sq != Sk, not multiples of tiles
-    (2, 16, 8, 1024, 1024, 128, True)])  # qwen3_1p7b widths
+    (2, 16, 8, 1024, 1024, 128, True),  # qwen3_1p7b widths
+    (2, 64, 4, 512, 512, 128, True),    # qwen3-moe: g = 16
+    (2, 48, 8, 512, 512, 128, True)])   # grok-1: g = 6
 def test_flash_attention_fwd_bwd_match_plain_on_card(
         B, H, Hkv, Sq, Sk, hd, causal, dtype, tol):
     _need_card()
@@ -518,7 +525,8 @@ def test_flash_attention_backward_is_deterministic_on_card(dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("R,D", [(256, 512), (100, 64), (8192, 2048),
-                                 (8192 * 16, 128), (4, 2048), (64, 128)])
+                                 (8192 * 16, 128), (4, 2048), (64, 128),
+                                 (1024, 6144), (4, 6144)])
 def test_rmsnorm_fwd_bwd_match_plain_on_card(R, D, dtype, tol):
     _need_card()
     x, w, dy = to_torch(*rms_case(R + D, R, D), device="cuda")
@@ -1052,3 +1060,55 @@ def test_flash_cross_attention_at_decode_matches_plain_on_card(
     if dtype == torch.bfloat16:
         assert bool((d <= 1e-3 + 1e-2 * want.float().abs()).all())
     assert torch.equal(got, again)
+
+
+# the MoE family at full width: (experts, top-k, d_model, expert d_ff) of
+# qwen3-moe and grok-1; the index design against the literal one-hot
+# version within 1e-5 (float32) / 2e-2 (bf16) of max|one-hot|, output and
+# every cotangent (x, router, the three expert leaves)
+MOE_WIDTHS = {"qwen3_moe_235b": (128, 8, 4096, 1536),
+              "grok1_314b": (8, 2, 6144, 32768)}
+
+
+def _moe_grads(fn, params, x, ct, cfg):
+    leaves = [t.detach().requires_grad_(True) for t in (x, *params.values())]
+    y = fn(dict(zip(params, leaves[1:])), leaves[0], cfg)
+    return (y.detach(), *torch.autograd.grad(y, leaves, ct))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S", [(2, 512), (4, 1)])
+@pytest.mark.parametrize("arch", sorted(MOE_WIDTHS))
+def test_moe_index_design_matches_onehot_on_card(arch, B, S, dtype, tol):
+    """A router biased towards experts 0 and 1 (tokens dropped at 2 x
+    512); the plan's slots are the one-hot dispatch's bits; a second
+    forward and backward bit-identical (no atomics)."""
+    _need_card()
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    E, K, D, ff = MOE_WIDTHS[arch]
+    cfg = ModelConfig(d_model=D, dtype=dtype, param_dtype=dtype,
+                      moe=MoEConfig(num_experts=E, top_k=K, d_ff=ff))
+    gen = torch.Generator(device="cuda").manual_seed(B * S)
+    params = tmoe.init_moe(gen, cfg, device="cuda")
+    params["router"][:, :2] += 0.05
+    x, ct = (torch.randn((B, S, D), generator=gen, device="cuda")
+             .to(getattr(torch, dtype)) for _ in range(2))
+    plan = tmoe.routing_plan(params, x, cfg)
+    dispatch, _ = tmoe.onehot_dispatch(params, x, cfg)
+    bits = torch.zeros(plan.n_slots + 1, dtype=torch.bool, device="cuda")
+    bits[plan.slot.reshape(-1)] = True
+    assert torch.equal(bits[:-1],
+                       dispatch.permute(2, 0, 3, 1).any(-1).reshape(-1))
+    if S > 1:
+        assert plan.n_dropped() > 0
+    del plan, dispatch, bits
+    first = _moe_grads(tmoe.moe_apply, params, x, ct, cfg)
+    again = _moe_grads(tmoe.moe_apply, params, x, ct, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    del again
+    want = _moe_grads(tmoe.moe_apply_onehot, params, x, ct, cfg)
+    torch.cuda.synchronize()
+    for got, w in zip(first, want):
+        assert _scaled_err(got, w) <= tol

@@ -554,16 +554,3 @@ def test_train_entry_points_default_to_cuda():
     with pytest.raises(NotImplementedError, match="checkpoints"):
         Trainer(runtime_rcfg(), ckpt_dir="/nonexistent", device="cpu")
 
-
-def test_unported_families_raise_naming_their_slice():
-    rcfg = t_reduce(t_get_config("qwen3_moe_235b"))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        ttr.forward({}, {}, rcfg)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        ttr.init_model(rcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        ttr.init_cache(rcfg, 1, 8, device="cpu")
-    from repro_torch.serve.cache import make_backend
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        make_backend(rcfg, {}, device="cpu")
-
