@@ -87,6 +87,19 @@ full-width, full-depth ``bert128`` (MGRIT, probe at step 2), ``vit32``
 and ``mt_marian`` for three steps each. The flash kernels are also held
 non-causal at those models' shapes, mc_tiny's and a cross-attention
 shape (Sq != Sk), and timed at bert128's.
+Right after the qwen3_1p7b run (phase 6b) it trains the same config
+cut to CKPT_LAYERS layers for three steps uninterrupted, then from a
+fresh ``Trainer(ckpt_dir=...)`` for two steps with a checkpoint after
+each (each save's seconds, bytes and GB/s), restores it in place into a
+second fresh ``Trainer`` (seconds, GB/s, peak memory) and trains one
+more step: its loss and the sha256 of every param and optimizer-state
+leaf must equal the uninterrupted run's after step 3, bit for bit. Meanwhile two
+spawned worker processes at nice 19 count every train run's step on the
+meta device (``repro_torch.launch.dryrun``); last (phase 9) each measured
+step is printed beside its count: predicted argument bytes and the
+bytes allocated after the ``Trainer``'s init, model and counted flops,
+and the model-flops share of the step at the bf16 peak, then when the
+last count ended beside the start of phases 6b, 7 and 8.
 Before serving (phase 2b) it times each training kernel beside its
 plain version, a library yardstick where one PyTorch call computes the
 same function, and its bound (the RMSNorm and scan kernels with their
@@ -99,7 +112,9 @@ no CUDA device is available or the repository's ``src`` is missing;
 exits non-zero on any mismatch.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the launch counts, the card's name and power limit, and one JSON
-object with every kernel's numbers.
+object with every kernel's numbers. The checkpoints are written into
+the git-ignored ``experiments/ckpt_smoke/`` (two of ~18 GB each) and
+removed at the end of their phase.
 """
 from __future__ import annotations
 
@@ -115,9 +130,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+try:    # the H100 SXM's data-sheet peaks: HBM3, dense bf16 tensor cores,
+        # float32 outside the tensor cores
+    from repro_torch.analysis.roofline import HBM_BW as PEAK_BYTES_S
+    from repro_torch.analysis.roofline import PEAK_FLOPS as PEAK_BF16_FLOP_S
+    from repro_torch.analysis.roofline import \
+        PEAK_F32_FLOPS as PEAK_F32_FLOP_S
+except ImportError as e:
+    raise SystemExit("chip_smoke: FAIL: the port is not importable next to "
+                     f"this script ({e})") from None
 
-PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
-PEAK_BF16_FLOP_S = 989e12       # H100 SXM dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SAMPLING_TV = 1e-5              # mass of tokens the two masks disagree on
 SAMPLING_KINDS = ("normal", "ties", "equal", "zeros", "scaled", "peaked")
@@ -139,7 +161,6 @@ RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RMS_Y_BF16_ULPS = 1.0
 GRAD_REL = 1e-4                 # per leaf, x max|leaf| (float32)
 TRAIN_B, TRAIN_S = 2, 4096      # train_4k's sequence, its batch cut to 2
-PEAK_F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
 DECODE_LENS = [287, 301, 150, 64]   # contexts of the profiled decode wave
 # paged SSM update: rows and d_state of falcon-mamba-7b (mamba1, "dbx")
 # and zamba2-1.2b (mamba2, 64 heads x headdim 64, "dxb"); the kernel vs
@@ -395,15 +416,12 @@ def live_bucket(lengths, S) -> int:
 
 
 def attn_bound_ms(B, S, lengths, P, itemsize):
-    keys = sum(int(x) + S for x in lengths)            # visible K/V rows
-    nbytes = (2 * B * S * H * HD * itemsize            # q in, out
-              + 2 * keys * HKV * HD * itemsize         # K and V
-              + B * P * 4 + B * 4)                     # table, lengths
-    pairs = sum(int(x) + i + 1 for x in lengths for i in range(S))
-    ops = 4 * HD * H * pairs                           # q.k and p.v
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOP_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops \
-        else "operations"
+    """Least time of one paged attention call at qwen3_1p7b's heads for B
+    = len(lengths) slots (``kernels.paged_attention.cost``)."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels import paged_attention as pa
+    assert B == len(lengths)
+    return bound_ms(*pa.cost(S, H, HKV, HD, itemsize, lengths, P))
 
 
 def sampling_case(gen, B, V):
@@ -722,7 +740,7 @@ def plain_kernels():
                                v.transpose(1, 2),
                                causal=causal).transpose(1, 2)
     ops.rmsnorm = rn.rmsnorm_ref
-    ops.ssm_scan = ss.ssm_scan_ref
+    ops.ssm_scan = lambda *args, heads=None: ss.ssm_scan_ref(*args)
     try:
         yield
     finally:
@@ -1114,30 +1132,18 @@ def check_ssm_train_grads():
 
 
 def scan_bound_ms(fam, S, backward=False):
-    """Least time for one scan call at ``fam``'s rows: the bytes the
-    function must move (forward: dt, x, B, C, A and D read, y written;
-    backward: those inputs and gy read, the six cotangents written; dt,
-    A, D and their cotangents counted at their distinct values, one per
-    head for mamba2's rows) over the HBM rate, vs float32 operations over
-    the non-tensor peak: per state element and step 5 (forward: the
-    update's multiply-add and term, the readout's multiply-add) or 18
-    (backward, the chunk's recompute included), plus 2 (the product dt*A
-    and its exp) per distinct decay value and step: every (row, state)
-    for mamba1, one per head for mamba2's rows. The checkpoints the
-    design stores are not in the bound (see ``scan_checkpoint_bytes``)."""
+    """Least time for one scan call at ``fam``'s rows
+    (``kernels.ssm_scan.cost``), dt, A, D and their cotangents counted at
+    their distinct values (one per head for mamba2's rows), its float32
+    operations at the non-tensor peak. The checkpoints the design stores
+    are not in the bound (see ``scan_checkpoint_bytes``)."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels import ssm_scan as ss
     Bb, R, ds, hd = SCAN_ROWS[fam]
     n_ch = R // hd if hd else R           # distinct dt and D values
     n_decay = R // hd if hd else R * ds   # distinct A values
-    x, dt, bc = Bb * S * R * 4, Bb * S * n_ch * 4, 2 * Bb * S * ds * 4
-    ins = dt + x + bc + n_decay * 4 + n_ch * 4
-    if backward:
-        nbytes = 2 * ins + x                # inputs, gy; cotangents
-        ops = Bb * S * (18 * R * ds + 2 * n_decay)
-    else:
-        nbytes = ins + x
-        ops = Bb * S * (5 * R * ds + 2 * n_decay)
-    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
-    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    return bound_ms(*ss.cost(Bb, S, R, ds, n_ch=n_ch, n_decay=n_decay,
+                             backward=backward), PEAK_F32_FLOP_S)
 
 
 def scan_checkpoint_bytes(fam, S):
@@ -1294,7 +1300,10 @@ def run_train(rcfg, required, probe=True):
     on the batch after them. Fails unless each kernel in ``required``
     launched, every loss and forward residual norm is finite and, under
     MGRIT with ``probe``, the probe ran at step 2. Returns (launches over
-    the 3 steps, {mode: launches in the profiled step}, peak GiB)."""
+    the 3 steps, {mode: launches in the profiled step}, peak GiB, info):
+    info holds the bytes allocated after the ``Trainer``'s init, the
+    three steps' seconds and modes and each profiled step's wall
+    seconds."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import shard_batch
@@ -1309,6 +1318,7 @@ def run_train(rcfg, required, probe=True):
     t0 = time.perf_counter()
     trainer = Trainer(rcfg, seed=0)
     torch.cuda.synchronize()
+    info = {"init_bytes": torch.cuda.memory_allocated(), "profiled_s": {}}
     n_params = sum(p.numel() for _, p in
                    leaves_with_paths(trainer.params))
     print(f"train: {cfg.name} d_model={cfg.d_model} {depth_text(rcfg)}; "
@@ -1343,6 +1353,7 @@ def run_train(rcfg, required, probe=True):
              f"{rep.controller_history}")
     if min(launches[k] for k in required) <= 0:
         fail(f"{cfg.name}: a training kernel never launched: {launches}")
+    info.update(step_s=rep.step_seconds, modes=rep.mode_trace)
 
     modes = [("serial", rcfg.replace(
         mgrit=dataclasses.replace(mg, enabled=False)))]
@@ -1361,6 +1372,7 @@ def run_train(rcfg, required, probe=True):
                                     batch)
             loss = metrics["loss"].item()
             window = time.perf_counter() - t0
+        info["profiled_s"][mode] = window
         if not np.isfinite(loss):
             fail(f"the profiled {cfg.name} {mode} step's loss is {loss}")
         per_step = {k: v - before[k] for k, v in train_counts().items()
@@ -1378,25 +1390,18 @@ def run_train(rcfg, required, probe=True):
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"  {dev_us(e) / 1e6:8.3f} s  {e.count:6d}x  {e.key[:80]}")
     del trainer
-    return launches, per_mode, peak
+    return launches, per_mode, peak, info
 
 
 def flash_bound_ms(B, h, hkv, S, hd, itemsize, backward=False,
                    causal=True):
-    """Least time at a training shape (Sq = Sk = S): visible pairs (causal
-    or all) x (4 fwd, 10 bwd) x hd flops over the bf16 peak, vs each
-    input and output once."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    ops = (10 if backward else 4) * hd * pairs * B * h
-    n_q = B * S * h * hd * itemsize
-    n_kv = 2 * B * S * hkv * hd * itemsize
-    lse = B * h * S * 4
-    nbytes = (3 * n_q + 2 * n_kv + lse) if backward else \
-        (2 * n_q + n_kv + lse)        # bwd: q,o,dO + dq; fwd: q,o
-    if backward:
-        nbytes += n_kv                # dk, dv
-    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_BF16_FLOP_S
-    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    """Least time at a training shape (Sq = Sk = S)
+    (``kernels.flash_attention.cost``): (4 fwd, 10 bwd) x hd flops a
+    visible pair over the bf16 peak, vs the bytes moved."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels import flash_attention as fa
+    return bound_ms(*fa.cost(B, S, S, h, hkv, hd, itemsize, causal=causal,
+                             backward=backward))
 
 
 def time_flash(gen, flush, err, name, B, h, hkv, hd, S=TRAIN_S,
@@ -1530,8 +1535,8 @@ def time_train_kernels(gen, flush, err):
         ly, (xr, wbr), dy, retain_graph=True), 20, flush)
 
     R, D = x.shape
-    rb_fwd = 1e3 * (2 * R * D * 2 + D * 4 + R * 4) / PEAK_BYTES_S
-    rb_bwd = 1e3 * (3 * R * D * 2 + R * 4 + 2 * D * 4) / PEAK_BYTES_S
+    rb_fwd = 1e3 * rn.cost(R, D, 2)[1] / PEAK_BYTES_S
+    rb_bwd = 1e3 * rn.cost(R, D, 2, backward=True)[1] / PEAK_BYTES_S
     rows["rmsnorm_fwd"] = (out["rmsnorm_fwd"], rms_plain_fwd, rms_lib_fwd,
                            rb_fwd, "bytes")
     rows["rmsnorm_bwd"] = (out["rmsnorm_bwd"], rms_plain_bwd, rms_lib_bwd,
@@ -1557,7 +1562,7 @@ def time_train_kernels(gen, flush, err):
         time_ms(lambda: rn.rmsnorm_fwd(xq, wq), 20, flush),
         time_ms(lambda: rn.rmsnorm_ref(xq, wq), 20, flush),
         time_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), 20, flush),
-        1e3 * (2 * Rq * HD * 2 + HD * 4 + Rq * 4) / PEAK_BYTES_S, "bytes",
+        1e3 * rn.cost(Rq, HD, 2)[1] / PEAK_BYTES_S, "bytes",
         device_ms(lambda: rn.rmsnorm_fwd(xq, wq), 20, flush),
         device_ms(lambda: F.rms_norm(xq, (HD,), wqb, eps=1e-6), 20, flush))
     # the backward at qk-norm's rows
@@ -1574,7 +1579,7 @@ def time_train_kernels(gen, flush, err):
             pyq, (xqr, wqr), dyq, retain_graph=True), 20, flush),
         time_ms(lambda: torch.autograd.grad(
             lyq, (xqr, wqbr), dyq, retain_graph=True), 20, flush),
-        1e3 * (3 * Rq * HD * 2 + Rq * 4 + 2 * HD * 4) / PEAK_BYTES_S,
+        1e3 * rn.cost(Rq, HD, 2, backward=True)[1] / PEAK_BYTES_S,
         "bytes",
         device_ms(lambda: rn.rmsnorm_bwd(xq, wq, rstdq, dyq), 20, flush),
         device_ms(lambda: torch.autograd.grad(
@@ -2024,23 +2029,17 @@ def check_ssm_kernel(gen):
 
 
 def ssm_bound_ms(order, S, lengths, n_new, plan):
-    """Least time for one paged SSM update on these inputs: the bytes it
-    must move (dt and x at the active steps, y, B and C, A's distinct
-    values, the live read pages and the pages written, the plan) over
-    the HBM rate, vs 7 float32 operations (exp included) per state
-    element and active step over the non-tensor float32 peak."""
+    """Least time for one paged SSM update on these inputs
+    (``kernels.paged_ssm.cost``): the live read pages and the pages the
+    plan writes, its float32 operations at the non-tensor peak."""
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels import paged_ssm as ps
     R, ds = SSM_ROWS[order]
-    steps = sum(min(S, n) for n in n_new)
+    assert len(n_new) == MAX_BATCH
     live = sum(1 for n in lengths if n > 0)
     written = int((plan[2] != 0).sum())
-    W = plan[2].shape[1]
-    a_bytes = R * ds * 4 if order == "dbx" else R * 4
-    nbytes = (2 * steps * R * 4 + MAX_BATCH * S * R * 4
-              + 2 * MAX_BATCH * S * ds * 4 + a_bytes
-              + (live + written) * R * ds * 4 + MAX_BATCH * (3 + 2 * W) * 4)
-    ops = 7 * steps * R * ds
-    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOP_S
-    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    return bound_ms(*ps.cost(order, S, R, ds, plan[2].shape[1], n_new, live,
+                             written), PEAK_F32_FLOP_S)
 
 
 def time_ssm_kernel(gen, flush):
@@ -4416,6 +4415,316 @@ def moe_phase(gen, flush, card):
     return launches, {**mod_err, **kern_err}, res
 
 
+# -- phase 6b: checkpoint and resume; phase 9: the step roofline --------
+
+CKPT_DIR = ROOT / "experiments" / "ckpt_smoke"
+CKPT_STEPS = 2                  # checkpointed steps before the resume
+# qwen3_1p7b cut from 28 to 18 layers (1 open + 16 ParallelNet + 1
+# close, no gate-0 layer): its params and AdamW moments are 18.3 GB, so
+# the phase's two checkpoints write ~37 GB, within the ~40 GB of disk
+# writes a smoke run may make (full depth: 28 GB a checkpoint)
+CKPT_LAYERS = 18
+
+
+def ckpt_train_config():
+    """qwen3_train_config's run at full width, cut to CKPT_LAYERS layers
+    (MGRIT cf 2 over a 16-layer ParallelNet, pad_to 16)."""
+    rcfg = qwen3_train_config()
+    return rcfg.replace(
+        model=dataclasses.replace(rcfg.model, n_layers=CKPT_LAYERS),
+        mgrit=dataclasses.replace(rcfg.mgrit, pad_to=CKPT_LAYERS - 2))
+
+
+def state_digest(params, opt_state) -> dict:
+    """sha256 of every param and optimizer-state leaf's bytes, by key
+    path, plus the optimizer's step: each leaf copied to the host in
+    turn and hashed on a thread pool (at most 8 leaves being hashed at
+    once)."""
+    import hashlib
+    from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
+    import torch
+    from repro_torch.tree import leaves_with_paths
+    leaves = [(("params",) + p, t) for p, t in leaves_with_paths(params)]
+    for key in ("m", "v", "master"):
+        if key in opt_state:
+            leaves += [((key,) + p, t)
+                       for p, t in leaves_with_paths(opt_state[key])]
+    out = {"step": str(opt_state["step"])}
+    with ThreadPoolExecutor(8) as ex:
+        pending, running = [], set()
+        for path, t in leaves:
+            host = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+            f = ex.submit(lambda a: hashlib.sha256(a).hexdigest(),
+                          host.numpy())
+            pending.append((".".join(path), f))
+            running.add(f)
+            if len(running) >= 8:
+                running = wait(running, return_when=FIRST_COMPLETED)[1]
+        for name, f in pending:
+            out[name] = f.result()
+    return out
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def checkpoint_phase(rcfg, card):
+    """Phase 6b: checkpoint and resume ``rcfg`` (ckpt_train_config). The
+    uninterrupted baseline: a fresh ``Trainer`` trains 3 steps (the
+    probe at step 2), its losses and the digest of every leaf after
+    step 3 (:func:`state_digest`) kept. A fresh
+    ``Trainer(ckpt_dir=...)`` trains CKPT_STEPS steps saving after each
+    (each save's seconds, bytes on disk and GB/s); LATEST must name the
+    last, both step directories must be there and no ``.tmp-*``. A
+    second fresh ``Trainer`` restores in place (seconds, GB/s, peak
+    memory over the restore beside the state's bytes), must be at step
+    CKPT_STEPS, and trains one step (the probe at step 2, as in the
+    baseline): its loss and every leaf's digest must equal the
+    uninterrupted run's bit for bit. The checkpoints live in CKPT_DIR,
+    removed at the end."""
+    import shutil
+    import torch
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaves_with_paths
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    du = shutil.disk_usage(CKPT_DIR)
+    print(f"checkpoint phase ({card}): {CKPT_DIR} on a disk with "
+          f"{du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB; "
+          f"{rcfg.model.name} at full width, {depth_text(rcfg)}")
+    whole = Trainer(rcfg, seed=0)
+    w_rep = whole.train(3, log_every=0)
+    t0 = time.perf_counter()
+    base = {"losses": w_rep.losses,
+            "digest": state_digest(whole.params, whole.opt_state)}
+    print(f"uninterrupted: losses {w_rep.losses} ({w_rep.mode_trace}), "
+          f"probe history {w_rep.controller_history}; digest of "
+          f"{len(base['digest'])} leaves after step 3 in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    saves = []
+
+    class TimedTrainer(Trainer):
+        def _save(self, tag=""):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._save(tag)
+            sec = time.perf_counter() - t0
+            saves.append((self.step, sec, dir_bytes(
+                CKPT_DIR / f"step_{self.step:010d}")))
+
+    res = {}
+    try:
+        trainer = TimedTrainer(rcfg, ckpt_dir=str(CKPT_DIR), seed=0)
+        state = sum(t.numel() * t.element_size() for tree in (
+            trainer.params, trainer.opt_state["m"], trainer.opt_state["v"])
+            for _, t in leaves_with_paths(tree))
+        rep = trainer.train(CKPT_STEPS, ckpt_every=1, log_every=0)
+        for step, sec, nbytes in saves:
+            print(f"checkpoint save at step {step}: {sec:.2f} s, "
+                  f"{nbytes / 1e9:.3f} GB on disk (state "
+                  f"{state / 1e9:.3f} GB), {nbytes / sec / 1e9:.3f} GB/s "
+                  f"({card})")
+        res["saves"] = [{"step": s, "s": sec, "bytes": b}
+                        for s, sec, b in saves]
+        res["state_bytes"] = state
+        latest = (CKPT_DIR / "LATEST").read_text()
+        names = sorted(p.name for p in CKPT_DIR.iterdir())
+        want = ["LATEST"] + [f"step_{s:010d}"
+                             for s in range(1, CKPT_STEPS + 1)]
+        if latest != f"step_{CKPT_STEPS:010d}" or names != want:
+            fail(f"checkpoint directory holds {names}, LATEST {latest!r}")
+        if rep.losses != base["losses"][:CKPT_STEPS]:
+            fail(f"checkpointed run's losses {rep.losses} != the "
+                 f"uninterrupted run's {base['losses'][:CKPT_STEPS]}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        timing = {}
+        real = ck.restore
+
+        def timed_restore(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            timing["before"] = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            timing["s"] = time.perf_counter() - t0
+            timing["peak"] = torch.cuda.max_memory_allocated()
+            return out
+
+        ck.restore = timed_restore
+        try:
+            resumed = Trainer(rcfg, ckpt_dir=str(CKPT_DIR), seed=0)
+        finally:
+            ck.restore = real
+        read = dir_bytes(CKPT_DIR / f"step_{CKPT_STEPS:010d}")
+        print(f"checkpoint restore of step {resumed.step}: "
+              f"{timing['s']:.2f} s, {read / 1e9:.3f} GB read (page cache "
+              f"warm: written just before), {read / timing['s'] / 1e9:.3f} "
+              f"GB/s; device memory {timing['before'] / 2**30:.2f} GiB "
+              f"before, peak {timing['peak'] / 2**30:.2f} GiB over the "
+              f"restore, the state itself {state / 2**30:.2f} GiB ({card})")
+        res["restore"] = {"s": timing["s"], "bytes": read,
+                          "before": timing["before"], "peak": timing["peak"]}
+        if resumed.step != CKPT_STEPS or \
+                resumed.opt_state["step"] != CKPT_STEPS:
+            fail(f"resumed at step {resumed.step} / optimizer step "
+                 f"{resumed.opt_state['step']}, not {CKPT_STEPS}")
+        r_rep = resumed.train(1, log_every=0)
+        t0 = time.perf_counter()
+        dig = state_digest(resumed.params, resumed.opt_state)
+        print(f"resumed step {CKPT_STEPS} [{r_rep.mode_trace[0]}]: loss "
+              f"{r_rep.losses[0]!r} (uninterrupted {base['losses'][2]!r}), "
+              f"probe history {r_rep.controller_history}; digest in "
+              f"{time.perf_counter() - t0:.1f} s ({card})")
+        differ = sorted(k for k in base["digest"]
+                        if dig.get(k) != base["digest"][k])
+        same_loss = r_rep.losses[0] == base["losses"][2]
+        res["bitwise"] = not differ and same_loss
+        print(f"resume vs uninterrupted: loss "
+              f"{'equal' if same_loss else 'DIFFERS'}"
+              f", {len(base['digest']) - len(differ)} of "
+              f"{len(base['digest'])} leaf digests equal"
+              + (f"; differing: {differ[:8]}" if differ else ""))
+        if [h[0] for h in r_rep.controller_history] != [2]:
+            fail(f"the resumed run's probe did not run at step 2: "
+                 f"{r_rep.controller_history}")
+        if not res["bitwise"]:
+            fail("the resumed run differs from the uninterrupted one")
+        del resumed
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"checkpoint phase: {res['wall_s']:.1f} s ({card})")
+    return res
+
+
+def smoke_train_configs():
+    """The train runs the smoke measures, by name: (config, ``run_train``
+    result key, profiled mode)."""
+    qwen3 = qwen3_train_config()
+    runs = {"qwen3_1p7b MGRIT": (qwen3, "qwen3", "MGRIT (lp)"),
+            "qwen3_1p7b serial": (qwen3.replace(mgrit=dataclasses.replace(
+                qwen3.mgrit, enabled=False)), "qwen3", "serial"),
+            "falcon_mamba_7b MGRIT": (falcon_train_config(), "falcon",
+                                      "MGRIT (lp)"),
+            "zamba2_1p2b serial": (zamba2_train_config(), "zamba2",
+                                   "serial")}
+    for arch, B, S in PAPER_TRAIN:
+        runs[f"{arch} MGRIT"] = (paper_train_config(arch, B, S), arch,
+                                 "MGRIT (lp)")
+    return runs
+
+
+def smoke_count(name):
+    """The dry-run count (``repro_torch.launch.dryrun.count_step``) of the
+    smoke's train run ``name`` on the meta device, with the batch the
+    run's data pipeline gives (its shapes and dtypes). Runs in a worker
+    process on the CPU; touches no card."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.data.pipeline import make_pipeline, shard_batch
+    from repro_torch.launch import dryrun
+    rcfg = smoke_train_configs()[name][0]
+    batch = shard_batch(make_pipeline(rcfg, 0).batch_at(0), "meta")
+    return {**dryrun.count_step(rcfg, batch=batch), "done_at": time.time()}
+
+
+def start_counts():
+    """A pool of two spawned worker processes, at the lowest CPU priority
+    (``os.nice(19)``), counting every smoke train run on meta while the
+    card trains (bert128's count, the longest, first). Returns (pool,
+    {name: future}); each count's result holds its ``done_at`` wall
+    time, which ``count_overlap`` sets beside the timed phases'."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(19,))
+    names = sorted(smoke_train_configs(), key=lambda n: n != "bert128 MGRIT")
+    return pool, {n: pool.submit(smoke_count, n) for n in names}
+
+
+def count_overlap(futures, marks):
+    """Which timed phases the meta counts ran beside: each phase's start
+    (``marks``, wall times in order) against the last count's end, in
+    seconds since the first mark. Printed and returned."""
+    t0 = next(iter(marks.values()))
+    done = max(f.result()["done_at"] for f in futures.values())
+    beside = [p for p, t in marks.items() if t < done]
+    res = {"counts_done_s": done - t0,
+           **{f"{p}_start_s": t - t0 for p, t in marks.items()},
+           "phases_beside_counts": beside}
+    print(f"dry-run counts (two workers at nice 19): the last ended "
+          f"{res['counts_done_s']:.1f} s after phase 6 began; phases "
+          + ", ".join(f"{p} began at {t - t0:.1f} s" for p, t in
+                      marks.items())
+          + "; timed phases the counts ran beside: "
+          + (", ".join(beside) if beside else "none"))
+    return res
+
+
+def roofline_lines(futures, infos, card):
+    """Phase 9: for every train step the smoke measured, the dry-run's
+    predicted argument bytes beside the bytes allocated after the
+    ``Trainer``'s init, model flops (6·N_active·D) beside the counted
+    flops, and the model-flops share of each measured step at the bf16
+    peak: those of the three ``Trainer.train`` steps that ran in the
+    mode (step 2 holds the probe, and a run the probe switches to serial
+    runs step 2 serially), and the profiled step of the mode."""
+    out = {}
+    for name, (rcfg, key, mode) in smoke_train_configs().items():
+        rec = futures[name].result()
+        info = infos[key]
+        roof = rec["roofline"]
+        mf = roof["model_flops"]
+        t_mf = mf / PEAK_BF16_FLOP_S
+        steps = {i: s for i, (s, m) in enumerate(zip(
+            info["step_s"], info["modes"], strict=True))
+            if (m == "serial") == (mode == "serial")}
+        prof = info["profiled_s"][mode]
+        pred = rec["argument_bytes"]["total"]
+        out[name] = {
+            "predicted_argument_bytes": pred,
+            "allocated_after_init": info["init_bytes"],
+            "model_flops": mf, "counted_flops": roof["hlo_flops"],
+            "counted_bytes": roof["hlo_bytes"],
+            "t_compute_ms": 1e3 * roof["t_compute"],
+            "t_memory_ms": 1e3 * roof["t_memory"],
+            "step_s": steps, "share": {i: t_mf / s
+                                       for i, s in steps.items()},
+            "profiled_s": prof, "profiled_share": t_mf / prof,
+            "count_s": rec["run_s"]}
+        print(f"roofline {name} ({card}): arguments predicted "
+              f"{pred / 1e9:.3f} GB (params + optimizer state + batch), "
+              f"allocated after init {info['init_bytes'] / 1e9:.3f} GB; "
+              f"model flops {mf:.4e}, counted {roof['hlo_flops']:.4e} "
+              f"({roof['hlo_flops'] / mf:.2f}x); model flops at 989 "
+              f"TFLOP/s take {1e3 * t_mf:.1f} ms = "
+              + ", ".join(f"{100 * t_mf / s:.2f}% of step {i} ({s:.3f} s)"
+                          for i, s in steps.items())
+              + (", " if steps else "")
+              + f"{100 * t_mf / prof:.2f}% of the profiled {mode} step "
+              f"({prof:.3f} s); counted terms compute "
+              f"{1e3 * roof['t_compute']:.1f} ms, memory "
+              f"{1e3 * roof['t_memory']:.1f} ms ({roof['bottleneck']}); "
+              f"counted in {rec['run_s']:.1f} s on the host")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -4590,7 +4899,7 @@ def main() -> int:
         rp = torch.full((MAX_BATCH,), row_p, device="cuda")
         s_rows[f"k{row_k} p{row_p:g}"] = device_ms(
             lambda rk=rk, rp=rp: sp.topk_topp_mask(sl, rk, rp), 20, flush)
-    s_bound = 1e3 * (2 * MAX_BATCH * V * 4 + MAX_BATCH * 8) / PEAK_BYTES_S
+    s_bound = 1e3 * sp.cost(MAX_BATCH, V)[1] / PEAK_BYTES_S
     print(f"topk_topp_mask B=4 V={V} (rows k 0/40/1/0, p "
           f"1/0.95/0.5/0.9): kernel {s_ms:.4f} ms "
           f"(device {s_dev:.4f}), plain {s_plain:.4f} ms, sort-based "
@@ -4659,19 +4968,33 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 6. training: gradients at reduced depth, then full depth ----------
+    # -- 6. training: gradients at reduced depth, then full depth; the
+    # dry-run counts of every train run (phase 9) on the host meanwhile ---
+    # (a failing phase exits through SystemExit, and concurrent.futures'
+    # exit hook joins the workers, each after its running count at most)
+    count_pool, counts = start_counts()
+    marks = {"6": time.time()}
     check_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
     attn_kernels = ("flash_attention_fwd", "flash_attention_bwd",
                     "rmsnorm_fwd", "rmsnorm_bwd")
     scan_kernels = ("ssm_scan_fwd", "ssm_scan_bwd")
-    train_launches, _, _ = run_train(qwen3_train_config(), attn_kernels)
+    train_launches, _, _, qwen3_info = run_train(qwen3_train_config(),
+                                                 attn_kernels)
+    infos = {"qwen3": qwen3_info}
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 6b. checkpoint and resume full-width qwen3_1p7b at CKPT_LAYERS ----
+    marks["6b"] = time.time()
+    print(f"phase 6b begins: {sum(f.done() for f in counts.values())} of "
+          f"{len(counts)} dry-run counts done")
+    ckpt_res = checkpoint_phase(ckpt_train_config(), card)
+
     # -- 7. SSM training: gradients at reduced depth, then path A (falcon,
     # MGRIT) and path B (zamba2, serial) at full width ----------------------
+    marks["7"] = time.time()
     check_ssm_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4688,6 +5011,7 @@ def main() -> int:
     # reduced depth, then bert128 (MGRIT, probe at step 2), vit32 (serial
     # forward, MGRIT backward, probe at step 2) and mt_marian (MGRIT; the
     # reference has no encoder-decoder probe) at full width and depth ----
+    marks["8"] = time.time()
     check_paper_train_grads()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4699,6 +5023,14 @@ def main() -> int:
                                       probe=arch != "mt_marian")
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- 9. the step roofline: each measured train step against the
+    # dry-run's count of it --------------------------------------------
+    infos.update({fam: r[3] for fam, r in ssm_train.items()})
+    infos.update({arch: r[3] for arch, r in paper_train.items()})
+    roof_res = roofline_lines(counts, infos, card)
+    roof_res["overlap"] = count_overlap(counts, marks)
+    count_pool.shutdown(wait=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
@@ -4884,6 +5216,8 @@ def main() -> int:
     print("spec: " + json.dumps(spec_res))
     print("dense: " + json.dumps(dense_res))
     print("moe: " + json.dumps(moe_res))
+    print("checkpoint: " + json.dumps(ckpt_res))
+    print("roofline: " + json.dumps(roof_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))

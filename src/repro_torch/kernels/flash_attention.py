@@ -49,6 +49,33 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs a head computes: all of them, or under the
+    top-left causal mask row i's keys 0..i."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + (Sq - n) * Sk
+
+
+def cost(B, Sq, Sk, H, Hkv, hd, itemsize, *, causal: bool = True,
+         backward: bool = False):
+    """The least work of one call, as (flops, bytes): 4 (forward: q.k
+    and p.v) or 10 (backward, the recomputed q.k included) x hd flops a
+    visible pair and head; bytes: every input and output once, in the
+    forward q, k, v and o and the float32 log-sum-exp, in the backward
+    q, o, dO and dq (4 x q's bytes), k, v, dk and dv (2 x k and v's) and
+    the log-sum-exp."""
+    ops = (10 if backward else 4) * hd * visible_pairs(Sq, Sk, causal) \
+        * B * H
+    n_q = B * Sq * H * hd * itemsize
+    n_kv = 2 * B * Sk * Hkv * hd * itemsize
+    lse = B * H * Sq * 4
+    nbytes = (4 * n_q + 2 * n_kv + lse) if backward else \
+        (2 * n_q + n_kv + lse)
+    return ops, nbytes
+
+
 def _fn(name, n_ptr):
     fn = getattr(build.load("flash_attention"), name)
     if not fn.argtypes:

@@ -65,6 +65,21 @@ def paged_attention_ref(q, pk, pv, page_table, lengths):
                                 lengths.long())
 
 
+def cost(S, H, Hkv, hd, itemsize, lengths, P):
+    """The least work of one call, as (flops, bytes), for slots holding
+    ``lengths`` cached tokens each (B = len(lengths)) and a table of P
+    columns: 4 x hd flops (q.k and p.v) a visible (query, key) pair and
+    head, slot b's row i seeing keys 0 .. lengths[b] + i; bytes q read
+    and out written, the K and V rows visible to the slot's last row
+    read once, the int32 table and lengths read."""
+    B = len(lengths)
+    keys = sum(int(n) + S for n in lengths)
+    nbytes = (2 * B * S * H * hd * itemsize + 2 * keys * Hkv * hd * itemsize
+              + B * P * 4 + B * 4)
+    pairs = sum(int(n) * S + S * (S + 1) // 2 for n in lengths)
+    return 4 * hd * H * pairs, nbytes
+
+
 def _lib():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_launch

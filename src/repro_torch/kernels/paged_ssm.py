@@ -85,6 +85,23 @@ def paged_ssm_update_ref(dt, x, Bm, Cm, A, h_pool, read_page, live,
     return y
 
 
+def cost(order, S, R, ds, W, n_new, live, written):
+    """The least work of one call, as (float32 operations, bytes), for B
+    = len(n_new) slots, ``live`` of them reading a state page and
+    ``written`` snapshot pages written (of the plan's B x W): 7
+    operations (exp included) a state element and active step (slot b's
+    first min(S, n_new[b]) steps); bytes dt and x at the active steps, y
+    (B, S, R), B and C, A's distinct values (the decay a row for
+    mamba2's "dxb"), the state pages read and written, and the plan
+    (read page, live, n_new and the two (B, W) tables, int32)."""
+    B = len(n_new)
+    steps = sum(min(S, int(n)) for n in n_new)
+    a_bytes = R * ds * 4 if order == "dbx" else R * 4
+    nbytes = (2 * steps * R * 4 + B * S * R * 4 + 2 * B * S * ds * 4
+              + a_bytes + (live + written) * R * ds * 4 + B * (3 + 2 * W) * 4)
+    return 7 * steps * R * ds, nbytes
+
+
 def _lib():
     fn = build.load("paged_ssm").paged_ssm_launch
     if not fn.argtypes:

@@ -31,6 +31,16 @@ def rmsnorm_ref(x, w, *, eps: float = EPS):
     return (x32 * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
+def cost(R, D, itemsize, *, backward: bool = False):
+    """The least work of one call, as (flops, bytes); bound by bytes, so
+    no flops are counted: forward x read and y written, w (float32) read,
+    rstd (float32 a row) written; backward x and dy read and dx written,
+    rstd read, w read and dw written."""
+    if backward:
+        return 0, 3 * R * D * itemsize + R * 4 + 2 * D * 4
+    return 0, 2 * R * D * itemsize + D * 4 + R * 4
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # x, w, y, rstd, dtype, R, D, eps, stream

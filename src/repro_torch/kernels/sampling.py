@@ -41,6 +41,13 @@ _SEARCH_BITS = 32
 _U32 = 0xFFFFFFFF
 
 
+def cost(B, V):
+    """The least work of one call, as (flops, bytes); bound by bytes, so
+    no flops are counted: the float32 logits read and the masked logits
+    written, each row's int32 k and float32 p read."""
+    return 0, 2 * B * V * 4 + B * 8
+
+
 def _sortable_u32(x):
     """Monotone uint32 encoding of float32 (finite values), as int64."""
     u = x.float().contiguous().view(torch.int32).to(torch.int64) & _U32

@@ -73,6 +73,26 @@ def ssm_scan_fwd_ref(dt, x, A, B, C, D):
     return torch.stack(ys, dim=1), torch.stack(hc, dim=1)
 
 
+def cost(Bb, S, di, ds, *, n_ch=None, n_decay=None, backward=False):
+    """The least work of one call, as (float32 operations, bytes), with
+    dt, A and D (and their cotangents) counted at their distinct values
+    where the caller knows them: ``n_ch`` dt and D values a step (default
+    di; one per head for mamba2's rows), ``n_decay`` A values (default
+    di x ds). Bytes: forward dt, x, B, C, A and D read, y written;
+    backward those inputs and gy read, the six cotangents written.
+    Operations per state element and step: 5 (forward: the update's
+    multiply-add and term, the readout's multiply-add) or 18 (backward,
+    the chunk's recompute included), plus 2 (dt*A and its exp) per A
+    value and step. The checkpoints the design stores are not counted."""
+    n_ch = di if n_ch is None else n_ch
+    n_decay = di * ds if n_decay is None else n_decay
+    x, dt, bc = Bb * S * di * 4, Bb * S * n_ch * 4, 2 * Bb * S * ds * 4
+    ins = dt + x + bc + n_decay * 4 + n_ch * 4
+    if backward:
+        return Bb * S * (18 * di * ds + 2 * n_decay), 2 * ins + x
+    return Bb * S * (5 * di * ds + 2 * n_decay), ins + x
+
+
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "ssm_scan_chunk": [],

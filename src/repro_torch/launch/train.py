@@ -1,11 +1,14 @@
 """Training launcher (port of :mod:`repro.launch.train`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_1p7b \\
-      --shape train_4k --steps 100 [--serial] [--reduced] [--device cpu]
+      --shape train_4k --steps 100 [--serial] [--reduced] [--device cpu] \\
+      [--ckpt DIR --ckpt-every N]
 
 Runs on the card unless ``--device cpu`` (use ``--reduced`` there).
-``--mesh single|multi`` (production meshes) and ``--ckpt`` raise: meshes
-and checkpoints come in later slices of the port.
+``--ckpt DIR`` resumes from DIR's latest checkpoint when it has one and
+saves every ``--ckpt-every`` steps (and an emergency checkpoint when a
+step raises), in the JAX package's format. ``--mesh single|multi``
+(production meshes) raises: meshes come with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ def main(argv=None):
 
     trainer = Trainer(rcfg, ckpt_dir=args.ckpt, seed=args.seed,
                       data_path=args.data, device=args.device)
+    if args.ckpt:
+        print(f"checkpoints in {args.ckpt}: starting at step "
+              f"{trainer.step}")
     report = trainer.train(args.steps, ckpt_every=args.ckpt_every,
                            log_every=10)
     print(f"done on {trainer.device}: {len(report.losses)} steps, "

@@ -147,7 +147,8 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
     x: (B, S, D). rope: precomputed (cos, sin), shared across layers.
     xa: (B, Sk, D) encoder output for cross-attention: K and V are
     projected from it, no rope is applied and no mask either. Without a
-    cache the core on the card is the flash kernel
+    cache the core on the card (and on meta, where the dry-run counts the
+    card's work) is the flash kernel
     (:func:`repro_torch.kernels.ops.flash_attention`, the counterpart of
     the reference's ``use_pallas=True``), cross-attention included; on
     the CPU it takes the reference's dense / chunked branches. Returns
@@ -177,7 +178,7 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
         out = _cached_core(q, k, v, cache)
         new_cache = {"k": cache["k"], "v": cache["v"],
                      "index": cache["index"] + S}
-    elif q.is_cuda:
+    elif kops.kernel_route(q):
         out = kops.flash_attention(q, k, v, causal=causal)
     elif S >= (cfg.attn_chunk or ATTN_CHUNK_THRESHOLD) \
             and S == k.shape[1] and S % 512 == 0:
@@ -198,7 +199,8 @@ def _cached_core(q, k, v, cache):
     clamps it; nothing reads ``index`` on the host.
 
     On the CPU the core is the reference's ``dot_attention(q, cache,
-    q_offset=index)``. On the card it is the paged attention kernel
+    q_offset=index)``. On the card (and on meta) it is the paged
+    attention kernel
     (:func:`repro_torch.kernels.ops.paged_attention`) over the cache seen
     as a pool of B pages of ``max_len`` rows, slot b reading page b
     (``page_table = arange(B)[:, None]``, ``lengths = index`` for every
@@ -210,7 +212,7 @@ def _cached_core(q, k, v, cache):
     rows = (start + torch.arange(S, device=ck.device)).long()
     ck.index_copy_(1, rows, k.to(ck.dtype))
     cv.index_copy_(1, rows, v.to(cv.dtype))
-    if not q.is_cuda:
+    if not kops.kernel_route(q):
         return dot_attention(q, ck, cv, causal=True, q_offset=idx)
     table = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
     return kops.paged_attention(q, ck, cv, table,

@@ -428,7 +428,8 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
     if cache is None:
         y = kops.ssm_scan(
             dt_rows, xin.float(), A_rows, Bm.float(), Cm.float(),
-            params["D"].float().repeat_interleave(s.headdim)).to(dt_)
+            params["D"].float().repeat_interleave(s.headdim),
+            heads=nh).to(dt_)
     else:
         xh = xin.reshape(B, S, nh, s.headdim).float()
         ys = _cached_scan(dt_rows, xin.float(), Bm.float(), Cm.float(),

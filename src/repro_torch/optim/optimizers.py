@@ -103,7 +103,9 @@ def _freeze_structural(grads):
 def apply_updates(cfg: OptimizerConfig, params, grads, state
                   ) -> Tuple[Any, Any, Any]:
     """One optimizer step, in place. Returns (params, state, metrics) —
-    the same params and state objects, updated."""
+    the same params and state objects, updated. While the leaves are
+    written ``state["step"]`` is None, so a state an exception left
+    half-updated says so (the Trainer checkpoints no such state)."""
     grads = _freeze_structural(grads)
     # clipped one leaf at a time below: a clipped copy of every gradient
     # would not fit beside the rest at full width
@@ -120,6 +122,7 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state
     w_at = dict(leaves_with_paths(state.get("master", params)))
 
     adam = cfg.name in ("adamw", "adam")
+    state["step"] = None
     with torch.no_grad():
         for path, stored in leaves_with_paths(params):
             if path[-1] == "gate":

@@ -122,6 +122,9 @@ class CacheBackend:
         if mesh is not None or sharding is not None:
             raise NotImplementedError(MESH_SLICE)
         self.device = resolve_device(device)
+        if self.device.type == "meta":
+            raise ValueError("the serve engine reads tokens back: it runs "
+                             "on cuda or cpu, not meta")
         self.rcfg = rcfg
         self.params = transformer.serving_params(
             _to_device(params, self.device), rcfg.model)

@@ -6,18 +6,25 @@ Port of :mod:`repro.train.trainer`:
   * adaptive inexactness control (paper §3.2.3): every ``check_every``
     steps run a doubled-iteration probe, compute the convergence factor,
     and switch LP -> serial when it crosses 1;
+  * fault tolerance: periodic atomic checkpoints in the JAX package's
+    format (:mod:`repro_torch.train.checkpoint`), resume from the latest
+    in place, an emergency checkpoint when a step raises — unless the
+    optimizer's in-place update had begun (the reference's functional
+    update cannot leave a half-updated state; this one can) or the step
+    is already checkpointed;
   * straggler watch: EWMA of step wall-time, slow steps logged.
 
 The probe of an encoder-decoder model raises ``NotImplementedError``:
 the reference has none to port (its probe reads ``params["mid"]``).
-Checkpoints (``ckpt_dir``) and meshes come in later slices and raise
-here. The LP and serial steps are two step functions; switching is a
-host-side decision. The entry point runs on ``cuda`` unless the caller
+Meshes come with the multi-device slice and raise here. The LP and
+serial steps are two step functions; switching is a host-side
+decision. The entry point runs on ``cuda`` unless the caller
 passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -33,6 +40,7 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer
 from repro_torch.models.blocks import block_kind
 from repro_torch.optim import optimizers
+from repro_torch.train import checkpoint as ckpt_mod
 
 
 @dataclasses.dataclass
@@ -55,12 +63,12 @@ class Trainer:
             raise NotImplementedError(
                 "meshes come with the port's multi-device slice (ROADMAP "
                 "Queue 1)")
-        if ckpt_dir:
-            raise NotImplementedError(
-                "checkpoints come with the port's training-runtime slice "
-                "(ROADMAP Queue 1, train/checkpoint.py)")
         self.rcfg = rcfg
         self.device = resolve_device(device)
+        if self.device.type == "meta":
+            raise ValueError("the Trainer reads losses back: it runs on "
+                             "cuda or cpu, not meta")
+        self.ckpt_dir = ckpt_dir
         self.controller = AdaptiveController(rcfg.mgrit)
         self.pipeline = make_pipeline(rcfg, seed, data_path)
         self.params = transformer.init_model(rcfg, seed=seed,
@@ -70,6 +78,14 @@ class Trainer:
         self.step = 0
         self._steps: Dict[str, Callable] = {}
         self._ewma_dt = None
+
+        if ckpt_dir:
+            restored = ckpt_mod.restore(ckpt_dir, self.params,
+                                        self.opt_state)
+            if restored is not None:
+                self.params, self.opt_state, self.step, extra = restored
+                if extra.get("controller_mode"):
+                    self.controller.state.mode = extra["controller_mode"]
 
     def _step_fn(self, mode: str):
         if mode not in self._steps:
@@ -113,42 +129,46 @@ class Trainer:
 
     def train(self, num_steps: int, ckpt_every: int = 0,
               log_every: int = 50, probe: bool = True) -> TrainReport:
-        if ckpt_every:
-            raise NotImplementedError(
-                "checkpoints come with the port's training-runtime slice "
-                "(ROADMAP Queue 1)")
         losses, modes, times, norms = [], [], [], []
         t_start = time.perf_counter()
-        for _ in range(num_steps):
-            batch = shard_batch(self.pipeline.batch_at(self.step),
-                                self.device)
-            mode = self.controller.state.mode
-            t0 = time.perf_counter()
+        try:
+            for _ in range(num_steps):
+                batch = shard_batch(self.pipeline.batch_at(self.step),
+                                    self.device)
+                mode = self.controller.state.mode
+                t0 = time.perf_counter()
 
-            if probe and self.controller.should_probe(self.step):
-                fwd_norms, bwd_norms = self._probe(batch)
-                action = self.controller.observe(
-                    self.step, fwd_norms.cpu().numpy(),
-                    bwd_norms.cpu().numpy())
-                if action == "switched":
-                    mode = "serial"
+                if probe and self.controller.should_probe(self.step):
+                    fwd_norms, bwd_norms = self._probe(batch)
+                    action = self.controller.observe(
+                        self.step, fwd_norms.cpu().numpy(),
+                        bwd_norms.cpu().numpy())
+                    if action == "switched":
+                        mode = "serial"
 
-            fn = self._step_fn(mode)
-            self.params, self.opt_state, metrics = fn(
-                self.params, self.opt_state, batch)
-            losses.append(float(metrics["loss"]))     # waits for the step
-            norms.append(np.asarray(metrics["fwd_norms"].cpu()).tolist())
-            dt = time.perf_counter() - t0
-            times.append(dt)
-            self._ewma_dt = dt if self._ewma_dt is None else \
-                0.9 * self._ewma_dt + 0.1 * dt
-            if dt > 3.0 * self._ewma_dt:
-                print(f"[straggler] step {self.step} took {dt:.2f}s "
-                      f"(ewma {self._ewma_dt:.2f}s)")
-            modes.append(mode)
-            self.step += 1
-            if log_every and self.step % log_every == 0:
-                print(f"step {self.step} [{mode}] loss={losses[-1]:.4f}")
+                fn = self._step_fn(mode)
+                self.params, self.opt_state, metrics = fn(
+                    self.params, self.opt_state, batch)
+                losses.append(float(metrics["loss"]))  # waits for the step
+                norms.append(np.asarray(metrics["fwd_norms"].cpu()).tolist())
+                dt = time.perf_counter() - t0
+                times.append(dt)
+                self._ewma_dt = dt if self._ewma_dt is None else \
+                    0.9 * self._ewma_dt + 0.1 * dt
+                if dt > 3.0 * self._ewma_dt:
+                    print(f"[straggler] step {self.step} took {dt:.2f}s "
+                          f"(ewma {self._ewma_dt:.2f}s)")
+                modes.append(mode)
+                self.step += 1
+                if ckpt_every and self.step % ckpt_every == 0:
+                    self._save()
+                if log_every and self.step % log_every == 0:
+                    print(f"step {self.step} [{mode}] "
+                          f"loss={losses[-1]:.4f}")
+        except Exception:
+            if self.ckpt_dir:
+                self._emergency_save()
+            raise
         dt_total = time.perf_counter() - t_start
         return TrainReport(
             losses=losses, mode_trace=modes,
@@ -156,3 +176,24 @@ class Trainer:
             switched_at=self.controller.state.step_of_switch,
             steps_per_sec=len(losses) / max(dt_total, 1e-9),
             step_seconds=times, fwd_norms=norms)
+
+    def _emergency_save(self):
+        """Checkpoint the state a failed step left, if it is still the
+        state of ``self.step``: ``opt_state["step"]`` differs once the
+        optimizer's update has begun (None while it writes, some leaves
+        updated and others not). An existing ``step_<N>`` holds that
+        same state and is never replaced."""
+        if self.opt_state["step"] != self.step:
+            print(f"[emergency] no checkpoint: the optimizer update of "
+                  f"step {self.step} had begun, the state is no longer "
+                  f"step {self.step}'s")
+        elif os.path.exists(os.path.join(self.ckpt_dir,
+                                         f"step_{self.step:010d}")):
+            print(f"[emergency] step {self.step} is already checkpointed")
+        else:
+            self._save(tag="emergency")
+
+    def _save(self, tag: str = ""):
+        ckpt_mod.save(self.ckpt_dir, self.step, self.params, self.opt_state,
+                      extra={"controller_mode": self.controller.state.mode,
+                             "tag": tag})

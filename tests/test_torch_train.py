@@ -551,6 +551,6 @@ def test_train_entry_points_default_to_cuda():
     from repro_torch.launch import train as train_cli
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "qwen3_1p7b", "--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        Trainer(runtime_rcfg(), ckpt_dir="/nonexistent", device="cpu")
+    with pytest.raises(NotImplementedError, match="meshes"):
+        Trainer(runtime_rcfg(), mesh=object(), device="cpu")
 
