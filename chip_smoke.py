@@ -113,7 +113,7 @@ exits non-zero on any mismatch.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 are the launch counts, the card's name and power limit, and one JSON
 object with every kernel's numbers. The checkpoints are written into
-the git-ignored ``experiments/ckpt_smoke/`` (two of ~18 GB each) and
+the git-ignored ``experiments/ckpt_smoke/`` (two of ~13.5 GB each) and
 removed at the end of their phase.
 """
 from __future__ import annotations
@@ -209,6 +209,141 @@ RMS_SHAPES = ((8192, 2048), (8192 * H, HD),
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+# -- phase 0: the port's static checker; the sync census of every path ------
+# STATIC holds phase 0's project and the (path, line) of every RC001 /
+# RC002 finding, baselined or not; CENSUS each censused call's counts
+STATIC: dict = {}
+CENSUS: list = []
+PHASE_START: list = []          # (phase, perf_counter at its start)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def static_check():
+    """Phase 0: the port's static checker over ``src/repro_torch``
+    through its ``run_rules`` API, held against
+    ``staticcheck-torch-baseline.txt``; fails on any finding the baseline
+    does not hold. Keeps the step regions and the RC001 / RC002 lines for
+    the sync census."""
+    from repro_torch.analysis.staticcheck import RULES, Project, run_rules
+    from repro_torch.analysis.staticcheck import baseline as bl
+    t0 = time.perf_counter()
+    with contextlib.chdir(ROOT):          # display paths "src/repro_torch/.."
+        project = Project(["src/repro_torch"])
+    findings = run_rules(project)
+    known = bl.load(str(ROOT / "staticcheck-torch-baseline.txt"))
+    fresh, held, stale = bl.split(
+        findings, {m.relpath: m.lines for m in project.iter_modules()}, known)
+    print(f"static check: {len(RULES)} rules ({', '.join(sorted(RULES))}) "
+          f"over {len(project.modules)} files, "
+          f"{len(project.step_functions())} step regions: {len(findings)} "
+          f"findings, {len(held)} held by the baseline's {len(known)} "
+          f"entries ({len(stale)} stale), {len(fresh)} not baselined; "
+          f"{time.perf_counter() - t0:.2f} s")
+    for f in fresh:
+        print(f"  {f.render()}")
+    if fresh:
+        fail(f"the static checker has {len(fresh)} finding(s) outside "
+             "staticcheck-torch-baseline.txt")
+    STATIC.update(project=project, flagged={
+        (f.path, f.line) for f in findings if f.rule in ("RC001", "RC002")})
+
+
+@contextlib.contextmanager
+def sync_census(label):
+    """Count the synchronizing CUDA calls of the block (one call of a
+    path, after its warm-up): ``torch.cuda.set_sync_debug_mode("warn")``
+    with every warning recorded, the mode set back to 0 after. Each
+    warning is attributed to the Python line that made the call (the
+    warning's own line); a line of ``repro_torch`` inside a step region
+    must be an RC001 / RC002 finding of the checker (baselined or not),
+    else the run fails. A warning whose line lies in torch's own Python
+    (a decorator's wrapper, autograd's engine) also names the innermost
+    ``repro_torch`` line on its stack, for the report only."""
+    import warnings
+
+    import torch
+    records = []
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        records.append((filename, lineno, str(message), _port_frame()))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = keep       # restored on leaving the block
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    census_report(label, records)
+
+
+def _port_frame():
+    """``path:line`` of the innermost ``repro_torch`` frame on the
+    caller's stack, or None."""
+    port = str(ROOT / "src" / "repro_torch") + "/"
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if name.startswith(port):
+            return f"{name[len(port):]}:{f.f_lineno}"
+        f = f.f_back
+    return None
+
+
+def timed_check(check):
+    """Run one of the gradient checks and print its seconds (the phase
+    times printed at the end do not separate them from the runs)."""
+    t0 = time.perf_counter()
+    check()
+    print(f"{check.__name__}: {time.perf_counter() - t0:.1f} s")
+
+
+def census_report(label, records):
+    """Print and keep one census: the synchronizing calls of ``records``
+    ((file, line, message, innermost port line) of each warning) by port
+    line, inside a step
+    region or host-side, and those without a port line apart. Fails on a
+    step-region line the checker does not report."""
+    from collections import Counter
+    port = (ROOT / "src" / "repro_torch").resolve()
+    sites, outside = Counter(), Counter()
+    others = []
+    for file, line, msg, via in records:
+        if SYNC_WARNING not in msg:
+            others.append(f"{Path(file).name}:{line} {msg[:80]}")
+            continue
+        path = Path(file).resolve()
+        if path.is_relative_to(port):
+            sites[(path.relative_to(ROOT).as_posix(), line)] += 1
+        else:
+            torch_py = file.split("site-packages/")[-1]
+            outside[f"{torch_py}:{line} via {via}" if via
+                    else f"{torch_py}:{line}"] += 1
+    project, flagged = STATIC["project"], STATIC["flagged"]
+    step, host, missed = {}, {}, []
+    for (path, line), n in sorted(sites.items()):
+        where = f"{path.removeprefix('src/repro_torch/')}:{line}"
+        region = project.step_region_at(path, line)
+        if region is None:
+            host[where] = n
+        else:
+            step[where] = n
+            if (path, line) not in flagged:
+                missed.append(f"{where} ({region})")
+    n_sync = sum(sites.values()) + sum(outside.values())
+    print(f"sync census {label}: {n_sync} synchronizing calls; in step "
+          f"regions {step or 'none'}; host-side {host or 'none'}; without "
+          f"a port line {dict(outside) or 'none'}"
+          + (f"; other warnings {others}" if others else ""))
+    CENSUS.append({"call": label, "syncs": n_sync, "step": step,
+                   "host": host, "outside": dict(outside)})
+    if missed:
+        fail(f"sync census {label}: synchronizing lines inside step regions "
+             f"that the static checker does not report: {missed}")
 
 
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")    # wgmma, mma.sync, TMA load
@@ -1292,12 +1427,14 @@ def depth_text(rcfg) -> str:
             f"close); {mgrit}")
 
 
-def run_train(rcfg, required, probe=True):
+def run_train(rcfg, required, probe=True, census=False):
     """``Trainer.train(3)`` of ``rcfg``, every training launch counter set
     to 0 just before and read just after (the adaptive probe at step 2
     when MGRIT and ``probe`` are on); then one step of each mode under
     the profiler (MGRIT and serial when MGRIT is on, else serial), each
-    on the batch after them. Fails unless each kernel in ``required``
+    on the batch after them, and with ``census`` the sync census of one
+    more step of each mode (autograd's multithreading off, so the
+    backward's warnings carry their Python line). Fails unless each kernel in ``required``
     launched, every loss and forward residual norm is finite and, under
     MGRIT with ``probe``, the probe ran at step 2. Returns (launches over
     the 3 steps, {mode: launches in the profiled step}, peak GiB, info):
@@ -1389,6 +1526,10 @@ def run_train(rcfg, required, probe=True):
               + f"; launches in this step {per_step}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"  {dev_us(e) / 1e6:8.3f} s  {e.count:6d}x  {e.key[:80]}")
+        if census:
+            with torch.autograd.set_multithreading_enabled(False), \
+                    sync_census(f"{cfg.name} {mode} train step"):
+                step_fn(trainer.params, trainer.opt_state, batch)
     del trainer
     return launches, per_mode, peak, info
 
@@ -1787,9 +1928,11 @@ def step_check(engine, step, init_pool, rng, moe_replay=False):
         n_new = torch.ones(MAX_BATCH, dtype=torch.long, device="cuda")
 
 
-def profile_decode_wave(be, name):
+def profile_decode_wave(be, name, prefill=False):
     """Where a steady decode wave's device time goes: B=4 at contexts
-    DECODE_LENS, 2 of 4 slots sampled, 5 waves under the profiler."""
+    DECODE_LENS, 2 of 4 slots sampled, 5 waves under the profiler; then
+    the sync census of one more wave and, with ``prefill``, of a 64-token
+    prefill wave (after one warm-up call at its shape)."""
     import numpy as np
     import torch
     from repro_torch.serve.cache import SlotBatch
@@ -1841,6 +1984,17 @@ def profile_decode_wave(be, name):
             print(f"  {name} decode wave: {kernel.group(1)} "
                   f"{dev_us(e) / e.count:.2f} us a launch, {e.count // 5}x "
                   "a wave")
+    with sync_census(f"{name} decode wave"):
+        be.step(scratch, slots, tok)
+    if prefill:
+        pre = SlotBatch.greedy(MAX_BATCH, ptab, n_new=[64, 50, 33, 10])
+        pre.temps[1::2] = 0.8
+        pre.top_ks[1::2] = 40
+        pre.top_ps[1::2] = 0.95
+        ptok = np.ones((MAX_BATCH, 64), np.int32)
+        be.prefill(scratch, pre, ptok)
+        with sync_census(f"{name} prefill wave (S=64)"):
+            be.prefill(scratch, pre, ptok)
 
 
 def serve_ssm(arch, seed):
@@ -2293,7 +2447,8 @@ def profile_spec_wave(engine, reqs, card):
     decoding), its draft call and its verify call each timed alone (wall
     with a device sync, three unprofiled waves) and then under the
     profiler (device busy, device ops, the kernels' launches in each
-    call). Returns {call: launches in the profiled wave}."""
+    call), then the sync census of each call of one more wave. Returns
+    {call: launches in the profiled wave}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2307,6 +2462,9 @@ def profile_spec_wave(engine, reqs, card):
 
     def timed(label, fn, profiled):
         def call(*a, **k):
+            if profiled == "census":
+                with sync_census(f"{name} spec wave, {label} call"):
+                    return fn(*a, **k)
             torch.cuda.synchronize()
             before = serve_counts()
             if not profiled:
@@ -2329,7 +2487,9 @@ def profile_spec_wave(engine, reqs, card):
         return call
 
     draft, verify = sched.spec.wave, engine.backend.verify
-    for profiled in (False, False, False, True):
+    # each wave emits at most SPEC_K + 1 of a request's 32 tokens: after
+    # the admission wave and these five, every request is still decoding
+    for profiled in (False, False, False, True, "census"):
         if sched.n_active < len(reqs):
             fail(f"{name}: a request finished before the profiled spec wave")
         sched.spec.wave = timed("draft", draft, profiled)
@@ -3479,6 +3639,12 @@ def encdec_decode(arch, B, S_src, card):
         if gap > ENCDEC_GAP or any(x >= ENCDEC_TIE for x in ties):
             fail(f"{cfg.name}: dense decode disagrees with the teacher-forced "
                  "serial forward")
+        # the sync census of one more make_serve_fn call, the first
+        # call's shapes on a fresh cache
+        fresh = transformer.init_cache(rcfg, B, ENCDEC_NEW, device="cuda")
+        with sync_census(f"{cfg.name} dense make_serve_fn call"):
+            step(served, fresh, start, xa)
+        del fresh
         if cfg.frontend == "audio":
             res["sampled"] = encdec_sampled(served, rcfg, batch, xa, start,
                                             card)
@@ -4419,16 +4585,17 @@ def moe_phase(gen, flush, card):
 
 CKPT_DIR = ROOT / "experiments" / "ckpt_smoke"
 CKPT_STEPS = 2                  # checkpointed steps before the resume
-# qwen3_1p7b cut from 28 to 18 layers (1 open + 16 ParallelNet + 1
-# close, no gate-0 layer): its params and AdamW moments are 18.3 GB, so
-# the phase's two checkpoints write ~37 GB, within the ~40 GB of disk
-# writes a smoke run may make (full depth: 28 GB a checkpoint)
-CKPT_LAYERS = 18
+# qwen3_1p7b cut from 28 to 10 layers (1 open + 8 ParallelNet + 1
+# close, no gate-0 layer): its params and AdamW moments are ~13.5 GB, so
+# the phase's two checkpoints write ~27 GB, within the ~40 GB of disk
+# writes a smoke run may make (full depth: 28 GB a checkpoint), and the
+# phase keeps the script inside its time limit on a slow host
+CKPT_LAYERS = 10
 
 
 def ckpt_train_config():
     """qwen3_train_config's run at full width, cut to CKPT_LAYERS layers
-    (MGRIT cf 2 over a 16-layer ParallelNet, pad_to 16)."""
+    (MGRIT cf 2 over an 8-layer ParallelNet, pad_to 8)."""
     rcfg = qwen3_train_config()
     return rcfg.replace(
         model=dataclasses.replace(rcfg.model, n_layers=CKPT_LAYERS),
@@ -4744,13 +4911,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- 1. card, versions, build ------------------------------------------
+    PHASE_START.append(("1", time.perf_counter()))
+    # -- 1. card, versions; phase 0, the static checker; build -------------
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}")
+    static_check()
     t0 = time.perf_counter()
     logs = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall for "
@@ -4767,6 +4936,7 @@ def main() -> int:
                  else ""))
     sass_checks()
 
+    PHASE_START.append(("2", time.perf_counter()))
     # -- 2. kernels vs plain versions at the serve shapes -------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -4811,6 +4981,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    PHASE_START.append(("2b", time.perf_counter()))
     # -- 2b. training kernels' times at the training shapes (before the
     # long profiler sessions of the later phases) --------------------------
     flush = torch.empty(64 * 2**20 // 4, device="cuda")   # > 50 MB L2
@@ -4822,6 +4993,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    PHASE_START.append(("3", time.perf_counter()))
     # -- 3. serve qwen3_1p7b at full width through the kernels --------------
     rcfg = get_config("qwen3_1p7b", "decode_32k")
     cfg = rcfg.model
@@ -4843,10 +5015,11 @@ def main() -> int:
     step_check(engine, transformer.paged_decode_step,
                lambda r: transformer.init_paged_cache(
                    r, 1 + MAX_BATCH * 8, PAGE, device="cuda"), rng)
-    profile_decode_wave(engine.backend, cfg.name)
+    profile_decode_wave(engine.backend, cfg.name, prefill=True)
     print(f"{cfg.name}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           f" GiB")
 
+    PHASE_START.append(("4", time.perf_counter()))
     # -- 4. times at the serve shapes ---------------------------------------
     q, pk, pv, table, lens = attn_case(gen, MAX_BATCH, 1, DECODE_LENS,
                                        torch.bfloat16, MAX_LEN // PAGE,
@@ -4912,6 +5085,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    PHASE_START.append(("5", time.perf_counter()))
     # -- 5. serve falcon_mamba_7b and zamba2_1p2b at full width and depth ---
     ssm_launches = {}
     for arch, order in (("falcon_mamba_7b", "dbx"), ("zamba2_1p2b", "dxb")):
@@ -4919,6 +5093,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    PHASE_START.append(("5b", time.perf_counter()))
     # -- 5b. speculative decoding: the kernels at the spec path's shapes,
     # then the three families at full width and depth, plain vs spec ------
     spec_gen = torch.Generator(device="cuda")
@@ -4934,6 +5109,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    PHASE_START.append(("5c", time.perf_counter()))
     # -- 5c. dense-cache decode: the dense cache's routes through the
     # kernels, dense vs paged at full width and depth, then decoding the
     # encoder-decoder family ---------------------------------------------
@@ -4960,6 +5136,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"dense decode phase: {time.perf_counter() - t_dense:.1f} s")
 
+    PHASE_START.append(("5d", time.perf_counter()))
     # -- 5d. the MoE family: the module at both full widths, the kernels at
     # the MoE shapes, serving qwen3-moe and grok-1, gradients, Trainer ----
     moe_gen = torch.Generator(device="cuda")
@@ -4968,34 +5145,37 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    PHASE_START.append(("6", time.perf_counter()))
     # -- 6. training: gradients at reduced depth, then full depth; the
     # dry-run counts of every train run (phase 9) on the host meanwhile ---
     # (a failing phase exits through SystemExit, and concurrent.futures'
     # exit hook joins the workers, each after its running count at most)
     count_pool, counts = start_counts()
     marks = {"6": time.time()}
-    check_train_grads()
+    timed_check(check_train_grads)
     gc.collect()
     torch.cuda.empty_cache()
     attn_kernels = ("flash_attention_fwd", "flash_attention_bwd",
                     "rmsnorm_fwd", "rmsnorm_bwd")
     scan_kernels = ("ssm_scan_fwd", "ssm_scan_bwd")
     train_launches, _, _, qwen3_info = run_train(qwen3_train_config(),
-                                                 attn_kernels)
+                                                 attn_kernels, census=True)
     infos = {"qwen3": qwen3_info}
     gc.collect()
     torch.cuda.empty_cache()
 
+    PHASE_START.append(("6b", time.perf_counter()))
     # -- 6b. checkpoint and resume full-width qwen3_1p7b at CKPT_LAYERS ----
     marks["6b"] = time.time()
     print(f"phase 6b begins: {sum(f.done() for f in counts.values())} of "
           f"{len(counts)} dry-run counts done")
     ckpt_res = checkpoint_phase(ckpt_train_config(), card)
 
+    PHASE_START.append(("7", time.perf_counter()))
     # -- 7. SSM training: gradients at reduced depth, then path A (falcon,
     # MGRIT) and path B (zamba2, serial) at full width ----------------------
     marks["7"] = time.time()
-    check_ssm_train_grads()
+    timed_check(check_ssm_train_grads)
     gc.collect()
     torch.cuda.empty_cache()
     ssm_train = {}
@@ -5007,12 +5187,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    PHASE_START.append(("8", time.perf_counter()))
     # -- 8. the paper's encoder and encoder-decoder families: gradients at
     # reduced depth, then bert128 (MGRIT, probe at step 2), vit32 (serial
     # forward, MGRIT backward, probe at step 2) and mt_marian (MGRIT; the
     # reference has no encoder-decoder probe) at full width and depth ----
     marks["8"] = time.time()
-    check_paper_train_grads()
+    timed_check(check_paper_train_grads)
     gc.collect()
     torch.cuda.empty_cache()
     flash_kernels = ("flash_attention_fwd", "flash_attention_bwd")
@@ -5024,6 +5205,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    PHASE_START.append(("9", time.perf_counter()))
     # -- 9. the step roofline: each measured train step against the
     # dry-run's count of it --------------------------------------------
     infos.update({fam: r[3] for fam, r in ssm_train.items()})
@@ -5032,7 +5214,11 @@ def main() -> int:
     roof_res["overlap"] = count_overlap(counts, marks)
     count_pool.shutdown(wait=True)
 
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    t_end = time.perf_counter()
+    spans = [(name, nxt - t0) for (name, t0), (_, nxt) in
+             zip(PHASE_START, PHASE_START[1:] + [("end", t_end)])]
+    print(f"chip_smoke: {t_end - t_start:.1f} s in all; by phase "
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in spans))
 
     kernels = [
         {"name": "paged_flash_attention", "route": "cuda",
@@ -5217,6 +5403,7 @@ def main() -> int:
     print("dense: " + json.dumps(dense_res))
     print("moe: " + json.dumps(moe_res))
     print("checkpoint: " + json.dumps(ckpt_res))
+    print("census: " + json.dumps(CENSUS))
     print("roofline: " + json.dumps(roof_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
     print(card)

@@ -45,15 +45,26 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def _int64(x, device):
+    """``x`` as int64 on ``device``: a Python int is filled there and a
+    tensor moved (nothing is copied where it already lies); other host
+    data (numpy arrays, lists) is uploaded."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int64, device=device)
+    if torch.is_tensor(x):
+        return x.to(device if device is not None else x.device, torch.int64)
+    return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+
 def PRNGKey(seed, device=None):
     """Raw threefry keys (..., 2) int64 from non-negative 32-bit seeds."""
-    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & _M32
+    s = _int64(seed, device) & _M32
     return torch.stack([torch.zeros_like(s), s], dim=-1)
 
 
 def fold_in(key, data):
     """``jax.random.fold_in`` for keys (..., 2) and data (...,)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+    d = _int64(data, key.device) & _M32
     h0, h1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([h0, h1], dim=-1)
 
@@ -71,8 +82,8 @@ def uniform(key, n: int, minval: float = 0.0, maxval: float = 1.0):
     keys (B, 2): (B, n) float32."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000       # 1.0's exponent
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

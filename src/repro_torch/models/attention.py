@@ -83,7 +83,8 @@ def dot_attention(q, k, v, *, causal: bool, q_offset=0,
     logits = torch.einsum("bqhgk,bshk->bhgqs", qg.float(), k.float()) * scale
     if causal:
         Sk = k.shape[1]
-        qoff = torch.as_tensor(q_offset, device=q.device)
+        qoff = q_offset.to(q.device) if torch.is_tensor(q_offset) else \
+            torch.full((), q_offset, dtype=torch.long, device=q.device)
         qpos = qoff[..., None] + torch.arange(Sq, device=q.device)
         kpos = torch.arange(Sk, device=q.device)
         mask = qpos[..., :, None] >= kpos             # (.., Sq, Sk)

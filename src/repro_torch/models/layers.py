@@ -67,8 +67,9 @@ def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
     (..., S, head_dim//2)."""
     half = head_dim // 2
     ar = torch.arange(0, half, dtype=torch.float32, device=positions.device)
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=positions.device), ar / half)
+    # theta filled on the device (torch.tensor would copy it from the host)
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), ar / half)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

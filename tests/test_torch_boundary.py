@@ -63,7 +63,15 @@ def test_module_list_covers_both_slices():
                 "repro_torch.optim.optimizers", "repro_torch.data.pipeline",
                 "repro_torch.launch.train", "repro_torch.train.trainer",
                 "repro_torch.tree", "repro_torch.models.ssm",
-                "repro_torch.kernels.paged_ssm"):
+                "repro_torch.kernels.paged_ssm",
+                "repro_torch.analysis.staticcheck",
+                "repro_torch.analysis.staticcheck.core",
+                "repro_torch.analysis.staticcheck.cli",
+                "repro_torch.analysis.staticcheck.baseline",
+                "repro_torch.analysis.staticcheck.rules_jit",
+                "repro_torch.analysis.staticcheck.rules_kernels",
+                "repro_torch.analysis.staticcheck.rules_pages",
+                "repro_torch.analysis.staticcheck.rules_serve"):
         assert mod in names, mod
     for path, _ in modules():
         pkg = path.parent
