@@ -87,7 +87,17 @@ full-width, full-depth ``bert128`` (MGRIT, probe at step 2), ``vit32``
 and ``mt_marian`` for three steps each. The flash kernels are also held
 non-causal at those models' shapes, mc_tiny's and a cross-attention
 shape (Sq != Sk), and timed at bert128's.
-Right after the qwen3_1p7b run (phase 6b) it trains the same config
+Right after the qwen3_1p7b run (phase 6c) it trains the same config
+two steps through ``Trainer(mesh=...)`` on a world-1 NCCL mesh opened
+in this process (the losses and every param leaf's sha256 bit for bit
+the one-device run's after the same two steps, the collectives of each
+step printed by kind and bytes), and where 2 or more cards are visible
+(phase 6d) on NCCL ranks spawned over 2 cards at (1, 2), and over 4 at
+(1, 4) where 4 are visible (each rank's losses, and the sha256 of every
+param leaf gathered whole after the two steps, bit for bit 6c's; step
+seconds, peak memory, halo bytes); with one card it prints that 6d did
+not run.
+Then (phase 6b) it trains the same config
 cut to CKPT_LAYERS layers for three steps uninterrupted, then from a
 fresh ``Trainer(ckpt_dir=...)`` for two steps with a checkpoint after
 each (each save's seconds, bytes and GB/s), restores it in place into a
@@ -1427,20 +1437,27 @@ def depth_text(rcfg) -> str:
             f"close); {mgrit}")
 
 
-def run_train(rcfg, required, probe=True, census=False):
+def run_train(rcfg, required, probe=True, census=False, profiled=None,
+              record=False):
     """``Trainer.train(3)`` of ``rcfg``, every training launch counter set
     to 0 just before and read just after (the adaptive probe at step 2
-    when MGRIT and ``probe`` are on); then one step of each mode under
-    the profiler (MGRIT and serial when MGRIT is on, else serial), each
-    on the batch after them, and with ``census`` the sync census of one
-    more step of each mode (autograd's multithreading off, so the
-    backward's warnings carry their Python line). Fails unless each kernel in ``required``
-    launched, every loss and forward residual norm is finite and, under
-    MGRIT with ``probe``, the probe ran at step 2. Returns (launches over
-    the 3 steps, {mode: launches in the profiled step}, peak GiB, info):
-    info holds the bytes allocated after the ``Trainer``'s init, the
-    three steps' seconds and modes and each profiled step's wall
-    seconds."""
+    when MGRIT and ``probe`` are on); then one step of each mode (MGRIT
+    and serial when MGRIT is on, else serial), each on the batch after
+    them, under the profiler unless ``profiled`` is given and leaves the
+    mode out (such a step runs timed, unprofiled), and with ``census``
+    the sync census of one more step of each mode (autograd's multithreading off, so the backward's
+    warnings carry their Python line). Fails unless each kernel in
+    ``required`` launched, every loss and forward residual norm is
+    finite and, under MGRIT with ``probe``, the probe ran at step 2.
+    Returns (launches over the 3 steps, {mode: launches in its one
+    step}, peak GiB, info): info holds the bytes allocated after the
+    ``Trainer``'s init, the three steps' seconds and modes, each
+    profiled step's wall seconds (``profiled_s``), each unprofiled
+    one's (``unprofiled_s``) and the seconds of each part of the run
+    (``parts_s``: init, the three steps, each mode's step with its
+    trace's processing); with ``record`` the first two steps'
+    losses and the sha256 of every param leaf after them
+    (``at_step_2``), which phase 6c holds its mesh run to."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import shard_batch
@@ -1455,7 +1472,8 @@ def run_train(rcfg, required, probe=True, census=False):
     t0 = time.perf_counter()
     trainer = Trainer(rcfg, seed=0)
     torch.cuda.synchronize()
-    info = {"init_bytes": torch.cuda.memory_allocated(), "profiled_s": {}}
+    info = {"init_bytes": torch.cuda.memory_allocated(), "profiled_s": {},
+            "unprofiled_s": {}, "parts_s": {"init": time.perf_counter() - t0}}
     n_params = sum(p.numel() for _, p in
                    leaves_with_paths(trainer.params))
     print(f"train: {cfg.name} d_model={cfg.d_model} {depth_text(rcfg)}; "
@@ -1465,8 +1483,23 @@ def run_train(rcfg, required, probe=True, census=False):
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
-    rep = trainer.train(3, log_every=0, probe=probe)
+    t0 = time.perf_counter()
+    if record:
+        rep = trainer.train(2, log_every=0, probe=probe)
+        t_digest = time.perf_counter()
+        info["at_step_2"] = {"losses": list(rep.losses),
+                             "digest": state_digest(trainer.params, {
+                                 "step": trainer.opt_state["step"]})}
+        t_digest = time.perf_counter() - t_digest
+        rest = trainer.train(1, log_every=0, probe=probe)
+        rep = dataclasses.replace(
+            rest, **{k: getattr(rep, k) + getattr(rest, k) for k in (
+                "losses", "mode_trace", "step_seconds", "fwd_norms")})
+    else:
+        t_digest = 0.0
+        rep = trainer.train(3, log_every=0, probe=probe)
     torch.cuda.synchronize()
+    info["parts_s"]["train(3)"] = time.perf_counter() - t0 - t_digest
     launches = train_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, (loss, sec, norms, mode) in enumerate(zip(
@@ -1498,39 +1531,54 @@ def run_train(rcfg, required, probe=True, census=False):
         modes.insert(0, ("MGRIT (lp)", rcfg))
     per_mode = {}
     for mode, step_rcfg in modes:
+        t_part = time.perf_counter()
+        traced = profiled is None or mode in profiled
         step_fn = make_train_fn(step_rcfg)
         batch = shard_batch(trainer.pipeline.batch_at(trainer.step),
                             "cuda")
         before = train_counts()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) if traced \
+                else contextlib.nullcontext() as prof:
             t0 = time.perf_counter()
             _, _, metrics = step_fn(trainer.params, trainer.opt_state,
                                     batch)
             loss = metrics["loss"].item()
             window = time.perf_counter() - t0
-        info["profiled_s"][mode] = window
+        info["profiled_s" if traced else "unprofiled_s"][mode] = window
+        how = "under the profiler" if traced else "(not profiled)"
         if not np.isfinite(loss):
-            fail(f"the profiled {cfg.name} {mode} step's loss is {loss}")
+            fail(f"the {cfg.name} {mode} step {how}: loss {loss}")
         per_step = {k: v - before[k] for k, v in train_counts().items()
                     if k in required}
         per_mode[mode] = per_step
         kern = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA]
+                if getattr(e, "device_type", None) == DeviceType.CUDA] \
+            if traced else []
         busy = sum(dev_us(e) for e in kern) / 1e6
-        print(f"one {cfg.name} {mode} train step under the profiler: loss "
+        print(f"one {cfg.name} {mode} train step {how}: loss "
               f"{loss:.4f}, {window:.2f} s wall, "
               + (f"device busy {busy:.2f} s = {100 * busy / window:.1f}%, "
-                 f"{sum(e.count for e in kern)} device ops"
-                 if kern else "device busy not measured (no device events)")
+                 f"{sum(e.count for e in kern)} device ops" if kern else
+                 "device busy not measured (no device events)" if traced
+                 else "no trace")
               + f"; launches in this step {per_step}")
+        if min(per_step.values()) <= 0:
+            fail(f"{cfg.name}: the {mode} step launched no "
+                 f"{min(per_step, key=per_step.get)}: {per_step}")
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"  {dev_us(e) / 1e6:8.3f} s  {e.count:6d}x  {e.key[:80]}")
+        info["parts_s"][f"{'profiled' if traced else 'unprofiled'} "
+                        f"{mode}"] = time.perf_counter() - t_part
         if census:
             with torch.autograd.set_multithreading_enabled(False), \
                     sync_census(f"{cfg.name} {mode} train step"):
                 step_fn(trainer.params, trainer.opt_state, batch)
     del trainer
+    print(f"train {cfg.name}: seconds by part " + ", ".join(
+        f"{k} {v:.1f}" for k, v in info["parts_s"].items())
+        + (f" (+{t_digest:.1f} s for the param digest at step 2)"
+           if record else ""))
     return launches, per_mode, peak, info
 
 
@@ -4778,6 +4826,177 @@ def checkpoint_phase(rcfg, card):
     return res
 
 
+# -- phase 6c / 6d: layer-parallel training over a mesh ---------------------
+# at (1, 2) and (1, 4) each rank repeats one rank's arithmetic on its own
+# chunks, and the gradient norm sums each layer's squares in layer order
+# (launch/steps.norm_layers): losses and params are held bit for bit
+MESH_STEPS = 2
+MESH_SPAWN_S = 600.0
+
+
+def mesh_counts_text(counts) -> str:
+    return ", ".join(f"{k} {n}x {b / 2**20:.1f} MiB"
+                     for k, (n, b) in sorted(counts.items())) or "none"
+
+
+def mesh_train(mesh, device):
+    """``Trainer(qwen3_train_config(), mesh=mesh)``: MESH_STEPS steps at
+    phase 6's seed and data, one ``train(1)`` each, the mesh's collective
+    counts reset before each step and read after it. The training launch
+    counters are set to 0 just before the first step and read after the
+    last. Returns the losses, each step's seconds and collectives, the
+    launches, the peak memory (GiB) and the trainer."""
+    import torch
+    from repro_torch.train.trainer import Trainer
+    trainer = Trainer(qwen3_train_config(), mesh=mesh, seed=0,
+                      device=device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    losses, secs, colls = [], [], []
+    for _ in range(MESH_STEPS):
+        mesh.reset_counts()
+        rep = trainer.train(1, log_every=0)
+        losses += rep.losses
+        secs += rep.step_seconds
+        colls.append({k: list(v) for k, v in mesh.counts.items()})
+    torch.cuda.synchronize()
+    return {"losses": losses, "step_s": secs, "collectives": colls,
+            "launches": train_counts(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "kept_whole": [".".join(p) for p in trainer.kept_whole]}, trainer
+
+
+def mesh_rank(shape):
+    """One rank of phase 6d (a spawned process, its card
+    ``cuda:<rank>``): ``mesh_train`` on a ("data", "model") mesh of
+    ``shape``, then the params gathered whole on every rank and, on rank
+    0, the sha256 of every leaf (``state_digest``); returns its numbers
+    (no tensors)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.parallel import params as pparams
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    res, trainer = mesh_train(mesh, f"cuda:{torch.cuda.current_device()}")
+    rank = torch.distributed.get_rank()
+    t0 = time.perf_counter()
+    rcfg = trainer.rcfg
+    specs = pparams.train_specs(transformer.param_shapes(rcfg), rcfg, mesh)
+    full = pparams.gather_tree(trainer.params, specs, mesh)
+    digest = state_digest(full, {"step": trainer.opt_state["step"]}) \
+        if rank == 0 else None
+    del trainer, full
+    return {"rank": rank, "device": torch.cuda.current_device(),
+            "digest": digest, "digest_s": time.perf_counter() - t0, **res}
+
+
+def mesh_phase(card, ref):
+    """Phase 6c: full-width, full-depth qwen3_1p7b trained MESH_STEPS
+    steps through ``Trainer(mesh=make_host_mesh())`` over a world-1 NCCL
+    group opened in this process: the losses and every param leaf's
+    sha256 after them must equal phase 6's one-device run (``ref``, its
+    ``at_step_2``) bit for bit, and every training kernel must launch.
+    Phase 6d, where 2 or more cards are visible: the same training on
+    ``spawn_host_ranks`` NCCL ranks at (1, 2), and at (1, 4) with 4
+    cards; each rank's losses and the params gathered whole after the
+    steps must equal 6c's bit for bit (the digests; differing leaves
+    are named); printed beside each rank's step seconds, peak memory,
+    halo and hand-off bytes. Returns the phase's numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {}
+    t0 = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    try:
+        res, trainer = mesh_train(mesh, "cuda")
+        digest = state_digest(trainer.params,
+                              {"step": trainer.opt_state["step"]})
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = ref["at_step_2"]
+    same_digest = digest == want["digest"]
+    print(f"[{card}] phase 6c, qwen3_1p7b through a world-1 NCCL mesh "
+          f"(1, 1): losses {res['losses']} vs one device "
+          f"{want['losses']}: "
+          + ("bitwise" if res["losses"] == want["losses"] else "DIFFER")
+          + f"; {len(digest) - 1} param leaf digests "
+          + ("all equal" if same_digest else "DIFFER")
+          + f"; steps {[round(x, 3) for x in res['step_s']]} s; peak "
+          f"{res['peak_gib']:.1f} GiB; launches {res['launches']}; kept "
+          f"whole (axes this slice does not execute) {res['kept_whole']}")
+    for i, c in enumerate(res["collectives"]):
+        print(f"phase 6c step {i} collectives by kind: "
+              + mesh_counts_text(c))
+    print("phase 6c: the halo and hand-off sends have no peer at world 1 "
+          "(one rank holds every chunk): none issued, as expected")
+    if res["losses"] != want["losses"] or not same_digest:
+        fail("phase 6c: the world-1 mesh run is not bitwise the one-device "
+             "run")
+    if min(res["launches"][k] for k in ("flash_attention_fwd",
+                                        "flash_attention_bwd",
+                                        "rmsnorm_fwd", "rmsnorm_bwd")) <= 0:
+        fail(f"phase 6c: a training kernel never launched: "
+             f"{res['launches']}")
+    out["6c"] = {**res, "digest_equal": same_digest,
+                 "wall_s": time.perf_counter() - t0}
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 6d: not run: {n} CUDA device visible")
+        out["6d"] = None
+        return out
+    out["6d"] = {}
+    for shape in [(1, 2)] + ([(1, 4)] if n >= 4 else []):
+        t0 = time.perf_counter()
+        ranks = spawn_host_ranks(shape[0] * shape[1], mesh_rank, shape,
+                                 backend="nccl", timeout=MESH_SPAWN_S)
+        wall = time.perf_counter() - t0
+        name = f"{shape[0]}x{shape[1]}"
+        got = ranks[0]["digest"]
+        differ = sorted(k for k in want["digest"]
+                        if got.get(k) != want["digest"][k])
+        print(f"[{card}] phase 6d {shape}: {len(want['digest']) - 1} param "
+              "leaves gathered whole after the steps: "
+              + (f"{len(differ)} DIFFER from 6c's: {differ[:8]}" if differ
+                 else "every digest equal to 6c's")
+              + f" (gather and digest {ranks[0]['digest_s']:.1f} s)")
+        if differ:
+            fail(f"phase 6d {shape}: the params after {MESH_STEPS} steps "
+                 f"differ from 6c's: {differ[:8]}")
+        for r in ranks:
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(r["losses"], want["losses"], strict=True))
+            halo = r["collectives"][-1].get("halo", [0, 0])
+            hand = r["collectives"][-1].get("handoff", [0, 0])
+            print(f"[{card}] phase 6d {shape} rank {r['rank']} (cuda:"
+                  f"{r['device']}): losses {r['losses']} ("
+                  + ("bitwise 6c's" if r["losses"] == want["losses"] else
+                     f"largest relative gap to 6c {rel:.3e}")
+                  + f"); steps {[round(x, 3) for x in r['step_s']]} s; "
+                  f"peak {r['peak_gib']:.1f} GiB; step 1 sends: halo "
+                  f"{halo[0]}x ({halo[1] / max(halo[0], 1) / 2**20:.1f} "
+                  f"MiB each), hand-off {hand[0]}x; collectives by kind: "
+                  + mesh_counts_text(r["collectives"][-1]))
+            if r["losses"] != want["losses"]:
+                fail(f"phase 6d {shape}: rank {r['rank']}'s losses "
+                     f"{r['losses']} are not 6c's {want['losses']}")
+            if min(r["launches"].get(k, 0) for k in (
+                    "flash_attention_fwd", "flash_attention_bwd",
+                    "rmsnorm_fwd", "rmsnorm_bwd")) <= 0:
+                fail(f"phase 6d {shape}: rank {r['rank']} launched no "
+                     f"training kernel: {r['launches']}")
+        print(f"phase 6d {shape}: {wall:.1f} s wall (spawn, init, "
+              f"{MESH_STEPS} steps); the coarse solve is a hand-off (no "
+              "coarse all-gather at levels 2)")
+        out["6d"][name] = {"ranks": ranks, "wall_s": wall}
+    return out
+
+
 def smoke_train_configs():
     """The train runs the smoke measures, by name: (config, ``run_train``
     result key, profiled mode)."""
@@ -5159,10 +5378,17 @@ def main() -> int:
                     "rmsnorm_fwd", "rmsnorm_bwd")
     scan_kernels = ("ssm_scan_fwd", "ssm_scan_bwd")
     train_launches, _, _, qwen3_info = run_train(qwen3_train_config(),
-                                                 attn_kernels, census=True)
+                                                 attn_kernels, census=True,
+                                                 record=True)
     infos = {"qwen3": qwen3_info}
     gc.collect()
     torch.cuda.empty_cache()
+
+    PHASE_START.append(("6c", time.perf_counter()))
+    # -- 6c / 6d. the same training through a mesh: world 1 in this
+    # process (NCCL), then NCCL ranks over 2 (and 4) cards where visible --
+    marks["6c"] = time.time()
+    mesh_res = mesh_phase(card, qwen3_info)
 
     PHASE_START.append(("6b", time.perf_counter()))
     # -- 6b. checkpoint and resume full-width qwen3_1p7b at CKPT_LAYERS ----
@@ -5199,9 +5425,14 @@ def main() -> int:
     flash_kernels = ("flash_attention_fwd", "flash_attention_bwd")
     paper_train = {}
     for arch, B, S in PAPER_TRAIN:
+        # one profiled step (MGRIT, which phase 9 reads), the serial one
+        # unprofiled: these steps are host-bound (124551 device ops a
+        # bert128 step) and the trace's processing, not the step, took
+        # most of the phase
         paper_train[arch] = run_train(paper_train_config(arch, B, S),
                                       flash_kernels,
-                                      probe=arch != "mt_marian")
+                                      probe=arch != "mt_marian",
+                                      profiled=("MGRIT (lp)",))
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5264,6 +5495,11 @@ def main() -> int:
             "launches": train_launches[name], "max_abs_err": train_err[name],
             "ms": km, "plain_ms": pm, "bound_ms": bm, "bound_by": by,
             "library_ms": lm}
+        # launches_mesh*: phase 6c's world-1 mesh run (2 steps), 6d's
+        # ranks (rank 0's count) where 2 or 4 cards are visible
+        row["launches_mesh"] = mesh_res["6c"]["launches"][name]
+        for shape, r in (mesh_res["6d"] or {}).items():
+            row[f"launches_mesh_{shape}"] = r["ranks"][0]["launches"][name]
         if src == "rmsnorm":
             # device_* the device work alone (device_ms); qk_norm_* at
             # qk-norm's (131072, 128) rows
@@ -5403,6 +5639,7 @@ def main() -> int:
     print("dense: " + json.dumps(dense_res))
     print("moe: " + json.dumps(moe_res))
     print("checkpoint: " + json.dumps(ckpt_res))
+    print("mesh: " + json.dumps(mesh_res))
     print("census: " + json.dumps(CENSUS))
     print("roofline: " + json.dumps(roof_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
@@ -5414,5 +5651,34 @@ def main() -> int:
     return 0
 
 
+def main_mesh() -> int:
+    """``python3 chip_smoke.py --mesh``: phases 6c and 6d alone (the
+    build, phase 6's qwen3_1p7b run without its profiled steps as their
+    reference, then the mesh runs), for a call on several cards; the
+    driver's run takes no argument and runs every phase."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    from repro_torch.kernels import build
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"card: {card} x{torch.cuda.device_count()}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
+    build.build()
+    _, _, _, info = run_train(qwen3_train_config(), (
+        "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
+        "rmsnorm_bwd"), record=True, profiled=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = mesh_phase(card, info)
+    print(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
+    print("mesh: " + json.dumps(res))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_mesh() if sys.argv[1:] == ["--mesh"] else main())

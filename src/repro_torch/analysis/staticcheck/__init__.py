@@ -10,6 +10,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.analysis.staticcheck src/repro_torch
 """
 from .core import RULES, Finding, Project, Rule, rule, run_rules
-from . import rules_jit, rules_kernels, rules_pages, rules_serve  # noqa: F401
+from . import (rules_jit, rules_kernels, rules_pages,  # noqa: F401
+               rules_serve, rules_sharding)
 
 __all__ = ["RULES", "Finding", "Project", "Rule", "rule", "run_rules"]

@@ -226,7 +226,9 @@ def is_step_factory(name: str) -> bool:
 
 
 class Project:
-    def __init__(self, paths: Iterable[str]):
+    def __init__(self, paths: Iterable[str],
+                 known_axes: Optional[Set[str]] = None):
+        self.known_axes = known_axes  # SH001's vocabulary, for fixtures
         self.modules: List[ModuleInfo] = []
         for path in paths:
             for fpath, rel in _collect(path):

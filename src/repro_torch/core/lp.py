@@ -22,13 +22,20 @@ What differs from the reference, and why:
   flows into the encoder trunk's own adjoint. Rope cos/sin are built
   from positions, not parameters: they get no cotangent here (the
   reference computes one and nothing consumes it).
-- Sharding fields (``znames``, ``use_pallas``) are gone: one device, and
-  on the card the kernels are the only path.
+- ``znames`` and ``use_pallas`` are gone: on the card the kernels are
+  the only path. Under a mesh, ``LPStatic.layout`` says where the trunk
+  lives (:class:`repro_torch.core.mgrit.Layout`): each rank holds and
+  differentiates the layers of its own chunks. The adjoint runs the
+  stack backwards, so its chunks run from the last rank to the first
+  (the halo goes r -> r-1); lambda_0, the cotangent of z0, comes out of
+  the solve on every rank (the solver broadcasts zT), so the replicated
+  layers before the trunk see the same value everywhere; ``xa``'s
+  cotangent, a sum over the layers, is all-reduced over the chunk axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -48,10 +55,13 @@ class LPStatic:
     kind: str               # block kind: attn_mlp, attn_moe, encdec_dec,
                             # mamba1 or mamba2
     causal: bool = True
+    # where the trunk's chunks and batch rows live; None: one rank
+    layout: Optional[mgrit.Layout] = None
 
     def spec(self, iters: int) -> mgrit.MGRITSpec:
         return mgrit.MGRITSpec(cf=self.mgrit.cf, levels=self.mgrit.levels,
-                               iters=iters, h=self.mgrit.h)
+                               iters=iters, h=self.mgrit.h,
+                               shard_levels=self.mgrit.shard_levels)
 
 
 def eval_F(static: LPStatic, params, z, extra: Extra):
@@ -89,12 +99,14 @@ def make_adj_step(static: LPStatic, extra: Extra) -> mgrit.StepFn:
 
 def _forward_solve(static: LPStatic, stacked: List, z0, extra, iters: int):
     step = make_fwd_step(static, extra)
+    lay = static.layout
     if iters <= 0:
-        states, zT = mgrit.serial_solve(step, stacked, z0, static.mgrit.h)
+        states, zT = mgrit.serial_solve(step, stacked, z0, static.mgrit.h,
+                                        lay=lay)
         norms = torch.zeros((1,), dtype=torch.float32, device=z0.device)
     else:
         states, zT, norms = mgrit.mgrit_solve(step, stacked, z0,
-                                              static.spec(iters))
+                                              static.spec(iters), lay=lay)
     return states, zT, norms
 
 
@@ -106,13 +118,15 @@ def _adjoint_solve(static: LPStatic, stacked: List, states, lamN, extra,
     adj_stacked = [dict(slot, z=states[n])
                    for n, slot in reversed(list(enumerate(stacked)))]
     step = make_adj_step(static, extra)
+    lay = None if static.layout is None else static.layout.flipped()
     if iters <= 0:
         mu_states, mu_T = mgrit.serial_solve(step, adj_stacked, lamN,
-                                             static.mgrit.h)
+                                             static.mgrit.h, lay=lay)
         norms = torch.zeros((1,), dtype=torch.float32, device=lamN.device)
     else:
         mu_states, mu_T, norms = mgrit.mgrit_solve(step, adj_stacked, lamN,
-                                                   static.spec(iters))
+                                                   static.spec(iters),
+                                                   lay=lay)
     # mu_states[m] = lambda_{N-m}; layer n consumes lambda_{n+1} = mu[N-1-n]
     return torch.flip(mu_states, dims=(0,)), mu_T, norms
 
@@ -123,7 +137,8 @@ def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
     tensors in the order of ``leaves_with_paths(slot["params"])``; and
     the cotangent of ``extra["xa"]`` (None where that is None): the sum
     over the layers, in layer order and in float32, of
-    h*gate_n*(dF_n/dxa)^T lambda_{n+1}."""
+    h*gate_n*(dF_n/dxa)^T lambda_{n+1} (on a chunk axis each rank sums
+    its own layers and the sums are all-reduced)."""
     h = static.mgrit.h
     xa = extra.get("xa")
     if xa is not None:
@@ -146,6 +161,9 @@ def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
             out = [g.new_empty((len(stacked), *g.shape)) for g in grads]
         for acc, g in zip(out, grads):
             acc[n] = g
+    lay = static.layout
+    if d_xa is not None and lay is not None and lay.chunks is not None:
+        d_xa = lay.mesh.all_sum("xa_grad", d_xa, (lay.chunks,))
     return out, None if d_xa is None else d_xa.to(xa.dtype)
 
 

@@ -4,7 +4,8 @@ Port of :mod:`repro.data.pipeline`. The streams are numpy, so a batch is
 byte-identical to the reference's. Determinism contract for fault
 tolerance: batch(step) is a pure function of (seed, step), so a restarted
 job replays the exact stream. :func:`shard_batch` places a host batch on
-the device (one device: there is no batch sharding).
+the device; under a mesh each rank uploads its rows only (data rank d
+of D takes rows [d B/D, (d+1) B/D) of the same global batch).
 """
 from __future__ import annotations
 
@@ -91,9 +92,16 @@ def make_pipeline(rcfg: RunConfig, seed: int = 0, data_path: str = "",
     return SyntheticLM(rcfg, seed, **kw)
 
 
-def shard_batch(batch, device) -> Dict[str, torch.Tensor]:
+def shard_batch(batch, device, mesh=None,
+                rcfg: Optional[RunConfig] = None) -> Dict[str, torch.Tensor]:
     """Upload a host numpy batch: integer arrays (tokens, labels) as int64,
-    float arrays (stub embeddings) as float32."""
+    float arrays (stub embeddings) as float32. Under ``mesh`` (with
+    ``rcfg`` for its sharding rules) only this rank's rows."""
+    if mesh is not None:
+        from repro_torch.parallel import params as pparams
+        specs = pparams.batch_specs(batch, rcfg, mesh)
+        batch = {k: pparams.local_slice(a, (k,), specs[k], mesh)
+                 for k, a in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(a)).to(
         device, torch.long if a.dtype.kind in "iu" else torch.float32)
         for k, a in batch.items()}

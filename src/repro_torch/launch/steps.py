@@ -11,6 +11,10 @@ uploaded once per call in :func:`make_paged_serve_fn`,
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import math
+
 import numpy as np
 import torch
 
@@ -20,29 +24,44 @@ from repro_torch.launch import prng
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers
 from repro_torch.serve.kv_pages import state_leaves
-from repro_torch.tree import leaves_with_paths, unflatten
+from repro_torch.tree import leaf_at, leaves_with_paths, unflatten
 
 _MASKED = -1e30          # matches the attention-mask convention
 
 
-def make_train_fn(rcfg: RunConfig):
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics). Params and optimizer state are updated in place
-    (:func:`repro_torch.optim.optimizers.apply_updates`). Gradient
-    accumulation over ``rcfg.microbatches`` bounds the live MGRIT state
-    memory (a loop where the reference scans)."""
+def make_grad_fn(rcfg: RunConfig, mesh=None):
+    """Returns grad_step(params, batch) -> (loss, diagnostics, grads):
+    the loss (a 0-d tensor) and the gradients (a tree like ``params``) of
+    the batch, accumulated over ``rcfg.microbatches`` (a loop where the
+    reference scans).
+
+    Under ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) the step
+    runs under the config's sharding rules on this rank's slices
+    (:func:`repro_torch.parallel.params.shard_tree`): the trunk's chunks
+    over the chunk axis, the batch rows over the data axes. The
+    gradients and the loss are then averaged over the data axes of more
+    than one rank (the mean of equal row shards is the global mean)."""
     mode = "lp" if rcfg.mgrit.enabled else "serial"
     nmb = rcfg.microbatches
+    rules, data = contextlib.nullcontext, ()
+    if mesh is not None:
+        from repro_torch.parallel.sharding import (axis_rules, axis_tuple,
+                                                   spec_for)
+        rules = functools.partial(axis_rules, mesh, rcfg.sharding)
+        data = tuple(a for a in axis_tuple(spec_for(
+            ("batch",), rcfg.sharding, mesh, (rcfg.shape.global_batch,))[0])
+            if mesh.shape[a] > 1)
 
     def value_and_grad(params, batch):
         paths, leaves = zip(*leaves_with_paths(params))
         leaves = [p.detach().requires_grad_(True) for p in leaves]
-        loss, diag = transformer.loss_fn(unflatten(zip(paths, leaves)),
-                                         batch, rcfg, mode=mode)
-        grads = torch.autograd.grad(loss, leaves)
+        with rules():
+            loss, diag = transformer.loss_fn(unflatten(zip(paths, leaves)),
+                                             batch, rcfg, mode=mode)
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), diag, paths, grads
 
-    def train_step(params, opt_state, batch):
+    def grad_step(params, batch):
         if nmb > 1:
             lsum, g_acc = 0.0, None
             for i in range(nmb):
@@ -57,12 +76,83 @@ def make_train_fn(rcfg: RunConfig):
             lval = lsum / nmb
         else:
             lval, diag, paths, grads = value_and_grad(params, batch)
+        if data:
+            n = math.prod(mesh.shape[a] for a in data)
+            grads = [mesh.all_sum("grad_mean", g.contiguous(), data) / n
+                     for g in grads]
+            lval = mesh.all_sum("loss_mean", lval.reshape(1).clone(),
+                                data)[0] / n
+        return lval, diag, unflatten(zip(paths, grads))
+
+    return grad_step
+
+
+def norm_layers(rcfg: RunConfig, mesh=None):
+    """:func:`repro_torch.optim.optimizers.global_norm`'s ``layers``:
+    the key paths of the leaves stacked on a trunk's layer axis, and the
+    function that completes their per-layer sums. Under ``mesh`` a leaf
+    held in chunk pieces takes every rank's sums from one all-gather a
+    chunk axis (all such leaves at once); else its sums are complete."""
+    from repro_torch.parallel import params as pparams
+    from repro_torch.parallel.sharding import axis_tuple
+    shapes = transformer.param_shapes(rcfg)
+    layered = {path for path, leaf in leaves_with_paths(shapes)
+               if pparams.logical_axes_for(path, leaf.shape)[0] == "layers"}
+    axis = {}
+    if mesh is not None:
+        specs = pparams.train_specs(shapes, rcfg, mesh)
+        axis = {p: axis_tuple(leaf_at(specs, p)[0])[0] for p in layered
+                if leaf_at(specs, p)[0] is not None}
+
+    def complete(per_layer):
+        out = dict(per_layer)
+        for ax in sorted(set(axis.values())):
+            paths = [p for p in per_layer if axis.get(p) == ax]
+            local = torch.cat([per_layer[p] for p in paths])
+            parts = mesh.all_gather("grad_norm", local, ax).view(
+                -1, local.numel())          # (ranks, this rank's sums)
+            o = 0
+            for p in paths:
+                n = per_layer[p].numel()
+                out[p] = parts[:, o:o + n].reshape(-1)
+                o += n
+        return out
+
+    return layered, complete
+
+
+def make_train_fn(rcfg: RunConfig, mesh=None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): :func:`make_grad_fn`'s gradients, then the optimizer, in
+    place (:func:`repro_torch.optim.optimizers.apply_updates`). The
+    gradient norm sums a trunk leaf layer by layer
+    (:func:`norm_layers`), so every rank of ``mesh`` clips by the one-rank
+    run's norm, bit for bit."""
+    grad_step = make_grad_fn(rcfg, mesh)
+    layers = norm_layers(rcfg, mesh)
+
+    def train_step(params, opt_state, batch):
+        lval, diag, grads = grad_step(params, batch)
         params, opt_state, om = optimizers.apply_updates(
-            rcfg.optimizer, params, unflatten(zip(paths, grads)), opt_state)
+            rcfg.optimizer, params, grads, opt_state, layers=layers)
         metrics = {"loss": lval, "fwd_norms": diag["fwd_norms"], **om}
         return params, opt_state, metrics
 
     return train_step
+
+
+def shardings_for_train(rcfg: RunConfig, mesh, params_sds, opt_sds,
+                        batch_sds):
+    """The reference's train shardings as spec trees: params, the
+    optimizer state (``m`` / ``v`` / ``master`` following params, the
+    ``step`` replicated) and the batch."""
+    from repro_torch.parallel import params as pparams
+    ps = pparams.param_specs(params_sds, rcfg, mesh)
+    os_ = {"step": ()}
+    for k in ("m", "v", "master"):
+        if k in opt_sds:
+            os_[k] = ps
+    return ps, os_, pparams.batch_specs(batch_sds, rcfg, mesh)
 
 
 def make_prefill_fn(rcfg: RunConfig):

@@ -8,7 +8,11 @@ Runs on the card unless ``--device cpu`` (use ``--reduced`` there).
 ``--ckpt DIR`` resumes from DIR's latest checkpoint when it has one and
 saves every ``--ckpt-every`` steps (and an emergency checkpoint when a
 step raises), in the JAX package's format. ``--mesh single|multi``
-(production meshes) raises: meshes come with the multi-device slice.
+builds the production mesh ((16, 16) or (2, 16, 16) ranks) over the
+group a launcher started (``torchrun``'s environment; one process a
+card), as the reference builds it over its devices; with fewer ranks it
+raises the reference's device-count error. ``--mesh host`` (default)
+runs one process on one device.
 """
 from __future__ import annotations
 
@@ -36,11 +40,6 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise SystemExit(f"--mesh {args.mesh}: meshes come with the port's "
-                         "multi-device slice (ROADMAP Queue 1); use "
-                         "--mesh host (one device)")
-
     from repro_torch.configs import registry
     from repro_torch.configs.reduce import reduce_config
     from repro_torch.train.trainer import Trainer
@@ -52,7 +51,19 @@ def main(argv=None):
         rcfg = dataclasses.replace(
             rcfg, mgrit=dataclasses.replace(rcfg.mgrit, enabled=False))
 
-    trainer = Trainer(rcfg, ckpt_dir=args.ckpt, seed=args.seed,
+    mesh = None
+    if args.mesh in ("single", "multi"):
+        from repro_torch.device import resolve_device
+        from repro_torch.launch.mesh import init_from_env, make_production_mesh
+        dev = resolve_device(args.device).type
+        init_from_env(dev)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=dev)
+        if dev == "cuda":
+            import torch
+            args.device = f"cuda:{torch.cuda.current_device()}"
+
+    trainer = Trainer(rcfg, mesh=mesh, ckpt_dir=args.ckpt, seed=args.seed,
                       data_path=args.data, device=args.device)
     if args.ckpt:
         print(f"checkpoints in {args.ckpt}: starting at step "

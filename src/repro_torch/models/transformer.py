@@ -172,14 +172,31 @@ def _serial_buffer(stacked, z, cfg: ModelConfig, *, kind, causal, rope):
     return z
 
 
+def trunk_static(rcfg: RunConfig, n_layers: int, *, kind, causal,
+                 mg: MGRITConfig = None) -> LPStatic:
+    """The ParallelNet's static description for a model of ``n_layers``
+    layers (``rcfg.mgrit``'s, or ``mg``'s, iteration counts), with the
+    layout of its chunks and batch rows under the active sharding rules
+    (:func:`repro_torch.core.mgrit.current_layout`; None without)."""
+    plan = depth_plan(n_layers, rcfg.mgrit)
+    mg = rcfg.mgrit if mg is None else mg
+    return LPStatic(cfg=rcfg.model, mgrit=mg, kind=kind, causal=causal,
+                    layout=mgrit.current_layout(
+                        plan.n_mid_padded, mg.cf, mg.shard_levels,
+                        rcfg.shape.global_batch))
+
+
 def _trunk(params_mid, z, rcfg: RunConfig, *, kind, causal, rope,
-           mode: str, xa=None):
-    """The ParallelNet: MGRIT layer-parallel or exact serial trunk.
-    ``xa``: the encoder's output, for an ``encdec_dec`` trunk."""
-    cfg, mg = rcfg.model, rcfg.mgrit
+           mode: str, n_layers: int, xa=None):
+    """The ParallelNet of a model of ``n_layers`` layers: MGRIT
+    layer-parallel or exact serial trunk. ``xa``: the encoder's output,
+    for an ``encdec_dec`` trunk. Under a mesh ``params_mid`` holds this
+    rank's chunks (:func:`repro_torch.parallel.params.shard_tree`); the
+    layers around the trunk are replicated and computed on every rank."""
+    mg = rcfg.mgrit
     if mode == "serial" or not mg.enabled:
         mg = dataclasses.replace(mg, fwd_iters=0, bwd_iters=0)
-    static = LPStatic(cfg=cfg, mgrit=mg, kind=kind, causal=causal)
+    static = trunk_static(rcfg, n_layers, kind=kind, causal=causal, mg=mg)
     return lp_forward(static, params_mid, z, {"rope": rope, "xa": xa})
 
 
@@ -216,7 +233,7 @@ def encode(params, batch, rcfg: RunConfig, mode: str = "serial"):
         xe = _embed_inputs(params, {"tokens": batch["src_tokens"]}, cfg)
     return _trunk(params["enc_mid"], xe, rcfg, kind="attn_mlp",
                   causal=False, rope=_rope_for(cfg, xe.shape[1], xe.device),
-                  mode=mode)
+                  mode=mode, n_layers=cfg.n_layers)
 
 
 def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
@@ -228,7 +245,7 @@ def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
     y = embed_tokens(params["embed"], batch["tokens"], cfg)
     yN, n2 = _trunk(params["dec_mid"], y, rcfg, kind="encdec_dec",
                     causal=True, rope=_rope_for(cfg, y.shape[1], y.device),
-                    mode=mode, xa=xN)
+                    mode=mode, n_layers=cfg.n_dec_layers, xa=xN)
     return yN, torch.cat([n1, n2])
 
 
@@ -253,7 +270,7 @@ def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
         z = _serial_buffer(params.get("open"), z, cfg, kind=kind,
                            causal=causal, rope=rope)
         z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=causal,
-                          rope=rope, mode=mode)
+                          rope=rope, mode=mode, n_layers=cfg.n_layers)
         z = _serial_buffer(params.get("close"), z, cfg, kind=kind,
                            causal=causal, rope=rope)
     z = norm_apply(params["final_norm"], z, cfg)

@@ -42,13 +42,28 @@ def lr_at(cfg: OptimizerConfig, step: int) -> float:
     return float(cfg.lr * warm * decay)
 
 
-def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for _, x in leaves_with_paths(tree)))
+def global_norm(tree, layers=None):
+    """sqrt of the sum over leaves, in leaf order, of each leaf's sum of
+    squares. ``layers`` (:func:`repro_torch.launch.steps.norm_layers`):
+    (the key paths of the leaves stacked on a layer axis, a function
+    that turns {path: this rank's per-layer sums} into every layer's, in
+    layer order). Such a leaf's sum of squares is the sum of its layers'
+    in layer order, one reduction a layer: the same bits whichever ranks
+    hold which layers."""
+    leaves = leaves_with_paths(tree)
+    paths, complete = layers if layers is not None else ((), None)
+    sums = {p: torch.sum(torch.square(x.float())) for p, x in leaves
+            if p not in paths}
+    per_layer = {p: torch.stack([torch.sum(torch.square(x[n].float()))
+                                 for n in range(x.shape[0])])
+                 for p, x in leaves if p in paths}
+    if per_layer:
+        sums.update({p: v.sum() for p, v in complete(per_layer).items()})
+    return torch.sqrt(sum(sums[p] for p, _ in leaves))
 
 
-def _clip_scale(grads, max_norm: float):
-    gn = global_norm(grads)
+def _clip_scale(grads, max_norm: float, layers=None):
+    gn = global_norm(grads, layers)
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0), gn
 
 
@@ -100,16 +115,18 @@ def _freeze_structural(grads):
     return walk(grads)
 
 
-def apply_updates(cfg: OptimizerConfig, params, grads, state
+def apply_updates(cfg: OptimizerConfig, params, grads, state, layers=None
                   ) -> Tuple[Any, Any, Any]:
     """One optimizer step, in place. Returns (params, state, metrics) —
     the same params and state objects, updated. While the leaves are
     written ``state["step"]`` is None, so a state an exception left
-    half-updated says so (the Trainer checkpoints no such state)."""
+    half-updated says so (the Trainer checkpoints no such state).
+    ``layers``: :func:`global_norm`'s, for leaves stacked on a layer
+    axis (every rank then clips by the same norm)."""
     grads = _freeze_structural(grads)
     # clipped one leaf at a time below: a clipped copy of every gradient
     # would not fit beside the rest at full width
-    scale, gn = _clip_scale(grads, cfg.grad_clip)
+    scale, gn = _clip_scale(grads, cfg.grad_clip, layers)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

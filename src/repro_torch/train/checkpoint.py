@@ -9,6 +9,13 @@ The protocol is the reference's:
   * resume contract: (params, opt_state, step, extra); the data pipeline
     is step-indexed, so the stream replays exactly.
 
+Under a mesh the reference's elastic contract holds: stored arrays are
+full and logical. :func:`save` gathers each leaf split across ranks
+(leaf by leaf, every rank taking part) and rank 0 writes; every rank
+waits at a barrier after. :func:`restore` reads the full arrays on
+every rank and keeps this rank's slices, so a checkpoint saved on one
+mesh restores onto any other (or onto none).
+
 The on-disk format is the JAX package's, so a checkpoint moves between
 the two packages in both directions: ``params.npz`` and ``opt.npz``, each
 leaf ``a{i}`` in ``jax.tree.flatten`` order (dict keys sorted at every
@@ -29,6 +36,7 @@ restore.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -39,7 +47,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import Path
+from repro_torch.tree import Path, leaf_at
+
+
+def _mesh_specs(mesh, rcfg, opt_state):
+    """(params specs, optimizer-state specs) of the trees a rank of
+    ``mesh`` holds: what :func:`repro_torch.parallel.params.shard_tree`
+    cut them by."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel import params as pparams
+    ps = pparams.train_specs(transformer.param_shapes(rcfg), rcfg, mesh)
+    return ps, {k: (() if k == "step" else ps) for k in opt_state}
 
 
 def _leaves(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
@@ -61,29 +79,56 @@ def _to_numpy(leaf) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _write_npz(path: str, tree):
-    """``np.savez``'s layout, one leaf on the host at a time."""
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
-                         allowZip64=True) as zf:
-        for i, (_, leaf) in enumerate(_leaves(tree)):
-            with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, _to_numpy(leaf),
-                                          allow_pickle=False)
+def _write_npz(path: Optional[str], tree, full=None):
+    """``np.savez``'s layout, one leaf on the host at a time.
+    ``full(path, leaf)`` gathers a leaf split across ranks (a collective
+    every rank calls in the same leaf order); only a rank given a
+    ``path`` writes."""
+    with (zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
+                          allowZip64=True) if path
+          else contextlib.nullcontext()) as zf:
+        for i, (p, leaf) in enumerate(_leaves(tree)):
+            if full is not None and isinstance(leaf, torch.Tensor):
+                leaf = full(p, leaf)
+            if zf is not None:
+                with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, _to_numpy(leaf),
+                                              allow_pickle=False)
 
 
 def save(ckpt_dir: str, step: int, params, opt_state,
-         extra: Optional[Dict[str, Any]] = None, keep: int = 3) -> str:
+         extra: Optional[Dict[str, Any]] = None, keep: int = 3,
+         mesh=None, rcfg=None) -> str:
+    """Write ``step_<step>`` atomically and point LATEST at it. Under
+    ``mesh`` (with ``rcfg``, whose sharding cut the trees) every rank
+    calls this: split leaves are gathered and rank 0 writes."""
+    if mesh is not None and rcfg is None:
+        raise ValueError("saving from a mesh needs the rcfg whose sharding "
+                         "cut the trees")
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    writer = mesh is None or torch.distributed.get_rank() == 0
+    gathers = (None, None)
+    if mesh is not None:
+        from repro_torch.parallel.params import gather_leaf
+        gathers = tuple(
+            (lambda p, leaf, sp=sp: gather_leaf(leaf, p, leaf_at(sp, p),
+                                                mesh, kind="ckpt_gather"))
+            for sp in _mesh_specs(mesh, rcfg, opt_state))
+    if not writer:
+        _write_npz(None, params, gathers[0])
+        _write_npz(None, opt_state, gathers[1])
+        mesh.barrier()
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=ckpt_dir)
     try:
-        _write_npz(os.path.join(tmp, "params.npz"), params)
-        _write_npz(os.path.join(tmp, "opt.npz"), opt_state)
+        _write_npz(os.path.join(tmp, "params.npz"), params, gathers[0])
+        _write_npz(os.path.join(tmp, "opt.npz"), opt_state, gathers[1])
         meta = {"step": step, "extra": extra or {}}
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
             f.flush()
             os.fsync(f.fileno())
-        final = os.path.join(ckpt_dir, f"step_{step:010d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -93,6 +138,8 @@ def save(ckpt_dir: str, step: int, params, opt_state,
     with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
         f.write(os.path.basename(final))
     _rotate(ckpt_dir, keep)
+    if mesh is not None:
+        mesh.barrier()
     return final
 
 
@@ -134,15 +181,21 @@ def _load_into(a: np.ndarray, leaf, path: Path):
     return leaf
 
 
-def _load_npz(path: str, template):
-    """The template tree with every leaf overwritten from ``path``."""
+def _load_npz(path: str, template, local=None):
+    """The template tree with every leaf overwritten from ``path``;
+    ``local(path, array)`` cuts a stored (full) array to the template's
+    slice."""
     pairs = _leaves(template)
     with np.load(path, allow_pickle=False) as arrs:
         if len(arrs.files) != len(pairs):
             raise ValueError(f"{path}: {len(arrs.files)} leaves stored, the "
                              f"template has {len(pairs)}")
-        loaded = {p: _load_into(arrs[f"a{i}"], leaf, p)
-                  for i, (p, leaf) in enumerate(pairs)}
+        loaded = {}
+        for i, (p, leaf) in enumerate(pairs):
+            a = arrs[f"a{i}"]
+            if local is not None and isinstance(leaf, torch.Tensor):
+                a = local(p, a)
+            loaded[p] = _load_into(a, leaf, p)
 
     def walk(tree, prefix: Path = ()):
         if isinstance(tree, dict):
@@ -156,19 +209,25 @@ def restore(ckpt_dir: str, params_template, opt_template,
     """Restore the latest checkpoint into the templates' tensors, in
     place: returns (params, opt_state, step, extra) holding the
     templates' own tensors (``opt_state["step"]`` the stored int), or
-    None when ``ckpt_dir`` has none. ``mesh``/``rcfg`` are the
-    reference's elastic re-sharding; a mesh raises until the port's
-    multi-device slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh comes with the port's multi-device slice "
-            "(ROADMAP Queue 1)")
+    None when ``ckpt_dir`` has none. Under ``mesh`` (with ``rcfg``) the
+    templates are this rank's slices: each stored array is cut to them
+    (the reference's elastic re-sharding onto the current mesh)."""
+    if mesh is not None and rcfg is None:
+        raise ValueError("restoring onto a mesh needs the rcfg whose "
+                         "sharding cut the templates")
     step = latest_step(ckpt_dir)
     if step is None:
         return None
     d = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
-    params = _load_npz(os.path.join(d, "params.npz"), params_template)
-    opt_state = _load_npz(os.path.join(d, "opt.npz"), opt_template)
+    cuts = (None, None)
+    if mesh is not None:
+        from repro_torch.parallel.params import local_slice
+        cuts = tuple(
+            (lambda p, a, sp=sp: local_slice(a, p, leaf_at(sp, p), mesh))
+            for sp in _mesh_specs(mesh, rcfg, opt_template))
+    params = _load_npz(os.path.join(d, "params.npz"), params_template,
+                       cuts[0])
+    opt_state = _load_npz(os.path.join(d, "opt.npz"), opt_template, cuts[1])
     return params, opt_state, meta["step"], meta.get("extra", {})

@@ -16,14 +16,26 @@ Port of :mod:`repro.train.trainer`:
 
 The probe of an encoder-decoder model raises ``NotImplementedError``:
 the reference has none to port (its probe reads ``params["mid"]``).
-Meshes come with the multi-device slice and raise here. The LP and
-serial steps are two step functions; switching is a host-side
-decision. The entry point runs on ``cuda`` unless the caller
+The LP and serial steps are two step functions; switching is a
+host-side decision. The entry point runs on ``cuda`` unless the caller
 passes ``device="cpu"`` (see :func:`repro_torch.device.resolve_device`).
+
+Under a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`, one process a
+rank, the mesh's device type that of the params) every rank builds the
+full params from the seed and keeps its slices
+(:func:`repro_torch.parallel.params.shard_tree`: the trunk's chunks
+over the chunk axis; ``kept_whole`` lists the leaves whose other mesh
+axes this slice does not execute), reads its rows of each batch, and
+steps through :func:`repro_torch.launch.steps.make_train_fn` under the
+mesh. The probe's residual norms are all-reduced, so every rank takes
+the same branch. Rank 0 logs; checkpoints hold full arrays (see
+:mod:`repro_torch.train.checkpoint`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -40,6 +52,8 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer
 from repro_torch.models.blocks import block_kind
 from repro_torch.optim import optimizers
+from repro_torch.parallel import params as pparams
+from repro_torch.parallel.sharding import axis_rules
 from repro_torch.train import checkpoint as ckpt_mod
 
 
@@ -59,20 +73,25 @@ class TrainReport:
 class Trainer:
     def __init__(self, rcfg: RunConfig, mesh=None, ckpt_dir: str = "",
                  seed: int = 0, data_path: str = "", device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes come with the port's multi-device slice (ROADMAP "
-                "Queue 1)")
         self.rcfg = rcfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "meta":
             raise ValueError("the Trainer reads losses back: it runs on "
                              "cuda or cpu, not meta")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"params on {self.device.type}")
         self.ckpt_dir = ckpt_dir
         self.controller = AdaptiveController(rcfg.mgrit)
         self.pipeline = make_pipeline(rcfg, seed, data_path)
         self.params = transformer.init_model(rcfg, seed=seed,
                                              device=self.device)
+        self.kept_whole = []
+        if mesh is not None:
+            specs = pparams.train_specs(self.params, rcfg, mesh)
+            self.params, self.kept_whole = pparams.shard_tree(
+                self.params, specs, mesh)
         self.opt_state = optimizers.init_opt_state(rcfg.optimizer,
                                                    self.params)
         self.step = 0
@@ -81,7 +100,7 @@ class Trainer:
 
         if ckpt_dir:
             restored = ckpt_mod.restore(ckpt_dir, self.params,
-                                        self.opt_state)
+                                        self.opt_state, mesh, rcfg)
             if restored is not None:
                 self.params, self.opt_state, self.step, extra = restored
                 if extra.get("controller_mode"):
@@ -93,7 +112,7 @@ class Trainer:
             if mode == "serial":
                 rcfg = rcfg.replace(
                     mgrit=dataclasses.replace(rcfg.mgrit, enabled=False))
-            self._steps[mode] = steps_mod.make_train_fn(rcfg)
+            self._steps[mode] = steps_mod.make_train_fn(rcfg, self.mesh)
         return self._steps[mode]
 
     def _probe(self, batch):
@@ -109,23 +128,36 @@ class Trainer:
                 "a check_every beyond the steps run")
         fwd_it, bwd_it = self.controller.probe_iters()
         kind = block_kind(cfg)
-        static = lp_mod.LPStatic(
-            cfg=cfg,
-            mgrit=dataclasses.replace(rcfg.mgrit, fwd_iters=fwd_it,
-                                      bwd_iters=bwd_it),
-            kind=kind, causal=cfg.family != "encoder")
+        causal = cfg.family != "encoder"
+        with self._rules():
+            static = transformer.trunk_static(
+                rcfg, cfg.n_layers, kind=kind, causal=causal,
+                mg=dataclasses.replace(rcfg.mgrit, fwd_iters=fwd_it,
+                                       bwd_iters=bwd_it))
+        # the seed is 1 / (the global zT's size): rows split over ranks
+        rows = 1 if static.layout is None else math.prod(
+            self.mesh.shape[a] for a in static.layout.batch)
         with torch.no_grad():
             z = transformer._embed_inputs(self.params, batch, cfg)
             rope = None if kind in ("mamba1", "mamba2") else \
                 transformer._rope_for(cfg, z.shape[1], z.device)
             z = transformer._serial_buffer(self.params.get("open"), z, cfg,
-                                           kind=kind, causal=static.causal,
+                                           kind=kind, causal=causal,
                                            rope=rope)
         return lp_mod.lp_diagnose(
             static, self.params["mid"], z, {"rope": rope},
             seed_ct=lambda zT: torch.ones_like(zT) / torch.tensor(
-                float(zT.numel()), dtype=zT.dtype),
+                float(zT.numel() * rows), dtype=zT.dtype),
             fwd_iters=fwd_it, bwd_iters=bwd_it)
+
+    def _rules(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return axis_rules(self.mesh, self.rcfg.sharding)
+
+    def _log(self, msg: str):
+        if self.mesh is None or torch.distributed.get_rank() == 0:
+            print(msg)
 
     def train(self, num_steps: int, ckpt_every: int = 0,
               log_every: int = 50, probe: bool = True) -> TrainReport:
@@ -134,7 +166,7 @@ class Trainer:
         try:
             for _ in range(num_steps):
                 batch = shard_batch(self.pipeline.batch_at(self.step),
-                                    self.device)
+                                    self.device, self.mesh, self.rcfg)
                 mode = self.controller.state.mode
                 t0 = time.perf_counter()
 
@@ -156,15 +188,15 @@ class Trainer:
                 self._ewma_dt = dt if self._ewma_dt is None else \
                     0.9 * self._ewma_dt + 0.1 * dt
                 if dt > 3.0 * self._ewma_dt:
-                    print(f"[straggler] step {self.step} took {dt:.2f}s "
-                          f"(ewma {self._ewma_dt:.2f}s)")
+                    self._log(f"[straggler] step {self.step} took "
+                              f"{dt:.2f}s (ewma {self._ewma_dt:.2f}s)")
                 modes.append(mode)
                 self.step += 1
                 if ckpt_every and self.step % ckpt_every == 0:
                     self._save()
                 if log_every and self.step % log_every == 0:
-                    print(f"step {self.step} [{mode}] "
-                          f"loss={losses[-1]:.4f}")
+                    self._log(f"step {self.step} [{mode}] "
+                              f"loss={losses[-1]:.4f}")
         except Exception:
             if self.ckpt_dir:
                 self._emergency_save()
@@ -184,16 +216,17 @@ class Trainer:
         updated and others not). An existing ``step_<N>`` holds that
         same state and is never replaced."""
         if self.opt_state["step"] != self.step:
-            print(f"[emergency] no checkpoint: the optimizer update of "
-                  f"step {self.step} had begun, the state is no longer "
-                  f"step {self.step}'s")
+            self._log(f"[emergency] no checkpoint: the optimizer update "
+                      f"of step {self.step} had begun, the state is no "
+                      f"longer step {self.step}'s")
         elif os.path.exists(os.path.join(self.ckpt_dir,
                                          f"step_{self.step:010d}")):
-            print(f"[emergency] step {self.step} is already checkpointed")
+            self._log(f"[emergency] step {self.step} is already "
+                      "checkpointed")
         else:
             self._save(tag="emergency")
 
     def _save(self, tag: str = ""):
         ckpt_mod.save(self.ckpt_dir, self.step, self.params, self.opt_state,
                       extra={"controller_mode": self.controller.state.mode,
-                             "tag": tag})
+                             "tag": tag}, mesh=self.mesh, rcfg=self.rcfg)

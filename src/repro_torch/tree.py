@@ -1,5 +1,5 @@
 """Nested dicts of tensors (the port's params "pytrees"): leaves with
-their key paths, rebuilt trees, and a map. ``None`` subtrees (an empty
+their key paths, the leaf at a path, rebuilt trees, and a map. ``None`` subtrees (an empty
 buffer stack) are kept by :func:`tree_map` and skipped by
 :func:`leaves_with_paths`."""
 from __future__ import annotations
@@ -17,6 +17,13 @@ def leaves_with_paths(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
         return [pl for k, v in tree.items()
                 for pl in leaves_with_paths(v, prefix + (k,))]
     return [(prefix, tree)]
+
+
+def leaf_at(tree, path: Path):
+    """The subtree at key path ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def unflatten(pairs) -> Dict[str, Any]:

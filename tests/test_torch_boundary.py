@@ -71,7 +71,12 @@ def test_module_list_covers_both_slices():
                 "repro_torch.analysis.staticcheck.rules_jit",
                 "repro_torch.analysis.staticcheck.rules_kernels",
                 "repro_torch.analysis.staticcheck.rules_pages",
-                "repro_torch.analysis.staticcheck.rules_serve"):
+                "repro_torch.analysis.staticcheck.rules_serve",
+                "repro_torch.analysis.staticcheck.rules_sharding",
+                "repro_torch.launch.hostdev", "repro_torch.launch.mesh",
+                "repro_torch.parallel.sharding",
+                "repro_torch.parallel.params",
+                "repro_torch.parallel.compression"):
         assert mod in names, mod
     for path, _ in modules():
         pkg = path.parent

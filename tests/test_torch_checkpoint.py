@@ -220,7 +220,7 @@ def test_rotation_keeps_k_and_latest(tmp_path):
     assert ck.latest_step(d) == 4
     with np.load(os.path.join(d, "step_0000000004", "params.npz")) as z:
         assert z.files == ["a0"]       # the None subtree holds no leaf
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="rcfg"):
         ck.restore(d, params, opt, mesh=object())
 
 

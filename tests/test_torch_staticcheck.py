@@ -5,8 +5,9 @@ stays silent on the known-good twin, mirroring tests/test_staticcheck.py
 test for test; the step-region resolver (step factories and their
 narrowing, autograd Functions, partials, cross-module closure); the
 port's own tree against staticcheck-torch-baseline.txt; the CLI; and the
-rules the port keeps from the JAX package's checker (PG001, AS001) held
-against that checker on its own fixtures, baselines loading both ways.
+rules the port keeps from the JAX package's checker (PG001, AS001,
+SH001) held against that checker on its own fixtures, baselines loading
+both ways.
 
 Stdlib-only and no JAX compile: the checkers parse ASTs.
 """
@@ -61,7 +62,8 @@ def _ref_module():
 # -- registry ----------------------------------------------------------------
 
 def test_registry_has_the_port_rules():
-    assert set(RULES) == {"RC001", "RC002", "PG001", "AS001", "KW001"}
+    assert set(RULES) == {"RC001", "RC002", "PG001", "AS001", "KW001",
+                          "SH001"}
     for rid, r in RULES.items():
         assert rid == r.rule_id and r.summary
     for rid in ("RC001", "RC002"):      # the port's own: approximations
@@ -283,6 +285,78 @@ def test_pg001_as001_match_the_reference_checker(tmp_path, attr, name, src):
     assert ours == theirs
     in_scope = "kv_pages" not in name and "kernels" not in name
     assert bool(ours) == (attr.startswith("BAD") and in_scope)
+
+
+# -- SH001: sharding-axis drift ---------------------------------------------
+
+AXES = {"batch", "layers", "heads", "mlp", "kv_seq", "pages", "seq"}
+
+BAD_SH001 = """
+    import torch
+
+    from repro_torch.parallel.sharding import resolve_axis, spec_for
+
+    _STATE_AXES = {("h", 4): (None, "batch", "mpl", None)}
+
+    def layout(cfg, mesh, rows):
+        ax = resolve_axis("layer", cfg, mesh)
+        return ax, spec_for(("batch", "sqe"), cfg, mesh, (rows, 16))
+"""
+
+GOOD_SH001 = """
+    from repro_torch.parallel.sharding import resolve_axis, spec_for
+
+    _STATE_AXES = {("h", 4): (None, "batch", "mlp", None)}
+
+    def layout(cfg, mesh, rows, pre):
+        ax = resolve_axis("layers", cfg, mesh)
+        return ax, spec_for(pre + ("batch", "seq"), cfg, mesh)
+"""
+
+
+def _scan_axes(tmp_path, source):
+    project = Project([str(_write(tmp_path, "mod.py", source))],
+                      known_axes=AXES)
+    return run_rules(project, select={"SH001"})
+
+
+def test_sh001_catches_axis_typos_in_calls_and_tables(tmp_path):
+    findings = _scan_axes(tmp_path, BAD_SH001)
+    assert _rules_of(findings) == {"SH001"}
+    assert sorted(f.message.split("`")[1] for f in findings) == \
+        ["layer", "mpl", "sqe"]
+
+
+def test_sh001_silent_on_known_axes_and_concat(tmp_path):
+    assert _scan_axes(tmp_path, GOOD_SH001) == []
+
+
+def test_sh001_vocabulary_extracted_from_the_ports_tree():
+    """ShardingConfig's string fields (configs/base.py) and the alias
+    keys of parallel/sharding.py's ``_ALIASES``; the port's own tree is
+    clean under it (no baseline entry)."""
+    from repro_torch.analysis.staticcheck.rules_sharding import _known_axes
+    project = Project([str(PORT)])
+    known = _known_axes(project)
+    for ax in ("batch", "layers", "heads", "kv_seq", "pages", "fsdp",
+               "kv_heads", "seq", "head_dim", "state", "conv"):
+        assert ax in known, ax
+    assert "compress_grads" not in known
+    assert run_rules(project, select={"SH001"}) == []
+
+
+@pytest.mark.parametrize("attr", ["BAD_SH001", "GOOD_SH001"])
+def test_sh001_matches_the_reference_checker(tmp_path, attr):
+    """The reference's own SH001 fixtures under its vocabulary: both
+    registries give the same (line, rule) findings."""
+    ref = _ref_module()
+    path = str(_write(tmp_path, "mod.py", getattr(ref, attr)))
+    ours = {(f.line, f.rule) for f in run_rules(
+        Project([path], known_axes=ref.AXES), select={"SH001"})}
+    theirs = {(f.line, f.rule) for f in ref_sc.run_rules(
+        ref_sc.Project([path], known_axes=ref.AXES), select={"SH001"})}
+    assert ours == theirs
+    assert bool(ours) == attr.startswith("BAD")
 
 
 # -- KW001: kernel wrappers --------------------------------------------------

@@ -12,6 +12,7 @@ losses after three optimizer steps (float32 summation order compounds
 through the updates).
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -551,6 +552,7 @@ def test_train_entry_points_default_to_cuda():
     from repro_torch.launch import train as train_cli
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "qwen3_1p7b", "--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="meshes"):
-        Trainer(runtime_rcfg(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="the mesh is on cuda"):
+        Trainer(runtime_rcfg(), mesh=types.SimpleNamespace(
+            device_type="cuda"), device="cpu")
 
