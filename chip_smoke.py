@@ -87,6 +87,19 @@ full-width, full-depth ``bert128`` (MGRIT, probe at step 2), ``vit32``
 and ``mt_marian`` for three steps each. The flash kernels are also held
 non-causal at those models' shapes, mc_tiny's and a cross-attention
 shape (Sq != Sk), and timed at bert128's.
+After the MoE phase (phase 5e) it serves full-width, full-depth
+qwen3_1p7b through ``ServeEngine(mesh=...)`` on a world-1 NCCL mesh
+opened in this process: its streams and one decode step's logits bitwise
+phase 3's engine on the same weights, no collective issued, the sync
+census of a decode wave phase 3's count. Phase 5f runs with ``--mesh``
+only, on 2 or more cards (``python3 chip_smoke.py --mesh``: phases 5e,
+5f, 6, 6c and 6d alone; ``--mesh serve``: 5e and 5f): NCCL ranks serve
+the smoke queue, fused and gathered, qwen3_1p7b at (1, 2), (2, 1), (1,
+4) and (2, 2) and falcon_mamba_7b and zamba2_1p2b at (1, 2); every
+rank's streams equal, each emission's logits within DENSE_GAP of the
+one-card engine's and a first divergence only on a near-tie, each
+rank's launches one card's; each rank's pool bytes, launches, collectives by kind and bytes and a
+steady decode wave's ms printed beside one card's in the same call.
 Right after the qwen3_1p7b run (phase 6c) it trains the same config
 two steps through ``Trainer(mesh=...)`` on a world-1 NCCL mesh opened
 in this process (the losses and every param leaf's sha256 bit for bit
@@ -226,6 +239,7 @@ def fail(msg: str):
 # RC002 finding, baselined or not; CENSUS each censused call's counts
 STATIC: dict = {}
 CENSUS: list = []
+SERVED: dict = {}               # model name -> its last smoke-queue streams
 PHASE_START: list = []          # (phase, perf_counter at its start)
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
@@ -1888,6 +1902,7 @@ def serve_queue(engine, rng, per_wave):
     launches = serve_counts()
     st = engine.scheduler.stats
     thr = engine.scheduler.throughput()
+    SERVED[name] = [r.output.tolist() for r in out]
     for i, r in enumerate(out):
         if r.error is not None or len(r.output) != r.max_new_tokens:
             fail(f"{name} request {i}: error={r.error} "
@@ -3392,10 +3407,11 @@ def dense_stream(served, rcfg, req, chunked):
     return np.asarray(out, np.int32), rows, len(feeds) + len(out) - 1
 
 
-def sampled_scores(row, req, n):
+def sampled_scores(row, req, n, fused=True):
     """The Gumbel-perturbed, temperature-scaled, masked scores
     ``sample_tokens`` drew emission n of ``req`` from (``row``: that
-    emission's logits), and the mask (True: kept)."""
+    emission's logits; ``fused``: the kernel's mask, else the sort-based
+    one of the gathered route), and the mask (True: kept)."""
     import torch
     from repro_torch.launch import prng
     from repro_torch.launch.steps import temper_and_mask
@@ -3405,13 +3421,15 @@ def sampled_scores(row, req, n):
     scaled = temper_and_mask(row.float()[None],
                              vec(req.temperature, torch.float32),
                              vec(req.top_k, torch.int32),
-                             vec(req.top_p, torch.float32), fused=True)[0]
+                             vec(req.top_p, torch.float32), fused=fused)[0]
     keys = prng.fold_in(prng.PRNGKey(vec(req.seed, torch.long)),
                         vec(n, torch.long))
     return scaled + prng.gumbel(keys, row.shape[-1])[0], scaled > -1e30
 
 
-def check_dense_streams(name, reqs, paged, dense, card, allow=None):
+def check_dense_streams(name, reqs, paged, dense, card, allow=None,
+                        paged_fused=True, gap_limit=DENSE_GAP,
+                        tie_limit=DENSE_TIE):
     """Dense oracle vs paged engine, one request at a time: at every
     emission index whose context the two share (up to and including a
     first divergence) max|dense - paged| over the vocab within DENSE_GAP;
@@ -3422,8 +3440,11 @@ def check_dense_streams(name, reqs, paged, dense, card, allow=None):
     ``paged``/``dense``: (streams, rows by (seed, n) or lists). ``allow``
     (an MoE model, ``moe_allowance``): where the two paths' routes over
     the context differ, MOE_FLIP_GAP in place of DENSE_GAP and any
-    divergence. Returns (bitwise-equal streams, largest gap over the
-    positions whose routes agree, divergences)."""
+    divergence. ``paged_fused``: whether ``paged`` sampled through the
+    kernel's mask (else the sort-based one); ``gap_limit`` /
+    ``tie_limit``: the limits in place of DENSE_GAP / DENSE_TIE. Returns (bitwise-equal
+    streams, largest gap over the positions whose routes agree,
+    divergences)."""
     import numpy as np
     matched, worst, divergences = 0, 0.0, []
     for i, req in enumerate(reqs):
@@ -3433,7 +3454,7 @@ def check_dense_streams(name, reqs, paged, dense, card, allow=None):
             pl, dn = paged[1][(req.seed, m)], dense[1][i][m]
             gap = _row_gap(pl, dn)
             routed = allow(req.seed, m) if allow is not None else None
-            limit = DENSE_GAP if routed is None else MOE_FLIP_GAP
+            limit = gap_limit if routed is None else MOE_FLIP_GAP
             if routed is None:
                 worst = max(worst, gap)
             else:
@@ -3456,32 +3477,32 @@ def check_dense_streams(name, reqs, paged, dense, card, allow=None):
         ta, tb = int(a[j]), int(b[j])
         edge = False
         if req.temperature == 0:
-            tie, limit = (pl.max() - pl[tb]).item(), DENSE_TIE
+            margin, limit = (pl.max() - pl[tb]).item(), tie_limit
         else:
-            s_p, keep_p = sampled_scores(pl, req, j)
+            s_p, keep_p = sampled_scores(pl, req, j, paged_fused)
             s_d, keep_d = sampled_scores(dense[1][i][j], req, j)
             if int(s_p.argmax()) != ta or int(s_d.argmax()) != tb:
                 fail(f"{name} request {i} token {j}: a sampled token is not "
                      "the draw from the scores of its own row")
-            tie, limit = (s_p[ta] - s_p[tb]).item(), \
-                DENSE_TIE / req.temperature
+            margin, limit = (s_p[ta] - s_p[tb]).item(), \
+                tie_limit / req.temperature
             edge = bool(keep_p[ta] != keep_d[ta] or keep_p[tb] != keep_d[tb])
         routed = allow(req.seed, j) if allow is not None else None
-        divergences.append(dict(request=i, token=j, margin=tie,
+        divergences.append(dict(request=i, token=j, margin=margin,
                                 sampled=req.temperature > 0,
                                 mask_edge=edge,
                                 routes=None if routed is None
                                 else routed[0]))
         print(f"[{card}] dense {name} request {i}: first divergence at "
               f"token {j} ({ta} paged, {tb} dense); the dense token lies "
-              f"{tie:.4f} below the paged row's "
+              f"{margin:.4f} below the paged row's "
               f"{'perturbed score' if req.temperature else 'top logit'} "
               f"(limit {limit:g})"
               + ("; one of the two tokens is kept by one row's top-k / "
                  "top-p mask and dropped by the other's" if edge else ""))
-        if not (tie < limit or edge or routed is not None):
+        if not (margin < limit or edge or routed is not None):
             fail(f"{name}: the dense oracle diverged from the paged engine "
-                 f"away from a near-tie ({tie:.4f})")
+                 f"away from a near-tie ({margin:.4f})")
     return matched, worst, divergences
 
 
@@ -4996,6 +5017,399 @@ def mesh_phase(card, ref):
         out["6d"][name] = {"ranks": ranks, "wall_s": wall}
     return out
 
+# -- phase 5e / 5f: serving under a mesh ------------------------------------
+# 5e (every run): qwen3_1p7b at full width and depth through
+# ServeEngine(mesh=make_host_mesh()) on a world-1 NCCL group in this
+# process: its smoke-queue streams and one decode step's logits bitwise
+# the one-card engine's (phase 3's), no collective issued, the sync census
+# of a decode wave the one-card engine's count. 5f (``--mesh``, 2+ cards):
+# NCCL ranks serve the smoke queue, fused and gathered, at each shape of
+# SERVE_MESH_SHAPES the visible cards hold;
+# every rank's streams equal, and against the one-card engine's
+# (SERVE_REF_DIR) the logits within DENSE_GAP at every shared-context
+# emission and a first divergence only on a near-tie (DENSE_TIE): the
+# tensor-parallel partial sums (float32, rounded once) reorder the float32
+# accumulations, as other row counts did in phase 5c. The largest gaps
+# read on an H100 at (1, 2): falcon_mamba_7b 0.3252 fused, 0.3438
+# gathered; qwen3 0.1562 / 0.2422; zamba2 0.1924 / 0.1797 (with the
+# partials rounded to bf16 and summed in bf16: falcon 0.4219 / 0.4355).
+SERVE_MESH_SHAPES = (((1, 2), ("qwen3_1p7b", "falcon_mamba_7b",
+                               "zamba2_1p2b")),
+                     ((2, 1), ("qwen3_1p7b",)),
+                     ((1, 4), ("qwen3_1p7b",)),
+                     ((2, 2), ("qwen3_1p7b",)))
+SERVE_SEEDS = {"qwen3_1p7b": 0, "falcon_mamba_7b": 1, "zamba2_1p2b": 1}
+SERVE_REF_DIR = ROOT / "experiments" / "serve_mesh_ref"
+
+
+def decode_step_logits(be):
+    """One 64-token prefill of MAX_BATCH slots (n_new 64 / 50 / 33 / 10)
+    and one decode step through the backend's own paged forward (under
+    its tensor-parallel rules), on a scratch pool in the engine's page
+    layout; the decode step's logits on the host (float32)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.kv_pages import region_table
+    rows = be.rows
+    table, n_pages = region_table(MAX_BATCH, MAX_LEN // PAGE,
+                                  *((rows.n, rows.span) if rows else (1,)))
+    if rows is not None:
+        table = rows.table(table)
+    state = be.init_state(n_pages)
+    rng = np.random.default_rng(5)
+    V = be.rcfg.model.vocab_size
+    toks = torch.from_numpy(rng.integers(0, V, (MAX_BATCH, 64))).cuda()
+    lens = torch.zeros(MAX_BATCH, dtype=torch.int32, device="cuda")
+    n_new = torch.tensor([64, 50, 33, 10], device="cuda")
+    tab = torch.from_numpy(table).cuda()
+    step = be._decode_fn()
+    with torch.no_grad(), be._rules():
+        _, state = step(be.params, state, toks, lens, n_new, tab, be.rcfg)
+        nxt = torch.from_numpy(rng.integers(0, V, (MAX_BATCH, 1))).cuda()
+        lg, _ = step(be.params, state, nxt, lens + n_new.to(torch.int32),
+                     torch.ones_like(n_new), tab, be.rcfg)
+    return lg.float().cpu()
+
+
+def decode_wave_slots(be):
+    """(scratch pool, slots, tokens) of a steady decode wave in the
+    engine's page layout: MAX_BATCH slots at contexts DECODE_LENS, 2 of
+    4 sampled (temperature 0.8, top-k 40, top-p 0.95)."""
+    import numpy as np
+    from repro_torch.serve.cache import SlotBatch
+    from repro_torch.serve.kv_pages import region_table
+    rows = be.rows
+    table, n_pages = region_table(MAX_BATCH, MAX_LEN // PAGE,
+                                  *((rows.n, rows.span) if rows else (1,)))
+    slots = SlotBatch.greedy(MAX_BATCH, table, lengths=DECODE_LENS)
+    slots.temps[1::2] = 0.8
+    slots.top_ks[1::2] = 40
+    slots.top_ps[1::2] = 0.95
+    return be.init_state(n_pages), slots, np.ones((MAX_BATCH, 1), np.int32)
+
+
+def serve_reference(arch, card):
+    """One card, no mesh (the reference of 5e and 5f in ``--mesh`` runs,
+    phase 3's and 5's engines otherwise): ``arch`` at full width and
+    depth from SERVE_SEEDS, the smoke queue through ServeEngine (fused),
+    the logits row of every emission recorded; one decode step's logits
+    and the sync census and milliseconds (5 waves) of a steady decode
+    wave, and the queue's kernel launches. Returns its numbers and the
+    rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    rcfg = get_config(arch, "decode_32k")
+    cfg = rcfg.model
+    t0 = time.perf_counter()
+    params = transformer.init_model(rcfg, seed=SERVE_SEEDS[arch],
+                                    device="cuda")
+    engine = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
+                         max_len=MAX_LEN, device="cuda")
+    del params
+    reqs = make_queue(np.random.default_rng(SERVE_SEEDS[arch]),
+                      cfg.vocab_size)
+    reset_serve_counts()
+    with record_spec_logits() as calls:
+        out = engine.generate(reqs)
+        torch.cuda.synchronize()
+    launches = serve_counts()
+    rows = emitted_rows(calls, {r.seed for r in reqs})
+    del calls
+    ref = {"streams": [r.output.tolist() for r in out],
+           "launches": launches,
+           "logits": decode_step_logits(engine.backend)}
+    scratch, slots, tok = decode_wave_slots(engine.backend)
+    for _ in range(2):
+        engine.backend.step(scratch, slots, tok)
+    with sync_census(f"{cfg.name} one-card decode wave"):
+        engine.backend.step(scratch, slots, tok)
+    ref["syncs"] = CENSUS[-1]["syncs"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        engine.backend.step(scratch, slots, tok)   # reads its tokens back
+    ref["wave_ms"] = 1e3 * (time.perf_counter() - t1) / 5
+    print(f"[{card}] serve reference {cfg.name} (one card, no mesh): "
+          f"{sum(map(len, ref['streams']))} tokens, launches {launches}, "
+          f"a steady decode wave {ref['wave_ms']:.2f} ms, "
+          f"{time.perf_counter() - t0:.1f} s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, {k: v.detach().cpu() for k, v in rows.items()}
+
+
+def world1_serve_phase(card, ref):
+    """Phase 5e: full-width, full-depth qwen3_1p7b (seed 0) through
+    ``ServeEngine(mesh=make_host_mesh())`` on a world-1 NCCL group of
+    this process, on the smoke queue: the streams and one decode step's
+    logits must be bitwise ``ref``'s (the one-card engine's), no
+    collective issued, every kernel's launches per wave phase 3's, and
+    the sync census of a decode wave must count ``ref``'s synchronizing
+    calls. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    rcfg = get_config("qwen3_1p7b", "decode_32k")
+    mesh = make_host_mesh("cuda")
+    try:
+        params = transformer.init_model(rcfg, seed=0, device="cuda")
+        engine = ServeEngine(rcfg, params, mesh=mesh, max_batch=MAX_BATCH,
+                             page_size=PAGE, max_len=MAX_LEN)
+        del params
+        mesh.reset_counts()
+        launches = serve_queue(engine, np.random.default_rng(0), {
+            "paged_flash_attention": transformer.stacked_layer_depth(rcfg)})
+        streams = SERVED[rcfg.model.name]
+        logits = decode_step_logits(engine.backend)
+        scratch, slots, tok = decode_wave_slots(engine.backend)
+        for _ in range(2):
+            engine.backend.step(scratch, slots, tok)
+        with sync_census(f"{rcfg.model.name} world-1 mesh decode wave"):
+            engine.backend.step(scratch, slots, tok)
+        syncs = CENSUS[-1]["syncs"]
+        colls = {k: list(v) for k, v in mesh.counts.items()}
+        stats = engine.stats
+        del engine, scratch
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = streams == ref["streams"]
+    same_logits = torch.equal(logits, ref["logits"])
+    wall = time.perf_counter() - t0
+    print(f"[{card}] phase 5e, qwen3_1p7b served through a world-1 NCCL "
+          f"mesh: streams {'bitwise' if same else 'DIFFER from'} the "
+          f"one-card engine's; one decode step's logits "
+          f"{'bitwise' if same_logits else 'DIFFER'}; collectives "
+          f"{colls or 'none'}; sync census of a decode wave {syncs} "
+          f"(one card {ref['syncs']}); mesh stats dp {stats['mesh_dp']} "
+          f"tp {stats['mesh_tp']} devices {stats['mesh_devices']}; "
+          f"{wall:.1f} s")
+    if not same or not same_logits:
+        fail("phase 5e: the world-1 mesh engine is not bitwise the "
+             "one-card engine")
+    if colls or syncs != ref["syncs"]:
+        fail(f"phase 5e: the world-1 mesh issued collectives {colls} or "
+             f"{syncs} synchronizing calls a wave (one card "
+             f"{ref['syncs']})")
+    return {"streams_equal": same, "logits_equal": same_logits,
+            "syncs": syncs, "launches": launches, "wall_s": wall}
+
+
+def _local_calls(calls, rows):
+    """``record_spec_logits``'s calls with each backend call's occupancy
+    cut to this data rank's slots (the logits hold its rows only)."""
+    if rows is None:
+        return calls
+    return [(k, lg, sd, ct, rows.local(nn) if nn is not None
+             and len(nn) != lg.shape[0] else nn)
+            for k, lg, sd, ct, nn in calls]
+
+
+def serve_mesh_rank(shape, archs):
+    """One rank of phase 5f (a spawned process on ``cuda:<rank>``): each
+    of ``archs`` at full width and depth (SERVE_SEEDS) through
+    ``ServeEngine(mesh=...)``, fused and gathered, on the smoke queue;
+    the launches and collectives of each run, each emission's logits
+    row held against the one-card reference's (SERVE_REF_DIR) for the
+    requests this rank's data group served (``check_dense_streams``),
+    the pool bytes, the collectives of one steady decode wave and its
+    milliseconds (5 waves). Returns numbers only."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_pages import state_leaves
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    rank = torch.distributed.get_rank()
+    out = {"rank": rank, "device": torch.cuda.current_device(), "runs": {}}
+    for arch in archs:
+        rcfg = get_config(arch, "decode_32k")
+        cfg = rcfg.model
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_model(rcfg, seed=SERVE_SEEDS[arch],
+                                        device="cuda")
+        engines = {route: ServeEngine(rcfg, params, mesh=mesh,
+                                      max_batch=MAX_BATCH, page_size=PAGE,
+                                      max_len=MAX_LEN, fused=fused)
+                   for route, fused in (("fused", True),
+                                        ("gathered", False))}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = torch.load(SERVE_REF_DIR / f"{arch}.pt")
+        res = {"init_s": time.perf_counter() - t0}
+        for route, engine in engines.items():
+            be = engine.backend
+            reqs = make_queue(np.random.default_rng(SERVE_SEEDS[arch]),
+                              cfg.vocab_size)
+            reset_serve_counts()
+            mesh.reset_counts()
+            t1 = time.perf_counter()
+            with record_spec_logits() as calls:
+                outs = engine.generate(reqs)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = serve_counts()
+            colls = {k: list(v) for k, v in mesh.counts.items()}
+            st = engine.scheduler.stats
+            rows = emitted_rows(_local_calls(calls, be.rows),
+                                {r.seed for r in reqs})
+            del calls
+            streams = [r.output.tolist() for r in outs]
+            mine = [i for i, r in enumerate(reqs) if (r.seed, 0) in rows]
+            label = f"{cfg.name} {route} {shape} rank {rank}"
+            refs = [[ref["rows"][(reqs[i].seed, m)].cuda()
+                     for m in range(len(ref["streams"][i]))] for i in mine]
+            failed = None
+            try:
+                matched, worst, div = check_dense_streams(
+                    label, [reqs[i] for i in mine],
+                    ([np.asarray(streams[i]) for i in mine], rows),
+                    ([np.asarray(ref["streams"][i]) for i in mine], refs),
+                    label, paged_fused=route == "fused")
+            except SystemExit as e:     # reported by the parent, which fails
+                failed, matched, worst, div = str(e), -1, -1.0, []
+            del rows, refs
+            res[route] = {
+                "streams": streams, "launches": launches,
+                "collectives": colls, "wall_s": wall,
+                "waves": st["prefill_calls"] + st["decode_steps"],
+                "checked": mine, "matched": matched, "max_gap": worst,
+                "failed": failed,
+                "divergences": len(div),
+                "pool_bytes": sum(t.numel() * t.element_size()
+                                  for t in state_leaves(
+                                      engine.scheduler.state))}
+        be = engines["fused"].backend
+        scratch, slots, tok = decode_wave_slots(be)
+        for _ in range(2):
+            be.step(scratch, slots, tok)
+        mesh.reset_counts()
+        be.step(scratch, slots, tok)
+        res["wave_collectives"] = {k: list(v)
+                                   for k, v in mesh.counts.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            be.step(scratch, slots, tok)      # reads its tokens back
+        res["wave_ms"] = 1e3 * (time.perf_counter() - t1) / 5
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del engines, be, scratch, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["runs"][arch] = res
+    return out
+
+
+def serve_mesh_phase(card, refs):
+    """Phase 5f, with 2 or more cards visible: ``spawn_host_ranks`` NCCL
+    ranks serve at each shape of SERVE_MESH_SHAPES that fits the cards
+    (``serve_mesh_rank``) against the one-card references ``refs``
+    (saved to SERVE_REF_DIR for the ranks, removed after): every rank's
+    streams equal, fused and gathered, each emission within DENSE_GAP of
+    the one-card engine's (checked on the ranks), each rank's fused
+    launches the one-card queue's and its gathered route's none of the
+    route kernels (the RMSNorm kernel's the one card's); printed: each
+    rank's pool bytes, launches, the collectives of the run and of one
+    decode wave by kind and bytes, and a steady decode wave's ms.
+    Returns the phase's numbers."""
+    import shutil
+    import torch
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 5f: not run: {n} CUDA device visible")
+        return None
+    SERVE_REF_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        for arch, (ref, rows) in refs.items():
+            torch.save({"streams": ref["streams"], "rows": rows},
+                       SERVE_REF_DIR / f"{arch}.pt")
+        out = {}
+        for shape, archs in SERVE_MESH_SHAPES:
+            if shape[0] * shape[1] > n:
+                continue
+            t0 = time.perf_counter()
+            ranks = spawn_host_ranks(shape[0] * shape[1], serve_mesh_rank,
+                                     shape, archs, backend="nccl",
+                                     timeout=MESH_SPAWN_S)
+            wall = time.perf_counter() - t0
+            for arch in archs:
+                for route in ("fused", "gathered"):
+                    got = [r["runs"][arch][route]["streams"] for r in ranks]
+                    if any(g != got[0] for g in got):
+                        fail(f"phase 5f {shape} {arch} {route}: the ranks' "
+                             "streams differ")
+                    for r in ranks:
+                        x = r["runs"][arch][route]
+                        print(f"[{card}] phase 5f {shape} {arch} {route} "
+                              f"rank {r['rank']} (cuda:{r['device']}): "
+                              f"streams equal on every rank, "
+                              f"{x['matched']}/{len(x['checked'])} of its "
+                              f"requests {x['checked']} bitwise the one-card "
+                              f"engine's, max gap {x['max_gap']:.4f} (limit "
+                              f"{DENSE_GAP:g}), {x['divergences']} near-tie "
+                              f"divergences; {x['waves']} waves in "
+                              f"{x['wall_s']:.2f} s; pool "
+                              f"{x['pool_bytes'] / 2**30:.3f} GiB; launches "
+                              f"{x['launches']}; collectives "
+                              + mesh_counts_text(x["collectives"])
+                              + (f"; FAILED: {x['failed']}" if x["failed"]
+                                 else ""))
+                # each rank launches one card's kernels, wave for wave;
+                # the gathered route none of the fused route's
+                ref_n = refs[arch][0]["launches"]
+                want = {"fused": ref_n,
+                        "gathered": {k: (v if k == "rmsnorm_fwd" else 0)
+                                     for k, v in ref_n.items()}}
+                for r in ranks:
+                    for route in ("fused", "gathered"):
+                        got = r["runs"][arch][route]["launches"]
+                        if got != want[route]:
+                            fail(f"phase 5f {shape} {arch} {route}: rank "
+                                 f"{r['rank']} launched {got}, not "
+                                 f"{want[route]} (one card's fused queue "
+                                 f"{ref_n})")
+                for r in ranks:
+                    x = r["runs"][arch]
+                    print(f"[{card}] phase 5f {shape} {arch} rank "
+                          f"{r['rank']}: a steady decode wave (B={MAX_BATCH}"
+                          f", contexts {DECODE_LENS}) {x['wave_ms']:.2f} ms "
+                          f"(one card in this call "
+                          f"{refs[arch][0]['wave_ms']:.2f}); "
+                          f"its collectives "
+                          + mesh_counts_text(x["wave_collectives"])
+                          + f"; peak {x['peak_gib']:.1f} GiB; init "
+                          f"{x['init_s']:.1f} s")
+                for r in ranks:             # compared: keep the numbers
+                    for route in ("fused", "gathered"):
+                        r["runs"][arch][route].pop("streams")
+            print(f"phase 5f {shape}: {wall:.1f} s wall (spawn, init, "
+                  "serving)")
+            failed = [x["failed"] for r in ranks for a in archs
+                      for x in (r["runs"][a]["fused"],
+                                r["runs"][a]["gathered"]) if x["failed"]]
+            if failed:
+                fail(f"phase 5f {shape}: {failed[0]}")
+            out[f"{shape[0]}x{shape[1]}"] = {"ranks": ranks, "wall_s": wall}
+        return out
+    finally:
+        shutil.rmtree(SERVE_REF_DIR, ignore_errors=True)
+
+
 
 def smoke_train_configs():
     """The train runs the smoke measures, by name: (config, ``run_train``
@@ -5231,10 +5645,16 @@ def main() -> int:
     rng = np.random.default_rng(0)
     launches = serve_queue(engine, rng,
                            {"paged_flash_attention": n_layers})
+    # phase 5e's reference: these streams, one decode step's logits and
+    # the sync census of a decode wave (profile_decode_wave's)
+    serve_ref = {"streams": SERVED[cfg.name],
+                 "logits": decode_step_logits(engine.backend)}
     step_check(engine, transformer.paged_decode_step,
                lambda r: transformer.init_paged_cache(
                    r, 1 + MAX_BATCH * 8, PAGE, device="cuda"), rng)
     profile_decode_wave(engine.backend, cfg.name, prefill=True)
+    serve_ref["syncs"] = next(c["syncs"] for c in CENSUS
+                              if c["call"] == f"{cfg.name} decode wave")
     print(f"{cfg.name}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
           f" GiB")
 
@@ -5363,6 +5783,14 @@ def main() -> int:
     moe_launches, moe_err, moe_res = moe_phase(moe_gen, flush, card)
     gc.collect()
     torch.cuda.empty_cache()
+
+    PHASE_START.append(("5e", time.perf_counter()))
+    # -- 5e. serving through a world-1 NCCL mesh, bitwise phase 3's engine;
+    # 5f (the ranks of a multi-card mesh) runs with --mesh only ----------
+    serve_mesh_res = {"5e": world1_serve_phase(card, serve_ref), "5f": None}
+    del serve_ref
+    print("phase 5f: not run: its NCCL ranks run with --mesh on 2 or more "
+          "cards")
 
     PHASE_START.append(("6", time.perf_counter()))
     # -- 6. training: gradients at reduced depth, then full depth; the
@@ -5627,6 +6055,11 @@ def main() -> int:
             row["launches_moe"] = {run: n.get(name, 0)
                                    for run, n in moe_runs.items()}
             row["moe_max_abs_err"] = moe_err.get(name)
+    # launches_mesh_serve: phase 5e's world-1 mesh serving the smoke queue
+    for row in kernels:
+        if row["name"] in serve_mesh_res["5e"]["launches"]:
+            row["launches_mesh_serve"] = \
+                serve_mesh_res["5e"]["launches"][row["name"]]
     kernels[0]["moe_shapes_ms"] = {k: v for k, v in moe_res[
         "kernels"].items() if k != "sampling"}
     kernels[1]["moe_shapes_ms"] = moe_res["kernels"]["sampling"]
@@ -5640,6 +6073,7 @@ def main() -> int:
     print("moe: " + json.dumps(moe_res))
     print("checkpoint: " + json.dumps(ckpt_res))
     print("mesh: " + json.dumps(mesh_res))
+    print("serve_mesh: " + json.dumps(serve_mesh_res))
     print("census: " + json.dumps(CENSUS))
     print("roofline: " + json.dumps(roof_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
@@ -5651,11 +6085,15 @@ def main() -> int:
     return 0
 
 
-def main_mesh() -> int:
-    """``python3 chip_smoke.py --mesh``: phases 6c and 6d alone (the
-    build, phase 6's qwen3_1p7b run without its profiled steps as their
-    reference, then the mesh runs), for a call on several cards; the
-    driver's run takes no argument and runs every phase."""
+def main_mesh(serve_only: bool = False) -> int:
+    """``python3 chip_smoke.py --mesh``: the mesh phases alone, for a call
+    on several cards (the driver's run takes no argument and runs every
+    phase). The build; the one-card serving references of qwen3_1p7b,
+    falcon_mamba_7b and zamba2_1p2b; phase 5e (a world-1 NCCL mesh
+    bitwise the one-card qwen3 engine) and 5f (NCCL ranks over 2 / 4
+    cards against the references); then, unless ``--mesh serve``, phase
+    6's qwen3_1p7b run without its profiled steps and phases 6c and 6d
+    (layer-parallel training over the mesh)."""
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -5665,14 +6103,23 @@ def main_mesh() -> int:
     print(f"card: {card} x{torch.cuda.device_count()}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
     build.build()
-    _, _, _, info = run_train(qwen3_train_config(), (
-        "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
-        "rmsnorm_bwd"), record=True, profiled=())
-    gc.collect()
-    torch.cuda.empty_cache()
-    res = mesh_phase(card, info)
+    static_check()
+    refs = {arch: serve_reference(arch, card) for arch in SERVE_SEEDS}
+    serve_res = {"5e": world1_serve_phase(card, refs["qwen3_1p7b"][0])}
+    t5f = time.perf_counter()
+    serve_res["5f"] = serve_mesh_phase(card, refs)
+    del refs
+    print(f"phase 5f: {time.perf_counter() - t5f:.1f} s")
+    print("serve_mesh: " + json.dumps(serve_res))
+    if not serve_only:
+        _, _, _, info = run_train(qwen3_train_config(), (
+            "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
+            "rmsnorm_bwd"), record=True, profiled=())
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = mesh_phase(card, info)
+        print("mesh: " + json.dumps(res))
     print(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
-    print("mesh: " + json.dumps(res))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5681,4 +6128,6 @@ def main_mesh() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main_mesh() if sys.argv[1:] == ["--mesh"] else main())
+    if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"]):
+        sys.exit(main_mesh(serve_only=sys.argv[2:] == ["serve"]))
+    sys.exit(main())

@@ -9,8 +9,11 @@ Everything that names logical axes is checked against it:
 ``logical_constraint`` / ``spec_for`` / ``named_sharding`` /
 ``resolve_axis`` / ``tree_shardings`` call sites (string constants
 inside any tuple or list argument: ``pre + ("pages", None, "mlp")`` is
-walked), and the ``_*_AXES`` placement tables in ``parallel/params.py``
-(dict *values* only; the keys hold parameter names).
+walked), the run-time tensor-parallel queries ``tp.split(name, ...)`` /
+``tp.axis_of(mesh, cfg, name)`` (their string arguments), the
+``_*_AXES`` placement tables in ``parallel/params.py`` (dict *values*
+only; the keys hold parameter names) and the tuples of executed axes
+(``_*AXES`` / ``*EXECUTED`` tuple assignments).
 
 A mistyped axis does not crash: ``resolve_axis`` returns None and the
 tensor is silently held whole on every rank. Fixture projects can pass
@@ -26,7 +29,9 @@ from .core import Finding, Project, rule
 
 _AXIS_CALLEES = ("logical_constraint", "spec_for", "named_sharding",
                  "resolve_axis", "tree_shardings")
+_TP_CALLS = ("tp.split", "tp.axis_of")
 _TABLE_RE = re.compile(r"^_[A-Z0-9_]*AXES$")
+_TUPLE_RE = re.compile(r"^(_[A-Z0-9_]*AXES|[A-Z0-9_]*EXECUTED)$")
 
 
 def _dict_keys(node: ast.AST) -> Iterator[str]:
@@ -83,7 +88,17 @@ def check_sh001(project: Project) -> Iterator[Finding]:
             "or fix the name: an unknown axis is silently held whole")
     for mod in project.iter_modules():
         for node in ast.walk(mod.tree):
-            if isinstance(node, ast.Call):
+            if isinstance(node, ast.Call) and \
+                    (mod.raw_chain(node.func) or "") in _TP_CALLS:
+                for arg in node.args:
+                    if isinstance(arg, ast.Constant) and \
+                            isinstance(arg.value, str) and \
+                            arg.value not in known:
+                        yield Finding(
+                            mod.relpath, node.lineno, "SH001",
+                            f"logical axis `{arg.value}` is not in the "
+                            "sharding vocabulary", hint)
+            elif isinstance(node, ast.Call):
                 callee = (mod.raw_chain(node.func) or "").rsplit(".", 1)[-1]
                 if callee not in _AXIS_CALLEES:
                     continue
@@ -115,3 +130,14 @@ def check_sh001(project: Project) -> Iterator[Finding]:
                                 f"logical axis `{const.value}` in a "
                                 "placement table is not in the sharding "
                                 "vocabulary", hint)
+            elif isinstance(node, ast.Assign) and \
+                    isinstance(node.value, ast.Tuple) and any(
+                        isinstance(t, ast.Name) and _TUPLE_RE.match(t.id)
+                        for t in node.targets):
+                for const in _tuple_strings(node.value):
+                    if const.value not in known:
+                        yield Finding(
+                            mod.relpath, const.lineno, "SH001",
+                            f"logical axis `{const.value}` in a tuple of "
+                            "executed axes is not in the sharding "
+                            "vocabulary", hint)

@@ -40,6 +40,7 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               device_mesh.mesh.shape))
         self.device_type: str = device_mesh.device_type
+        self.size: int = math.prod(self.shape.values())
         # kind -> [calls, bytes this rank sent or contributed]
         self.counts: Dict[str, list] = collections.defaultdict(
             lambda: [0, 0])
@@ -82,10 +83,17 @@ class Mesh:
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
 
-    def broadcast(self, kind: str, t: torch.Tensor, axis: str,
+    def broadcast(self, kind: str, t: torch.Tensor, axis: Optional[str],
                   src_index: int) -> torch.Tensor:
         """``t`` of the rank at ``src_index`` along ``axis``, on every
-        rank of that axis (in place; ``t`` is returned)."""
+        rank of that axis (in place; ``t`` is returned). ``axis`` None is
+        the whole mesh, ``src_index`` a global rank."""
+        if axis is None:
+            if self.size == 1:
+                return t
+            self._count(kind, t)
+            dist.broadcast(t, src_index)
+            return t
         if self.shape[axis] == 1:
             return t
         self._count(kind, t)

@@ -8,7 +8,7 @@
       [--preempt-policy auto] \\
       [--shared-prefix-len 0] [--no-share-prefix] [--stream] \\
       [--no-partial-prefix] [--prefill-chunk-tokens 0] \\
-      [--spec-cf 4 --spec-k 4] [--stats] \\
+      [--spec-cf 4 --spec-k 4] [--stats] [--mesh dp,tp] \\
       [--metrics-json metrics.json] [--trace-out trace.json]
 
 Port of :mod:`repro.launch.serve` for attention decoders and the SSM
@@ -21,12 +21,22 @@ an error instead of running on the CPU. ``--spec-cf`` turns on
 coarse-propagator speculative decoding (:mod:`repro_torch.serve.spec`):
 the paper's coarse grid — every cf-th layer, ODE step rescaled — drafts
 ``--spec-k`` tokens per wave and the full model verifies them in one
-call (greedy output is plain decode's). Meshes (``--mesh``) are not
-ported yet.
+call (greedy output is plain decode's).
+
+``--mesh dp,tp`` serves on a ("data", "model") mesh of dp x tp ranks,
+one process a rank, under the reference's ``serve_sharding`` rules
+(Megatron tensor parallelism over ``model``, slots and page pools over
+``data``). The ranks come from a launcher's environment (``torchrun
+--nproc-per-node N``: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
+LOCAL_RANK; NCCL on the cards, rank r on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``); ``--mesh 1,1`` without one opens a world-1 group in
+this process. Every rank builds the same weights from ``--seed`` and
+serves the same queue; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -89,6 +99,9 @@ def main(argv=None):
                     help="drafted tokens per verify wave")
     ap.add_argument("--stats", action="store_true",
                     help="print the engine's full counter dict")
+    ap.add_argument("--mesh", default="",
+                    help="dp,tp: serve on a (data, model) mesh of that "
+                         "many ranks (from a launcher's environment)")
     ap.add_argument("--metrics-json", default="",
                     help="write the metrics-registry snapshot as JSON here")
     ap.add_argument("--trace-out", default="",
@@ -107,6 +120,9 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from None
+    mesh = _mesh(args.mesh, device.type) if args.mesh else None
+    if mesh is not None and mesh_rank() > 0:
+        sys.stdout = open(os.devnull, "w")       # rank 0 prints
     rcfg = registry.get_config(args.arch, "decode_32k")
     if args.reduced:
         rcfg = reduce_config(rcfg)
@@ -120,10 +136,11 @@ def main(argv=None):
                          partial_prefix=not args.no_partial_prefix,
                          prefill_chunk_tokens=args.prefill_chunk_tokens,
                          spec=spec, preempt_policy=args.preempt_policy,
-                         device=device)
+                         mesh=mesh, device=device)
     del params                       # the backend holds its serving copy
     print(f"engine: paged continuous-batching via "
-          f"{type(engine.backend).__name__} on {device}"
+          f"{type(engine.backend).__name__} on {engine.device}"
+          + (f", mesh {dict(mesh.shape)}" if mesh is not None else "")
           + (f" + spec decode (cf={spec.cf}, k={spec.k}, "
              f"{engine.scheduler.spec.n_coarse} coarse layers)"
              if spec else ""))
@@ -230,6 +247,24 @@ def main(argv=None):
     print(f"steady-state decode probe: "
           f"{engine.throughput_probe(args.max_batch):.1f} tok/s")
     return 0
+
+
+def mesh_rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _mesh(spec: str, device_type: str):
+    """The ("data", "model") mesh of ``--mesh dp,tp`` over the launcher's
+    group (a world-1 group of this process for 1,1 without one)."""
+    from repro_torch.launch import mesh as mesh_mod
+    dp, tp = (int(x) for x in spec.split(","))
+    if not mesh_mod.init_from_env(device_type):
+        if dp * tp != 1:
+            raise SystemExit(f"error: --mesh {spec} needs {dp * tp} ranks: "
+                             "launch them with torchrun --nproc-per-node")
+        return mesh_mod.make_host_mesh(device_type)
+    return mesh_mod.make_mesh((dp, tp), ("data", "model"), device_type)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,13 @@ The JAX package traces these into one jitted call; the port runs them
 eagerly on the tensors' device. Host inputs (numpy slot arrays) are
 uploaded once per call in :func:`make_paged_serve_fn`,
 :func:`make_paged_verify_fn` and :func:`make_draft_wave_fn`.
+
+Under a mesh (explicit SPMD, one process a rank) those three run the
+model tensor-parallel (:func:`repro_torch.parallel.tp.active`) on this
+data rank's slots only (:class:`SlotRows`): each rank uploads its own
+rows of the slot arrays with its page table in its own page ids, every
+rank of a data group samples the same whole-vocab rows, and the sampled
+tokens are gathered over ``data`` before the host reads them.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch import prng
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers
-from repro_torch.serve.kv_pages import state_leaves
+from repro_torch.parallel import tp
+from repro_torch.serve.kv_pages import SCRATCH_PAGE, state_leaves
 from repro_torch.tree import leaf_at, leaves_with_paths, unflatten
 
 _MASKED = -1e30          # matches the attention-mask convention
@@ -155,6 +163,82 @@ def shardings_for_train(rcfg: RunConfig, mesh, params_sds, opt_sds,
     return ps, os_, pparams.batch_specs(batch_sds, rcfg, mesh)
 
 
+def shardings_for_decode(rcfg: RunConfig, mesh, params_sds, cache_sds):
+    """The reference's decode shardings as spec trees: params, the dense
+    decode cache, and the (batch, 1) token feed replicated."""
+    from repro_torch.parallel import params as pparams
+    return (pparams.param_specs(params_sds, rcfg, mesh),
+            pparams.cache_specs(cache_sds, rcfg, mesh), (None, None))
+
+
+class SlotRows:
+    """A mesh engine's slots and pages on this rank: its data group's
+    contiguous range of the ``max_batch`` slots (``batch`` over
+    ``data``) and of the ``pool_pages`` global page ids (``pages`` over
+    the same axis), whose first page is the group's scratch page (page 0
+    of the local pool). Without a data split every slot and page is
+    local.
+
+    ``local`` takes this rank's rows of a host slot array, ``table`` its
+    rows of a page table in local page ids (global 0, the unmapped
+    entry, stays the scratch page; an id outside the range raises, since
+    no rank could read it), and ``gather`` puts the per-slot results of
+    every data group back in slot order."""
+
+    def __init__(self, mesh, sharding, max_batch: int, pool_pages: int):
+        ax = tp.axis_of(mesh, sharding, "batch")
+        if tp.axis_of(mesh, sharding, "pages") != ax:
+            raise NotImplementedError(
+                "the slots and the page pools split over different axes: "
+                "a slot's pages must live on the rank that runs it")
+        n = mesh.shape[ax] if ax else 1
+        if max_batch % n or pool_pages % n:
+            raise ValueError(f"max_batch {max_batch} and the pool's "
+                             f"{pool_pages} pages must divide over the "
+                             f"{n} data ranks")
+        self.mesh, self.axis, self.n = mesh, ax, n
+        self.index = r = mesh.index(ax) if ax else 0
+        per = max_batch // n
+        self.rows = slice(r * per, (r + 1) * per)
+        self.span = pool_pages // n
+        self.base = r * self.span
+
+    def local(self, a):
+        return np.asarray(a)[self.rows]
+
+    def table(self, t):
+        t = np.asarray(t)[self.rows]
+        lo, hi = self.base, self.base + self.span
+        mapped = np.not_equal(t, SCRATCH_PAGE)
+        if np.any(mapped & ((t <= lo) | (t >= hi))):
+            raise ValueError(f"a page table {np.asarray(t).tolist()} maps "
+                             f"pages outside this rank's ({lo}, {hi})")
+        return np.where(mapped, t - lo, SCRATCH_PAGE).astype(t.dtype)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        if self.axis is None:
+            return t
+        return self.mesh.all_gather("dp_tokens", t, self.axis, dim=0)
+
+
+def _mesh_io(rcfg: RunConfig, device, mesh, rows):
+    """(upload of this rank's rows of a host slot array, of its page
+    table, the tensor-parallel context of a call, the gather of its
+    per-slot results): the whole batch and no context without a mesh."""
+    up = _uploader(device)
+    if mesh is None:
+        return up, up, contextlib.nullcontext, lambda t: t
+
+    def up_rows(a, dtype):
+        return up(rows.local(a), dtype)
+
+    def up_table(t, dtype):
+        return up(rows.table(t), dtype)
+
+    return (up_rows, up_table,
+            functools.partial(tp.active, mesh, rcfg.sharding), rows.gather)
+
+
 def make_prefill_fn(rcfg: RunConfig):
     """Returns prefill_step(params, batch) -> (next (B,) greedy tokens at
     the last position, logits (B, S, V)): the serial forward."""
@@ -266,7 +350,7 @@ def sample_tokens(logits, temps, top_ks, top_ps, seeds, counters, *,
 
 
 def make_paged_serve_fn(rcfg: RunConfig, decode_fn, fused: bool = False,
-                        device=None):
+                        device=None, mesh=None, rows=None):
     """Paged-state step: one function serves both chunked prefill
     (S = prompt bucket) and steady-state decode (S = 1); slot occupancy
     is the ``n_new`` mask.
@@ -277,23 +361,31 @@ def make_paged_serve_fn(rcfg: RunConfig, decode_fn, fused: bool = False,
     callable takes the host (numpy) slot arrays, uploads them to
     ``device``, runs the forward and the sampler, and returns (next
     (B, 1) int32 on the device, state).
-    """
 
-    up = _uploader(device)
+    Under ``mesh`` (with ``rows``, this rank's :class:`SlotRows`) the
+    forward runs tensor-parallel on this data rank's slots and local
+    pools; each rank samples its slots' whole-vocab rows, and the tokens
+    come back gathered over ``data``, the whole batch on every rank.
+    """
+    up, up_table, rules, gather = _mesh_io(rcfg, device, mesh, rows)
 
     def paged_serve_step(params, state, tokens, lengths, n_new, page_table,
                          temps, top_ks, top_ps, seeds, counters):
+        # over every slot, this rank's or not: a greedy row samples
+        # greedily either way
         any_sampled = bool(np.any(np.asarray(temps) > 0.0))
-        # lengths and the table in int32: the attention kernel's types
-        logits, state = decode_fn(
-            params, state, up(tokens, torch.long), up(lengths, torch.int32),
-            up(n_new, torch.long), up(page_table, torch.int32), rcfg)
+        with rules():
+            # lengths and the table in int32: the attention kernel's types
+            logits, state = decode_fn(
+                params, state, up(tokens, torch.long),
+                up(lengths, torch.int32), up(n_new, torch.long),
+                up_table(page_table, torch.int32), rcfg)
         nxt = sample_tokens(logits, up(temps, torch.float32),
                             up(top_ks, torch.int32),
                             up(top_ps, torch.float32),
                             up(seeds, torch.long), up(counters, torch.long),
                             fused=fused, any_sampled=any_sampled)
-        return nxt[:, None], state
+        return gather(nxt[:, None]), state
 
     return paged_serve_step
 
@@ -411,7 +503,7 @@ def speculative_accept(logits, tokens, draft_probs, temps, top_ks, top_ps,
 
 
 def make_paged_verify_fn(rcfg: RunConfig, verify_fn, commit_fn=None,
-                         device=None):
+                         device=None, mesh=None, rows=None):
     """Speculative verification: one occupancy-masked call of the full
     model over each slot's pending token + k drafted tokens, the
     per-position targets and the accepted prefix
@@ -425,18 +517,23 @@ def make_paged_verify_fn(rcfg: RunConfig, verify_fn, commit_fn=None,
     takes the verify tokens (B, k+1) and draft_probs (B, k, V) on the
     device and the host slot arrays, and returns (accepted (B,), next
     token (B,), state) — the tokens on the device, the pools updated in
-    place."""
-    up = _uploader(device)
+    place. Under ``mesh`` the device inputs are this data rank's rows
+    (:func:`make_draft_wave_fn`'s), and the two results come back
+    gathered over ``data`` (:func:`make_paged_serve_fn`)."""
+    up, up_table, rules, gather = _mesh_io(rcfg, device, mesh, rows)
 
     def paged_verify_step(params, state, tokens, lengths, n_new, page_table,
                           temps, top_ks, top_ps, seeds, counters,
                           draft_probs):
+        # over every slot, this rank's or not: a greedy row samples
+        # greedily either way
         any_sampled = bool(np.any(np.asarray(temps) > 0.0))
         lengths_d = up(lengths, torch.int32)
         n_new_d = up(n_new, torch.long)
-        table = up(page_table, torch.int32)
-        logits, state, art = verify_fn(params, state, tokens, lengths_d,
-                                       n_new_d, table, rcfg)
+        table = up_table(page_table, torch.int32)
+        with rules():
+            logits, state, art = verify_fn(params, state, tokens, lengths_d,
+                                           n_new_d, table, rcfg)
         acc, nxt = speculative_accept(
             logits, tokens, draft_probs,
             *_sampling_args(up, temps, top_ks, top_ps, seeds),
@@ -445,13 +542,14 @@ def make_paged_verify_fn(rcfg: RunConfig, verify_fn, commit_fn=None,
             n_write = torch.where(n_new_d > 0,
                                   torch.minimum(acc.long() + 1, n_new_d), 0)
             state = commit_fn(state, art, table, lengths_d, n_write)
-        return acc, nxt, state
+        return gather(acc), gather(nxt), state
 
     return paged_verify_step
 
 
 def make_draft_wave_fn(rcfg: RunConfig, decode_fn, *, k: int, page_size: int,
-                       snapshot_state: bool, device=None):
+                       snapshot_state: bool, device=None, mesh=None,
+                       rows=None):
     """A whole draft wave of the coarse propagator: (1) the catch-up
     ingest (canonical tokens the draft has not cached yet plus the
     pending token, S = k+1 occupancy-masked), which commits true state
@@ -465,18 +563,30 @@ def make_draft_wave_fn(rcfg: RunConfig, decode_fn, *, k: int, page_size: int,
     returning, so the next wave's ingest resumes from true state (KV
     drafts skip this: rows beyond the committed length are masked and
     later overwritten). Returns (drafted (B, k) int32, draft_probs
-    (B, k, V), state), on the device."""
+    (B, k, V), state), on the device. Under ``mesh`` the wave runs
+    tensor-parallel on this data rank's slots (``rows``, in the draft
+    pool's page ids) and returns this rank's rows only: the verify call
+    consumes them where they are."""
     up = _uploader(device)
+    rules = contextlib.nullcontext if mesh is None else \
+        functools.partial(tp.active, mesh, rcfg.sharding)
 
     def draft_wave(params, state, tokens, lengths, n_in, page_table,
                    temps, top_ks, top_ps, seeds, counters, n_draft):
+        if mesh is not None:
+            page_table = rows.table(page_table)
+            tokens, lengths, n_in, temps, top_ks, top_ps, seeds, \
+                counters, n_draft = map(rows.local, (
+                    tokens, lengths, n_in, temps, top_ks, top_ps, seeds,
+                    counters, n_draft))
         any_sampled = bool(np.any(np.asarray(temps) > 0.0))
         samp = _sampling_args(up, temps, top_ks, top_ps, seeds)
         counters_d = up(counters, torch.long)
         table = up(page_table, torch.int32)
-        logits, state = decode_fn(params, state, up(tokens, torch.long),
-                                  up(lengths, torch.int32),
-                                  up(n_in, torch.long), table, rcfg)
+        with rules():
+            logits, state = decode_fn(params, state, up(tokens, torch.long),
+                                      up(lengths, torch.int32),
+                                      up(n_in, torch.long), table, rcfg)
         tok, probs = draft_sample_tokens(logits, *samp, counters_d,
                                          any_sampled=any_sampled)
         committed = np.asarray(lengths) + np.asarray(n_in)
@@ -491,9 +601,11 @@ def make_draft_wave_fn(rcfg: RunConfig, decode_fn, *, k: int, page_size: int,
         for i in range(k - 1):
             live = ((np.asarray(n_in) > 0)
                     & (np.asarray(n_draft) >= i + 2)).astype(np.int32)
-            lg, state = decode_fn(params, state, toks[-1][:, None].long(),
-                                  up(ln, torch.int32), up(live, torch.long),
-                                  table, rcfg)
+            with rules():
+                lg, state = decode_fn(params, state,
+                                      toks[-1][:, None].long(),
+                                      up(ln, torch.int32),
+                                      up(live, torch.long), table, rcfg)
             t2, p2 = draft_sample_tokens(lg, *samp, counters_d + i + 1,
                                          any_sampled=any_sampled)
             toks.append(t2)

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (apply_rope, dense_init,
                                        preln_output_scale, rms_norm,
                                        torch_dtype)
+from repro_torch.parallel import tp
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -243,14 +244,49 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
 # needs no data-dependent shapes.
 
 
+def kv_split(cfg: ModelConfig):
+    """(the split of the query heads, the KV heads this rank stores)
+    under :func:`repro_torch.parallel.tp.active`, else (None, None).
+    Each rank runs its own query heads and the KV heads they read: its
+    share where the KV heads divide over the ranks (``wk`` / ``wv`` are
+    stored cut), else the one KV head its query heads' GQA group reads
+    (the reference's spec drops the mapping, so ``wk`` / ``wv`` are
+    stored whole): a range ``(lo, hi)``."""
+    sq = tp.split("heads", cfg.n_heads)
+    if sq is None:
+        return None, None
+    Hkv, n = cfg.n_kv_heads, sq.n
+    if Hkv % n and n % Hkv:
+        raise NotImplementedError(
+            f"{cfg.n_heads} query heads over {n} ranks read {Hkv} KV heads "
+            "unevenly: neither divides the other")
+    lo = sq.r * Hkv // n
+    return sq, (lo, lo + max(Hkv // n, 1))
+
+
 def init_paged_kv_cache(cfg: ModelConfig, n_layers: int, n_pages: int,
                         page_size: int, *, device=None):
-    """Page pool stacked over layers: (L, n_pages, page_size, Hkv, hd)."""
+    """Page pool stacked over layers: (L, n_pages, page_size, Hkv, hd);
+    under :func:`repro_torch.parallel.tp.active` this rank's KV heads."""
     hd = cfg.resolved_head_dim
     dt = torch_dtype(cfg.dtype)
-    shape = (n_layers, n_pages, page_size, cfg.n_kv_heads, hd)
+    kv = kv_split(cfg)[1]
+    hkv = kv[1] - kv[0] if kv else cfg.n_kv_heads
+    shape = (n_layers, n_pages, page_size, hkv, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _tp_heads(params, cfg: ModelConfig):
+    """(this rank's attention weights, the query-head split) under
+    :func:`repro_torch.parallel.tp.active` (``wk`` / ``wv`` stored whole
+    narrowed to the KV head this rank reads); the weights themselves and
+    None outside it."""
+    sq, kv = kv_split(cfg)
+    if sq is None or tp.split("kv_heads", cfg.n_kv_heads):   # stored cut
+        return params, sq
+    return dict(params, **{name: params[name][..., kv[0]:kv[1], :]
+                           for name in ("wk", "wv")}), sq
 
 
 def paged_attention_apply(params, x, cfg: ModelConfig, *, rope, pk, pv,
@@ -274,9 +310,16 @@ def paged_attention_apply(params, x, cfg: ModelConfig, *, rope, pk, pv,
     the card, its plain version on the CPU) instead of materializing the
     (B, P*page_size, Hkv, hd) dense view. The scatter-write is identical
     in both branches.
+
+    Under :func:`repro_torch.parallel.tp.active` each rank projects and
+    attends its own query heads and the KV heads they read (``wq`` /
+    ``wk`` / ``wv`` column-parallel, its pools holding those KV heads;
+    :func:`kv_split`) and ``wo`` is row-parallel, the partial outputs
+    summed over the ranks in float32.
     """
     dt = torch_dtype(cfg.dtype)
     x = x.to(dt)
+    params, sq = _tp_heads(params, cfg)
     q, k, v = _project_qkv(params, x, None, cfg)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
@@ -310,4 +353,5 @@ def paged_attention_apply(params, x, cfg: ModelConfig, *, rope, pk, pv,
         out = dot_attention(q, pk_flat[gather], pv_flat[gather], causal=True,
                             q_offset=lengths)
     h, hd, d = params["wo"].shape
-    return out.reshape(B, S, h * hd) @ params["wo"].to(dt).reshape(h * hd, d)
+    return tp.row_parallel(sq, "tp_attn", out.reshape(B, S, h * hd),
+                           params["wo"].to(dt).reshape(h * hd, d))

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import tp
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -101,13 +102,34 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *, device=None):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
+    """The token embeddings. Vocab-parallel under
+    :func:`repro_torch.parallel.tp.active`: each rank looks up the ids
+    of its own rows of the table (``params`` this rank's part; zeros
+    elsewhere) and the ranks sum; one term of the sum is non-zero, so
+    the result is exact."""
     emb = params["tok"].to(torch_dtype(cfg.dtype))
-    return emb[tokens]
+    sp = tp.split("vocab", cfg.vocab_size)
+    if sp is None:
+        return emb[tokens]
+    n = emb.shape[0]
+    idx = tokens - sp.r * n
+    mine = (idx >= 0) & (idx < n)
+    x = torch.where(mine[..., None], emb[idx.clamp(0, n - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return sp.all_sum("tp_embed", x)
 
 
 def unembed(params, x, cfg: ModelConfig):
+    """Logits; under :func:`repro_torch.parallel.tp.active` this rank's
+    vocab columns only (:func:`gather_vocab` makes them whole)."""
     w = params.get("out", params["tok"]).to(torch_dtype(cfg.dtype))
     return x @ w.t()
+
+
+def gather_vocab(logits, cfg: ModelConfig):
+    """:func:`unembed`'s logits over the whole vocab on every rank."""
+    sp = tp.split("vocab", cfg.vocab_size)
+    return logits if sp is None else sp.all_gather("tp_logits", logits, -1)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dense_init, preln_output_scale,
                                        torch_dtype)
+from repro_torch.parallel import tp
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, *,
@@ -26,6 +27,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, *,
 
 
 def mlp_apply(params, x, cfg: ModelConfig):
+    """Under :func:`repro_torch.parallel.tp.active` (``params`` this
+    rank's part) ``w_in`` / ``w_gate`` are column-parallel and ``w_out``
+    row-parallel, the partial outputs summed over the ranks in float32."""
     dt = torch_dtype(cfg.dtype)
     x = x.to(dt)
     h = x @ params["w_in"].to(dt)
@@ -35,4 +39,5 @@ def mlp_apply(params, x, cfg: ModelConfig):
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch's to erf
         h = F.gelu(h, approximate="tanh")
-    return h @ params["w_out"].to(dt)
+    return tp.row_parallel(tp.split("mlp", cfg.d_ff), "tp_mlp", h,
+                           params["w_out"].to(dt))

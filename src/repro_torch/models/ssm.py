@@ -49,6 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.paged_ssm import max_write_pages
 from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.parallel import params as pparams
+from repro_torch.parallel import tp
 
 
 def _dt_rank(cfg: ModelConfig) -> int:
@@ -119,26 +121,40 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
 # ---------------------------------------------------------------------------
 
 
+def inner_split(cfg: ModelConfig):
+    """The split of a Mamba mixer's rows under
+    :func:`repro_torch.parallel.tp.active` (over the axis ``mlp`` maps
+    to): mamba1's di, mamba2's heads; None where they do not divide."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    unit = di if pparams.mamba_version(cfg) == 1 else di // s.headdim
+    return tp.split("mlp", unit)
+
+
 def init_paged_ssm_pool(cfg: ModelConfig, n_layers: int, n_pages: int,
                         version: int, *, device=None):
     """State-snapshot page pool stacked over layers (page axis 1, like
-    the paged KV layout, so one copy-on-write covers every backend)."""
+    the paged KV layout, so one copy-on-write covers every backend);
+    under :func:`repro_torch.parallel.tp.active` this rank's rows (conv
+    channels ``[x | B C]`` for mamba2, B and C whole)."""
     s = cfg.ssm
     di = s.expand * cfg.d_model
     dt = torch_dtype(cfg.dtype)
+    sp = inner_split(cfg)
+    n = sp.n if sp else 1
+    ci = tp.local_size(pparams.mamba_blocks(cfg, "conv"), n)
     if version == 1:
         return {
-            "conv": torch.zeros((n_layers, n_pages, s.d_conv - 1, di),
+            "conv": torch.zeros((n_layers, n_pages, s.d_conv - 1, ci),
                                 dtype=dt, device=device),
-            "h": torch.zeros((n_layers, n_pages, di, s.d_state),
+            "h": torch.zeros((n_layers, n_pages, di // n, s.d_state),
                              dtype=torch.float32, device=device),
         }
     nh = di // s.headdim
-    ci = di + 2 * s.d_state
     return {
         "conv": torch.zeros((n_layers, n_pages, s.d_conv - 1, ci), dtype=dt,
                             device=device),
-        "h": torch.zeros((n_layers, n_pages, nh, s.headdim, s.d_state),
+        "h": torch.zeros((n_layers, n_pages, nh // n, s.headdim, s.d_state),
                          dtype=torch.float32, device=device),
     }
 
@@ -479,19 +495,27 @@ def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
     untouched and returns ``(out, xp, hs_b)``: the padded conv input and
     every local step's state (B, S, di, d_state), for
     :func:`paged_pool_commit` to publish an accepted prefix later.
+
+    Under :func:`repro_torch.parallel.tp.active` each rank runs its di
+    rows (``params`` this rank's part: ``in_proj`` cut ``[x | z]``, the
+    row-indexed leaves to its rows, ``dt_proj`` to its columns):
+    ``x_proj``'s partial products are summed over the ranks before the
+    split into dt, B and C, ``out_proj`` is row-parallel.
     """
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
     B, S, D = x.shape
     dtr = _dt_rank(cfg)
+    sp = inner_split(cfg)
 
     xz = x @ params["in_proj"].to(dt_)
     xin, z = xz.chunk(2, dim=-1)
     xc, xp = _conv_window(params, xin, conv_pool, page_table, lengths,
                           page_size, dt_)
 
-    dbc = xc @ params["x_proj"].to(dt_)
+    dbc = tp.row_parallel(sp, "tp_ssm_dbc", xc,
+                          params["x_proj"].to(dt_))   # contracts over di
     dtr_v, Bm, Cm = torch.split(dbc, [dtr, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dtr_v @ params["dt_proj"].to(dt_)
                     + params["dt_bias"].to(dt_))
@@ -531,7 +555,7 @@ def mamba1_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
         hs_b = torch.stack(hs, dim=1)
     y = y + params["D"].to(dt_)[None, None, :] * xc
     y = y * F.silu(z)
-    out = y @ params["out_proj"].to(dt_)
+    out = tp.row_parallel(sp, "tp_ssm_out", y, params["out_proj"].to(dt_))
 
     if not commit:
         return out, xp, hs_b
@@ -563,7 +587,9 @@ def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
     B, S, D = x.shape
-    di = s.expand * D
+    sp = inner_split(cfg)
+    # this rank's inner width and heads (all of them on one rank)
+    di = s.expand * D // (sp.n if sp else 1)
     nh = di // s.headdim
 
     proj = x @ params["in_proj"].to(dt_)
@@ -614,8 +640,13 @@ def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
     y = y + params["D"].float()[None, None, :, None] * xh
     y = y.reshape(B, S, di).to(dt_)
     y = y * F.silu(z)
-    y = kops.rmsnorm(y, params["norm_scale"])                 # gated RMSNorm
-    out = y @ params["out_proj"].to(dt_)
+    if sp is None:
+        y = kops.rmsnorm(y, params["norm_scale"])             # gated RMSNorm
+    else:
+        # the norm is over the whole di: gather the rows, keep own columns
+        y = kops.rmsnorm(sp.all_gather("tp_ssm_norm", y, -1),
+                         params["norm_scale"])[..., sp.r * di:(sp.r + 1) * di]
+    out = tp.row_parallel(sp, "tp_ssm_out", y, params["out_proj"].to(dt_))
 
     if not commit:
         return out, xp, hs_b

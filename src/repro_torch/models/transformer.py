@@ -35,9 +35,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import (block_kind, block_step, init_block,
                                        paged_attn_block)
-from repro_torch.models.layers import (embed_tokens, init_embedding,
-                                       init_norm, norm_apply, rope_freqs,
-                                       torch_dtype, unembed)
+from repro_torch.models.layers import (embed_tokens, gather_vocab,
+                                       init_embedding, init_norm,
+                                       norm_apply, rope_freqs, torch_dtype,
+                                       unembed)
 from repro_torch.tree import leaves_with_paths, tree_map
 
 # ---------------------------------------------------------------------------
@@ -465,20 +466,25 @@ def init_paged_cache(rcfg: RunConfig, n_pages: int, page_size: int, *,
 
 def _paged_last_logits(params, z, n_new, cfg: ModelConfig):
     """Logits at each slot's last real token (index ``n_new - 1``); rows
-    past ``n_new`` in a prefill bucket are garbage and never unembedded."""
+    past ``n_new`` in a prefill bucket are garbage and never unembedded.
+    Under :func:`repro_torch.parallel.tp.active` the vocab-parallel
+    logits are gathered whole on every rank (as in
+    :func:`_paged_all_logits`)."""
     last = torch.clamp(n_new - 1, min=0)
     z_last = z[torch.arange(z.shape[0], device=z.device), last]
     # the norm is per row, so normalizing after the gather is the same
-    return unembed(params["embed"],
-                   norm_apply(params["final_norm"], z_last, cfg), cfg)
+    return gather_vocab(unembed(params["embed"],
+                                norm_apply(params["final_norm"], z_last,
+                                           cfg), cfg), cfg)
 
 
 def _paged_all_logits(params, z, cfg: ModelConfig):
     """Logits at every position of the step window (B, S, V): the
     speculative verifier needs a target per drafted token. Positions
     >= n_new carry garbage; callers mask them."""
-    return unembed(params["embed"], norm_apply(params["final_norm"], z, cfg),
-                   cfg)
+    return gather_vocab(unembed(params["embed"],
+                                norm_apply(params["final_norm"], z, cfg),
+                                cfg), cfg)
 
 
 def _paged_attn_forward(params, pages, tokens, lengths, n_new, page_table,

@@ -14,13 +14,21 @@ for entry the reference's ``PartitionSpec``):
   * every mapping is divisibility-checked against the mesh and dropped
     when it does not divide.
 
-What this port executes of them: :func:`shard_tree` slices a leaf only
-along its ``layers`` and ``batch`` dimensions (:data:`EXECUTED`). A leaf
-whose spec names a mesh axis for another logical axis (vocab, heads,
-mlp, experts, kv_seq, fsdp) is kept whole on every rank: its math is
-unchanged, only its storage differs from the reference's, and
-:func:`shard_tree` lists it. Tensor parallelism comes with the serving
-slice.
+What this port executes of them: :func:`shard_tree` slices a leaf along
+the logical axes its caller executes. Training executes ``layers`` and
+``batch`` (:data:`EXECUTED`); a leaf whose spec names a mesh axis for
+another logical axis is kept whole on every rank (its math is
+unchanged, only its storage differs from the reference's) and listed.
+Serving executes :data:`SERVE_EXECUTED`: the slots and page pools over
+``data`` and Megatron tensor parallelism over ``model``.
+
+GSPMD makes a contiguous split of a packed axis correct by
+communicating; explicit tensor parallelism cannot, so a leaf packed from
+blocks that split apart is cut block by block (:func:`model_blocks`):
+mamba1's ``in_proj`` ``[x | z]``, mamba2's ``in_proj`` ``[z | x | B C |
+dt]`` and its conv weight and conv pool ``[x | B C]`` (B and C are one
+group, whole on every rank). :func:`local_slice` gives a rank's piece
+and :func:`gather_leaf` its inverse, bit for bit.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import RunConfig, ShardingConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShardingConfig
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import (axis_size, axis_tuple,
                                            canonical, chunk_axis,
                                            resolve_axis)
@@ -57,16 +66,32 @@ _LEAF_AXES = {
     ("out_proj", 2): ("mlp", "embed"),
 }
 
+# The per-row vectors of a Mamba mixer (mamba1: di long; mamba2: one a
+# head). The reference's specs keep them whole, as GSPMD reads them
+# replicated; the serving layout cuts them with the mixer's rows, so that
+# a rank holds only the leaves its model code reads (serve_logical_axes_for).
+_SERVE_LEAF_AXES = {
+    **_LEAF_AXES,
+    ("dt_bias", 1): ("mlp",),
+    ("D", 1): ("mlp",),
+    ("A_log", 1): ("mlp",),
+    ("conv_b", 1): ("mlp",),
+}
+
 _STACKED_ROOTS = ("mid", "enc_mid", "dec_mid")
 _FSDP_MIN_SIZE = 1 << 22  # only storage-shard leaves >= 4M elements
 
-# the logical axes this slice executes (slices storage and work along)
+# the logical axes training executes (slices storage and work along)
 EXECUTED = ("layers", "batch")
+# ... and serving: slots and pools over data, Megatron TP over model
+SERVE_EXECUTED = ("batch", "pages", "heads", "kv_heads", "mlp", "vocab")
+_TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
-def logical_axes_for(path: Path, shape) -> Tuple[Optional[str], ...]:
+def logical_axes_for(path: Path, shape,
+                     table=_LEAF_AXES) -> Tuple[Optional[str], ...]:
     """Logical axes of the params leaf at key path ``path`` (a tuple of
-    dict keys)."""
+    dict keys), its own dimensions' names from ``table``."""
     names = set(path)
     leaf = path[-1] if path else ""
     in_trunk = bool(names & set(_STACKED_ROOTS))
@@ -75,10 +100,16 @@ def logical_axes_for(path: Path, shape) -> Tuple[Optional[str], ...]:
     if leaf == "gate":
         return ("layers",)
     base_ndim = len(shape) - (1 if stacked else 0)
-    base = _LEAF_AXES.get((leaf, base_ndim), (None,) * base_ndim)
+    base = table.get((leaf, base_ndim), (None,) * base_ndim)
     if stacked:
         return (("layers",) if in_trunk else (None,)) + base
     return base
+
+
+def serve_logical_axes_for(path: Path, shape) -> Tuple[Optional[str], ...]:
+    """:func:`logical_axes_for` with a Mamba mixer's per-row vectors
+    named over its rows (``_SERVE_LEAF_AXES``): the serving layout."""
+    return logical_axes_for(path, shape, _SERVE_LEAF_AXES)
 
 
 def build_spec(logical: Tuple[Optional[str], ...], shape,
@@ -121,16 +152,16 @@ def _map_with_path(fn, tree, prefix: Path = ()):
     return fn(prefix, tree)
 
 
-def param_specs(params, rcfg: RunConfig, mesh):
+def param_specs(params, rcfg: RunConfig, mesh, logical=logical_axes_for):
     """The tree of specs matching ``params`` (tensors or meta tensors;
-    the optimizer's host-int ``step`` gets ``()``)."""
+    the optimizer's host-int ``step`` gets ``()``); ``logical``:
+    :func:`serve_logical_axes_for` gives the serving layout's."""
     cfg = rcfg.sharding
 
     def one(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return ()
-        return build_spec(logical_axes_for(path, leaf.shape), leaf.shape,
-                          cfg, mesh)
+        return build_spec(logical(path, leaf.shape), leaf.shape, cfg, mesh)
 
     return _map_with_path(one, params)
 
@@ -235,79 +266,152 @@ def _logical_of(path: Path, shape) -> tuple:
     return logical_axes_for(path, shape)
 
 
-def _split_dims(path: Path, leaf, spec) -> Tuple[List[Tuple[int, tuple]],
-                                                 bool]:
-    """(the dims of ``leaf`` this slice splits, each with its mesh axes;
-    whether the spec names an axis this slice does not execute)."""
+def pool_logical(path: Path, shape) -> tuple:
+    """A page-pool leaf's logical axes (:func:`paged_state_specs`)."""
+    return _PAGED_POOL_AXES.get((path[-1], len(shape)), (None,) * len(shape))
+
+
+def mamba_version(cfg: ModelConfig) -> int:
+    """The mixer of an SSM or hybrid model: 1 or 2 (hybrid backbones are
+    mamba2)."""
+    return 2 if cfg.family == "hybrid" else cfg.ssm.version
+
+
+def mamba_blocks(cfg: ModelConfig, name: str) -> tp.Blocks:
+    """The blocks of a Mamba mixer's packed dimension: ``in_proj``'s
+    output (mamba1 ``[x | z]``, mamba2 ``[z | x | B C | dt]``) or
+    ``conv``'s channels (the conv weight, bias and pool: mamba1 ``x``,
+    mamba2 ``[x | B C]``)."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    v2 = mamba_version(cfg) == 2
+    if name == "in_proj":
+        return [(di, True), (di, True)] + (
+            [(2 * s.d_state, False), (di // s.headdim, True)] if v2 else [])
+    return [(di, True)] + ([(2 * s.d_state, False)] if v2 else [])
+
+
+def model_blocks(path: Path, size: int, cfg: Optional[ModelConfig],
+                 n: int) -> Optional[tp.Blocks]:
+    """How a whole dimension of ``size`` that the spec maps to a
+    tensor-parallel axis of ``n`` ranks (so ``size`` divides) is cut:
+    its blocks, or None where the leaf stays whole because the split the
+    model code runs does not divide (a Mamba mixer splits only where its
+    rows, di for mamba1 and the heads for mamba2, divide). Without
+    ``cfg`` every dimension is one even block."""
+    if cfg is not None and cfg.ssm is not None and (
+            "mixer" in path or path[-1] in ("conv", "h")):
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        if (di if mamba_version(cfg) == 1 else di // s.headdim) % n:
+            return None
+        if path[-1] == "in_proj":
+            return mamba_blocks(cfg, "in_proj")
+        if path[-1] in ("conv_w", "conv_b", "conv"):
+            return mamba_blocks(cfg, "conv")
+    return tp.even(size)
+
+
+def _split_dims(path: Path, leaf, spec, mesh, executed=EXECUTED, cfg=None,
+                logical=None, local=False):
+    """(the dims of ``leaf`` cut over ``executed`` logical axes, each
+    with its mesh axes and blocks; whether the spec names an axis that
+    stays whole: one not executed, or a block split that does not
+    divide). ``local``: ``leaf`` is a rank's piece already (an even
+    block's whole size is then its size times the ranks)."""
     split, whole = [], False
-    for d, (name, ax) in enumerate(zip(_logical_of(path, leaf.shape),
-                                       spec, strict=True)):
+    names = (logical or _logical_of)(path, leaf.shape)
+    for d, (name, ax) in enumerate(zip(names, spec, strict=True)):
         if ax is None:
             continue
-        if name in EXECUTED:
-            split.append((d, axis_tuple(ax)))
-        else:
+        blocks = None
+        if name in executed:
+            n = axis_size(mesh, ax)
+            size = leaf.shape[d] * (n if local else 1)
+            blocks = model_blocks(path, size, cfg, n) \
+                if name in _TP_AXES else tp.even(size)
+        if blocks is None:
             whole = True
+        else:
+            split.append((d, axis_tuple(ax), blocks))
     return split, whole
 
 
-def local_slice(leaf, path: Path, spec, mesh):
+def local_slice(leaf, path: Path, spec, mesh, *, executed=EXECUTED,
+                cfg: Optional[ModelConfig] = None, logical=None):
     """This rank's slice of the full ``leaf`` (a tensor or numpy array;
-    a view where slicing allows) along the dims this slice splits."""
+    a view where slicing allows) along the dims cut over ``executed``
+    logical axes (``cfg``: the model, for the block layouts of
+    :func:`model_blocks`; ``logical``: the leaf's logical axes from its
+    path, batch and params trees' by default, :func:`pool_logical` for
+    page pools)."""
     if not spec:
         return leaf
-    split, _ = _split_dims(path, leaf, spec)
-    for d, axes in split:
+    split, _ = _split_dims(path, leaf, spec, mesh, executed, cfg, logical)
+    for d, axes, blocks in split:
         idx, size = 0, 1
         for a in axes:                       # the first axis is major
             idx, size = idx * mesh.shape[a] + mesh.index(a), \
                 size * mesh.shape[a]
-        n = leaf.shape[d] // size
-        sl = [slice(None)] * len(leaf.shape)
-        sl[d] = slice(idx * n, (idx + 1) * n)
-        leaf = leaf[tuple(sl)]
+        leaf = tp.slice_blocks(leaf, d, blocks, size, idx)
     return leaf
 
 
 def gather_leaf(leaf: torch.Tensor, path: Path, spec, mesh,
-                kind: str = "gather"):
-    """The full leaf from every rank's slice: all-gathers along the
-    split dims, the minor mesh axis of a dim first."""
+                kind: str = "gather", *, executed=EXECUTED,
+                cfg: Optional[ModelConfig] = None, logical=None):
+    """The full leaf from every rank's slice (the inverse of
+    :func:`local_slice`): all-gathers along the split dims, the minor
+    mesh axis of a dim first; a dim of several blocks is put back
+    together block by block."""
     if not spec:
         return leaf
-    split, _ = _split_dims(path, leaf, spec)
-    for d, axes in split:
+    split, _ = _split_dims(path, leaf, spec, mesh, executed, cfg, logical,
+                           local=True)
+    for d, axes, blocks in split:
+        if len(blocks) > 1:              # one tensor-parallel axis
+            (a,) = axes
+            parts = mesh.all_gather(kind, leaf, a, dim=d).chunk(
+                mesh.shape[a], dim=d)
+            leaf = tp.join_blocks(parts, d, blocks)
+            continue
         for a in reversed(axes):
             leaf = mesh.all_gather(kind, leaf, a, dim=d)
     return leaf
 
 
-def shard_tree(full, specs, mesh) -> Tuple[dict, List[Path]]:
+def shard_tree(full, specs, mesh, *, executed=EXECUTED,
+               cfg: Optional[ModelConfig] = None,
+               logical=None) -> Tuple[dict, List[Path]]:
     """Each leaf of ``full`` cut to this rank's slice (``local_slice``,
     cloned so that the full tensor can be freed), and the key paths of
     the leaves kept whole although their spec names a mesh axis (an axis
-    this slice does not execute)."""
+    not executed, or a block split that does not divide)."""
     whole: List[Path] = []
 
     def one(path, leaf):
         spec = leaf_at(specs, path)
         if not isinstance(leaf, torch.Tensor) or not spec:
             return leaf
-        split, keep = _split_dims(path, leaf, spec)
+        split, keep = _split_dims(path, leaf, spec, mesh, executed, cfg,
+                                  logical)
         if keep:
             whole.append(path)
-        return local_slice(leaf, path, spec, mesh).clone() if split \
+        return local_slice(leaf, path, spec, mesh, executed=executed,
+                           cfg=cfg, logical=logical).clone() if split \
             else leaf
 
     return _map_with_path(one, full), whole
 
 
-def gather_tree(local, specs, mesh):
+def gather_tree(local, specs, mesh, *, executed=EXECUTED,
+                cfg: Optional[ModelConfig] = None, logical=None):
     """The inverse of :func:`shard_tree`: every leaf whole on every
     rank."""
     def one(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return gather_leaf(leaf, path, leaf_at(specs, path), mesh)
+        return gather_leaf(leaf, path, leaf_at(specs, path), mesh,
+                           executed=executed, cfg=cfg, logical=logical)
 
     return _map_with_path(one, local)

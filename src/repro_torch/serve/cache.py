@@ -20,12 +20,23 @@ prefix), ``coarse_draft`` and ``init_draft_state``
 
 The pools are updated in place, where the JAX package donates them to a
 jitted call: every method that takes ``state`` returns the same tensors.
-Not ported: meshes (one card; multi-device is the last slice). Without a
-mesh the reference's ``shard_state`` / ``pool_pages`` are identities, so
-callers skip them.
+
+Under a mesh (:class:`repro_torch.launch.mesh.Mesh`, one process a rank,
+the reference's ``serve_sharding`` rules by default) the backend runs
+explicit SPMD: its weights are cut Megatron-style over ``model`` (heads,
+KV heads, MLP and SSM inner dims, vocab; :func:`repro_torch.parallel.
+params.shard_tree`), its pools hold this rank's heads or rows and this
+data rank's range of the pages (:meth:`pool_pages` rounds the pool so
+that the ranges are equal), and its calls run on this data rank's slots
+(:class:`repro_torch.launch.steps.SlotRows`), the tokens gathered back
+over ``data``. The host half takes global page ids as before; the
+device copies of a fork, a spill and a restore touch the pages this
+rank holds. Not under a mesh: the MoE family (its ``experts`` axis) and
+the encoder-decoder family.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
@@ -34,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
+from repro_torch.configs.registry import serve_sharding
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import attention as attn_mod
@@ -41,10 +53,16 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer
 from repro_torch.models.blocks import block_kind
 from repro_torch.obs import profile as obs_profile
+from repro_torch.parallel import params as pparams
+from repro_torch.parallel import tp
 from repro_torch.serve.kv_pages import PageAllocator, state_leaves
+from repro_torch.tree import leaves_with_paths, unflatten
 
-MESH_SLICE = ("meshes and sharding are not ported: the port serves on one "
-              "card (multi-device is the last slice, ROADMAP Queue 1)")
+MESH_MOE = ("the MoE family under a mesh (its 'experts' axis) is not "
+            "ported: ROADMAP Queue 1, the MoE expert axis")
+MESH_KV_SEQ = ("rules that split kv_seq or fsdp (decode_sharding) are not "
+               "executed under a mesh: ROADMAP Queue 1, dense-cache decode "
+               "under a mesh")
 
 
 @dataclasses.dataclass
@@ -108,8 +126,14 @@ class CacheBackend:
             (profiler spans; its compile counters stay empty).
         device: where the pools and weights live; None means ``cuda``
             (raises without a CUDA device), ``"cpu"`` runs the plain
-            versions.
-        mesh / sharding: not supported (raise).
+            versions. Under a mesh it must be the mesh's device type:
+            an NCCL mesh serves on ``cuda:<current device>``, a gloo mesh
+            needs ``"cpu"``.
+        mesh: a ("data", "model") :class:`repro_torch.launch.mesh.Mesh`
+            over every rank (each rank builds the same backend from the
+            same whole ``params``); None serves on one device.
+        sharding: the ``ShardingConfig`` under the mesh; None means
+            :func:`repro_torch.configs.registry.serve_sharding`.
     """
 
     #: pages are state snapshots (SSM/hybrid): no intra-wave sharing, no
@@ -119,12 +143,17 @@ class CacheBackend:
     def __init__(self, rcfg: RunConfig, params, mesh=None,
                  page_size: int = 16, sharding=None, fused: bool = True,
                  obs=None, device=None):
-        if mesh is not None or sharding is not None:
-            raise NotImplementedError(MESH_SLICE)
         self.device = resolve_device(device)
         if self.device.type == "meta":
             raise ValueError("the serve engine reads tokens back: it runs "
                              "on cuda or cpu, not meta")
+        self.mesh = mesh
+        self.rows: Optional[steps_mod.SlotRows] = None   # set by init
+        if mesh is not None:
+            rcfg = rcfg.replace(sharding=sharding or serve_sharding())
+            params = self._shard_params(rcfg, params)
+        elif sharding is not None:
+            rcfg = rcfg.replace(sharding=sharding)
         self.rcfg = rcfg
         self.params = transformer.serving_params(
             _to_device(params, self.device), rcfg.model)
@@ -135,9 +164,47 @@ class CacheBackend:
             else {}
         self._span = obs.span if obs is not None \
             else obs_profile.span_factory(False)
-        self._step_fn = steps_mod.make_paged_serve_fn(
-            rcfg, self._decode_fn(), fused=fused, device=self.device)
+        self._step_fn = None if mesh is not None else \
+            steps_mod.make_paged_serve_fn(rcfg, self._decode_fn(),
+                                          fused=fused, device=self.device)
         self._verify_fn = None          # built on first use (spec only)
+
+    def _shard_params(self, rcfg: RunConfig, params):
+        """Checks the mesh against the device and the family, and cuts
+        the whole ``params`` to this rank's part, once: the reference's
+        ``param_specs`` executed over ``data`` and ``model``, a Mamba
+        mixer's per-row vectors cut with its rows
+        (``serve_logical_axes_for``). The model code reads the leaves
+        as they are."""
+        mesh = self.mesh
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"engine on {self.device.type}: an NCCL mesh "
+                             "serves on cuda, a gloo mesh needs "
+                             "device='cpu'")
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if block_kind(rcfg.model) == "attn_moe":
+            raise NotImplementedError(MESH_MOE)
+        if rcfg.sharding.kv_seq is not None or rcfg.sharding.fsdp is not None:
+            raise NotImplementedError(MESH_KV_SEQ)
+        axes = {tp.axis_of(mesh, rcfg.sharding, a)
+                for a in ("heads", "kv_heads", "mlp", "vocab")} - {None}
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"heads, KV heads, mlp and vocab split over different axes "
+                f"{axes}")
+        logical = pparams.serve_logical_axes_for
+        specs = pparams.param_specs(params, rcfg, mesh, logical)
+        return pparams.shard_tree(params, specs, mesh,
+                                  executed=pparams.SERVE_EXECUTED,
+                                  cfg=rcfg.model, logical=logical)[0]
+
+    def _rules(self):
+        """The tensor-parallel context of this backend's model code."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return tp.active(self.mesh, self.rcfg.sharding)
 
     # -- device half --------------------------------------------------------
 
@@ -146,15 +213,92 @@ class CacheBackend:
 
     def init_state(self, n_pages: int):
         """Fresh device page pools (no allocator) — probes and tests use
-        this for scratch state."""
+        this for scratch state. Under a mesh this rank's part of a pool
+        of ``n_pages`` pages: its heads or rows (:meth:`_init_pools`
+        under the tensor-parallel rules), its data range of the pages."""
+        with self._rules():
+            return self._init_pools(self._local_pages(n_pages))
+
+    def _init_pools(self, n_pages: int):
         raise NotImplementedError
+
+    def shard_state(self, state):
+        """This rank's part of a whole page-pool state tree (pages over
+        'data', head / inner dims over 'model': ``paged_state_specs``;
+        KV heads the spec keeps whole narrowed to the one this rank's
+        query heads read, as :meth:`init_state` holds them); identity
+        without a mesh."""
+        if self.mesh is None:
+            return state
+        cfg = self.rcfg.model
+        specs = pparams.paged_state_specs(state, self.rcfg, self.mesh)
+        local, _ = pparams.shard_tree(
+            state, specs, self.mesh, executed=pparams.SERVE_EXECUTED,
+            cfg=cfg, logical=pparams.pool_logical)
+        with self._rules():
+            sq, kv = attn_mod.kv_split(cfg)
+            whole_kv = sq is not None and not tp.split("kv_heads",
+                                                       cfg.n_kv_heads)
+        if whole_kv:            # the KV head this rank's query heads read
+            local = unflatten(
+                (p, t[..., kv[0]:kv[1], :].clone() if p[-1] in ("k", "v")
+                 else t) for p, t in leaves_with_paths(local))
+        return local
+
+    def _data_ranks(self) -> int:
+        """The data ranks the page pools split over (1 without)."""
+        ax = tp.axis_of(self.mesh, self.rcfg.sharding, "pages") \
+            if self.mesh is not None else None
+        return self.mesh.shape[ax] if ax else 1
+
+    def pool_pages(self, n_pages: int) -> int:
+        """Round a pool size up so the physical-page axis divides its
+        mesh axis (the reference's rounding): an indivisible size would
+        keep every page on every rank. Identity without a mesh (or with
+        'pages' unmapped); the extra pages are ordinary capacity."""
+        size = self._data_ranks()
+        return -(-n_pages // size) * size
+
+    def _local_pages(self, n_pages: int) -> int:
+        size = self._data_ranks()
+        if n_pages % size:
+            raise ValueError(f"{n_pages} pages do not divide over {size} "
+                             "data ranks (pool_pages rounds them)")
+        return n_pages // size
 
     def init(self, max_batch: int, n_pages: int):
         """Set up the host allocator and return the device state.
-        ``n_pages`` includes scratch page 0."""
-        del max_batch                      # geometry is pool-global
-        self.alloc = PageAllocator(n_pages)
+        ``n_pages`` includes scratch page 0; under a mesh it must divide
+        over the data ranks (:meth:`pool_pages`), and each data rank
+        holds its range, with its own scratch page, and its
+        ``max_batch`` share of the slots."""
+        if self.mesh is None:
+            self.alloc = PageAllocator(n_pages)
+            return self.init_state(n_pages)
+        self.rows = steps_mod.SlotRows(self.mesh, self.rcfg.sharding,
+                                       max_batch, n_pages)
+        self.alloc = PageAllocator(n_pages, groups=self.rows.n)
+        self._step_fn = steps_mod.make_paged_serve_fn(
+            self.rcfg, self._decode_fn(), fused=self.fused,
+            device=self.device, mesh=self.mesh, rows=self.rows)
         return self.init_state(n_pages)
+
+    def agree(self, values):
+        """Rank 0's ``values`` (floats) on every rank of a mesh of more
+        than one rank (one broadcast), for the host decisions that read
+        the clock; None without one (nothing to agree on)."""
+        if self.mesh is None or self.mesh.size == 1:
+            return None
+        t = torch.tensor(values, dtype=torch.float64,
+                         device=self.device)
+        return self.mesh.broadcast("clock", t, None, 0).tolist()
+
+    def host_rows(self, t: torch.Tensor) -> np.ndarray:
+        """Per-slot device results of this data rank's slots (a draft
+        window) as the whole batch on the host."""
+        if self.rows is not None:
+            t = self.rows.gather(t)
+        return t.cpu().numpy()
 
     def _table_view(self, slots: SlotBatch):
         """The page-table columns this call needs. Unfused backends keep
@@ -213,10 +357,13 @@ class CacheBackend:
         masked; snapshot pools: the deferred commit never writes the
         rejected suffix). Returns (state, accepted (B,), next_token (B,))
         as host arrays; the host advances each slot by ``accepted + 1``
-        tokens."""
+        tokens. Under a mesh ``tokens`` and ``draft_probs`` are this data
+        rank's rows (the draft wave's) and the results the whole
+        batch."""
         if self._verify_fn is None:
             self._verify_fn = steps_mod.make_paged_verify_fn(
-                self.rcfg, *self._verify_fns(), device=self.device)
+                self.rcfg, *self._verify_fns(), device=self.device,
+                mesh=self.mesh, rows=self.rows)
         with self._span("serve.verify"):
             acc, nxt, state = self._verify_fn(
                 self.params, state, tokens, slots.lengths, slots.n_new,
@@ -234,7 +381,14 @@ class CacheBackend:
     def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
                          n_pages: int):
         """Fresh page pools for a coarse-depth twin of this backend's
-        state (the draft's private, allocator-free pool)."""
+        state (the draft's private, allocator-free pool); under a mesh
+        this rank's part, as :meth:`init_state`."""
+        with self._rules():
+            return self._init_draft_pools(draft_rcfg, n_layers,
+                                          self._local_pages(n_pages))
+
+    def _init_draft_pools(self, draft_rcfg: RunConfig, n_layers: int,
+                          n_pages: int):
         raise NotImplementedError
 
     # -- host half: page ops ------------------------------------------------
@@ -244,10 +398,11 @@ class CacheBackend:
     # write range [lengths, lengths + n_new) is private (refcount 1) when
     # the step launches — fork() first if other readers remain.
 
-    def alloc_view(self, n: int):
-        """n private pages (refcount 1 each) or None when the pool can't
-        serve them right now."""
-        return self.alloc.alloc(n)
+    def alloc_view(self, n: int, group: int = 0):
+        """n private pages (refcount 1 each) of page ``group`` (a data
+        rank's range; the only one without a data split) or None when
+        the pool can't serve them right now."""
+        return self.alloc.alloc(n, group)
 
     def share(self, pages):
         """Map already-written pages read-only into another view."""
@@ -264,7 +419,7 @@ class CacheBackend:
         dst = self.alloc.fork(page)
         if dst is None or dst == page:
             return state, dst
-        return copy_state_page(state, page, dst), dst
+        return self._copy_page(state, page, dst), dst
 
     def fork_partial(self, state, page: int, n_valid: int):
         """Token-granular copy-on-write: copy ``page`` into a fresh
@@ -283,33 +438,65 @@ class CacheBackend:
         dst = self.alloc.fork_partial(page)
         if dst is None:
             return state, None
-        return copy_state_page(state, page, dst), dst
+        return self._copy_page(state, page, dst), dst
+
+    def _local_ids(self, pages):
+        """``pages`` (global ids of one data rank's range) in this rank's
+        pool ids, or None where another data rank holds them."""
+        pages = np.asarray(pages, np.int64)
+        if self.rows is None:
+            return pages
+        if not pages.size or self.alloc.group_of(int(pages[0])) \
+                != self.rows.index:
+            return None
+        return pages - self.rows.base
+
+    def _copy_page(self, state, src: int, dst: int):
+        """The device half of a fork (both pages in one data rank's
+        range: a fork stays in its source's range)."""
+        ids = self._local_ids([src, dst])
+        return state if ids is None else \
+            copy_state_page(state, int(ids[0]), int(ids[1]))
 
     # -- preemption: spill / restore ----------------------------------------
 
     def spill(self, state, pages):
         """Read the given physical pages out of every pool leaf into host
         memory; returns the ``restore`` payload (one host tensor per
-        leaf, :func:`state_leaves` order)."""
+        leaf, :func:`state_leaves` order). Under a mesh the data rank
+        holding the pages sends its part to the other data ranks, so the
+        request may resume in any rank's slots."""
+        ids = self._local_ids(pages)
         out = []
         for leaf in state_leaves(state):
-            idx = torch.as_tensor(np.asarray(pages, np.int64),
-                                  device=leaf.device)
-            out.append(leaf[:, idx].cpu())
+            if ids is not None:
+                part = leaf[:, torch.as_tensor(ids, device=leaf.device)]
+            else:
+                part = leaf.new_empty((leaf.shape[0], len(pages),
+                                       *leaf.shape[2:]))
+            if self.rows is not None and self.rows.n > 1:
+                part = self.rows.mesh.broadcast(
+                    "spill", part.contiguous(), self.rows.axis,
+                    self.alloc.group_of(int(pages[0])))
+            out.append(part.cpu())
         return out
 
     def restore(self, state, pages, leaves):
         """Scatter spilled page contents into ``pages`` (freshly
         allocated ids, same order/count as the ``spill`` call), in place
-        and bit-identically. Returns the state."""
+        and bit-identically (on the data rank holding them). Returns the
+        state."""
+        ids = self._local_ids(pages)
+        if ids is None:
+            return state
         for leaf, d in zip(state_leaves(state), leaves, strict=True):
-            idx = torch.as_tensor(np.asarray(pages, np.int64),
-                                  device=leaf.device)
+            idx = torch.as_tensor(ids, device=leaf.device)
             leaf[:, idx] = d.to(leaf.device, leaf.dtype)
         return state
 
     def page_nbytes(self, state) -> int:
-        """Bytes one physical page occupies across every pool leaf."""
+        """Bytes one physical page occupies across every pool leaf (this
+        rank's part of it under a mesh)."""
         return sum(leaf.element_size() * leaf.numel() // leaf.shape[1]
                    for leaf in state_leaves(state))
 
@@ -331,7 +518,7 @@ class PagedKVBackend(CacheBackend):
         return functools.partial(transformer.paged_decode_step,
                                  fused=self.fused)
 
-    def init_state(self, n_pages: int):
+    def _init_pools(self, n_pages: int):
         return transformer.init_paged_cache(self.rcfg, n_pages,
                                             self.page_size,
                                             device=self.device)
@@ -342,8 +529,8 @@ class PagedKVBackend(CacheBackend):
                                   fused=self.fused),
                 None)
 
-    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
-                         n_pages: int):
+    def _init_draft_pools(self, draft_rcfg: RunConfig, n_layers: int,
+                          n_pages: int):
         return attn_mod.init_paged_kv_cache(
             draft_rcfg.model, n_layers, n_pages, self.page_size,
             device=self.device)
@@ -359,7 +546,7 @@ class SSMStateBackend(CacheBackend):
                                  page_size=self.page_size,
                                  fused=self.fused)
 
-    def init_state(self, n_pages: int):
+    def _init_pools(self, n_pages: int):
         return transformer.init_paged_ssm_cache(self.rcfg, n_pages,
                                                 device=self.device)
 
@@ -371,8 +558,8 @@ class SSMStateBackend(CacheBackend):
                 functools.partial(transformer.ssm_paged_commit_step,
                                   page_size=self.page_size))
 
-    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
-                         n_pages: int):
+    def _init_draft_pools(self, draft_rcfg: RunConfig, n_layers: int,
+                          n_pages: int):
         cfg = draft_rcfg.model
         return ssm_mod.init_paged_ssm_pool(cfg, n_layers, n_pages,
                                            cfg.ssm.version,
@@ -390,7 +577,7 @@ class HybridBackend(CacheBackend):
                                  page_size=self.page_size,
                                  fused=self.fused)
 
-    def init_state(self, n_pages: int):
+    def _init_pools(self, n_pages: int):
         return transformer.init_paged_hybrid_cache(
             self.rcfg, n_pages, self.page_size, device=self.device)
 
@@ -401,8 +588,8 @@ class HybridBackend(CacheBackend):
                 functools.partial(transformer.hybrid_paged_commit_step,
                                   page_size=self.page_size))
 
-    def init_draft_state(self, draft_rcfg: RunConfig, n_layers: int,
-                         n_pages: int):
+    def _init_draft_pools(self, draft_rcfg: RunConfig, n_layers: int,
+                          n_pages: int):
         # draft_rcfg carries the coarse n_layers / attention cadence
         return transformer.init_paged_hybrid_cache(
             draft_rcfg, n_pages, self.page_size, device=self.device)

@@ -13,7 +13,13 @@ from queue into in-flight decode slots, evict finished sequences
 mid-decode, refill — fixed batch shape, dynamic occupancy mask). The
 engine and scheduler are family-blind: everything state-shaped lives
 behind the :class:`repro_torch.serve.cache.CacheBackend` protocol. The
-engine runs on ``cuda`` unless built with ``device="cpu"``.
+engine runs on ``cuda`` unless built with ``device="cpu"``. With
+``mesh=`` (a :class:`repro_torch.launch.mesh.Mesh`; one process a rank,
+each building the same engine from the same weights and submitting the
+same requests) it serves as explicit SPMD under the reference's
+``serve_sharding`` rules: Megatron tensor parallelism over ``model``,
+the slots and page pools over ``data``; every rank returns every
+request's tokens.
 ``spec=SpecConfig(cf, k)`` turns on coarse-propagator speculative
 decoding (:mod:`repro_torch.serve.spec`): the paper's coarse grid drafts
 k tokens per wave from the same weights and the full model verifies
@@ -41,9 +47,17 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer
 from repro_torch.obs import Observability
 from repro_torch.obs import profile as obs_profile
-from repro_torch.serve.cache import MESH_SLICE, SlotBatch
+from repro_torch.serve.cache import SlotBatch
+from repro_torch.serve.kv_pages import region_table
 from repro_torch.serve.scheduler import Scheduler, bucket_len
 from repro_torch.serve.spec import SpecConfig
+
+
+MESH_PREFIX_IO = ("prefix-cache save and load on a mesh of more than one "
+                  "rank are not ported: ROADMAP Queue 1, prefix-cache "
+                  "persistence under a mesh")
+MESH_DENSE = ("the dense-cache route under a mesh (kv_seq / fsdp) is not "
+              "ported: ROADMAP Queue 1, dense-cache decode under a mesh")
 
 
 @dataclasses.dataclass
@@ -112,7 +126,8 @@ class ServeEngine:
     Scheduler`: batch generation (:meth:`generate`), queued submission
     and streaming (:meth:`submit`), prefix-cache persistence, merged
     counters (:attr:`stats`), and the throughput/prefill probes the
-    benchmarks use. One engine = one model + one page pool + one device."""
+    benchmarks use. One engine = one model + one page pool + one device
+    (or one rank's part of a mesh)."""
 
     def __init__(self, rcfg: RunConfig, params, mesh=None,
                  max_len: int = 0, max_batch: int = 8, page_size: int = 16,
@@ -130,7 +145,18 @@ class ServeEngine:
             rcfg / params: model config and weights (the port's tree —
                 :func:`repro_torch.models.transformer.init_model` or
                 :func:`repro_torch.convert.params_from_jax`).
-            mesh / sharding: not supported in the port (raise).
+            mesh / sharding: a ("data", "model")
+                :class:`repro_torch.launch.mesh.Mesh` and its
+                ``ShardingConfig`` (None:
+                :func:`repro_torch.configs.registry.serve_sharding`):
+                heads, KV heads, MLP and SSM inner dims and the vocab
+                split over ``model``, the slots and page pools over
+                ``data``. Every rank builds its engine with the same
+                arguments and drives it with the same calls; the device
+                follows the mesh (NCCL: ``cuda``; gloo: pass
+                ``device="cpu"``). Not under a mesh: the MoE family, the
+                dense probe (``throughput_probe(paged=False)``) and
+                prefix-cache save / load on more than one rank.
             max_len / max_batch / page_size / n_pages / share_prefix:
                 forwarded to the :class:`~repro.serve.scheduler.Scheduler`
                 (``n_pages`` sizes the page pool; 0 = every slot can hold
@@ -169,10 +195,10 @@ class ServeEngine:
             device: None means ``cuda`` (raises without a CUDA device);
                 ``"cpu"`` runs the plain PyTorch versions.
         """
-        if mesh is not None or sharding is not None:
-            raise NotImplementedError(MESH_SLICE)
         self.rcfg = rcfg
-        self.params = params
+        self.mesh = mesh
+        # under a mesh the backend holds this rank's part, nothing the whole
+        self.params = params if mesh is None else None
         self.max_len = max_len or min(rcfg.model.max_seq_len, 4096)
         self.detokenize = detokenize or default_detokenize
         self.obs = Observability(enabled=observability,
@@ -201,6 +227,7 @@ class ServeEngine:
         sched = self.scheduler
         if sched.prefix is None:
             raise ValueError("engine was built with share_prefix=False")
+        self._one_rank(MESH_PREFIX_IO)
         return sched.prefix.save(path, sched.state)
 
     def load_prefix_cache(self, path: str) -> int:
@@ -212,8 +239,13 @@ class ServeEngine:
         sched = self.scheduler
         if sched.prefix is None:
             raise ValueError("engine was built with share_prefix=False")
+        self._one_rank(MESH_PREFIX_IO)
         sched.state, n = sched.prefix.load(path, sched.state)
         return n
+
+    def _one_rank(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(what)
 
     # -- reporting ----------------------------------------------------------
 
@@ -221,8 +253,9 @@ class ServeEngine:
     def stats(self) -> Dict[str, float]:
         """One merged counter dict: scheduler counters (prefill/decode/
         spec-decode: draft_calls, verify_calls, tokens_drafted/accepted)
-        + prefix-trie counters (hit/miss/evictions) + the mesh shape
-        (``mesh_dp``/``mesh_tp``/``mesh_devices``, always 1 here) +
+        + prefix-trie counters (hit/miss/evictions) + the mesh shape the
+        engine decodes on (``mesh_dp``/``mesh_tp``/``mesh_devices``, all
+        1 without a mesh) +
         ``compiles_per_callable`` (always 0: the port captures no graphs
         yet, see :mod:`repro_torch.obs.profile`). Every key keeps the
         JAX package's name and meaning."""
@@ -233,7 +266,10 @@ class ServeEngine:
             else 0
         s["trie_evictions"] = prefix.stats["evicted"] if prefix else 0
         s["accept_rate"] = self.scheduler.accept_rate()
-        s["mesh_dp"] = s["mesh_tp"] = s["mesh_devices"] = 1
+        shape = dict(self.mesh.shape) if self.mesh is not None else {}
+        s["mesh_dp"] = int(shape.get("data", 1))
+        s["mesh_tp"] = int(shape.get("model", 1))
+        s["mesh_devices"] = self.mesh.size if self.mesh is not None else 1
         s["compiles_per_callable"] = obs_profile.compiles_per_callable(
             self.backend.compile_counts)
         return s
@@ -365,6 +401,8 @@ class ServeEngine:
         synchronizes before and after its steps."""
         if paged:
             return self._paged_probe(batch, steps, table_pages)
+        if self.mesh is not None:
+            raise NotImplementedError(MESH_DENSE)
         cache = transformer.init_cache(self.rcfg, batch, self.max_len,
                                        device=self.device)
         tok = torch.ones((batch, 1), dtype=torch.long, device=self.device)
@@ -378,12 +416,20 @@ class ServeEngine:
         return batch * steps / (time.perf_counter() - t0)
 
     def _scratch_table(self, batch: int, n_tokens: int,
-                       min_pages: int = 0) -> np.ndarray:
-        """Page table giving every slot n_tokens of capacity (host-only;
-        page 0 stays the scratch page)."""
+                       min_pages: int = 0):
+        """(page table giving every slot n_tokens of capacity, the pool
+        size it needs): host-only. Under a mesh the probe runs the
+        engine's slots in a scratch pool of the engine's size, each data
+        rank's slots in its own page range
+        (:func:`~repro_torch.serve.kv_pages.region_table`)."""
         per = max(min_pages, 1, -(-n_tokens // self.scheduler.page_size))
-        return np.asarray(
-            1 + np.arange(batch * per).reshape(batch, per), np.int32)
+        rows = self.backend.rows
+        if rows is None:
+            return region_table(batch, per)
+        if batch != self.scheduler.max_batch:
+            raise ValueError(f"under a mesh a probe runs the engine's "
+                             f"{self.scheduler.max_batch} slots, not {batch}")
+        return region_table(batch, per, rows.n, rows.span)
 
     def _paged_probe(self, batch: int, steps: int,
                      table_pages: int = 0) -> float:
@@ -392,8 +438,9 @@ class ServeEngine:
         ends synchronized)."""
         ps = self.scheduler.page_size
         start = (table_pages * ps) // 4 if table_pages else 0
-        table = self._scratch_table(batch, start + steps + 1, table_pages)
-        state = self.backend.init_state(1 + table.size)
+        table, n_pages = self._scratch_table(batch, start + steps + 1,
+                                             table_pages)
+        state = self.backend.init_state(n_pages)
         slots = SlotBatch.greedy(
             batch, table, lengths=np.full((batch,), start, np.int32))
         tok = np.ones((batch, 1), np.int32)
@@ -413,12 +460,12 @@ class ServeEngine:
         rng = np.random.default_rng(0)
         toks = rng.integers(0, rcfg.model.vocab_size, (batch, S),
                             dtype=np.int32)
-        table = self._scratch_table(batch, S)
+        table, n_pages = self._scratch_table(batch, S)
         slots = SlotBatch.greedy(
             batch, table, n_new=np.full((batch,), prompt_len, np.int32))
 
         def call():
-            state = self.backend.init_state(1 + table.size)
+            state = self.backend.init_state(n_pages)
             return self.backend.prefill(state, slots, toks)
 
         call()                       # warm-up; returns host tokens (synced)

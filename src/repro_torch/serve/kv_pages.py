@@ -36,7 +36,11 @@ least-recently-matched leaves.
 
 Page ``SCRATCH_PAGE`` (id 0) is never allocated: the step routes writes
 from padded prompt positions and unoccupied slots there, which keeps
-every shape static regardless of occupancy.
+every shape static regardless of occupancy. A mesh engine whose pools
+split over ``data`` cuts the ids into one contiguous range a data rank
+(``PageAllocator(groups=...)``), each with its own scratch page; a
+slot's pages, its forks and its prefix matches stay in its rank's
+range.
 
 Everything in this module is host-side: page ids are plain integers and
 the only device touch is the page gather/scatter of ``save``/``load``.
@@ -87,6 +91,27 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
     return -(-max(int(n_tokens), 0) // page_size)
 
 
+def region_table(batch: int, per_slot: int, groups: int = 1,
+                 span: int = 0) -> Tuple[np.ndarray, int]:
+    """A fixed page table of ``per_slot`` private pages a slot, without
+    an allocator (the speculative draft's pool, the engine's probes):
+    the slots cut into ``groups`` contiguous groups, one a data rank,
+    each group's pages one contiguous range of ``span`` pages (default:
+    just enough) whose first page is its scratch page. Returns (table
+    (batch, per_slot) int32, pages in all, scratch pages included); one
+    group is ``1 + arange``."""
+    per = batch // groups
+    if span < 1 + per * per_slot:
+        if span:
+            raise ValueError(f"{per} slots of {per_slot} pages do not fit "
+                             f"a range of {span} pages")
+        span = 1 + per * per_slot
+    slot = np.arange(batch)
+    first = slot // per * span + 1 + slot % per * per_slot
+    return (np.asarray(first[:, None] + np.arange(per_slot)[None, :],
+                       np.int32), groups * span)
+
+
 @dataclasses.dataclass
 class SpilledPages:
     """Host-memory copy of a preempted slot's live pages.
@@ -109,19 +134,47 @@ class PageAllocator:
     set, so membership checks and frees are O(1) instead of the old
     O(n_free) list scan. Refcounts detect double frees exactly: freeing a
     page whose refcount is already 0 raises.
+
+    ``groups`` > 1 cuts the ids into that many contiguous ranges of
+    ``span`` pages, one a data rank of a mesh engine, whose page pools
+    are split the same way (``CacheBackend.pool_pages``): a rank reads
+    only its own range. Each range's first page is its scratch page
+    (never allocated), each has its own free stack, ``alloc`` takes a
+    range and a fork stays in its source's range. One group is the
+    reference's allocator, page for page.
     """
 
-    def __init__(self, n_pages: int):
-        if n_pages < 2:
-            raise ValueError("need at least one allocatable page + scratch")
+    def __init__(self, n_pages: int, groups: int = 1):
+        if groups < 1 or n_pages % groups:
+            raise ValueError(f"{n_pages} pages do not divide into "
+                             f"{groups} groups")
+        self.span = n_pages // groups
+        if self.span < 2:
+            raise ValueError("need at least one allocatable page + scratch"
+                             + (" in every group" if groups > 1 else ""))
         self.n_pages = n_pages
-        self._free_stack: List[int] = list(range(n_pages - 1, 0, -1))
-        self._free_set = set(self._free_stack)
+        self.groups = groups
+        self._stacks: List[List[int]] = [
+            list(range((g + 1) * self.span - 1, g * self.span, -1))
+            for g in range(groups)]
+        self._free_set = {p for st in self._stacks for p in st}
         self._ref = [0] * n_pages
 
     @property
     def n_free(self) -> int:
-        return len(self._free_stack)
+        return len(self._free_set)
+
+    @property
+    def capacity(self) -> int:
+        """The most pages one request can hold: one group's, less its
+        scratch page."""
+        return self.span - 1
+
+    def n_free_in(self, group: int) -> int:
+        return len(self._stacks[group])
+
+    def group_of(self, page: int) -> int:
+        return page // self.span
 
     def refcount(self, page: int) -> int:
         return self._ref[page]
@@ -129,12 +182,14 @@ class PageAllocator:
     def is_free(self, page: int) -> bool:
         return page in self._free_set
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Pop n private pages (refcount 1 each), or None (caller waits
-        for frees / evicts cached prefixes) if not available."""
-        if n > len(self._free_stack):
+    def alloc(self, n: int, group: int = 0) -> Optional[List[int]]:
+        """Pop n private pages (refcount 1 each) of ``group``, or None
+        (caller waits for frees / evicts cached prefixes) if not
+        available."""
+        stack = self._stacks[group]
+        if n > len(stack):
             return None
-        pages = [self._free_stack.pop() for _ in range(n)]
+        pages = [stack.pop() for _ in range(n)]
         for p in pages:
             self._free_set.discard(p)
             self._ref[p] = 1
@@ -158,21 +213,21 @@ class PageAllocator:
                 raise ValueError(f"double free of page {p}")
             self._ref[p] -= 1
             if self._ref[p] == 0:
-                self._free_stack.append(p)
+                self._stacks[self.group_of(p)].append(p)
                 self._free_set.add(p)
 
     def fork(self, page: int) -> Optional[int]:
         """Copy-on-write split: detach one reference of ``page`` onto a
         private copy. Returns ``page`` itself when it is already private
-        (no copy needed), a fresh page id (refcount 1 — the caller must
-        copy the device KV) when other readers remain, or None when the
-        pool is empty."""
+        (no copy needed), a fresh page id of the same group (refcount 1 —
+        the caller must copy the device KV) when other readers remain,
+        or None when the group has no free page."""
         self._check_id(page)
         if self._ref[page] < 1:
             raise ValueError(f"fork of unallocated page {page}")
         if self._ref[page] == 1:
             return page
-        got = self.alloc(1)
+        got = self.alloc(1, self.group_of(page))
         if got is None:
             return None
         self._ref[page] -= 1
@@ -180,21 +235,22 @@ class PageAllocator:
 
     def fork_partial(self, page: int) -> Optional[int]:
         """Token-granular copy-on-write, host half: allocate a fresh
-        private page (refcount 1) to receive a copy of ``page`` whose
-        first ``n_valid`` tokens the caller will reuse. Unlike
-        :meth:`fork`, the source keeps *all* its references — this is an
-        independent new page seeded from ``page``'s content, not a
-        detached reader (the caller holds its own reference on ``page``
-        across the device copy, so eviction cannot free it mid-copy).
-        Returns the fresh id, or None when the pool is empty."""
+        private page (refcount 1, in ``page``'s group) to receive a copy
+        of ``page`` whose first ``n_valid`` tokens the caller will reuse.
+        Unlike :meth:`fork`, the source keeps *all* its references —
+        this is an independent new page seeded from ``page``'s content,
+        not a detached reader (the caller holds its own reference on
+        ``page`` across the device copy, so eviction cannot free it
+        mid-copy). Returns the fresh id, or None when the group is
+        empty."""
         self._check_id(page)
         if self._ref[page] < 1:
             raise ValueError(f"fork_partial of unallocated page {page}")
-        got = self.alloc(1)
+        got = self.alloc(1, self.group_of(page))
         return None if got is None else got[0]
 
     def _check_id(self, p: int) -> None:
-        if not 0 < p < self.n_pages:
+        if not 0 < p < self.n_pages or p % self.span == 0:
             raise ValueError(f"bad page id {p}")
 
 
@@ -260,17 +316,21 @@ class PrefixCache:
         for i in range(len(prompt) // ps):
             yield tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])
 
-    def match(self, prompt) -> List[int]:
-        """Longest already-cached chain of the prompt's full pages.
-        Returns their physical page ids in prompt order; the caller must
-        ``share`` them before any allocator traffic (e.g. eviction) could
-        otherwise free them."""
+    def _usable(self, page: int, group: Optional[int]) -> bool:
+        return group is None or self.alloc.group_of(page) == group
+
+    def match(self, prompt, group: Optional[int] = None) -> List[int]:
+        """Longest already-cached chain of the prompt's full pages (of
+        allocator ``group`` only, where given: the pages a data rank can
+        read). Returns their physical page ids in prompt order; the
+        caller must ``share`` them before any allocator traffic (e.g.
+        eviction) could otherwise free them."""
         self._tick += 1
         pages: List[int] = []
         children = self.children
         for key in self._chunks(prompt):
             node = children.get(key)
-            if node is None:
+            if node is None or not self._usable(node.page, group):
                 break
             node.tick = self._tick
             pages.append(node.page)
@@ -297,7 +357,8 @@ class PrefixCache:
             children = node.children
 
     def match_tail(self, prompt, matched_pages: int,
-                   pending=frozenset()) -> Optional[Tuple[int, int]]:
+                   pending=frozenset(),
+                   group: Optional[int] = None) -> Optional[Tuple[int, int]]:
         """Best token-granular partial match for the prompt's remainder
         after ``matched_pages`` full trie pages: the longest common token
         prefix among the stop node's tail entries *and* full-page child
@@ -309,7 +370,8 @@ class PrefixCache:
         in-flight wave, device content not landed — are skipped. The
         caller must ``share`` the source page before any allocator
         traffic (eviction) could free it, then release its reference
-        after the device copy."""
+        after the device copy. With ``group`` only pages of that
+        allocator group are candidates."""
         ps = self.page_size
         rest = [int(t) for t in prompt[matched_pages * ps:]]
         cap = min(len(rest) - 1, ps - 1)
@@ -326,7 +388,8 @@ class PrefixCache:
         best: Optional[Tuple[int, _PrefixNode]] = None
         for entries in (tails, children):
             for key, node in entries.items():
-                if node.page in pending:
+                if node.page in pending or not self._usable(node.page,
+                                                            group):
                     continue
                 n = _common_prefix(key, rest, cap)
                 if n >= 1 and (best is None or n > best[0]):
@@ -385,17 +448,19 @@ class PrefixCache:
     def n_cached_pages(self) -> int:
         return sum(1 for _ in self._walk())
 
-    def evict(self, n_needed: int) -> int:
+    def evict(self, n_needed: int, group: Optional[int] = None) -> int:
         """Drop least-recently-matched leaves (full-page nodes with no
         children and no tails, or tail entries) whose page only the trie
-        still references, until ``n_needed`` pages have returned to the
-        pool or nothing more can be freed. Returns pages freed."""
+        still references (of allocator ``group`` only, where given),
+        until ``n_needed`` pages have returned to the pool or nothing
+        more can be freed. Returns pages freed."""
         freed = 0
         while freed < n_needed:
             leaves = [(node.tick, key, children)
                       for children, key, node in self._walk()
                       if not node.children and not node.tails
-                      and self.alloc.refcount(node.page) == 1]
+                      and self.alloc.refcount(node.page) == 1
+                      and self._usable(node.page, group)]
             if not leaves:
                 break
             leaves.sort(key=lambda t: t[0])
@@ -534,3 +599,4 @@ class PrefixCache:
                                       device=leaf.device)
                 leaf[:, idx] = _from_numpy(d[f"leaf_{j}"][:, src], leaf)
         return state, len(kept) + len(tail_kept)
+

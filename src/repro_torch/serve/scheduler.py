@@ -1,7 +1,21 @@
 """Continuous-batching scheduler over a :class:`~repro_torch.serve.cache.CacheBackend`.
 
-Port of :mod:`repro.serve.scheduler`: host Python, ported whole except
-meshes (``mesh`` / ``sharding`` raise in the backend).
+Port of :mod:`repro.serve.scheduler`: host Python, ported whole.
+
+Under a mesh every rank runs its own scheduler over the same requests,
+and every rank must take the same host decisions, or the ranks would
+issue different collectives and hang. The scheduler's decisions read
+only host state that all ranks share, except two that read the clock:
+the queue order's TTFT slack and the recompute-vs-restore cost model's
+measured prefill rate. Under a mesh of more than one rank both take
+rank 0's values (its clock, its rate and its submit times), agreed by
+one small broadcast a wave (``CacheBackend.agree``). A mesh whose page
+pools split over ``data`` gives each data rank a range of the slots and
+of the pages (``PageAllocator(groups=...)``): a slot's pages, its forks
+and its prefix-trie matches come from its own rank's range, and a
+request is placed in the free slot whose range has the most free pages.
+The trie's hit counters may then differ from one rank's engine; the
+tokens do not.
 
 The scheduler is backend-agnostic: it never mentions model families. All
 decode state (attention KV pages, SSM state-snapshot pages, hybrid
@@ -150,6 +164,7 @@ class ScheduledRequest:
     skips: int = 0                   # admission waves this request waited
     preemptions: int = 0
     spill: Optional[SpilledPages] = None   # host copy of preempted state
+    t_order: Optional[float] = None  # rank 0's t_submit, under a mesh
 
     @property
     def done(self) -> bool:
@@ -249,8 +264,9 @@ class Scheduler:
                 min(model max_seq_len, 4096).
             n_pages: physical page-pool size incl. scratch page 0;
                 defaults to every slot holding a max_len sequence.
-            mesh / sharding: not supported in the port (the backend
-                raises ``NotImplementedError``).
+            mesh / sharding: SPMD placement, forwarded to
+                ``make_backend`` (one scheduler a rank, see the module
+                docstring).
             share_prefix: publish full prompt pages in the prefix trie.
             partial_prefix: token-granular prefix sharing (positional-
                 page backends only): publish each finished request's
@@ -303,7 +319,7 @@ class Scheduler:
             device: where the backend's pools and weights live (None
                 means ``cuda``; ``"cpu"`` runs the plain versions).
         """
-        self.rcfg, self.params = rcfg, params
+        self.rcfg = rcfg
         self.max_len = max_len or min(rcfg.model.max_seq_len, 4096)
         self.page_size = page_size
         self.max_batch = max_batch
@@ -331,10 +347,17 @@ class Scheduler:
                 f"page_size {page_size}: page-table indices would not "
                 "agree across the allocator and the backend pools")
         self.pages_per_slot = pages_needed(self.max_len, page_size)
-        # default pool: every slot can hold a max_len sequence, + scratch
-        n_pages = n_pages or 1 + max_batch * self.pages_per_slot
+        # default pool: every slot can hold a max_len sequence, + scratch;
+        # under a mesh the size is rounded up so the page axis divides
+        # the data ranks (pool_pages)
+        n_pages = self.backend.pool_pages(
+            n_pages or 1 + max_batch * self.pages_per_slot)
         self.state = self.backend.init(max_batch, n_pages)
         self.alloc = self.backend.alloc
+        # slots a page group (a data rank's range; all of them on one)
+        self._group_slots = max_batch // self.alloc.groups
+        self._unagreed: List[ScheduledRequest] = []
+        self._agreed: Optional[Tuple[float, float]] = None
         self._page_nbytes = 0            # filled lazily (preempt cost model)
         self.prefix: Optional[PrefixCache] = \
             PrefixCache(self.alloc, page_size,
@@ -459,7 +482,7 @@ class Scheduler:
                 "ttft_target_s": ttft_target_s,
                 "tpot_target_s": tpot_target_s})
         total = pages_needed(len(prompt) + max_new, self.page_size)
-        limit = self.alloc.n_pages - 1
+        limit = self.alloc.capacity
         if total > limit:
             self.stats["requests_rejected"] += 1
             self._fail(req, f"unservable: needs {total} pages "
@@ -468,6 +491,7 @@ class Scheduler:
                             f"holds {limit}", rejected=True)
             return req
         self.queue.append(req)
+        self._unagreed.append(req)
         if self.trace is not None:
             self.trace.instant("queued", req.rid, wave=self._wave)
         return req
@@ -527,24 +551,61 @@ class Scheduler:
         if req.out:
             slack = float("-inf")
         elif req.ttft_target_s is not None:
-            slack = req.t_submit + req.ttft_target_s - now
+            t = req.t_submit if req.t_order is None else req.t_order
+            slack = t + req.ttft_target_s - now
         else:
             slack = float("inf")
         return (self.effective_priority(req), slack, req.rid)
 
+    def _agree_wave(self) -> None:
+        """Under a mesh of several ranks: take rank 0's clock, measured
+        prefill rate and the submit times of the requests queued since
+        the last wave (one broadcast; see the module docstring)."""
+        fresh, self._unagreed = self._unagreed, []
+        vals = self.backend.agree(
+            [time.perf_counter(), self._prefill_rate()]
+            + [r.t_submit for r in fresh])
+        if vals is None:
+            return
+        self._agreed = (vals[0], vals[1])
+        for r, t in zip(fresh, vals[2:], strict=True):
+            r.t_order = t
+
+    def _prefill_rate(self) -> float:
+        """Measured batched-prefill tokens/s (1e4 before any prefill)."""
+        s = self.stats
+        return s["prefill_tokens"] / s["prefill_s"] \
+            if s["prefill_s"] > 0 else 1e4
+
     def _order_queue(self) -> None:
         if len(self.queue) > 1:
-            now = time.perf_counter()
+            now = time.perf_counter() if self._agreed is None \
+                else self._agreed[0]
             self.queue = collections.deque(
                 sorted(self.queue, key=lambda r: self._queue_key(r, now)))
 
-    def _match_prefix(self, req: ScheduledRequest) -> List[int]:
-        """Longest usable trie match for this prompt, with backend-capability
-        adjustments applied, shared (refcount +1) before any allocator
-        traffic could free the pages."""
+    def _group(self, slot: int) -> int:
+        """The page group (data rank's range) of ``slot``'s pages."""
+        return slot // self._group_slots
+
+    def _free_slot(self) -> Optional[int]:
+        """A free slot: the lowest; with several page groups, the lowest
+        of the group with the most free pages."""
+        free = [s for s in range(self.max_batch) if self.slot_req[s] is None]
+        if not free or self.alloc.groups == 1:
+            return free[0] if free else None
+        return max(free, key=lambda s: (
+            self.alloc.n_free_in(self._group(s)), -s))
+
+    def _match_prefix(self, req: ScheduledRequest,
+                      group: int) -> List[int]:
+        """Longest usable trie match for this prompt (pages of ``group``
+        only), with backend-capability adjustments applied, shared
+        (refcount +1) before any allocator traffic could free the
+        pages."""
         ps = self.page_size
         T = len(req.prompt)
-        shared = self.prefix.match(req.prompt)
+        shared = self.prefix.match(req.prompt, group)
         if self.backend.snapshot_state:
             # snapshot pages are read at scan start, before this wave's
             # writes land: anything written by this same admission wave
@@ -565,7 +626,7 @@ class Scheduler:
         self.backend.share(shared)
         return shared
 
-    def _plan_admit(self, req: ScheduledRequest) \
+    def _plan_admit(self, req: ScheduledRequest, slot: int) \
             -> Optional[Tuple[List[int], int]]:
         """Map pages for one fresh request: the longest trie-cached
         prompt prefix is shared read-only, fresh pages cover the rest,
@@ -575,13 +636,14 @@ class Scheduler:
         copied into a fresh private page (``fork_partial``) so only the
         genuinely-unshared remainder is recomputed. Returns
         (pages, cached_len) or None when the pool cannot serve the
-        request right now."""
+        request right now. Every page comes from ``slot``'s group."""
         ps = self.page_size
         T = len(req.prompt)
+        group = self._group(slot)
         total = pages_needed(T + req.max_new_tokens, ps)
         shared: List[int] = []
         if self.prefix is not None:
-            shared = self._match_prefix(req)
+            shared = self._match_prefix(req, group)
         shared_len = len(shared) * ps
         fork_src = None
         if shared and shared_len >= T:
@@ -593,17 +655,17 @@ class Scheduler:
         partial = None                    # (src_page, n_tokens)
         if self.partial_prefix and fork_src is None:
             partial = self.prefix.match_tail(req.prompt, len(shared),
-                                             self._pending)
+                                             self._pending, group)
             if partial is not None:
                 # hold the source across any eviction below: a
                 # trie-only page (refcount 1) would otherwise be an
                 # eviction candidate while we still need its content
                 self.alloc.share([partial[0]])
         n_fresh = total - len(shared) - (partial is not None)
-        fresh = self.backend.alloc_view(n_fresh)
+        fresh = self.backend.alloc_view(n_fresh, group)
         if fresh is None and self.prefix is not None:
-            self.prefix.evict(n_fresh - self.alloc.n_free)
-            fresh = self.backend.alloc_view(n_fresh)
+            self.prefix.evict(n_fresh - self.alloc.n_free_in(group), group)
+            fresh = self.backend.alloc_view(n_fresh, group)
         if fresh is None:
             if partial is not None:
                 self.alloc.free([partial[0]])
@@ -612,7 +674,7 @@ class Scheduler:
         if fork_src is not None:
             self.state, dst = self.backend.fork(self.state, fork_src)
             if dst is None and self.prefix is not None:
-                self.prefix.evict(1)             # same fallback as alloc
+                self.prefix.evict(1, group)      # same fallback as alloc
                 self.state, dst = self.backend.fork(self.state, fork_src)
             if dst is None:                      # needs one more page
                 self.backend.release(fresh + shared)
@@ -625,7 +687,7 @@ class Scheduler:
             self.state, dst = self.backend.fork_partial(self.state, src,
                                                         n_tok)
             if dst is None and self.prefix is not None:
-                self.prefix.evict(1)
+                self.prefix.evict(1, group)
                 self.state, dst = self.backend.fork_partial(
                     self.state, src, n_tok)
             self.alloc.free([src])               # drop the eviction hold
@@ -643,7 +705,7 @@ class Scheduler:
         self.stats["shared_tokens"] += shared_len
         return shared + fresh, shared_len
 
-    def _plan_resume(self, req: ScheduledRequest) \
+    def _plan_resume(self, req: ScheduledRequest, slot: int) \
             -> Optional[Tuple[List[int], int]]:
         """Map pages for a preempted request re-entering a slot: its
         full capacity is allocated fresh (resumes never touch the trie —
@@ -652,34 +714,36 @@ class Scheduler:
         whole sequence for a recompute resume — is re-prefilled."""
         total = pages_needed(len(req.prompt) + req.max_new_tokens,
                              self.page_size)
-        fresh = self.backend.alloc_view(total)
+        group = self._group(slot)
+        fresh = self.backend.alloc_view(total, group)
         if fresh is None and self.prefix is not None:
-            self.prefix.evict(total - self.alloc.n_free)
-            fresh = self.backend.alloc_view(total)
+            self.prefix.evict(total - self.alloc.n_free_in(group), group)
+            fresh = self.backend.alloc_view(total, group)
         if fresh is None:
             return None
         self.stats["pages_allocated"] += total
         cached = req.spill.length if req.spill is not None else 0
         return fresh, cached
 
-    def _plan(self, req: ScheduledRequest) \
+    def _plan(self, req: ScheduledRequest, slot: int) \
             -> Optional[Tuple[List[int], int]]:
         if req.out:
-            return self._plan_resume(req)
-        return self._plan_admit(req)
+            return self._plan_resume(req, slot)
+        return self._plan_admit(req, slot)
 
     # -- preemption ---------------------------------------------------------
 
-    def _pick_victim(self, priority: int, protected: Set[int]) \
-            -> Optional[int]:
+    def _pick_victim(self, priority: int, protected: Set[int],
+                     group: Optional[int] = None) -> Optional[int]:
         """Least-urgent, latest-arrival running slot whose *base*
         priority is strictly less urgent than ``priority`` — or None
         (nothing may be preempted for an equal-or-less-urgent request).
         Slots filled this same wave are protected: their prefill hasn't
-        run yet."""
+        run yet. With ``group`` only slots whose pages it holds."""
         best = None
         for slot, r in enumerate(self.slot_req):
-            if r is None or slot in protected or r.priority <= priority:
+            if r is None or slot in protected or r.priority <= priority \
+                    or (group is not None and self._group(slot) != group):
                 continue
             key = (r.priority, r.rid)
             if best is None or key > best[0]:
@@ -696,9 +760,8 @@ class Scheduler:
             return True
         if self.preempt_policy == "recompute":
             return False
-        s = self.stats
-        prefill_rate = s["prefill_tokens"] / s["prefill_s"] \
-            if s["prefill_s"] > 0 else 1e4
+        prefill_rate = self._prefill_rate() if self._agreed is None \
+            else self._agreed[1]
         if not self._page_nbytes:
             self._page_nbytes = self.backend.page_nbytes(self.state)
         t_restore = n_pages * self._page_nbytes / HOST_RESTORE_BYTES_S
@@ -737,21 +800,23 @@ class Scheduler:
                 args={"mode": "recompute" if req.spill is None
                       else "spill", "tokens": L, "pages": live})
 
-    def _plan_or_preempt(self, req: ScheduledRequest,
+    def _plan_or_preempt(self, req: ScheduledRequest, slot: int,
                          protected: Set[int]) \
             -> Optional[Tuple[List[int], int]]:
-        """Plan pages for ``req``, preempting strictly-less-urgent
-        running requests one at a time (worst first) until the plan
-        fits or no victim remains."""
-        plan = self._plan(req)
+        """Plan pages for ``req`` in ``slot``, preempting
+        strictly-less-urgent running requests of the slot's page group
+        one at a time (worst first) until the plan fits or no victim
+        remains."""
+        plan = self._plan(req, slot)
         if self.preempt_policy == "off":
             return plan
         while plan is None:
-            victim = self._pick_victim(req.priority, protected)
+            victim = self._pick_victim(req.priority, protected,
+                                       self._group(slot))
             if victim is None:
                 return None
             self._preempt(victim)
-            plan = self._plan(req)
+            plan = self._plan(req, slot)
         return plan
 
     # -- admission ----------------------------------------------------------
@@ -814,8 +879,7 @@ class Scheduler:
                 # re-enter next wave, not bounce straight back in
                 deferred.append(self.queue.popleft())
                 continue
-            slot = next((s for s in range(self.max_batch)
-                         if self.slot_req[s] is None), None)
+            slot = self._free_slot()
             if slot is None:
                 # every slot busy: a strictly-more-urgent head may
                 # preempt its way in; anyone else waits for a reap
@@ -825,7 +889,7 @@ class Scheduler:
                     break
                 self._preempt(victim)
                 slot = victim
-            plan = self._plan_or_preempt(req, filled)
+            plan = self._plan_or_preempt(req, slot, filled)
             if plan is None:           # pool full for this request
                 req.skips += 1
                 if scan <= 0 or req.skips > self.starvation_limit:
@@ -1105,7 +1169,7 @@ class Scheduler:
                                  counters)
         self.state, acc, nxt = self.backend.verify(self.state, slots,
                                                    window, q)
-        d_host = window[:, 1:].cpu().numpy()
+        d_host = self.backend.host_rows(window[:, 1:])
         dt = time.perf_counter() - t0
         self.stats["draft_calls"] += 1
         self.stats["verify_calls"] += 1
@@ -1222,6 +1286,7 @@ class Scheduler:
         if not self.queue and not self.n_active:
             return False
         self._wave += 1
+        self._agree_wave()
         admitted = self._admit()
         if self._ingest:
             # chunked-prefill interleaving: one budget-bounded ingest
@@ -1254,7 +1319,7 @@ class Scheduler:
             req = self.queue.popleft()
             self._fail(req, f"admission failed on an idle engine: needs "
                             f"{pages_needed(len(req.prompt) + req.max_new_tokens, self.page_size)} "
-                            f"pages, pool holds {self.alloc.n_pages - 1} "
+                            f"pages, pool holds {self.alloc.capacity} "
                             f"({self.alloc.n_free} free)")
         return True
 

@@ -33,8 +33,13 @@ good draft when the weights sit in the near-identity trained regime the
 paper's coarsening assumes; on raw random init acceptance is
 tie-breaking luck. This module never touches weight values.
 
-The reference's jit, mesh placement and compile counters are gone: the
-port runs eagerly on one device and counts no captures.
+The reference's jit and compile counters are gone: the port runs
+eagerly and counts no captures. Under a mesh the draft serves on the
+fine backend's mesh and rules: its weights are the backend's local
+leaves, its pool this rank's part (each data rank the slots it runs,
+one scratch page each), and a wave's window and proposal distributions
+stay on the data rank whose slots they are, where the verify call
+consumes them.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serve.cache import CacheBackend
+from repro_torch.serve.kv_pages import region_table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,18 +89,23 @@ class CoarseDraft:
         self.params = params_d
         self.rcfg = rcfg_d
         self.n_coarse = n_coarse
-        self.state = backend.init_draft_state(
-            rcfg_d, n_coarse, 1 + max_batch * pages_per_slot)
-        self.table = np.asarray(
-            1 + np.arange(max_batch * pages_per_slot).reshape(
-                max_batch, pages_per_slot), np.int32)
+        # one page range a data rank, each with its scratch page
+        self.table, n_pages = region_table(
+            max_batch, pages_per_slot,
+            backend.rows.n if backend.rows is not None else 1)
+        self.state = backend.init_draft_state(rcfg_d, n_coarse, n_pages)
+        self.rows = None if backend.mesh is None else steps_mod.SlotRows(
+            backend.mesh, rcfg_d.sharding, max_batch, n_pages)
         self.lengths = np.zeros((max_batch,), np.int32)
         decode_fn = backend._decode_fn()
+        mesh = backend.mesh
         self._prefill_fn = steps_mod.make_paged_serve_fn(
-            rcfg_d, decode_fn, device=backend.device)
+            rcfg_d, decode_fn, device=backend.device, mesh=mesh,
+            rows=self.rows)
         self._wave_fn = steps_mod.make_draft_wave_fn(
             rcfg_d, decode_fn, k=spec.k, page_size=backend.page_size,
-            snapshot_state=backend.snapshot_state, device=backend.device)
+            snapshot_state=backend.snapshot_state, device=backend.device,
+            mesh=mesh, rows=self.rows)
         self._greedy = (np.zeros((max_batch,), np.float32),
                         np.zeros((max_batch,), np.int32),
                         np.ones((max_batch,), np.float32),
@@ -122,8 +133,9 @@ class CoarseDraft:
              counters):
         """Catch-up ingest + k drafted tokens. Returns the verify window
         (B, k+1) = [pending, d_1..d_k] per slot (the pending token is each
-        ingest row's last) and draft_probs (B, k, V), both on the device,
-        and advances the committed draft lengths by ``n_in``."""
+        ingest row's last) and draft_probs (B, k, V), both on the device
+        (this data rank's rows under a mesh), and advances the committed
+        draft lengths by ``n_in``."""
         d, q, self.state = self._wave_fn(
             self.params, self.state, np.asarray(ingest, np.int32),
             self.lengths.copy(), np.asarray(n_in, np.int32), self.table,
@@ -133,6 +145,8 @@ class CoarseDraft:
         self.lengths += n_in
         pending = np.asarray(ingest)[np.arange(len(n_in)),
                                      np.maximum(n_in - 1, 0)]
+        if self.rows is not None:
+            pending = self.rows.local(pending)
         window = torch.cat([torch.from_numpy(pending).to(
             d.device, torch.long)[:, None], d.long()], dim=1)
         return window, q

@@ -14,6 +14,7 @@ its own fused and gathered engines disagree there (ROADMAP Queue 3).
 Its fused path is held against the port on a queue without sharing.
 """
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -216,7 +217,7 @@ def test_tiny_layernorm_gelu_greedy_equals_jax():
 
 def test_entry_points_refuse_to_leave_the_card(qwen, monkeypatch):
     """Without a CUDA device, the default device raises (never a silent
-    CPU run); meshes are refused by name."""
+    CPU run); a mesh on another device than the engine's is refused."""
     tr, tp, *_ = qwen
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -226,8 +227,8 @@ def test_entry_points_refuse_to_leave_the_card(qwen, monkeypatch):
         ttr.init_model(tr)
     with pytest.raises(SystemExit):
         serve_cli.main(["--arch", "qwen3_1p7b", "--reduced"])
-    with pytest.raises(NotImplementedError, match="one card"):
-        t_engine(tr, tp, mesh=object())
+    with pytest.raises(ValueError, match="the mesh is on cuda"):
+        t_engine(tr, tp, mesh=types.SimpleNamespace(device_type="cuda"))
 
 
 def test_serve_cli_runs_on_cpu(capsys):
