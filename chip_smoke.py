@@ -91,15 +91,21 @@ After the MoE phase (phase 5e) it serves full-width, full-depth
 qwen3_1p7b through ``ServeEngine(mesh=...)`` on a world-1 NCCL mesh
 opened in this process: its streams and one decode step's logits bitwise
 phase 3's engine on the same weights, no collective issued, the sync
-census of a decode wave phase 3's count. Phase 5f runs with ``--mesh``
+census of a decode wave phase 3's count; and qwen3_moe_235b at 8 stacked
+layers the same way, its streams, a decode step's logits and its
+launches bitwise phase 5d's engine's. Phase 5f runs with ``--mesh``
 only, on 2 or more cards (``python3 chip_smoke.py --mesh``: phases 5e,
-5f, 6, 6c and 6d alone; ``--mesh serve``: 5e and 5f): NCCL ranks serve
+5f, 6, 6c and 6d alone; ``--mesh serve``: 5e and 5f; ``--mesh moe``:
+5f's and 6d's qwen3-moe parts alone): NCCL ranks serve
 the smoke queue, fused and gathered, qwen3_1p7b at (1, 2), (2, 1), (1,
 4) and (2, 2) and falcon_mamba_7b and zamba2_1p2b at (1, 2); every
 rank's streams equal, each emission's logits within DENSE_GAP of the
 one-card engine's and a first divergence only on a near-tie, each
 rank's launches one card's; each rank's pool bytes, launches, collectives by kind and bytes and a
-steady decode wave's ms printed beside one card's in the same call.
+steady decode wave's ms printed beside one card's in the same call;
+then qwen3_moe_235b (8 layers, fused) at (1, 2), (2, 1) and (2, 2), the
+experts over 'data' at the last two, held the same way with the
+routing-flip accounting.
 Right after the qwen3_1p7b run (phase 6c) it trains the same config
 two steps through ``Trainer(mesh=...)`` on a world-1 NCCL mesh opened
 in this process (the losses and every param leaf's sha256 bit for bit
@@ -109,7 +115,15 @@ step printed by kind and bytes), and where 2 or more cards are visible
 (1, 4) where 4 are visible (each rank's losses, and the sha256 of every
 param leaf gathered whole after the two steps, bit for bit 6c's; step
 seconds, peak memory, halo bytes); with one card it prints that 6d did
-not run.
+not run. 6d then holds the full-width qwen3_moe_235b gradient (5
+stacked layers, B 4) gathered from NCCL ranks at (2, 1) and (4, 1), the
+experts over 'data', to one card's with the routing replayed (cosine
+and norm, MOE_GRAD_COS / MOE_GRAD_NORM), and trains full-width
+qwen3_moe_235b two steps at (4, 1) at the depth its printed reckoning
+fits (every rank's losses equal and finite). Phase 6e (every run)
+trains the reduced qwen3_moe_235b two steps through a world-1 NCCL mesh:
+losses and every param leaf's sha256 bitwise phase 5d's Trainer, no
+collective issued.
 Then (phase 6b) it trains the same config
 cut to CKPT_LAYERS layers for three steps uninterrupted, then from a
 fresh ``Trainer(ckpt_dir=...)`` for two steps with a checkpoint after
@@ -240,6 +254,7 @@ def fail(msg: str):
 STATIC: dict = {}
 CENSUS: list = []
 SERVED: dict = {}               # model name -> its last smoke-queue streams
+MOE_REF: dict = {}              # phase 5d's qwen3-moe engine and Trainer
 PHASE_START: list = []          # (phase, perf_counter at its start)
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
@@ -4519,7 +4534,13 @@ def serve_moe(arch, seed, card, full):
     launches = {"queue": serve_queue(engine, rng, {"paged_flash_attention":
                                                    n_layers})}
     res = {"decode_tok_s": engine.scheduler.throughput()["decode_tok_s"]}
-    if full:
+    if full:        # phase 5e's reference, from an engine of its own
+        ref = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
+                          max_len=MAX_LEN, device="cuda")
+        streams, queue_launches = moe_queue_run(ref)
+        MOE_REF[arch] = {"streams": streams, "launches": queue_launches,
+                         "logits": decode_step_logits(ref.backend)}
+        del ref
         step_check(engine, transformer.paged_decode_step,
                    lambda r: transformer.init_paged_cache(
                        r, 1 + MAX_BATCH * 8, PAGE, device="cuda"), rng,
@@ -4549,20 +4570,12 @@ def check_moe_train_grads():
     with the kernel path's routing replayed: cosine and norm as
     tests/test_lp_grads.py. Returns (launches of the kernel path, cosine,
     norm difference)."""
-    import numpy as np
     import torch
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM, shard_batch
     from repro_torch.models import transformer
     from repro_torch.tree import leaves_with_paths
-    rcfg = get_config("qwen3_moe_235b", "train_4k")
+    rcfg = moe_train_config(MOE_GRAD_LAYERS, 2)
     mg = rcfg.mgrit
-    rcfg = rcfg.replace(
-        model=dataclasses.replace(rcfg.model, n_layers=MOE_GRAD_LAYERS,
-                                  param_dtype="bfloat16"),
-        mgrit=dataclasses.replace(mg, pad_to=mg.cf),
-        shape=ShapeConfig("s512", "train", 512, 2), microbatches=1)
     params = transformer.init_model(rcfg, seed=1, device="cuda")
     batch = shard_batch(SyntheticLM(rcfg, seed=1).batch_at(0), "cuda")
     n = sum(p.numel() for _, p in leaves_with_paths(params))
@@ -4576,26 +4589,14 @@ def check_moe_train_grads():
     torch.cuda.empty_cache()
     with plain_kernels(), record_routes(replay=plans):
         lp_, gp = grads_of(params, batch, rcfg, mode="lp")
-    dot = na = nb = 0.0
-    for p, g in gp.items():
-        if p[-1] == "gate":
-            continue
-        for a, b in zip(gk[p].reshape(-1).split(2**27),
-                        g.reshape(-1).split(2**27), strict=True):
-            a, b = a.to("cuda").double(), b.double()
-            dot += float((a * b).sum())
-            na += float((a * a).sum())
-            nb += float((b * b).sum())
-    cos = dot / (np.sqrt(na * nb) + 1e-30)
-    nrel = abs(np.sqrt(na) - np.sqrt(nb)) / np.sqrt(nb)
+    cos, nrel = grad_direction(gk, gp)
     print(f"moe train grads, qwen3-moe full width, {MOE_GRAD_LAYERS} stacked "
           f"layers ({n / 1e9:.2f} B params, bf16), B=2 S=512, MGRIT fwd "
           f"{mg.fwd_iters} / bwd {mg.bwd_iters}: kernel path vs plain path "
           f"(routing replayed, {len(plans)} MoE calls): loss {lk:.6f} vs "
           f"{lp_:.6f}; cosine {cos:.6f} (> {MOE_GRAD_COS}), norm rel diff "
           f"{nrel:.3e} (< {MOE_GRAD_NORM:g}); launches {launches}")
-    if not (np.isfinite(cos) and cos > MOE_GRAD_COS
-            and nrel < MOE_GRAD_NORM):
+    if not grads_agree(cos, nrel):
         fail("MoE gradients lose direction or norm between the kernel and "
              "plain paths")
     if min(launches[k] for k in ("flash_attention_fwd", "flash_attention_bwd",
@@ -4604,6 +4605,51 @@ def check_moe_train_grads():
              f"{launches}")
     del params, gk, gp, plans
     return launches, cos, nrel
+
+
+def moe_train_config(n_layers, batch, moment_dtype="float32"):
+    """qwen3-moe's train config at full width, ``n_layers`` stacked
+    layers (pad_to its cf: no gate-0 layer), bf16 storage, B ``batch``,
+    S 512, its MGRIT config and sharding rules (experts and FSDP over
+    'data', layers over 'model'), AdamW moments in ``moment_dtype``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    rcfg = get_config("qwen3_moe_235b", "train_4k")
+    mg = rcfg.mgrit
+    return rcfg.replace(
+        model=dataclasses.replace(rcfg.model, n_layers=n_layers,
+                                  param_dtype="bfloat16"),
+        mgrit=dataclasses.replace(mg, pad_to=mg.cf),
+        shape=ShapeConfig("s512", "train", 512, batch), microbatches=1,
+        optimizer=dataclasses.replace(rcfg.optimizer,
+                                      moment_dtype=moment_dtype))
+
+
+def grads_agree(cos, nrel) -> bool:
+    """The MoE gradient checks' rule: direction within MOE_GRAD_COS and
+    norm within MOE_GRAD_NORM (tests/test_lp_grads.py's)."""
+    import numpy as np
+    return bool(np.isfinite(cos) and cos > MOE_GRAD_COS
+                and nrel < MOE_GRAD_NORM)
+
+
+def grad_direction(got, want):
+    """(cosine, norm difference relative to ``want``'s) of two gradients
+    ({path: tensor}, on the card or in host memory), summed in float64 on
+    the card a piece at a time (the gate leaves left out)."""
+    import numpy as np
+    dot = na = nb = 0.0
+    for p, g in want.items():
+        if p[-1] == "gate":
+            continue
+        for a, b in zip(got[p].reshape(-1).split(2**27),
+                        g.reshape(-1).split(2**27), strict=True):
+            a, b = a.to("cuda").double(), b.to("cuda").double()
+            dot += float((a * b).sum())
+            na += float((a * a).sum())
+            nb += float((b * b).sum())
+    return (dot / (np.sqrt(na * nb) + 1e-30),
+            abs(np.sqrt(na) - np.sqrt(nb)) / np.sqrt(nb))
 
 
 def moe_reduced_train_config():
@@ -4643,8 +4689,9 @@ def moe_phase(gen, flush, card):
     torch.cuda.empty_cache()
     train = run_train(moe_reduced_train_config(),
                       ("flash_attention_fwd", "flash_attention_bwd",
-                       "rmsnorm_fwd", "rmsnorm_bwd"))
+                       "rmsnorm_fwd", "rmsnorm_bwd"), record=True)
     launches["train"] = train[0]
+    MOE_REF["train"] = train[3]["at_step_2"]     # phase 6e's reference
     res["wall_s"] = time.perf_counter() - t0
     print(f"MoE phase: {res['wall_s']:.1f} s")
     return launches, {**mod_err, **kern_err}, res
@@ -4860,26 +4907,40 @@ def mesh_counts_text(counts) -> str:
                      for k, (n, b) in sorted(counts.items())) or "none"
 
 
-def mesh_train(mesh, device):
-    """``Trainer(qwen3_train_config(), mesh=mesh)``: MESH_STEPS steps at
-    phase 6's seed and data, one ``train(1)`` each, the mesh's collective
-    counts reset before each step and read after it. The training launch
-    counters are set to 0 just before the first step and read after the
-    last. Returns the losses, each step's seconds and collectives, the
-    launches, the peak memory (GiB) and the trainer."""
+def mesh_train(mesh, device, rcfg=None, progress=False):
+    """``Trainer(rcfg, mesh=mesh)`` (default ``qwen3_train_config()``):
+    MESH_STEPS steps at phase 6's seed and data, one ``train(1)`` each,
+    the mesh's collective counts reset before each step and read after
+    it. The training launch counters are set to 0 just before the first
+    step and read after the last. With ``progress`` global rank 0 prints
+    a line after the init and after each step (memory, seconds). Returns
+    the losses, each step's seconds and collectives, the launches, the
+    peak memory (GiB) and the trainer."""
     import torch
     from repro_torch.train.trainer import Trainer
-    trainer = Trainer(qwen3_train_config(), mesh=mesh, seed=0,
+    t0 = time.perf_counter()
+    trainer = Trainer(rcfg or qwen3_train_config(), mesh=mesh, seed=0,
                       device=device)
+    say = progress and torch.distributed.get_rank() == 0
+
+    def report(what):
+        if say:
+            print(f"mesh_train rank 0: {what} at {time.perf_counter() - t0:.1f}"
+                  f" s; allocated {torch.cuda.memory_allocated() / 2**30:.1f}"
+                  f" GiB, reserved {torch.cuda.memory_reserved() / 2**30:.1f}"
+                  f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+                  " GiB", flush=True)
+    report("init done")
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
     losses, secs, colls = [], [], []
-    for _ in range(MESH_STEPS):
+    for i in range(MESH_STEPS):
         mesh.reset_counts()
         rep = trainer.train(1, log_every=0)
         losses += rep.losses
         secs += rep.step_seconds
         colls.append({k: list(v) for k, v in mesh.counts.items()})
+        report(f"step {i} done")
     torch.cuda.synchronize()
     return {"losses": losses, "step_s": secs, "collectives": colls,
             "launches": train_counts(),
@@ -5411,6 +5472,652 @@ def serve_mesh_phase(card, refs):
 
 
 
+# -- the MoE expert axis under a mesh (phases 5e, 5f, 6d, 6e) ---------------
+# Every run: phase 5e also serves qwen3-moe (MOE_SERVE's 8 layers, seed
+# 23) through a world-1 NCCL mesh, and phase 6e trains the reduced
+# qwen3-moe two steps through one: streams, a decode step's logits, the
+# losses and every param leaf's sha256 bitwise phase 5d's engine and
+# Trainer, no collective issued. With --mesh (2+ cards): 5f serves
+# qwen3-moe at MOE_SERVE_SHAPES (the experts over 'data' where named;
+# the expert d_ff over 'model' wherever it has 2 ranks) on the MoE queue
+# (MOE_MESH_REQS greedy requests and a sampled one, prompts cut to
+# MOE_PROMPT; prefix sharing off, as 5d's comparisons: every position's
+# routes are recorded), every rank's streams equal, each emission within DENSE_GAP
+# of one card's with the routing-flip accounting (MOE_FLIP_MARGIN /
+# MOE_FLIP_GAP), each rank's launches one card's; 6d holds the
+# full-width qwen3-moe gradient at MOE_GRAD_LAYERS (B MOE_MESH_B, one row
+# a rank at (4, 1)) at (2, 1) and (4, 1), the experts over 'data', to
+# one card's with its routing replayed (each rank its rows of the
+# recorded plans), then trains full-width qwen3-moe at (4, 1) for
+# MOE_MESH_STEPS steps at the deepest depth its reckoning fits.
+MOE_MESH_B = 4
+MOE_MESH_STEPS = 2
+MOE_MESH_REQS = 3
+MOE_SERVE_SHAPES = (((1, 2), None), ((2, 1), "data"), ((2, 2), "data"))
+# the full-width Trainer's reckoning a rank: 16 B a parameter with float32
+# AdamW moments (bf16 param and gradient, float32 master, m and v), 12
+# with bf16 moments, plus MOE_ACT_GIB for a step's activations (the
+# 6d gradient check at one row a rank peaked 8.2 GB above its params and
+# gradient on an H100), within MOE_FIT of the card (the rest for the
+# CUDA context, NCCL's buffers and the allocator's slack: at 75.4 GB
+# reckoned with 4 GiB of activations, float32 moments at 5 layers did
+# not finish two steps in 600 s)
+MOE_STATE_BYTES = {"float32": 16, "bfloat16": 12}
+MOE_ACT_GIB, MOE_FIT = 10.0, 0.9
+MOE_TRAIN_SPAWN_S = 300.0
+
+
+def moe_queue_run(engine):
+    """The MoE queue (``moe_mesh_queue``) through ``engine``: its streams
+    and launches (counters set to 0 just before, read just after)."""
+    import torch
+    reqs = moe_mesh_queue(engine.rcfg.model.vocab_size)
+    reset_serve_counts()
+    out = engine.generate(reqs)
+    torch.cuda.synchronize()
+    return [r.output.tolist() for r in out], serve_counts()
+
+
+def world1_moe_serve(card):
+    """Phase 5e, qwen3-moe: MOE_SERVE's 8 layers (seed 23) through
+    ``ServeEngine(mesh=make_host_mesh())`` on a world-1 NCCL group of
+    this process, on the MoE queue (its 32-token prompts fill their
+    prefill bucket: a padded position takes capacity, and the smoke
+    queue's streams were not reproducible on the card): the streams,
+    one decode step's logits and the queue's launches must be those of
+    phase 5d's engine (``MOE_REF``), and no collective issued. Returns
+    its numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    ref = MOE_REF["qwen3_moe_235b"]
+    t0 = time.perf_counter()
+    rcfg = moe_serve_config("qwen3_moe_235b")
+    mesh = make_host_mesh("cuda")
+    try:
+        params = transformer.init_model(rcfg, seed=23, device="cuda")
+        engine = ServeEngine(rcfg, params, mesh=mesh, max_batch=MAX_BATCH,
+                             page_size=PAGE, max_len=MAX_LEN, device="cuda")
+        del params
+        mesh.reset_counts()
+        streams, launches = moe_queue_run(engine)
+        logits = decode_step_logits(engine.backend)
+        colls = {k: list(v) for k, v in mesh.counts.items()}
+        del engine
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = streams == ref["streams"]
+    same_logits = torch.equal(logits, ref["logits"])
+    wall = time.perf_counter() - t0
+    print(f"[{card}] phase 5e, {rcfg.model.name} ({MOE_SERVE['qwen3_moe_235b'][0]}"
+          f" layers) served through a world-1 NCCL mesh, the MoE queue "
+          f"({len(streams)} requests): streams "
+          f"{'bitwise' if same else 'DIFFER from'} phase 5d's engine's; one "
+          f"decode step's logits {'bitwise' if same_logits else 'DIFFER'}; "
+          f"launches {launches} (5d {ref['launches']}); collectives "
+          f"{colls or 'none'}; {wall:.1f} s")
+    if not same or not same_logits:
+        fail("phase 5e: the world-1 mesh engine of qwen3-moe is not bitwise "
+             "phase 5d's")
+    if colls or launches != ref["launches"]:
+        fail(f"phase 5e: the world-1 qwen3-moe engine issued collectives "
+             f"{colls} or launched {launches}, not 5d's {ref['launches']}")
+    return {"streams_equal": same, "logits_equal": same_logits,
+            "launches": launches, "wall_s": wall}
+
+
+def world1_moe_train(card):
+    """Phase 6e: the reduced qwen3-moe (``moe_reduced_train_config``)
+    trained MESH_STEPS steps through ``Trainer(mesh=make_host_mesh())``
+    on a world-1 NCCL group of this process: the losses and every param
+    leaf's sha256 must equal phase 5d's Trainer after the same steps
+    (``MOE_REF["train"]``), no collective issued, the training kernels
+    launched. Returns its numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    want = MOE_REF["train"]
+    t0 = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    try:
+        res, trainer = mesh_train(mesh, "cuda", moe_reduced_train_config())
+        digest = state_digest(trainer.params,
+                              {"step": trainer.opt_state["step"]})
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = res["losses"] == want["losses"] and digest == want["digest"]
+    colls = [c for c in res["collectives"] if c]
+    wall = time.perf_counter() - t0
+    print(f"[{card}] phase 6e, reduced qwen3-moe through a world-1 NCCL "
+          f"mesh: losses {res['losses']} vs 5d's {want['losses']}; "
+          f"{len(digest) - 1} param leaf digests "
+          + ("all equal (bitwise)" if same else "DIFFER")
+          + f"; collectives {colls or 'none'}; launches {res['launches']}; "
+          f"kept whole {res['kept_whole']}; {wall:.1f} s")
+    if not same:
+        fail("phase 6e: the world-1 mesh Trainer of qwen3-moe is not bitwise "
+             "phase 5d's")
+    if colls or min(res["launches"][k] for k in (
+            "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
+            "rmsnorm_bwd")) <= 0:
+        fail(f"phase 6e: collectives {colls} issued or a training kernel "
+             f"never launched: {res['launches']}")
+    return {**res, "bitwise": same, "wall_s": wall}
+
+
+@contextlib.contextmanager
+def replay_expert_rows(experts, lo, hi):
+    """Every ``moe.routing_plan`` call takes the experts of the recorded
+    call at the same index (``experts``: (B, S, K) tensors in call order,
+    from one card's run of the whole batch) at batch rows [lo, hi): the
+    plan of those choices (``moe.plan_from``; capacity is per batch row,
+    so a row's positions are the one card's) with gates from this call's
+    own router logits. A rank then routes its rows as one card did."""
+    import torch
+    from repro_torch.models import moe
+    saved, n = moe.routing_plan, [0]
+
+    def plan(params, x, cfg):
+        rec = experts[n[0]][lo:hi].to(x.device)
+        n[0] += 1
+        if tuple(rec.shape[:2]) != tuple(x.shape[:2]):
+            fail("routing replay: the calls do not line up")
+        logits = x @ params["router"].to(x.dtype)
+        gate = torch.softmax(logits.float(), -1).gather(-1, rec)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return moe.plan_from(rec, gate, logits, cfg)
+    moe.routing_plan = plan
+    try:
+        yield n
+    finally:
+        moe.routing_plan = saved
+
+
+def moe_mesh_grads_rank(shape):
+    """One rank of phase 6d's MoE gradient check (a spawned process on
+    ``cuda:<rank>``): global rank 0 first takes one card's gradient of
+    ``moe_train_config(MOE_GRAD_LAYERS, MOE_MESH_B)`` (seed 1, the
+    MGRIT adjoint; moved to host memory) with its routing recorded and
+    broadcasts the plans' experts; then every rank cuts the same params
+    to its slices (experts over 'data'), takes its gradient of its batch
+    rows through ``make_grad_fn(rcfg, mesh)`` with its rows of the plans
+    replayed (launch and collective counters set to 0 just before, read
+    just after), the gradient norm, and the gradient gathered whole; on
+    rank 0 its cosine and norm difference to one card's. Returns numbers
+    only."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    from repro_torch.parallel import params as pparams
+    from repro_torch.tree import leaves_with_paths
+    rcfg = moe_train_config(MOE_GRAD_LAYERS, MOE_MESH_B)
+    rank = dist.get_rank()
+    host_batch = SyntheticLM(rcfg, seed=1).batch_at(0)
+    out = {"rank": rank, "device": torch.cuda.current_device()}
+    box, ref = [None], None
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = transformer.init_model(rcfg, seed=1, device="cuda")
+        with record_routes() as plans:
+            out["one_loss"], g1 = grads_of(
+                params, shard_batch(host_batch, "cuda"), rcfg, mode="lp")
+        box = [[p.expert.cpu() for p in plans]]
+        ref = {p: g.cpu() for p, g in g1.items()}
+        del params, g1, plans
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["one_s"] = time.perf_counter() - t0
+    dist.broadcast_object_list(box, src=0)
+    experts = box[0]
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    full = transformer.init_model(rcfg, seed=1, device="cuda")
+    specs = pparams.train_specs(full, rcfg, mesh)
+    local, whole = pparams.shard_tree(full, specs, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = pparams.expert_cut(transformer.param_shapes(rcfg), specs, mesh)
+    out["expert_gb"] = sum(t.numel() * t.element_size() for p, t in
+                           leaves_with_paths(local) if p in ep) / 1e9
+    out["kept_whole"] = [".".join(p) for p in whole]
+    batch = shard_batch(host_batch, "cuda", mesh, rcfg)
+    rows = MOE_MESH_B // shape[0]
+    d = mesh.index("data")
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_counts()
+    reset_train_counts()
+    t0 = time.perf_counter()
+    with replay_expert_rows(experts, d * rows, (d + 1) * rows) as calls:
+        loss, _, grads = steps.make_grad_fn(rcfg, mesh)(local, batch)
+    gn = optimizers.global_norm(grads, steps.norm_layers(rcfg, mesh))
+    out.update(loss=loss.item(), grad_norm=gn.item(),
+               grad_s=time.perf_counter() - t0, replayed=calls[0],
+               recorded=len(experts), launches=train_counts(),
+               collectives={k: list(v) for k, v in mesh.counts.items()},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del local, batch
+    full_g = pparams.gather_tree(grads, specs, mesh)
+    del grads
+    if rank == 0:
+        out["cos"], out["norm_rel"] = grad_direction(
+            dict(leaves_with_paths(full_g)), ref)
+    del full_g, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_reckoning(shape, total_bytes):
+    """The deepest full-width qwen3-moe (1 + 3k + 1 stacked layers, cf 3)
+    whose state a rank of ``shape`` holds in ``total_bytes`` of card:
+    each rank's parameters counted from its slices (the experts over
+    'data', the rest whole), times MOE_STATE_BYTES, plus MOE_ACT_GIB,
+    within MOE_FIT of the card; float32 moments first, bf16 only where
+    no depth fits. Returns (config, the reckoning's lines)."""
+    import types
+    from repro_torch.models import transformer
+    from repro_torch.parallel import params as pparams
+    from repro_torch.tree import leaf_at, leaves_with_paths
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape=dict(zip(("data", "model"), shape)),
+                                 index=lambda a: 0)
+    room = MOE_FIT * total_bytes
+    lines = []
+    for moment in ("float32", "bfloat16"):
+        for mid in (12, 9, 6, 3):
+            rcfg = moe_train_config(mid + 2, MOE_MESH_B, moment)
+            shapes = transformer.param_shapes(rcfg)
+            specs = pparams.train_specs(shapes, rcfg, mesh)
+            n = sum(pparams.local_slice(t, p, leaf_at(specs, p),
+                                        mesh).numel()
+                    for p, t in leaves_with_paths(shapes))
+            need = n * MOE_STATE_BYTES[moment] + MOE_ACT_GIB * 2**30
+            lines.append(f"1 + {mid} + 1 layers, {moment} moments: "
+                         f"{n / 1e9:.3f} B params a rank x "
+                         f"{MOE_STATE_BYTES[moment]} B + {MOE_ACT_GIB:g} GiB "
+                         f"= {need / 1e9:.1f} GB of {room / 1e9:.1f} GB")
+            if need <= room:
+                return rcfg, lines
+    fail("phase 6d: no depth of full-width qwen3-moe fits a rank: "
+         + "; ".join(lines))
+
+
+def moe_mesh_train_rank(shape, rcfg):
+    """One rank of phase 6d's full-width qwen3-moe Trainer (a spawned
+    process on ``cuda:<rank>``): ``mesh_train`` of ``rcfg``; returns its
+    numbers, with the bytes its params and optimizer state hold."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import leaves_with_paths
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    res, trainer = mesh_train(mesh, f"cuda:{torch.cuda.current_device()}",
+                              rcfg, progress=True)
+    state = sum(t.numel() * t.element_size() for tree in (
+        trainer.params, trainer.opt_state["m"], trainer.opt_state["v"],
+        trainer.opt_state.get("master")) if tree is not None
+        for _, t in leaves_with_paths(tree))
+    del trainer
+    return {"rank": torch.distributed.get_rank(),
+            "device": torch.cuda.current_device(), "state_gb": state / 1e9,
+            **res}
+
+
+def moe_mesh_phase(card):
+    """Phase 6d's MoE part, with 2 or more cards visible: the full-width
+    qwen3-moe gradient at (2, 1) and, with 4 cards, (4, 1) against one
+    card's (``moe_mesh_grads_rank``; MOE_GRAD_COS / MOE_GRAD_NORM, every
+    rank's loss equal, one exchange each way a MoE call); then, with 4
+    cards, full-width qwen3-moe trained MOE_MESH_STEPS steps at (4, 1)
+    at the depth ``moe_train_reckoning`` picks: every rank's losses equal
+    and finite, its peak memory printed against the reckoning, step
+    seconds and collectives by kind and bytes. Returns its numbers."""
+    import torch
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 6d (MoE): not run: {n} CUDA device visible")
+        return None
+    out = {}
+    for shape in [(2, 1)] + ([(4, 1)] if n >= 4 else []):
+        t0 = time.perf_counter()
+        ranks = spawn_host_ranks(shape[0] * shape[1], moe_mesh_grads_rank,
+                                 shape, backend="nccl",
+                                 timeout=MESH_SPAWN_S)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        print(f"[{card}] phase 6d {shape} qwen3-moe gradient, full width, "
+              f"{MOE_GRAD_LAYERS} stacked layers (bf16), B={MOE_MESH_B} "
+              f"S=512, experts over 'data', routing replayed "
+              f"({r0['replayed']} of {r0['recorded']} recorded MoE calls): "
+              f"loss {r0['loss']:.6f} vs one card {r0['one_loss']:.6f}; "
+              f"cosine {r0['cos']:.6f} (> {MOE_GRAD_COS}), norm rel diff "
+              f"{r0['norm_rel']:.3e} (< {MOE_GRAD_NORM:g}); one card "
+              f"{r0['one_s']:.1f} s")
+        for r in ranks:
+            print(f"[{card}] phase 6d {shape} qwen3-moe rank {r['rank']} "
+                  f"(cuda:{r['device']}): loss {r['loss']:.6f}, grad norm "
+                  f"{r['grad_norm']:.6f}; {r['expert_gb']:.2f} GB of experts"
+                  f"; gradient {r['grad_s']:.2f} s; peak "
+                  f"{r['peak_gib']:.1f} GiB; launches {r['launches']}; "
+                  f"collectives " + mesh_counts_text(r["collectives"]))
+            if r["loss"] != r0["loss"] or r["replayed"] != r["recorded"]:
+                fail(f"phase 6d {shape} qwen3-moe: rank {r['rank']}'s loss "
+                     f"{r['loss']} (rank 0 {r0['loss']}) or its "
+                     f"{r['replayed']} MoE calls of {r['recorded']}")
+            c = r["collectives"]
+            if c.get("ep_dispatch", [0])[0] != c.get("ep_combine", [-1])[0] \
+                    or not c.get("ep_dispatch_grad", [0])[0]:
+                fail(f"phase 6d {shape} qwen3-moe: rank {r['rank']}'s "
+                     f"exchanges do not pair: {c}")
+            if min(r["launches"][k] for k in (
+                    "flash_attention_fwd", "flash_attention_bwd",
+                    "rmsnorm_fwd", "rmsnorm_bwd")) <= 0:
+                fail(f"phase 6d {shape} qwen3-moe: rank {r['rank']} "
+                     f"launched no training kernel: {r['launches']}")
+        if not grads_agree(r0["cos"], r0["norm_rel"]):
+            fail(f"phase 6d {shape}: the qwen3-moe gradient gathered from "
+                 "the ranks loses direction or norm against one card's")
+        print(f"phase 6d {shape} qwen3-moe gradient: {wall:.1f} s wall")
+        out[f"grads_{shape[0]}x{shape[1]}"] = {"ranks": ranks,
+                                               "wall_s": wall}
+    out["train_4x1"] = moe_mesh_train_phase(card)
+    return out
+
+
+def moe_mesh_train_phase(card):
+    """Phase 6d's full-width qwen3-moe Trainer, with 4 cards visible:
+    MOE_MESH_STEPS steps at (4, 1) at the depth ``moe_train_reckoning``
+    picks (printed); every rank's losses equal and finite, its peak
+    memory printed against the reckoning, step seconds and collectives
+    by kind and bytes. Returns its numbers (None with fewer cards)."""
+    import math
+    import torch
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    if torch.cuda.device_count() < 4:
+        print("phase 6d (MoE Trainer): not run: it needs 4 cards")
+        return None
+    shape = (4, 1)
+    total = torch.cuda.get_device_properties(0).total_memory
+    rcfg, lines = moe_train_reckoning(shape, total)
+    for line in lines:
+        print(f"phase 6d qwen3-moe reckoning a rank at {shape}: {line}")
+    cfg = rcfg.model
+    moment = rcfg.optimizer.moment_dtype
+    if moment != "float32":
+        print(f"phase 6d qwen3-moe: moment_dtype set to {moment} (grok-1's "
+              "rules use it): no depth fits with float32 moments")
+    t0 = time.perf_counter()
+    ranks = spawn_host_ranks(math.prod(shape), moe_mesh_train_rank, shape,
+                             rcfg, backend="nccl", timeout=MOE_TRAIN_SPAWN_S)
+    wall = time.perf_counter() - t0
+    want = ranks[0]["losses"]
+    for r in ranks:
+        print(f"[{card}] phase 6d {shape} qwen3-moe Trainer, full width, "
+              f"{depth_text(rcfg)}, "
+              f"B={rcfg.shape.global_batch} S={rcfg.shape.seq_len}, "
+              f"{moment} moments, rank {r['rank']} (cuda:{r['device']}): "
+              f"losses {r['losses']}; steps "
+              f"{[round(x, 3) for x in r['step_s']]} s; state "
+              f"{r['state_gb']:.1f} GB, peak {r['peak_gib']:.1f} GiB "
+              f"({r['peak_gib'] * 2**30 / 1e9:.1f} GB; reckoned "
+              f"{lines[-1].split('= ')[1]}); launches {r['launches']}; step "
+              f"2 collectives " + mesh_counts_text(r["collectives"][-1]))
+        if r["losses"] != want or not all(math.isfinite(x) for x in want):
+            fail(f"phase 6d {shape} qwen3-moe Trainer: rank {r['rank']}'s "
+                 f"losses {r['losses']} are not rank 0's {want} or not "
+                 "finite")
+    print(f"phase 6d {shape} qwen3-moe Trainer: {wall:.1f} s wall (spawn, "
+          f"init, {MESH_STEPS} steps); kept whole {ranks[0]['kept_whole']}")
+    return {"ranks": ranks, "wall_s": wall, "n_layers": cfg.n_layers,
+            "moment_dtype": moment, "reckoning": lines}
+
+
+def moe_mesh_queue(V):
+    """5f's MoE queue: the smoke queue's first MOE_MESH_REQS greedy
+    requests and its first sampled one, prompts cut to MOE_PROMPT."""
+    import numpy as np
+    return moe_requests(np.random.default_rng(23), V, MOE_MESH_REQS,
+                        sampled=True)
+
+
+def _local_moe_calls(calls, rows):
+    """``record_moe_calls``' calls with each call's slots cut to this
+    data rank's (its plans hold its rows only)."""
+    if rows is None:
+        return calls
+    return [(rows.local(sd), rows.local(ln), rows.local(nn), plans)
+            for sd, ln, nn, plans in calls]
+
+
+def expert_bytes(params) -> int:
+    from repro_torch.tree import leaves_with_paths
+    return sum(t.numel() * t.element_size()
+               for p, t in leaves_with_paths(params)
+               if "moe" in p and p[-1] in ("w_in", "w_gate", "w_out"))
+
+
+def moe_serve_reference(card):
+    """One card, no mesh (5f's MoE reference): qwen3-moe at MOE_SERVE's
+    8 layers (seed 23) through ServeEngine (fused) on the MoE queue, the
+    logits row of every emission and the routes of every position
+    recorded, the queue's launches (counters set to 0 just before, read
+    just after), a steady decode wave's ms (5 waves) and its expert
+    bytes. Returns its numbers and the rows."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    rcfg = moe_serve_config("qwen3_moe_235b")
+    t0 = time.perf_counter()
+    params = transformer.init_model(rcfg, seed=23, device="cuda")
+    engine = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
+                         max_len=MAX_LEN, share_prefix=False, device="cuda")
+    del params
+    reqs = moe_mesh_queue(rcfg.model.vocab_size)
+    seeds = [r.seed for r in reqs]
+    reset_serve_counts()
+    with record_spec_logits() as calls, record_moe_calls() as moe_calls:
+        out = engine.generate(reqs)
+        torch.cuda.synchronize()
+    launches = serve_counts()
+    rows = emitted_rows(calls, set(seeds))
+    routes = position_routes(moe_calls, seeds)
+    del calls, moe_calls
+    ref = {"streams": [r.output.tolist() for r in out], "launches": launches,
+           "routes": routes, "expert_gb": expert_bytes(
+               engine.backend.params) / 1e9}
+    scratch, slots, tok = decode_wave_slots(engine.backend)
+    for _ in range(2):
+        engine.backend.step(scratch, slots, tok)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        engine.backend.step(scratch, slots, tok)   # reads its tokens back
+    ref["wave_ms"] = 1e3 * (time.perf_counter() - t1) / 5
+    print(f"[{card}] serve reference {rcfg.model.name} (one card, no mesh, "
+          f"{MOE_SERVE['qwen3_moe_235b'][0]} layers): "
+          f"{sum(map(len, ref['streams']))} tokens, launches {launches}, "
+          f"{ref['expert_gb']:.2f} GB of experts, a steady decode wave "
+          f"{ref['wave_ms']:.2f} ms, {time.perf_counter() - t0:.1f} s")
+    del engine, scratch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, {k: v.detach().cpu() for k, v in rows.items()}
+
+
+def moe_serve_mesh_rank(shape, experts):
+    """One rank of 5f's MoE part (a spawned process on ``cuda:<rank>``):
+    qwen3-moe at MOE_SERVE's 8 layers (seed 23) through
+    ``ServeEngine(mesh=...)`` under the serve rules with ``experts``
+    (None or 'data'), fused, on the MoE queue: its launches and
+    collectives (counters set to 0 just before, read just after), each
+    emission's logits row held against the one card's (SERVE_REF_DIR)
+    for the requests of this rank's data group with the routing-flip
+    accounting, its expert bytes, one steady decode wave's collectives
+    and its ms (5 waves). Returns numbers only."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import serve_sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    rank = torch.distributed.get_rank()
+    rcfg = moe_serve_config("qwen3_moe_235b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_model(rcfg, seed=23, device="cuda")
+    engine = ServeEngine(rcfg, params, mesh=mesh, max_batch=MAX_BATCH,
+                         page_size=PAGE, max_len=MAX_LEN, share_prefix=False,
+                         sharding=dataclasses.replace(serve_sharding(),
+                                                      experts=experts),
+                         device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = torch.load(SERVE_REF_DIR / "qwen3_moe_235b.pt", weights_only=False)
+    be = engine.backend
+    res = {"rank": rank, "device": torch.cuda.current_device(),
+           "init_s": time.perf_counter() - t0,
+           "expert_gb": expert_bytes(be.params) / 1e9}
+    reqs = moe_mesh_queue(rcfg.model.vocab_size)
+    seeds = [r.seed for r in reqs]
+    reset_serve_counts()
+    mesh.reset_counts()
+    t1 = time.perf_counter()
+    with record_spec_logits() as calls, record_moe_calls() as moe_calls:
+        outs = engine.generate(reqs)
+        torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t1
+    res["launches"] = serve_counts()
+    res["collectives"] = {k: list(v) for k, v in mesh.counts.items()}
+    rows = emitted_rows(_local_calls(calls, be.rows), set(seeds))
+    routes = position_routes(_local_moe_calls(moe_calls, be.rows), seeds)
+    del calls, moe_calls
+    streams = [r.output.tolist() for r in outs]
+    mine = [i for i, r in enumerate(reqs) if (r.seed, 0) in rows]
+    label = f"qwen3-moe {shape} experts {experts} rank {rank}"
+    refs = [[ref["rows"][(reqs[i].seed, m)].cuda()
+             for m in range(len(ref["streams"][i]))] for i in mine]
+    allow, tally = moe_allowance(routes, ref["routes"], MOE_PROMPT)
+    res["failed"] = None
+    try:
+        res["matched"], res["max_gap"], div = check_dense_streams(
+            label, [reqs[i] for i in mine],
+            ([np.asarray(streams[i]) for i in mine], rows),
+            ([np.asarray(ref["streams"][i]) for i in mine], refs), label,
+            allow=allow)
+    except SystemExit as e:         # reported by the parent, which fails
+        res["failed"], res["matched"], res["max_gap"], div = \
+            str(e), -1, -1.0, []
+    res.update(streams=streams, checked=mine, divergences=len(div),
+               routes=tally)
+    del rows, refs
+    scratch, slots, tok = decode_wave_slots(be)
+    for _ in range(2):
+        be.step(scratch, slots, tok)
+    mesh.reset_counts()
+    be.step(scratch, slots, tok)
+    res["wave_collectives"] = {k: list(v) for k, v in mesh.counts.items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        be.step(scratch, slots, tok)          # reads its tokens back
+    res["wave_ms"] = 1e3 * (time.perf_counter() - t1) / 5
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del engine, be, scratch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_serve_mesh_phase(card):
+    """5f's MoE part, with 2 or more cards visible: the one-card
+    reference (``moe_serve_reference``, saved to SERVE_REF_DIR for the
+    ranks, removed after), then NCCL ranks at each shape of
+    MOE_SERVE_SHAPES that fits the cards (``moe_serve_mesh_rank``): every
+    rank's streams equal, each emission within DENSE_GAP of one card's
+    (the flip accounting where the routes differ; checked on the ranks),
+    each rank's launches the one card's; printed: expert bytes, launches,
+    the collectives of the run and of one decode wave by kind and bytes,
+    a steady decode wave's ms beside one card's. Returns its numbers."""
+    import math
+    import shutil
+    import torch
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 5f (MoE): not run: {n} CUDA device visible")
+        return None
+    ref, rows = moe_serve_reference(card)
+    SERVE_REF_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"one_card": {k: ref[k] for k in ("launches", "expert_gb",
+                                            "wave_ms")}}
+    try:
+        torch.save({"streams": ref["streams"], "rows": rows,
+                    "routes": ref["routes"]},
+                   SERVE_REF_DIR / "qwen3_moe_235b.pt")
+        del rows
+        for shape, experts in MOE_SERVE_SHAPES:
+            if math.prod(shape) > n:
+                continue
+            t0 = time.perf_counter()
+            ranks = spawn_host_ranks(math.prod(shape), moe_serve_mesh_rank,
+                                     shape, experts, backend="nccl",
+                                     timeout=MESH_SPAWN_S)
+            wall = time.perf_counter() - t0
+            if any(r["streams"] != ranks[0]["streams"] for r in ranks):
+                fail(f"phase 5f {shape} qwen3-moe: the ranks' streams "
+                     "differ")
+            for r in ranks:
+                t = r["routes"]
+                print(f"[{card}] phase 5f {shape} qwen3-moe experts "
+                      f"{experts} rank {r['rank']} (cuda:{r['device']}): "
+                      f"streams equal on every rank, {r['matched']}/"
+                      f"{len(r['checked'])} of its requests {r['checked']} "
+                      f"bitwise the one card's, max gap {r['max_gap']:.4f} "
+                      f"(limit {DENSE_GAP:g}), {r['divergences']} "
+                      f"divergences; routes {t['equal']} equal, {t['flip']} "
+                      f"with a flip (margins "
+                      f"{[round(x, 4) for x in t['margins']]}), "
+                      f"{t['capacity']} capacity; {r['expert_gb']:.2f} GB of "
+                      f"experts (one card {ref['expert_gb']:.2f}); launches "
+                      f"{r['launches']}; collectives "
+                      + mesh_counts_text(r["collectives"])
+                      + (f"; FAILED: {r['failed']}" if r["failed"] else ""))
+                print(f"[{card}] phase 5f {shape} qwen3-moe rank "
+                      f"{r['rank']}: a steady decode wave (B={MAX_BATCH}, "
+                      f"contexts {DECODE_LENS}) {r['wave_ms']:.2f} ms (one "
+                      f"card in this call {ref['wave_ms']:.2f}); its "
+                      "collectives " + mesh_counts_text(r["wave_collectives"])
+                      + f"; peak {r['peak_gib']:.1f} GiB; init "
+                      f"{r['init_s']:.1f} s; queue {r['wall_s']:.2f} s")
+                if r["launches"] != ref["launches"]:
+                    fail(f"phase 5f {shape} qwen3-moe: rank {r['rank']} "
+                         f"launched {r['launches']}, not one card's "
+                         f"{ref['launches']}")
+                if r["failed"]:
+                    fail(f"phase 5f {shape} qwen3-moe: {r['failed']}")
+                r.pop("streams")
+            print(f"phase 5f {shape} qwen3-moe: {wall:.1f} s wall (spawn, "
+                  "init, serving)")
+            out[f"{shape[0]}x{shape[1]}"] = {"ranks": ranks, "wall_s": wall,
+                                             "experts": experts}
+        return out
+    finally:
+        shutil.rmtree(SERVE_REF_DIR, ignore_errors=True)
+
+
 def smoke_train_configs():
     """The train runs the smoke measures, by name: (config, ``run_train``
     result key, profiled mode)."""
@@ -5789,6 +6496,7 @@ def main() -> int:
     # 5f (the ranks of a multi-card mesh) runs with --mesh only ----------
     serve_mesh_res = {"5e": world1_serve_phase(card, serve_ref), "5f": None}
     del serve_ref
+    serve_mesh_res["5e_moe"] = world1_moe_serve(card)
     print("phase 5f: not run: its NCCL ranks run with --mesh on 2 or more "
           "cards")
 
@@ -5817,6 +6525,11 @@ def main() -> int:
     # process (NCCL), then NCCL ranks over 2 (and 4) cards where visible --
     marks["6c"] = time.time()
     mesh_res = mesh_phase(card, qwen3_info)
+
+    PHASE_START.append(("6e", time.perf_counter()))
+    # -- 6e. the reduced qwen3-moe Trainer through a world-1 NCCL mesh,
+    # bitwise phase 5d's -------------------------------------------------
+    mesh_res["6e"] = world1_moe_train(card)
 
     PHASE_START.append(("6b", time.perf_counter()))
     # -- 6b. checkpoint and resume full-width qwen3_1p7b at CKPT_LAYERS ----
@@ -6056,10 +6769,16 @@ def main() -> int:
                                    for run, n in moe_runs.items()}
             row["moe_max_abs_err"] = moe_err.get(name)
     # launches_mesh_serve: phase 5e's world-1 mesh serving the smoke queue
+    # (qwen3; _moe: qwen3-moe); launches_mesh_moe_train: phase 6e's
     for row in kernels:
         if row["name"] in serve_mesh_res["5e"]["launches"]:
             row["launches_mesh_serve"] = \
                 serve_mesh_res["5e"]["launches"][row["name"]]
+            row["launches_mesh_serve_moe"] = \
+                serve_mesh_res["5e_moe"]["launches"][row["name"]]
+        if row["name"] in mesh_res["6e"]["launches"]:
+            row["launches_mesh_moe_train"] = \
+                mesh_res["6e"]["launches"][row["name"]]
     kernels[0]["moe_shapes_ms"] = {k: v for k, v in moe_res[
         "kernels"].items() if k != "sampling"}
     kernels[1]["moe_shapes_ms"] = moe_res["kernels"]["sampling"]
@@ -6085,15 +6804,18 @@ def main() -> int:
     return 0
 
 
-def main_mesh(serve_only: bool = False) -> int:
+def main_mesh(mode: str = "") -> int:
     """``python3 chip_smoke.py --mesh``: the mesh phases alone, for a call
     on several cards (the driver's run takes no argument and runs every
     phase). The build; the one-card serving references of qwen3_1p7b,
     falcon_mamba_7b and zamba2_1p2b; phase 5e (a world-1 NCCL mesh
     bitwise the one-card qwen3 engine) and 5f (NCCL ranks over 2 / 4
-    cards against the references); then, unless ``--mesh serve``, phase
-    6's qwen3_1p7b run without its profiled steps and phases 6c and 6d
-    (layer-parallel training over the mesh)."""
+    cards against the references), then 5f's qwen3-moe part; then,
+    unless ``--mesh serve``, phase 6's qwen3_1p7b run without its
+    profiled steps and phases 6c and 6d (layer-parallel training over
+    the mesh), then 6d's qwen3-moe part (the expert-parallel gradient
+    and the full-width Trainer). ``--mesh moe``: the build and the
+    qwen3-moe parts of 5f and 6d alone."""
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -6104,20 +6826,30 @@ def main_mesh(serve_only: bool = False) -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
     build.build()
     static_check()
-    refs = {arch: serve_reference(arch, card) for arch in SERVE_SEEDS}
-    serve_res = {"5e": world1_serve_phase(card, refs["qwen3_1p7b"][0])}
+    serve_res = {}
+    if mode != "moe":
+        refs = {arch: serve_reference(arch, card) for arch in SERVE_SEEDS}
+        serve_res["5e"] = world1_serve_phase(card, refs["qwen3_1p7b"][0])
+        t5f = time.perf_counter()
+        serve_res["5f"] = serve_mesh_phase(card, refs)
+        del refs
+        print(f"phase 5f: {time.perf_counter() - t5f:.1f} s")
     t5f = time.perf_counter()
-    serve_res["5f"] = serve_mesh_phase(card, refs)
-    del refs
-    print(f"phase 5f: {time.perf_counter() - t5f:.1f} s")
+    serve_res["5f_moe"] = moe_serve_mesh_phase(card)
+    print(f"phase 5f (qwen3-moe): {time.perf_counter() - t5f:.1f} s")
     print("serve_mesh: " + json.dumps(serve_res))
-    if not serve_only:
-        _, _, _, info = run_train(qwen3_train_config(), (
-            "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
-            "rmsnorm_bwd"), record=True, profiled=())
-        gc.collect()
-        torch.cuda.empty_cache()
-        res = mesh_phase(card, info)
+    if mode != "serve":
+        res = {}
+        if mode != "moe":
+            _, _, _, info = run_train(qwen3_train_config(), (
+                "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
+                "rmsnorm_bwd"), record=True, profiled=())
+            gc.collect()
+            torch.cuda.empty_cache()
+            res = mesh_phase(card, info)
+        t6d = time.perf_counter()
+        res["6d_moe"] = moe_mesh_phase(card)
+        print(f"phase 6d (qwen3-moe): {time.perf_counter() - t6d:.1f} s")
         print("mesh: " + json.dumps(res))
     print(f"chip_smoke --mesh: {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -6128,6 +6860,6 @@ def main_mesh(serve_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"]):
-        sys.exit(main_mesh(serve_only=sys.argv[2:] == ["serve"]))
+    if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"], ["--mesh", "moe"]):
+        sys.exit(main_mesh(mode="".join(sys.argv[2:])))
     sys.exit(main())

@@ -34,6 +34,7 @@ What differs from the reference, and why:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional
 
@@ -42,6 +43,7 @@ import torch
 from repro_torch.configs.base import MGRITConfig, ModelConfig
 from repro_torch.core import mgrit
 from repro_torch.models.blocks import block_F
+from repro_torch.parallel.sharding import axis_rules, current_rules
 from repro_torch.tree import leaves_with_paths, tree_map, unflatten
 
 Extra = Dict[str, Any]  # per-call inputs: rope (cos, sin), None for
@@ -185,6 +187,7 @@ class _LPForward(torch.autograd.Function):
                                            static.mgrit.fwd_iters)
         ctx.save_for_backward(states, gate, xa, *leaves)
         ctx.static, ctx.rope, ctx.paths = static, rope, paths
+        ctx.rules = current_rules()
         ctx.mark_non_differentiable(norms)
         return zT, norms
 
@@ -193,12 +196,17 @@ class _LPForward(torch.autograd.Function):
         states, gate, xa, *leaves = ctx.saved_tensors
         static, extra = ctx.static, {"rope": ctx.rope, "xa": xa}
         stacked = _layer_slots(unflatten(zip(ctx.paths, leaves)), gate)
-        # the adjoint runs in the trunk's compute dtype (lambda ~ z)
-        rev_lam, lam0, _ = _adjoint_solve(static, stacked, states,
-                                          ct_zT.to(states.dtype), extra,
-                                          static.mgrit.bwd_iters)
-        d_leaves, d_xa = _param_grads(static, stacked, states, rev_lam,
-                                      extra)
+        # the layer replays run under the forward's rules (the MoE's
+        # expert exchange reads them): on the card the autograd engine
+        # runs this on its device thread, where none are active
+        with (contextlib.nullcontext() if ctx.rules[0] is None
+              else axis_rules(*ctx.rules)):
+            # the adjoint runs in the trunk's compute dtype (lambda ~ z)
+            rev_lam, lam0, _ = _adjoint_solve(static, stacked, states,
+                                              ct_zT.to(states.dtype),
+                                              extra, static.mgrit.bwd_iters)
+            d_leaves, d_xa = _param_grads(static, stacked, states, rev_lam,
+                                          extra)
         return (None, None, None, lam0, torch.zeros_like(gate), d_xa,
                 *d_leaves)
 

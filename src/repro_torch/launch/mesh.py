@@ -125,6 +125,24 @@ class Mesh:
         dist.all_gather(parts, t, group=self.group(axis))
         return torch.cat(parts, dim=dim)
 
+    def all_to_all(self, kind: str, t: torch.Tensor, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+        """``t`` cut into ``shape[axis]`` equal pieces along ``dim``,
+        piece g sent to the rank at index g of ``axis``; the pieces this
+        rank receives, concatenated along ``dim`` in the axis's order
+        (``t`` itself on a one-rank axis)."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not cut "
+                             f"into {n} equal pieces")
+        front = t.movedim(dim, 0).contiguous()
+        self._count(kind, front)
+        out = torch.empty_like(front)
+        dist.all_to_all_single(out, front, group=self.group(axis))
+        return out.movedim(0, dim)
+
     def barrier(self):
         dist.barrier()
 

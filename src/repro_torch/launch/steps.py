@@ -46,19 +46,35 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
     Under ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) the step
     runs under the config's sharding rules on this rank's slices
     (:func:`repro_torch.parallel.params.shard_tree`): the trunk's chunks
-    over the chunk axis, the batch rows over the data axes. The
-    gradients and the loss are then averaged over the data axes of more
-    than one rank (the mean of equal row shards is the global mean)."""
+    over the chunk axis, the batch rows over the data axes, the experts
+    over theirs. The gradients and the loss are then averaged over the
+    data axes of more than one rank (the mean of equal row shards is the
+    global mean). An expert-cut leaf's gradient holds every rank's
+    tokens of its experts already (the exchange's backward brought
+    them): it is divided by the ranks and not summed over its expert
+    axis, where a sum would add other experts' gradients of the same
+    shape."""
     mode = "lp" if rcfg.mgrit.enabled else "serial"
     nmb = rcfg.microbatches
-    rules, data = contextlib.nullcontext, ()
+    rules, data, ep = contextlib.nullcontext, (), {}
     if mesh is not None:
+        from repro_torch.parallel import params as pparams
         from repro_torch.parallel.sharding import (axis_rules, axis_tuple,
                                                    spec_for)
         rules = functools.partial(axis_rules, mesh, rcfg.sharding)
         data = tuple(a for a in axis_tuple(spec_for(
             ("batch",), rcfg.sharding, mesh, (rcfg.shape.global_batch,))[0])
             if mesh.shape[a] > 1)
+        shapes = transformer.param_shapes(rcfg)
+        ep = pparams.expert_cut(shapes, pparams.train_specs(
+            shapes, rcfg, mesh), mesh)
+        stray = {a for axes in ep.values() for a in axes} - set(data)
+        if stray:
+            raise NotImplementedError(
+                f"the experts split over {sorted(stray)} and the batch of "
+                f"{rcfg.shape.global_batch} rows over {list(data)}: expert "
+                "parallelism needs the batch rows split over the experts' "
+                "axis")
 
     def value_and_grad(params, batch):
         paths, leaves = zip(*leaves_with_paths(params))
@@ -86,8 +102,9 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
             lval, diag, paths, grads = value_and_grad(params, batch)
         if data:
             n = math.prod(mesh.shape[a] for a in data)
-            grads = [mesh.all_sum("grad_mean", g.contiguous(), data) / n
-                     for g in grads]
+            grads = [mesh.all_sum("grad_mean", g.contiguous(), tuple(
+                a for a in data if a not in ep.get(p, ()))) / n
+                for p, g in zip(paths, grads)]
             lval = mesh.all_sum("loss_mean", lval.reshape(1).clone(),
                                 data)[0] / n
         return lval, diag, unflatten(zip(paths, grads))
@@ -97,33 +114,48 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
 
 def norm_layers(rcfg: RunConfig, mesh=None):
     """:func:`repro_torch.optim.optimizers.global_norm`'s ``layers``:
-    the key paths of the leaves stacked on a trunk's layer axis, and the
-    function that completes their per-layer sums. Under ``mesh`` a leaf
-    held in chunk pieces takes every rank's sums from one all-gather a
-    chunk axis (all such leaves at once); else its sums are complete."""
+    the key paths of the leaves stacked on a trunk's layer axis (and,
+    under ``mesh``, of the expert-cut leaves), and the function that
+    completes their per-layer sums. Under ``mesh`` an expert-cut leaf's
+    sums (this rank's experts') are summed over its expert axis, in rank
+    order, from one all-gather an axis; then a leaf held in chunk pieces
+    takes every rank's sums from one all-gather a chunk axis (all such
+    leaves at once); else its sums are complete. Every rank then clips
+    by the same norm."""
     from repro_torch.parallel import params as pparams
     from repro_torch.parallel.sharding import axis_tuple
     shapes = transformer.param_shapes(rcfg)
     layered = {path for path, leaf in leaves_with_paths(shapes)
                if pparams.logical_axes_for(path, leaf.shape)[0] == "layers"}
-    axis = {}
+    axis, ep = {}, {}
     if mesh is not None:
         specs = pparams.train_specs(shapes, rcfg, mesh)
         axis = {p: axis_tuple(leaf_at(specs, p)[0])[0] for p in layered
                 if leaf_at(specs, p)[0] is not None}
+        ep = pparams.expert_cut(shapes, specs, mesh)
+        layered |= set(ep)
+
+    def gathered(kind, per_layer, paths, ax):
+        """(ranks, sums) of each of ``paths`` from one all-gather."""
+        local = torch.cat([per_layer[p] for p in paths])
+        parts = mesh.all_gather(kind, local, ax).view(-1, local.numel())
+        o, out = 0, {}
+        for p in paths:
+            n = per_layer[p].numel()
+            out[p] = parts[:, o:o + n]
+            o += n
+        return out
 
     def complete(per_layer):
         out = dict(per_layer)
+        for ax in sorted({a for axes in ep.values() for a in axes}):
+            paths = [p for p in out if ax in ep.get(p, ())]
+            out.update({p: v.sum(0) for p, v in gathered(
+                "grad_norm_ep", out, paths, ax).items()})
         for ax in sorted(set(axis.values())):
-            paths = [p for p in per_layer if axis.get(p) == ax]
-            local = torch.cat([per_layer[p] for p in paths])
-            parts = mesh.all_gather("grad_norm", local, ax).view(
-                -1, local.numel())          # (ranks, this rank's sums)
-            o = 0
-            for p in paths:
-                n = per_layer[p].numel()
-                out[p] = parts[:, o:o + n].reshape(-1)
-                o += n
+            paths = [p for p in out if axis.get(p) == ax]
+            out.update({p: v.reshape(-1) for p, v in gathered(
+                "grad_norm", out, paths, ax).items()})
         return out
 
     return layered, complete

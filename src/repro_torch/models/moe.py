@@ -34,6 +34,41 @@ the top-k indices are piecewise constant.
 :func:`moe_apply_onehot` is the literal transcription of the
 reference's ``_moe_dense_inner``; only the tests and ``chip_smoke.py``
 use it, as each kernel's plain twin.
+
+**Expert parallelism.** The reference constrains the (E, B, C, D)
+dispatch buffer to ``("experts", "batch", ...)`` and GSPMD inserts the
+all-to-all. Here, where the active rules (training's
+:func:`repro_torch.parallel.sharding.axis_rules`, or serving's
+:func:`repro_torch.parallel.tp.active`) map ``experts`` to a mesh axis
+of n > 1 ranks that E divides (:func:`expert_split`), each rank holds
+experts [r E/n, (r+1) E/n) and its own batch rows. The buffer is
+expert-major (slot ``(expert * B + b) * C + pos``), so one all-to-all
+over that axis (:class:`_Exchange`, ``ep_dispatch``) sends expert group
+g's rows to rank g, which gets (E/n, n B, C, D) with the batch
+rank-major: the one-rank buffer's rows of its experts, in the one-rank
+order. It runs the expert products and the opposite all-to-all
+(``ep_combine``) sends the rows back before the combine. Each
+exchange's backward is the opposite exchange (``*_grad``). The router
+stays whole on every rank, and each rank routes its own tokens over all
+E experts; the routing plan and the capacity (from the S of the call,
+per batch row) are the one-rank ones. ``experts`` on another axis than
+the batch's raises: a token's rows must come from the ranks that hold
+its batch rows.
+
+The exchange is a collective, so every rank of the expert axis must make
+the same MoE calls in the same order at the same S. The paths that rely
+on it: training (every rank of a data group runs the same chunks and
+MGRIT iteration counts, and the adaptive probe's branch is all-reduced,
+``train/trainer.py``), and a serving wave (``launch/steps.SlotRows``
+gives every data rank the same call, on its own slots).
+
+Under serving's tensor-parallel rules (``mlp`` over ``model``) each
+expert's products run on this rank's columns of ``w_in`` / ``w_gate``
+and rows of ``w_out``; the partial ``ye`` stays in float32 through the
+combine (which is linear in it) and the combined (B, S, D) partials are
+summed over the ranks and rounded once (``tp_moe``): B S D floats in
+place of E B C D. One device rounds ``ye`` to ``cfg.dtype`` before the
+combine; this path does not.
 """
 from __future__ import annotations
 
@@ -46,6 +81,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dense_init, preln_output_scale,
                                        torch_dtype)
+from repro_torch.parallel import sharding, tp
 
 CAPACITY_FACTOR = 1.25
 
@@ -156,23 +192,29 @@ def _positions(expert, E: int):
 
 def routing_plan(params, x, cfg: ModelConfig) -> RoutingPlan:
     """The plan of one ungrouped call on x (B, S, D) in ``cfg.dtype``."""
-    E = cfg.moe.num_experts
-    B, S, _ = x.shape
     logits, expert, gate = _router(params, x, cfg)
-    K = expert.shape[-1]
+    return plan_from(expert, gate, logits, cfg)
+
+
+def plan_from(expert, gate, logits, cfg: ModelConfig) -> RoutingPlan:
+    """The plan of the choices ``expert`` (B, S, K) with their ``gate``
+    and the router's ``logits``: positions, kept bits and slots."""
+    E = cfg.moe.num_experts
+    B, S, K = expert.shape
+    dev = expert.device
     C = capacity(S, cfg)
     pos = _positions(expert, E)
     keep = pos < C
     n_slots = E * B * C
-    b = torch.arange(B, device=x.device)[:, None, None]
+    b = torch.arange(B, device=dev)[:, None, None]
     slot = torch.where(keep, (expert * B + b) * C + pos, n_slots)
     # buffer row -> choice; a dropped choice goes to a row of its own past
     # the buffer, so every index written is unique
-    choice = torch.arange(B * S * K, device=x.device)
+    choice = torch.arange(B * S * K, device=dev)
     dest = torch.where(keep.reshape(-1), slot.reshape(-1),
                        n_slots + choice)
     src = torch.full((n_slots + B * S * K,), B * S * K, dtype=torch.long,
-                     device=x.device).scatter_(0, dest, choice)[:n_slots]
+                     device=dev).scatter_(0, dest, choice)[:n_slots]
     return RoutingPlan(expert, gate, pos, keep, slot, src, logits, C)
 
 
@@ -237,12 +279,81 @@ class _Combine(torch.autograd.Function):
         return dye, dw.to(w.dtype), None, None
 
 
-def _experts(params, xe, dt):
+# ---------------------------------------------------------------------------
+# Expert parallelism: the exchange over the expert axis
+# ---------------------------------------------------------------------------
+
+
+def expert_split(cfg: ModelConfig):
+    """The :class:`repro_torch.parallel.tp.Split` of the expert axis
+    under the active rules (serving's ``tp.active`` first, else
+    training's ``axis_rules``), or None: no rules, ``experts`` unmapped
+    or on an axis of one rank, or E not dividing over it (the spec then
+    keeps the experts whole). Raises where ``experts`` resolves to
+    another axis than the batch's."""
+    mesh, rules = tp.current()
+    if mesh is None:
+        mesh, rules = sharding.current_rules()
+    if mesh is None:
+        return None
+    ax = tp.axis_of(mesh, rules, "experts")
+    if ax is None or cfg.moe.num_experts % mesh.shape[ax]:
+        return None
+    if tp.axis_of(mesh, rules, "batch") != ax:
+        raise NotImplementedError(
+            f"experts over mesh axis {ax!r} and the batch over "
+            f"{tp.axis_of(mesh, rules, 'batch')!r}: expert parallelism "
+            "needs the experts on the batch's axis, the ranks that hold "
+            "a token's batch rows")
+    return tp.Split(mesh, ax, mesh.shape[ax], mesh.index(ax))
+
+
+def _to_experts(t, sp, kind):
+    """(E, R, D), this rank's R rows of every expert -> (E/n, n R, D),
+    every rank's rows of this rank's experts, rank-major."""
+    E, R, D = t.shape
+    got = sp.mesh.all_to_all(kind, t, sp.axis)
+    return got.view(sp.n, E // sp.n, R, D).transpose(0, 1).reshape(
+        E // sp.n, sp.n * R, D)
+
+
+def _from_experts(t, sp, kind):
+    """The inverse of :func:`_to_experts`: (E/n, n R, D) -> (E, R, D)."""
+    El, nR, D = t.shape
+    send = t.view(El, sp.n, nR // sp.n, D).transpose(0, 1).reshape(
+        sp.n * El, nR // sp.n, D)
+    return sp.mesh.all_to_all(kind, send, sp.axis)
+
+
+class _Exchange(torch.autograd.Function):
+    """The all-to-all over the expert axis ``sp``: to the experts'
+    ranks (``to_experts``) or back. Backward: the opposite exchange of
+    the cotangent, counted as ``kind`` + ``_grad``. The mesh rides in
+    ``ctx``: the backward may run on another thread (the autograd
+    engine's device thread), where no rules are active."""
+
+    @staticmethod
+    def forward(ctx, t, sp, to_experts: bool, kind: str):
+        ctx.sp, ctx.to_experts, ctx.kind = sp, to_experts, kind
+        return (_to_experts if to_experts else _from_experts)(t, sp, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = _from_experts if ctx.to_experts else _to_experts
+        return fn(g.contiguous(), ctx.sp, ctx.kind + "_grad"), None, None, \
+            None
+
+
+def _experts(params, xe, dt, sp=None):
     """The three expert products over (E, rows, D): silu(x Wg) * (x Wi)
-    then Wo, batched over the expert axis."""
+    then Wo, batched over the expert axis. ``sp``: the expert ``d_ff``
+    cut over tensor-parallel ranks (this rank's columns and rows); the
+    result is then this rank's float32 partial sum."""
     h = xe @ params["w_in"].to(dt)
     g = xe @ params["w_gate"].to(dt)
-    return (F.silu(g) * h) @ params["w_out"].to(dt)
+    if sp is None:
+        return (F.silu(g) * h) @ params["w_out"].to(dt)
+    return tp.partial_product(F.silu(g) * h, params["w_out"].to(dt))
 
 
 def _moe_indexed(params, x, cfg: ModelConfig):
@@ -250,11 +361,20 @@ def _moe_indexed(params, x, cfg: ModelConfig):
     x = x.to(dt)
     B, S, D = x.shape
     E = cfg.moe.num_experts
+    ep = expert_split(cfg)
+    mp = tp.split("mlp", cfg.moe.d_ff or cfg.d_ff)
     plan = routing_plan(params, x, cfg)
-    xe = _Dispatch.apply(x, plan.slot, plan.src)
-    ye = _experts(params, xe.view(E, B * plan.capacity, D), dt)
-    return _Combine.apply(ye.reshape(plan.n_slots, D), plan.gate.to(dt),
-                          plan.slot, plan.src)
+    xe = _Dispatch.apply(x, plan.slot, plan.src).view(
+        E, B * plan.capacity, D)
+    if ep is not None:
+        xe = _Exchange.apply(xe, ep, True, "ep_dispatch")
+    ye = _experts(params, xe, dt, mp)
+    if ep is not None:
+        ye = _Exchange.apply(ye, ep, False, "ep_combine")
+    w = plan.gate.to(dt)
+    y = _Combine.apply(ye.reshape(plan.n_slots, D),
+                       w if mp is None else w.float(), plan.slot, plan.src)
+    return y if mp is None else mp.all_sum("tp_moe", y).to(dt)
 
 
 def moe_apply(params, x, cfg: ModelConfig):

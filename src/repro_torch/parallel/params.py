@@ -15,12 +15,17 @@ for entry the reference's ``PartitionSpec``):
     when it does not divide.
 
 What this port executes of them: :func:`shard_tree` slices a leaf along
-the logical axes its caller executes. Training executes ``layers`` and
-``batch`` (:data:`EXECUTED`); a leaf whose spec names a mesh axis for
-another logical axis is kept whole on every rank (its math is
-unchanged, only its storage differs from the reference's) and listed.
-Serving executes :data:`SERVE_EXECUTED`: the slots and page pools over
-``data`` and Megatron tensor parallelism over ``model``.
+the logical axes its caller executes. Training executes ``layers``,
+``batch`` and ``experts`` (:data:`EXECUTED`); a leaf whose spec names a
+mesh axis for another logical axis is kept whole on every rank (its
+math is unchanged, only its storage differs from the reference's) and
+listed. Serving executes :data:`SERVE_EXECUTED`: the slots and page
+pools over ``data``, Megatron tensor parallelism over ``model`` and the
+experts where the rules map them. ``experts`` cuts the expert leaves
+(``w_in`` / ``w_gate`` / ``w_out``, each rank its E/n experts, whose
+products it runs: :mod:`repro_torch.models.moe`); the router's experts
+dimension is never cut (every rank routes its own tokens over all E),
+so the router is kept whole and listed where its spec names an axis.
 
 GSPMD makes a contiguous split of a packed axis correct by
 communicating; explicit tensor parallelism cannot, so a leaf packed from
@@ -32,7 +37,7 @@ and :func:`gather_leaf` its inverse, bit for bit.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,7 +46,7 @@ from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import (axis_size, axis_tuple,
                                            canonical, chunk_axis,
                                            resolve_axis)
-from repro_torch.tree import Path, leaf_at
+from repro_torch.tree import Path, leaf_at, leaves_with_paths
 
 # logical axis tuples by (leaf name, ndim) — without the stacked prefix
 _LEAF_AXES = {
@@ -82,9 +87,11 @@ _STACKED_ROOTS = ("mid", "enc_mid", "dec_mid")
 _FSDP_MIN_SIZE = 1 << 22  # only storage-shard leaves >= 4M elements
 
 # the logical axes training executes (slices storage and work along)
-EXECUTED = ("layers", "batch")
-# ... and serving: slots and pools over data, Megatron TP over model
-SERVE_EXECUTED = ("batch", "pages", "heads", "kv_heads", "mlp", "vocab")
+EXECUTED = ("layers", "batch", "experts")
+# ... and serving: slots and pools over data, Megatron TP over model,
+# the experts where the rules map them
+SERVE_EXECUTED = ("batch", "pages", "heads", "kv_heads", "mlp", "vocab",
+                  "experts")
 _TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
@@ -325,8 +332,10 @@ def _split_dims(path: Path, leaf, spec, mesh, executed=EXECUTED, cfg=None,
         if ax is None:
             continue
         blocks = None
-        if name in executed:
+        if name in executed and (name, path[-1]) != ("experts", "router"):
             n = axis_size(mesh, ax)
+            if n == 1:              # one rank holds the whole dimension
+                continue
             size = leaf.shape[d] * (n if local else 1)
             blocks = model_blocks(path, size, cfg, n) \
                 if name in _TP_AXES else tp.even(size)
@@ -384,9 +393,10 @@ def shard_tree(full, specs, mesh, *, executed=EXECUTED,
                cfg: Optional[ModelConfig] = None,
                logical=None) -> Tuple[dict, List[Path]]:
     """Each leaf of ``full`` cut to this rank's slice (``local_slice``,
-    cloned so that the full tensor can be freed), and the key paths of
-    the leaves kept whole although their spec names a mesh axis (an axis
-    not executed, or a block split that does not divide)."""
+    cloned so that the full tensor can be freed; a leaf that no axis of
+    2+ ranks cuts is returned as it is), and the key paths of the leaves
+    kept whole although their spec names a mesh axis (an axis not
+    executed, or a block split that does not divide)."""
     whole: List[Path] = []
 
     def one(path, leaf):
@@ -402,6 +412,25 @@ def shard_tree(full, specs, mesh, *, executed=EXECUTED,
             else leaf
 
     return _map_with_path(one, full), whole
+
+
+def expert_cut(tree, specs, mesh) -> Dict[Path, Tuple[str, ...]]:
+    """The leaves of a params tree (full shapes; meta tensors will do)
+    whose experts dimension a spec of ``specs`` cuts over mesh axes of
+    more than one rank, each with those axes: every rank holds its own
+    experts' slice, and its gradient its experts' (the router, never
+    cut, is not one of them)."""
+    out = {}
+    for path, leaf in leaves_with_paths(tree):
+        spec = leaf_at(specs, path)
+        if not spec or path[-1] == "router":
+            continue
+        for name, ax in zip(_logical_of(path, leaf.shape), spec,
+                            strict=True):
+            axes = tuple(a for a in axis_tuple(ax) if mesh.shape[a] > 1)
+            if name == "experts" and axes:
+                out[path] = axes
+    return out
 
 
 def gather_tree(local, specs, mesh, *, executed=EXECUTED,

@@ -9,9 +9,11 @@ named ``heads``, ``kv_heads``, ``mlp`` or ``vocab`` is cut over a mesh
 axis of more than one rank, runs on its rank's columns or rows of each
 weight (the serve backend cut the weights once, with
 :func:`repro_torch.parallel.params.shard_tree`), and sums or gathers
-over that axis through the mesh's counted collectives. Outside :func:`active` (training, the
-dense decode, an engine without a mesh) :func:`split` is None
-everywhere and the model code runs as it always did.
+over that axis through the mesh's counted collectives. The MoE's
+expert axis reads the same rules (:func:`current`;
+:func:`repro_torch.models.moe.expert_split`). Outside :func:`active`
+(training, the dense decode, an engine without a mesh) :func:`split`
+is None everywhere and the model code runs as it always did.
 
 A dimension may be packed from several blocks that split apart (mamba1's
 ``in_proj`` is ``[x | z]``): a layout is a list of ``(size, split)``
@@ -91,6 +93,24 @@ def split(logical: str, full: int) -> Optional[Split]:
     return Split(mesh, ax, mesh.shape[ax], mesh.index(ax))
 
 
+def current():
+    """(mesh, ShardingConfig) of the innermost :func:`active`, or (None,
+    None)."""
+    return getattr(_ctx, "rules", None) or (None, None)
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (2-d, or 3-d batched over the leading dimension) in
+    float32, from inputs in ``x``'s type: one device's product before
+    it rounds, the partial sum a row-parallel rank contributes."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        mm = torch.bmm if x.ndim == 3 else torch.mm
+        return mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
 def row_parallel(sp: Optional[Split], kind: str, x: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` contracted over a dimension that ``sp`` cuts over the
@@ -101,13 +121,7 @@ def row_parallel(sp: Optional[Split], kind: str, x: torch.Tensor,
     summed in ``x``'s type would round twice)."""
     if sp is None:
         return x @ w
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        part = x2 @ w
-    elif x.is_cuda:
-        part = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        part = x2.float() @ w.float()
+    part = partial_product(x.reshape(-1, x.shape[-1]), w)
     return sp.all_sum(kind, part).to(x.dtype).reshape(
         *x.shape[:-1], w.shape[-1])
 

@@ -31,8 +31,11 @@ that the ranges are equal), and its calls run on this data rank's slots
 (:class:`repro_torch.launch.steps.SlotRows`), the tokens gathered back
 over ``data``. The host half takes global page ids as before; the
 device copies of a fork, a spill and a restore touch the pages this
-rank holds. Not under a mesh: the MoE family (its ``experts`` axis) and
-the encoder-decoder family.
+rank holds. The MoE family's experts run their ``d_ff`` over ``model``
+and, where the rules map ``experts`` (to the slots' axis), each data
+rank holds its E/n experts and exchanges the rows of its slots with the
+others (:mod:`repro_torch.models.moe`). Not under a mesh: the
+encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -58,8 +61,6 @@ from repro_torch.parallel import tp
 from repro_torch.serve.kv_pages import PageAllocator, state_leaves
 from repro_torch.tree import leaves_with_paths, unflatten
 
-MESH_MOE = ("the MoE family under a mesh (its 'experts' axis) is not "
-            "ported: ROADMAP Queue 1, the MoE expert axis")
 MESH_KV_SEQ = ("rules that split kv_seq or fsdp (decode_sharding) are not "
                "executed under a mesh: ROADMAP Queue 1, dense-cache decode "
                "under a mesh")
@@ -184,8 +185,6 @@ class CacheBackend:
                              "device='cpu'")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if block_kind(rcfg.model) == "attn_moe":
-            raise NotImplementedError(MESH_MOE)
         if rcfg.sharding.kv_seq is not None or rcfg.sharding.fsdp is not None:
             raise NotImplementedError(MESH_KV_SEQ)
         axes = {tp.axis_of(mesh, rcfg.sharding, a)

@@ -149,13 +149,13 @@ class ServeEngine:
                 :class:`repro_torch.launch.mesh.Mesh` and its
                 ``ShardingConfig`` (None:
                 :func:`repro_torch.configs.registry.serve_sharding`):
-                heads, KV heads, MLP and SSM inner dims and the vocab
-                split over ``model``, the slots and page pools over
-                ``data``. Every rank builds its engine with the same
-                arguments and drives it with the same calls; the device
-                follows the mesh (NCCL: ``cuda``; gloo: pass
-                ``device="cpu"``). Not under a mesh: the MoE family, the
-                dense probe (``throughput_probe(paged=False)``) and
+                heads, KV heads, MLP, expert and SSM inner dims and the
+                vocab split over ``model``, the slots and page pools over
+                ``data`` (with ``experts="data"`` the MoE experts too).
+                Every rank builds its engine with the same arguments and
+                drives it with the same calls; the device follows the
+                mesh (NCCL: ``cuda``; gloo: pass ``device="cpu"``). Not
+                under a mesh: the dense probe (``throughput_probe(paged=False)``) and
                 prefix-cache save / load on more than one rank.
             max_len / max_batch / page_size / n_pages / share_prefix:
                 forwarded to the :class:`~repro.serve.scheduler.Scheduler`

@@ -24,8 +24,9 @@ Under a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`, one process a
 rank, the mesh's device type that of the params) every rank builds the
 full params from the seed and keeps its slices
 (:func:`repro_torch.parallel.params.shard_tree`: the trunk's chunks
-over the chunk axis; ``kept_whole`` lists the leaves whose other mesh
-axes this slice does not execute), reads its rows of each batch, and
+over the chunk axis, the MoE experts over theirs; ``kept_whole`` lists
+the leaves whose other mesh axes the port does not execute, the MoE
+router among them), reads its rows of each batch, and
 steps through :func:`repro_torch.launch.steps.make_train_fn` under the
 mesh. The probe's residual norms are all-reduced, so every rank takes
 the same branch. Rank 0 logs; checkpoints hold full arrays (see
@@ -129,26 +130,28 @@ class Trainer:
         fwd_it, bwd_it = self.controller.probe_iters()
         kind = block_kind(cfg)
         causal = cfg.family != "encoder"
+        # under the mesh's rules throughout: the MoE's expert exchange
+        # reads them in the buffer layers and the trunk
         with self._rules():
             static = transformer.trunk_static(
                 rcfg, cfg.n_layers, kind=kind, causal=causal,
                 mg=dataclasses.replace(rcfg.mgrit, fwd_iters=fwd_it,
                                        bwd_iters=bwd_it))
-        # the seed is 1 / (the global zT's size): rows split over ranks
-        rows = 1 if static.layout is None else math.prod(
-            self.mesh.shape[a] for a in static.layout.batch)
-        with torch.no_grad():
-            z = transformer._embed_inputs(self.params, batch, cfg)
-            rope = None if kind in ("mamba1", "mamba2") else \
-                transformer._rope_for(cfg, z.shape[1], z.device)
-            z = transformer._serial_buffer(self.params.get("open"), z, cfg,
-                                           kind=kind, causal=causal,
-                                           rope=rope)
-        return lp_mod.lp_diagnose(
-            static, self.params["mid"], z, {"rope": rope},
-            seed_ct=lambda zT: torch.ones_like(zT) / torch.tensor(
-                float(zT.numel() * rows), dtype=zT.dtype),
-            fwd_iters=fwd_it, bwd_iters=bwd_it)
+            # the seed is 1 / (the global zT's size): rows split over ranks
+            rows = 1 if static.layout is None else math.prod(
+                self.mesh.shape[a] for a in static.layout.batch)
+            with torch.no_grad():
+                z = transformer._embed_inputs(self.params, batch, cfg)
+                rope = None if kind in ("mamba1", "mamba2") else \
+                    transformer._rope_for(cfg, z.shape[1], z.device)
+                z = transformer._serial_buffer(self.params.get("open"), z,
+                                               cfg, kind=kind, causal=causal,
+                                               rope=rope)
+            return lp_mod.lp_diagnose(
+                static, self.params["mid"], z, {"rope": rope},
+                seed_ct=lambda zT: torch.ones_like(zT) / torch.tensor(
+                    float(zT.numel() * rows), dtype=zT.dtype),
+                fwd_iters=fwd_it, bwd_iters=bwd_it)
 
     def _rules(self):
         if self.mesh is None:

@@ -171,12 +171,36 @@ def test_shardings_for_train_and_the_layer_sharded_count(ref_specs):
 
 
 def test_train_specs_and_shard_tree_execute_layers_and_batch_only():
-    """The storage this slice executes: a trunk leaf's layer axis (where
-    the chunks divide over 'model'), a batch's rows; a leaf whose spec
-    names 'model' for its vocab axis is kept whole and listed."""
+    """The storage training executes: a trunk leaf's layer axis (where
+    the chunks divide over 'model'), a batch's rows, and an expert leaf's
+    experts (qwen3-moe's over 'data', with its layers over 'model'); a
+    leaf whose spec names 'model' for its vocab axis is kept whole and
+    listed, as is the router, whose experts dimension is never cut."""
+    assert tparams.EXECUTED == ("layers", "batch", "experts")
     tr = registry.get_config("qwen3_1p7b")          # 32 mid layers, cf 2
     mesh = mesh_of((2, 4))
     mesh.index = {"data": 1, "model": 3}.get
+    moe = registry.get_config("qwen3_moe_235b")     # 96 mid layers, cf 3
+    mspecs = tparams.train_specs(tspecs.params_specs(moe), moe, mesh)
+    mid = mspecs["mid"]["params"]["moe"]
+    assert mid["w_in"] == mid["w_out"] == ("model", "data", None, None)
+    assert mid["router"] == ("model", None, "data")
+    assert mspecs["open"]["moe"]["w_gate"] == (None, "data", None, None)
+    specs_t = {"mid": {"params": {"moe": {
+        "w_in": ("model", "data", None, None),
+        "router": ("model", None, "data")}}}}
+    full_t = {"mid": {"params": {"moe": {
+        "w_in": torch.arange(8 * 4 * 2.).reshape(8, 4, 2, 1),
+        "router": torch.arange(8 * 2 * 4.).reshape(8, 2, 4)}}}}
+    local, whole = tparams.shard_tree(full_t, specs_t, mesh)
+    got = local["mid"]["params"]["moe"]
+    assert torch.equal(got["w_in"], full_t["mid"]["params"]["moe"][
+        "w_in"][6:8, 2:4])
+    assert torch.equal(got["router"], full_t["mid"]["params"]["moe"][
+        "router"][6:8])
+    assert whole == [("mid", "params", "moe", "router")]
+    assert tparams.expert_cut(full_t, specs_t, mesh) == {
+        ("mid", "params", "moe", "w_in"): ("data",)}
     specs = tparams.train_specs(tspecs.params_specs(tr), tr, mesh)
     assert specs["mid"]["gate"] == ("model",)
     assert specs["embed"]["tok"] == ("model", None)

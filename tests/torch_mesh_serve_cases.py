@@ -9,6 +9,7 @@ requests its ``test_serve_mesh.py``'s.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -89,14 +90,18 @@ def serve_case(mesh, case):
     shape, the local pool shapes and the pool's page count; with
     ``spec`` also greedy plain and spec (cf 2, k 3) streams and the
     drafted count; with ``one`` (global rank 0) the no-mesh engine's
-    streams beside. Without ``params``: the port's seeded init."""
+    streams beside. Without ``params``: the port's seeded init; with
+    ``sharding``, those fields of the serve rules replaced."""
     rcfg = family_rcfg(case["name"])
     params = params_from_jax(case["params"], rcfg, "cpu") \
         if "params" in case else transformer.init_model(rcfg, device="cpu")
+    rules = dataclasses.replace(registry.serve_sharding(),
+                                **case.get("sharding", {}))
     out = {}
     for route, fused in (("fused", True), ("gathered", False)):
         mesh.reset_counts()
-        eng = ServeEngine(rcfg, params, mesh=mesh, fused=fused, **KW)
+        eng = ServeEngine(rcfg, params, mesh=mesh, fused=fused,
+                          sharding=rules, **KW)
         out[route] = _streams(eng, requests())
         out[f"{route}_flag"] = bool(eng.backend.fused)
         out[f"{route}_counts"] = _counts(mesh)
@@ -221,15 +226,8 @@ def skew_case(mesh, case):
 
 def refusal_case(mesh, case):
     """What a mesh engine refuses, each message naming its ROADMAP
-    item: the MoE family, the dense probe, rules that split kv_seq or
-    fsdp."""
+    item: the dense probe, rules that split kv_seq or fsdp."""
     out = {}
-    rcfg = family_rcfg("decoder_moe")
-    try:
-        ServeEngine(rcfg, transformer.init_model(rcfg, device="cpu"),
-                    mesh=mesh, **KW)
-    except NotImplementedError as e:
-        out["moe"] = str(e)
     rcfg = family_rcfg("decoder")
     eng = ServeEngine(rcfg, transformer.init_model(rcfg, device="cpu"),
                       mesh=mesh, **KW)
