@@ -66,7 +66,9 @@ RMSNorm and the sampling mask at the shapes these models give them
 (GQA groups 16 and 6, width 6144, V = 131072) against their plain
 versions; qwen3_moe_235b at 8 and grok1_314b at 4 stacked layers (full
 width, bf16 storage) served through ``ServeEngine`` on the smoke queue
-(qwen3-moe also the step check with its routing replayed), a profiled
+(qwen3-moe also through a second fresh engine, whose streams and
+launches must repeat the first's bit for bit, and the step check with
+its routing replayed), a profiled
 decode wave, the dense oracle against the engine and, for qwen3-moe, a
 ``SpecConfig(4, 4)`` engine against a plain one, with the routing-flip
 accounting (MOE_FLIP_MARGIN, MOE_FLIP_GAP); the gradients of qwen3-moe
@@ -92,11 +94,12 @@ qwen3_1p7b through ``ServeEngine(mesh=...)`` on a world-1 NCCL mesh
 opened in this process: its streams and one decode step's logits bitwise
 phase 3's engine on the same weights, no collective issued, the sync
 census of a decode wave phase 3's count; and qwen3_moe_235b at 8 stacked
-layers the same way, its streams, a decode step's logits and its
-launches bitwise phase 5d's engine's. Phase 5f runs with ``--mesh``
-only, on 2 or more cards (``python3 chip_smoke.py --mesh``: phases 5e,
-5f, 6, 6c and 6d alone; ``--mesh serve``: 5e and 5f; ``--mesh moe``:
-5f's and 6d's qwen3-moe parts alone): NCCL ranks serve
+layers the same way on the smoke queue, its streams, a decode step's
+logits and its launches bitwise phase 5d's second engine's. Phase 5f
+runs with ``--mesh`` only, on 2 or more cards (``python3 chip_smoke.py
+--mesh``: phases 5e, 5f, 6, 6c and 6d alone; ``--mesh serve``: 5e and
+5f; ``--mesh moe``: 5f's and 6d's qwen3-moe parts alone; ``--mesh
+fsdp``: 6d's granite and qwen3-moe parts alone): NCCL ranks serve
 the smoke queue, fused and gathered, qwen3_1p7b at (1, 2), (2, 1), (1,
 4) and (2, 2) and falcon_mamba_7b and zamba2_1p2b at (1, 2); every
 rank's streams equal, each emission's logits within DENSE_GAP of the
@@ -120,10 +123,21 @@ stacked layers, B 4) gathered from NCCL ranks at (2, 1) and (4, 1), the
 experts over 'data', to one card's with the routing replayed (cosine
 and norm, MOE_GRAD_COS / MOE_GRAD_NORM), and trains full-width
 qwen3_moe_235b two steps at (4, 1) at the depth its printed reckoning
-fits (every rank's losses equal and finite). Phase 6e (every run)
+fits (every rank's losses equal and finite); with 4 cards, full-width
+granite_34b under its fsdp rules: its (4, 1) gradient at 1 + 6 + 1
+layers against fsdp=None (losses bitwise, the gradient gathered whole
+within GRANITE_GRAD_TOL) and two Trainer steps at (4, 1) and (2, 2) at
+the depth its printed reckoning admits (stored bytes a rank, peak
+memory, step seconds, gathers and reduce-scatters by kind and bytes).
+Phase 6e (every run)
 trains the reduced qwen3_moe_235b two steps through a world-1 NCCL mesh:
 losses and every param leaf's sha256 bitwise phase 5d's Trainer, no
-collective issued.
+collective issued. Phase 6f (every run) holds flash at granite_34b's
+head shape (H 48/1, S 4096) to its plain version, then trains
+full-width granite_34b at the depth its printed reckoning admits on one
+card (1 + 6 + 1 layers) two steps on one device and through a world-1
+NCCL mesh under its fsdp rules: losses and every param leaf's sha256
+bitwise, the same launches, no collective issued.
 Then (phase 6b) it trains the same config
 cut to CKPT_LAYERS layers for three steps uninterrupted, then from a
 fresh ``Trainer(ckpt_dir=...)`` for two steps with a checkpoint after
@@ -4534,10 +4548,27 @@ def serve_moe(arch, seed, card, full):
     launches = {"queue": serve_queue(engine, rng, {"paged_flash_attention":
                                                    n_layers})}
     res = {"decode_tok_s": engine.scheduler.throughput()["decode_tok_s"]}
-    if full:        # phase 5e's reference, from an engine of its own
+    if full:
+        # a second fresh engine on the same queue repeats the streams bit
+        # for bit (every padded write of a prefill bucket lands in the
+        # scratch row; the last writer's bytes each time); it is phase
+        # 5e's reference
         ref = ServeEngine(rcfg, params, max_batch=MAX_BATCH, page_size=PAGE,
                           max_len=MAX_LEN, device="cuda")
-        streams, queue_launches = moe_queue_run(ref)
+        streams, queue_launches = queue_run(ref, make_queue(
+            np.random.default_rng(seed), cfg.vocab_size))
+        same = streams == SERVED[cfg.name]
+        differ = [i for i, (a, b) in enumerate(zip(streams,
+                                                   SERVED[cfg.name]))
+                  if a != b]
+        print(f"[{card}] {cfg.name}: a second fresh engine's smoke-queue "
+              f"streams " + ("bitwise the first's" if same else
+                             f"DIFFER in requests {differ}")
+              + f"; launches {queue_launches}")
+        if not same or queue_launches != launches["queue"]:
+            fail(f"{cfg.name}: two fresh engines' smoke-queue streams or "
+                 f"launches differ (requests {differ})")
+        res["repeat_streams_equal"] = same
         MOE_REF[arch] = {"streams": streams, "launches": queue_launches,
                          "logits": decode_step_logits(ref.backend)}
         del ref
@@ -4908,10 +4939,10 @@ def mesh_counts_text(counts) -> str:
 
 
 def mesh_train(mesh, device, rcfg=None, progress=False):
-    """``Trainer(rcfg, mesh=mesh)`` (default ``qwen3_train_config()``):
-    MESH_STEPS steps at phase 6's seed and data, one ``train(1)`` each,
-    the mesh's collective counts reset before each step and read after
-    it. The training launch counters are set to 0 just before the first
+    """``Trainer(rcfg, mesh=mesh)`` (default ``qwen3_train_config()``;
+    ``mesh`` None: one device): MESH_STEPS steps at phase 6's seed and
+    data, one ``train(1)`` each, the mesh's collective counts reset
+    before each step and read after it. The training launch counters are set to 0 just before the first
     step and read after the last. With ``progress`` global rank 0 prints
     a line after the init and after each step (memory, seconds). Returns
     the losses, each step's seconds and collectives, the launches, the
@@ -4921,7 +4952,7 @@ def mesh_train(mesh, device, rcfg=None, progress=False):
     t0 = time.perf_counter()
     trainer = Trainer(rcfg or qwen3_train_config(), mesh=mesh, seed=0,
                       device=device)
-    say = progress and torch.distributed.get_rank() == 0
+    say = progress and (mesh is None or torch.distributed.get_rank() == 0)
 
     def report(what):
         if say:
@@ -4935,11 +4966,13 @@ def mesh_train(mesh, device, rcfg=None, progress=False):
     reset_train_counts()
     losses, secs, colls = [], [], []
     for i in range(MESH_STEPS):
-        mesh.reset_counts()
+        if mesh is not None:
+            mesh.reset_counts()
         rep = trainer.train(1, log_every=0)
         losses += rep.losses
         secs += rep.step_seconds
-        colls.append({k: list(v) for k, v in mesh.counts.items()})
+        colls.append({} if mesh is None else
+                     {k: list(v) for k, v in mesh.counts.items()})
         report(f"step {i} done")
     torch.cuda.synchronize()
     return {"losses": losses, "step_s": secs, "collectives": colls,
@@ -4964,7 +4997,8 @@ def mesh_rank(shape):
     t0 = time.perf_counter()
     rcfg = trainer.rcfg
     specs = pparams.train_specs(transformer.param_shapes(rcfg), rcfg, mesh)
-    full = pparams.gather_tree(trainer.params, specs, mesh)
+    full = pparams.gather_tree(trainer.params, specs, mesh,
+                               sharding=rcfg.sharding)
     digest = state_digest(full, {"step": trainer.opt_state["step"]}) \
         if rank == 0 else None
     del trainer, full
@@ -5077,6 +5111,378 @@ def mesh_phase(card, ref):
               "coarse all-gather at levels 2)")
         out["6d"][name] = {"ranks": ranks, "wall_s": wall}
     return out
+
+# -- phase 6f (every run) and --mesh fsdp: granite_34b under fsdp -----------
+# 6f: full-width granite_34b (MQA 48/1 heads of 128, layernorm, gelu) at
+# the depth its printed reckoning admits on one card, two Trainer steps on
+# one device and through a world-1 NCCL mesh under its own train sharding
+# (fsdp over 'data'): losses and every param leaf's sha256 bitwise, no
+# collective issued; flash at its head shape against the plain version
+# first. --mesh fsdp (4 cards): that depth's gradient at (4, 1) with fsdp
+# and with fsdp=None (every rank's loss bitwise, the gradient gathered
+# whole within GRANITE_GRAD_TOL), then two Trainer steps at (4, 1) and
+# (2, 2) at the depth the reckoning admits with fsdp, each rank's stored
+# bytes, peak memory, step seconds and gathers and reduce-scatters by
+# kind and bytes printed.
+GRANITE_S = TRAIN_S             # train_4k's sequence
+GRANITE_B = 1                   # one card's rows
+GRANITE_MESH_B = 4              # the 4-card runs' rows (one or two a rank)
+GRANITE_MIDS = (8, 6, 4, 2)     # ParallelNet depths tried on one card
+GRANITE_MESH_MIDS = (40, 36, 32, 28, 24, 20, 16)   # ... on 4 cards
+GRANITE_STATE_BYTES = 16        # float32 param, gradient, AdamW m and v
+# a step's activations and gathered leaves: the (4, 1) Trainer at 1 + 32
+# + 1 layers peaked 17.8 GB above its state, 6.1 GB of it a copy of the
+# coarse layers that a chunk axis of one rank no longer makes
+GRANITE_ACT_GIB = 16.0
+GRANITE_GRAD_TOL = 1e-5         # per leaf, x max|leaf|: float32 sums of 4
+                                # ranks' rows in another order
+GRANITE_SPAWN_S = 900.0
+
+
+def granite_train_config(mid, B, fsdp=True):
+    """granite_34b's train config at full width, 1 + ``mid`` + 1 stacked
+    layers (pad_to its cf: no gate-0 layer), B ``B``, S GRANITE_S, its
+    MGRIT config and train sharding (layers over 'model', fsdp over
+    'data'; ``fsdp=False``: fsdp=None), float32 params and moments."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    rcfg = get_config("granite_34b", "train_4k")
+    return rcfg.replace(
+        model=dataclasses.replace(rcfg.model, n_layers=mid + 2),
+        mgrit=dataclasses.replace(rcfg.mgrit, pad_to=rcfg.mgrit.cf),
+        shape=ShapeConfig("train_4k", "train", GRANITE_S, B),
+        microbatches=1,
+        sharding=rcfg.sharding if fsdp else dataclasses.replace(
+            rcfg.sharding, fsdp=None))
+
+
+def stub_mesh(shape):
+    import types
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape=dict(zip(("data", "model"), shape)),
+                                 index=lambda a: 0)
+
+
+def granite_reckoning(shape, mids, total_bytes):
+    """The deepest 1 + mid + 1 of ``mids`` whose training a rank of a
+    mesh of ``shape`` holds in ``total_bytes``: the rank's parameters
+    (its slices: chunks over 'model', fsdp over 'data') times
+    GRANITE_STATE_BYTES, plus GRANITE_ACT_GIB, plus, where the chunks
+    split over 'model' and the level-1 coarse V-cycle runs replicated
+    (``core/mgrit._vcycle``: levels 3, shard_levels 1), the coarse
+    layers every rank gathers (every rank's fsdp slices of them) and the
+    gather's transient for the largest leaf (its stacked slots and twice
+    the gathered ones); and the Trainer's init (every rank builds the
+    float32 params whole, then keeps its slices), within MOE_FIT of the
+    card. Returns (mid, the reckoning's lines)."""
+    from repro_torch.models import transformer
+    from repro_torch.parallel import params as pparams
+    from repro_torch.parallel.sharding import chunk_axis
+    from repro_torch.tree import leaf_at, leaves_with_paths
+    room = MOE_FIT * total_bytes
+    mesh = stub_mesh(shape)
+    lines = []
+    for mid in mids:
+        rcfg = granite_train_config(mid, GRANITE_MESH_B)
+        mg = rcfg.mgrit
+        pshapes = transformer.param_shapes(rcfg)
+        specs = pparams.train_specs(pshapes, rcfg, mesh)
+        local = {p: pparams.local_slice(t, p, leaf_at(specs, p), mesh,
+                                        sharding=rcfg.sharding).numel()
+                 for p, t in leaves_with_paths(pshapes)}
+        full = sum(t.numel() for _, t in leaves_with_paths(pshapes))
+        n = sum(local.values())
+        coarse = 0
+        J, P = mid // mg.cf, shape[1]
+        if P > 1 and mg.levels >= 3 and J % mg.cf == 0 \
+                and chunk_axis(mid, mg.cf, rcfg.sharding, mesh,
+                               mg.shard_levels) \
+                and not (mg.shard_levels > 1 and (J // mg.cf) % P == 0):
+            trunk = [v for p, v in local.items() if p[0] == "mid"]
+            coarse = (sum(trunk) * P + max(trunk) * (1 + 2 * P)) \
+                // mg.cf * 4
+        step = n * GRANITE_STATE_BYTES + GRANITE_ACT_GIB * 2**30 + coarse
+        init = (full + n) * 4
+        ok = max(step, init) <= room
+        lines.append(
+            f"{shape}: 1 + {mid} + 1 layers, {full / 1e9:.3f} B params, "
+            f"{n / 1e9:.3f} B a rank x {GRANITE_STATE_BYTES} B + "
+            f"{GRANITE_ACT_GIB:g} GiB"
+            + (f" + {coarse / 1e9:.1f} GB of gathered coarse layers"
+               if coarse else "")
+            + f" = {step / 1e9:.1f} GB; init {init / 1e9:.1f} GB (whole + "
+            f"its slices, float32); {'fits' if ok else 'does not fit'} "
+            f"{room / 1e9:.1f} GB")
+        if ok:
+            return mid, lines
+    fail("no depth of full-width granite_34b fits: " + "; ".join(lines))
+
+
+def check_granite_flash(gen):
+    """Flash forward and backward at granite's head shape (B 1, H 48 / 1:
+    a GQA group of 48, hd 128, S GRANITE_S, causal, bf16) against the
+    plain version (FLASH_TOL), the backward twice bit-identical. Returns
+    the largest absolute errors of the forward and the backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, h, hkv, S, hd = GRANITE_B, 48, 1, GRANITE_S, 128
+    q, do = (torch.randn((B, h, S, hd), generator=gen, device="cuda") * 0.5
+             for _ in range(2))
+    k, v = (torch.randn((B, hkv, S, hd), generator=gen, device="cuda")
+            * 0.5 for _ in range(2))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    want = _attn_grads(lambda *a: fa.flash_attention_ref(*a, causal=True),
+                       q, k, v, do)
+    got = _attn_grads(lambda *a: _kernel_bhsd(*a, True), q, k, v, do)
+    again = _attn_grads(lambda *a: _kernel_bhsd(*a, True), q, k, v, do)
+    torch.cuda.synchronize()
+    e_out, out_ok = flash_out_check(got[0], want[0], "bfloat16")
+    e_grad = max(_scaled_err(g, w) for g, w in zip(got[1:], want[1:]))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"flash_attention granite B={B} H={h}/{hkv} S={S} hd={hd} causal "
+          f"bfloat16: out max|kernel-plain| {e_out:.3e}, dq/dk/dv max|"
+          f"kernel-plain|/max|plain| {e_grad:.3e} "
+          f"({flash_tol_text('bfloat16')}); a second launch "
+          + ("bitwise" if same else "DIFFERS"))
+    if not (out_ok and e_grad <= FLASH_TOL["bfloat16"] and same):
+        fail("flash attention at granite's head shape disagrees with its "
+             "plain version or does not repeat")
+    return e_out, max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got[1:], want[1:]))
+
+
+def granite_phase(card, gen):
+    """Phase 6f: flash at granite's head shape (``check_granite_flash``),
+    then full-width granite_34b at the depth ``granite_reckoning`` admits
+    on one card, B GRANITE_B, trained MESH_STEPS steps through
+    ``Trainer`` on one device and through ``Trainer(mesh=make_host_mesh())``
+    on a world-1 NCCL group of this process under its own train sharding
+    (fsdp over 'data': an axis of one rank, so nothing is cut): losses
+    and every param leaf's sha256 bit for bit, the same launches, no
+    collective issued. Returns its numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    flash_err = check_granite_flash(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    mid, lines = granite_reckoning((1, 1), GRANITE_MIDS, total)
+    for line in lines:
+        print(f"phase 6f granite_34b reckoning on one card: {line}")
+    rcfg = granite_train_config(mid, GRANITE_B)
+    runs = {}
+    for name in ("one device", "world-1 mesh"):
+        t1 = time.perf_counter()
+        mesh = make_host_mesh("cuda") if name != "one device" else None
+        try:
+            res, trainer = mesh_train(mesh, "cuda", rcfg)
+            res["digest"] = state_digest(trainer.params,
+                                         {"step": trainer.opt_state["step"]})
+            del trainer
+        finally:
+            if mesh is not None:
+                dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t1
+        runs[name] = res
+        print(f"[{card}] phase 6f granite_34b {name}: full width, "
+              f"{depth_text(rcfg)}, B={GRANITE_B} S={GRANITE_S}: losses "
+              f"{res['losses']}; steps {[round(x, 3) for x in res['step_s']]}"
+              f" s; peak {res['peak_gib']:.1f} GiB; launches "
+              f"{res['launches']}; {res['wall_s']:.1f} s")
+    one, w1 = runs["one device"], runs["world-1 mesh"]
+    same = one["losses"] == w1["losses"] and one["digest"] == w1["digest"]
+    colls = [c for c in w1["collectives"] if c]
+    print(f"[{card}] phase 6f: the world-1 mesh run's losses and "
+          f"{len(one['digest']) - 1} param leaf digests "
+          + ("bitwise the one-device run's" if same else "DIFFER")
+          + f"; collectives {colls or 'none'}; kept whole "
+          f"{w1['kept_whole']}; {time.perf_counter() - t0:.1f} s")
+    if not same or colls or w1["launches"] != one["launches"]:
+        fail("phase 6f: granite_34b's world-1 mesh run is not bitwise the "
+             "one-device run, issued collectives or launched otherwise")
+    if min(one["launches"][k] for k in ("flash_attention_fwd",
+                                         "flash_attention_bwd")) <= 0:
+        fail(f"phase 6f: a flash kernel never launched: {one['launches']}")
+    for r in runs.values():
+        del r["digest"]
+    return {"runs": runs, "n_layers": rcfg.model.n_layers,
+            "reckoning": lines, "flash_err": flash_err,
+            "wall_s": time.perf_counter() - t0}
+
+
+def granite_grads_rank(shape, mid):
+    """One rank of --mesh fsdp's gradient check (a spawned process on
+    ``cuda:<rank>``): granite_34b at 1 + ``mid`` + 1 layers, B one row a
+    data rank, from the same seeded params and batch, through
+    ``make_grad_fn`` on a mesh of ``shape`` with fsdp=None (its gradient
+    kept whole on the card), then with fsdp (this rank's slices; each
+    gradient leaf gathered whole in turn and held to the first run's).
+    Returns each run's loss, seconds, peak memory and collectives, the
+    fsdp-cut leaves' local and whole bytes and the largest gap."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.parallel import params as pparams
+    from repro_torch.tree import leaf_at, leaves_with_paths
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    out = {"rank": dist.get_rank(), "device": torch.cuda.current_device()}
+    plain, gap = None, {}
+    for name in ("plain", "fsdp"):
+        rcfg = granite_train_config(mid, GRANITE_MESH_B,
+                                    fsdp=name == "fsdp")
+        full = transformer.init_model(rcfg, seed=0, device="cuda")
+        specs = pparams.train_specs(full, rcfg, mesh)
+        local, _ = pparams.shard_tree(full, specs, mesh,
+                                      sharding=rcfg.sharding)
+        cut = pparams.fsdp_cut(full, specs, mesh, rcfg.sharding)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = shard_batch(SyntheticLM(rcfg, seed=1).batch_at(0), "cuda",
+                            mesh, rcfg)
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        loss, _, grads = steps.make_grad_fn(rcfg, mesh)(local, batch)
+        out[name] = {"loss": loss.item(), "grad_s": time.perf_counter() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "collectives": {k: list(v)
+                                     for k, v in mesh.counts.items()},
+                     "cut_local_gb": sum(
+                         leaf_at(local, p).numel() * 4 for p in cut) / 1e9}
+        del local, batch
+        if plain is None:
+            plain = grads
+            continue
+        for p, g in leaves_with_paths(grads):
+            whole = pparams.gather_leaf(g, p, leaf_at(specs, p), mesh,
+                                        sharding=rcfg.sharding)
+            want = leaf_at(plain, p)
+            gap[".".join(p)] = ((whole - want).abs().max()
+                                / want.abs().max().clamp(min=1e-30)).item()
+            del whole
+    out["gap"] = gap
+    del plain, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rank(shape, rcfg):
+    """One rank of a full-width Trainer over 4 cards (6d's qwen3-moe,
+    --mesh fsdp's granite; a spawned process on ``cuda:<rank>``):
+    ``mesh_train`` of ``rcfg``; returns its numbers, with the bytes its
+    params and optimizer state hold."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import leaves_with_paths
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    res, trainer = mesh_train(mesh, f"cuda:{torch.cuda.current_device()}",
+                              rcfg, progress=True)
+    state = sum(t.numel() * t.element_size() for tree in (
+        trainer.params, trainer.opt_state["m"], trainer.opt_state["v"],
+        trainer.opt_state.get("master")) if tree is not None
+        for _, t in leaves_with_paths(tree))
+    del trainer
+    return {"rank": torch.distributed.get_rank(),
+            "device": torch.cuda.current_device(), "state_gb": state / 1e9,
+            **res}
+
+
+def granite_mesh_phase(card):
+    """--mesh fsdp's granite part, with 4 cards visible: the gradient at
+    (4, 1) with fsdp against fsdp=None (``granite_grads_rank``; every
+    rank's loss bitwise, every leaf within GRANITE_GRAD_TOL) at the
+    one-card depth, then MESH_STEPS Trainer steps at (4, 1) and (2, 2)
+    at the depth ``granite_reckoning`` admits with fsdp (every rank's
+    losses equal and finite). Returns its numbers (None with fewer
+    cards)."""
+    import math
+    import torch
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves_with_paths
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"--mesh fsdp (granite): not run: {n} CUDA devices visible, "
+              "it needs 4")
+        return None
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    small, _ = granite_reckoning((1, 1), GRANITE_MIDS, total)
+    t0 = time.perf_counter()
+    ranks = spawn_host_ranks(4, granite_grads_rank, (4, 1), small,
+                             backend="nccl", timeout=GRANITE_SPAWN_S)
+    wall = time.perf_counter() - t0
+    worst = max(ranks[0]["gap"].values())
+    for r in ranks:
+        f, p = r["fsdp"], r["plain"]
+        print(f"[{card}] --mesh fsdp granite_34b gradient (4, 1), 1 + "
+              f"{small} + 1 layers, rank {r['rank']} (cuda:{r['device']}): "
+              f"loss fsdp {f['loss']!r} vs fsdp=None {p['loss']!r} ("
+              + ("bitwise" if f["loss"] == p["loss"] else "DIFFER")
+              + f"); gradient {f['grad_s']:.2f} s vs {p['grad_s']:.2f} s; "
+              f"peak {f['peak_gib']:.1f} vs {p['peak_gib']:.1f} GiB; fsdp-"
+              f"cut leaves {f['cut_local_gb']:.2f} GB a rank; collectives "
+              f"fsdp: " + mesh_counts_text(f["collectives"])
+              + "; fsdp=None: " + mesh_counts_text(p["collectives"]))
+        if f["loss"] != p["loss"] or f["loss"] != ranks[0]["fsdp"]["loss"]:
+            fail(f"--mesh fsdp: rank {r['rank']}'s loss with fsdp is not "
+                 "bitwise the fsdp=None run's")
+    print(f"[{card}] --mesh fsdp granite_34b gradient gathered whole vs "
+          f"fsdp=None: largest leaf gap {worst:.3e} x max|leaf| (tolerance "
+          f"{GRANITE_GRAD_TOL:g}); {wall:.1f} s wall")
+    if not worst <= GRANITE_GRAD_TOL:
+        fail(f"--mesh fsdp: the gathered gradient is {worst:.3e} off")
+    out["grads_4x1"] = {"ranks": ranks, "wall_s": wall, "n_layers": small + 2}
+    for shape in ((4, 1), (2, 2)):
+        mid, lines = granite_reckoning(shape, GRANITE_MESH_MIDS, total)
+        for line in lines:
+            print(f"--mesh fsdp granite_34b reckoning a rank: {line}")
+        rcfg = granite_train_config(mid, GRANITE_MESH_B)
+        whole = sum(t.numel() for _, t in leaves_with_paths(
+            transformer.param_shapes(rcfg))) * 12
+        t0 = time.perf_counter()
+        ranks = spawn_host_ranks(math.prod(shape), train_rank, shape,
+                                 rcfg, backend="nccl",
+                                 timeout=GRANITE_SPAWN_S)
+        wall = time.perf_counter() - t0
+        want = ranks[0]["losses"]
+        for r in ranks:
+            print(f"[{card}] --mesh fsdp granite_34b Trainer {shape}, full "
+                  f"width, {depth_text(rcfg)}, B={rcfg.shape.global_batch} "
+                  f"S={GRANITE_S}, rank {r['rank']} (cuda:{r['device']}): "
+                  f"losses {r['losses']}; steps "
+                  f"{[round(x, 3) for x in r['step_s']]} s; stored "
+                  f"{r['state_gb']:.2f} GB of {whole / 1e9:.2f} GB "
+                  f"({r['state_gb'] * 1e9 / whole:.3f}); peak "
+                  f"{r['peak_gib']:.1f} GiB; launches {r['launches']}")
+            for i, c in enumerate(r["collectives"]):
+                print(f"  rank {r['rank']} step {i} collectives "
+                      + mesh_counts_text(c))
+            if r["losses"] != want or not all(math.isfinite(x)
+                                              for x in want):
+                fail(f"--mesh fsdp {shape}: rank {r['rank']}'s losses "
+                     f"{r['losses']} are not rank 0's {want} or not finite")
+            if min(r["launches"][k] for k in ("flash_attention_fwd",
+                                              "flash_attention_bwd")) <= 0:
+                fail(f"--mesh fsdp {shape}: rank {r['rank']} launched no "
+                     f"flash kernel: {r['launches']}")
+        print(f"--mesh fsdp granite_34b Trainer {shape}: {wall:.1f} s wall "
+              f"(spawn, init, {MESH_STEPS} steps); kept whole "
+              f"{ranks[0]['kept_whole']}")
+        out[f"train_{shape[0]}x{shape[1]}"] = {
+            "ranks": ranks, "wall_s": wall, "n_layers": rcfg.model.n_layers,
+            "whole_gb": whole / 1e9, "reckoning": lines}
+    return out
+
 
 # -- phase 5e / 5f: serving under a mesh ------------------------------------
 # 5e (every run): qwen3_1p7b at full width and depth through
@@ -5507,11 +5913,10 @@ MOE_ACT_GIB, MOE_FIT = 10.0, 0.9
 MOE_TRAIN_SPAWN_S = 300.0
 
 
-def moe_queue_run(engine):
-    """The MoE queue (``moe_mesh_queue``) through ``engine``: its streams
-    and launches (counters set to 0 just before, read just after)."""
+def queue_run(engine, reqs):
+    """``reqs`` through ``engine``: the streams and launches (counters
+    set to 0 just before, read just after)."""
     import torch
-    reqs = moe_mesh_queue(engine.rcfg.model.vocab_size)
     reset_serve_counts()
     out = engine.generate(reqs)
     torch.cuda.synchronize()
@@ -5521,12 +5926,11 @@ def moe_queue_run(engine):
 def world1_moe_serve(card):
     """Phase 5e, qwen3-moe: MOE_SERVE's 8 layers (seed 23) through
     ``ServeEngine(mesh=make_host_mesh())`` on a world-1 NCCL group of
-    this process, on the MoE queue (its 32-token prompts fill their
-    prefill bucket: a padded position takes capacity, and the smoke
-    queue's streams were not reproducible on the card): the streams,
-    one decode step's logits and the queue's launches must be those of
-    phase 5d's engine (``MOE_REF``), and no collective issued. Returns
-    its numbers."""
+    this process, on the smoke queue: the streams, one decode step's
+    logits and the queue's launches must be those of phase 5d's second
+    engine (``MOE_REF``), and no collective issued. Returns its
+    numbers."""
+    import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -5542,7 +5946,8 @@ def world1_moe_serve(card):
                              page_size=PAGE, max_len=MAX_LEN, device="cuda")
         del params
         mesh.reset_counts()
-        streams, launches = moe_queue_run(engine)
+        streams, launches = queue_run(engine, make_queue(
+            np.random.default_rng(23), rcfg.model.vocab_size))
         logits = decode_step_logits(engine.backend)
         colls = {k: list(v) for k, v in mesh.counts.items()}
         del engine
@@ -5554,7 +5959,7 @@ def world1_moe_serve(card):
     same_logits = torch.equal(logits, ref["logits"])
     wall = time.perf_counter() - t0
     print(f"[{card}] phase 5e, {rcfg.model.name} ({MOE_SERVE['qwen3_moe_235b'][0]}"
-          f" layers) served through a world-1 NCCL mesh, the MoE queue "
+          f" layers) served through a world-1 NCCL mesh, the smoke queue "
           f"({len(streams)} requests): streams "
           f"{'bitwise' if same else 'DIFFER from'} phase 5d's engine's; one "
           f"decode step's logits {'bitwise' if same_logits else 'DIFFER'}; "
@@ -5683,7 +6088,8 @@ def moe_mesh_grads_rank(shape):
     mesh = make_mesh(shape, ("data", "model"), "cuda")
     full = transformer.init_model(rcfg, seed=1, device="cuda")
     specs = pparams.train_specs(full, rcfg, mesh)
-    local, whole = pparams.shard_tree(full, specs, mesh)
+    local, whole = pparams.shard_tree(full, specs, mesh,
+                                      sharding=rcfg.sharding)
     del full
     gc.collect()
     torch.cuda.empty_cache()
@@ -5707,7 +6113,7 @@ def moe_mesh_grads_rank(shape):
                collectives={k: list(v) for k, v in mesh.counts.items()},
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del local, batch
-    full_g = pparams.gather_tree(grads, specs, mesh)
+    full_g = pparams.gather_tree(grads, specs, mesh, sharding=rcfg.sharding)
     del grads
     if rank == 0:
         out["cos"], out["norm_rel"] = grad_direction(
@@ -5721,17 +6127,15 @@ def moe_mesh_grads_rank(shape):
 def moe_train_reckoning(shape, total_bytes):
     """The deepest full-width qwen3-moe (1 + 3k + 1 stacked layers, cf 3)
     whose state a rank of ``shape`` holds in ``total_bytes`` of card:
-    each rank's parameters counted from its slices (the experts over
-    'data', the rest whole), times MOE_STATE_BYTES, plus MOE_ACT_GIB,
+    each rank's parameters counted from its slices (the experts and the
+    fsdp dimension of every other big leaf over 'data'), times
+    MOE_STATE_BYTES, plus MOE_ACT_GIB,
     within MOE_FIT of the card; float32 moments first, bf16 only where
     no depth fits. Returns (config, the reckoning's lines)."""
-    import types
     from repro_torch.models import transformer
     from repro_torch.parallel import params as pparams
     from repro_torch.tree import leaf_at, leaves_with_paths
-    mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                 shape=dict(zip(("data", "model"), shape)),
-                                 index=lambda a: 0)
+    mesh = stub_mesh(shape)
     room = MOE_FIT * total_bytes
     lines = []
     for moment in ("float32", "bfloat16"):
@@ -5739,8 +6143,8 @@ def moe_train_reckoning(shape, total_bytes):
             rcfg = moe_train_config(mid + 2, MOE_MESH_B, moment)
             shapes = transformer.param_shapes(rcfg)
             specs = pparams.train_specs(shapes, rcfg, mesh)
-            n = sum(pparams.local_slice(t, p, leaf_at(specs, p),
-                                        mesh).numel()
+            n = sum(pparams.local_slice(t, p, leaf_at(specs, p), mesh,
+                                        sharding=rcfg.sharding).numel()
                     for p, t in leaves_with_paths(shapes))
             need = n * MOE_STATE_BYTES[moment] + MOE_ACT_GIB * 2**30
             lines.append(f"1 + {mid} + 1 layers, {moment} moments: "
@@ -5751,26 +6155,6 @@ def moe_train_reckoning(shape, total_bytes):
                 return rcfg, lines
     fail("phase 6d: no depth of full-width qwen3-moe fits a rank: "
          + "; ".join(lines))
-
-
-def moe_mesh_train_rank(shape, rcfg):
-    """One rank of phase 6d's full-width qwen3-moe Trainer (a spawned
-    process on ``cuda:<rank>``): ``mesh_train`` of ``rcfg``; returns its
-    numbers, with the bytes its params and optimizer state hold."""
-    import torch
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.tree import leaves_with_paths
-    mesh = make_mesh(shape, ("data", "model"), "cuda")
-    res, trainer = mesh_train(mesh, f"cuda:{torch.cuda.current_device()}",
-                              rcfg, progress=True)
-    state = sum(t.numel() * t.element_size() for tree in (
-        trainer.params, trainer.opt_state["m"], trainer.opt_state["v"],
-        trainer.opt_state.get("master")) if tree is not None
-        for _, t in leaves_with_paths(tree))
-    del trainer
-    return {"rank": torch.distributed.get_rank(),
-            "device": torch.cuda.current_device(), "state_gb": state / 1e9,
-            **res}
 
 
 def moe_mesh_phase(card):
@@ -5858,7 +6242,7 @@ def moe_mesh_train_phase(card):
         print(f"phase 6d qwen3-moe: moment_dtype set to {moment} (grok-1's "
               "rules use it): no depth fits with float32 moments")
     t0 = time.perf_counter()
-    ranks = spawn_host_ranks(math.prod(shape), moe_mesh_train_rank, shape,
+    ranks = spawn_host_ranks(math.prod(shape), train_rank, shape,
                              rcfg, backend="nccl", timeout=MOE_TRAIN_SPAWN_S)
     wall = time.perf_counter() - t0
     want = ranks[0]["losses"]
@@ -6531,6 +6915,13 @@ def main() -> int:
     # bitwise phase 5d's -------------------------------------------------
     mesh_res["6e"] = world1_moe_train(card)
 
+    PHASE_START.append(("6f", time.perf_counter()))
+    # -- 6f. full-width granite_34b on one device and through a world-1
+    # NCCL mesh under fsdp, bitwise; flash at its head shape first ------
+    granite_gen = torch.Generator(device="cuda")
+    granite_gen.manual_seed(24)
+    mesh_res["6f"] = granite_phase(card, granite_gen)
+
     PHASE_START.append(("6b", time.perf_counter()))
     # -- 6b. checkpoint and resume full-width qwen3_1p7b at CKPT_LAYERS ----
     marks["6b"] = time.time()
@@ -6779,6 +7170,15 @@ def main() -> int:
         if row["name"] in mesh_res["6e"]["launches"]:
             row["launches_mesh_moe_train"] = \
                 mesh_res["6e"]["launches"][row["name"]]
+    # launches_granite: phase 6f's one-device granite run (2 steps);
+    # granite_max_abs_err: flash at its head shape (H 48/1, S 4096)
+    granite_err = dict(zip(("flash_attention_fwd", "flash_attention_bwd"),
+                           mesh_res["6f"]["flash_err"]))
+    for row in kernels:
+        if row["name"] in granite_err:
+            row["launches_granite"] = mesh_res["6f"]["runs"]["one device"][
+                "launches"][row["name"]]
+            row["granite_max_abs_err"] = granite_err[row["name"]]
     kernels[0]["moe_shapes_ms"] = {k: v for k, v in moe_res[
         "kernels"].items() if k != "sampling"}
     kernels[1]["moe_shapes_ms"] = moe_res["kernels"]["sampling"]
@@ -6827,26 +7227,32 @@ def main_mesh(mode: str = "") -> int:
     build.build()
     static_check()
     serve_res = {}
-    if mode != "moe":
+    if mode in ("", "serve"):
         refs = {arch: serve_reference(arch, card) for arch in SERVE_SEEDS}
         serve_res["5e"] = world1_serve_phase(card, refs["qwen3_1p7b"][0])
         t5f = time.perf_counter()
         serve_res["5f"] = serve_mesh_phase(card, refs)
         del refs
         print(f"phase 5f: {time.perf_counter() - t5f:.1f} s")
-    t5f = time.perf_counter()
-    serve_res["5f_moe"] = moe_serve_mesh_phase(card)
-    print(f"phase 5f (qwen3-moe): {time.perf_counter() - t5f:.1f} s")
-    print("serve_mesh: " + json.dumps(serve_res))
+    if mode != "fsdp":
+        t5f = time.perf_counter()
+        serve_res["5f_moe"] = moe_serve_mesh_phase(card)
+        print(f"phase 5f (qwen3-moe): {time.perf_counter() - t5f:.1f} s")
+        print("serve_mesh: " + json.dumps(serve_res))
     if mode != "serve":
         res = {}
-        if mode != "moe":
+        if mode == "":
             _, _, _, info = run_train(qwen3_train_config(), (
                 "flash_attention_fwd", "flash_attention_bwd", "rmsnorm_fwd",
                 "rmsnorm_bwd"), record=True, profiled=())
             gc.collect()
             torch.cuda.empty_cache()
             res = mesh_phase(card, info)
+        if mode in ("", "fsdp"):
+            t6d = time.perf_counter()
+            res["6d_fsdp"] = granite_mesh_phase(card)
+            print(f"--mesh fsdp (granite): {time.perf_counter() - t6d:.1f} "
+                  "s")
         t6d = time.perf_counter()
         res["6d_moe"] = moe_mesh_phase(card)
         print(f"phase 6d (qwen3-moe): {time.perf_counter() - t6d:.1f} s")
@@ -6860,6 +7266,7 @@ def main_mesh(mode: str = "") -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"], ["--mesh", "moe"]):
+    if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"], ["--mesh", "moe"],
+                        ["--mesh", "fsdp"]):
         sys.exit(main_mesh(mode="".join(sys.argv[2:])))
     sys.exit(main())

@@ -31,6 +31,11 @@ What differs from the reference, and why:
   the solve on every rank (the solver broadcasts zT), so the replicated
   layers before the trunk see the same value everywhere; ``xa``'s
   cotangent, a sum over the layers, is all-reduced over the chunk axis.
+  Where ``LPStatic.fsdp`` names leaves stored cut over the fsdp axis
+  (:mod:`repro_torch.parallel.fsdp`), every F evaluation gathers its
+  layer's leaves whole and drops them after it, and each layer's
+  parameter VJP is reduce-scattered to this rank's piece as soon as it
+  is complete: one whole layer lives at a time.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 from repro_torch.configs.base import MGRITConfig, ModelConfig
 from repro_torch.core import mgrit
 from repro_torch.models.blocks import block_F
+from repro_torch.parallel.fsdp import Plan
 from repro_torch.parallel.sharding import axis_rules, current_rules
 from repro_torch.tree import leaves_with_paths, tree_map, unflatten
 
@@ -59,6 +65,8 @@ class LPStatic:
     causal: bool = True
     # where the trunk's chunks and batch rows live; None: one rank
     layout: Optional[mgrit.Layout] = None
+    # one layer's leaves stored cut over the fsdp axis; None: none
+    fsdp: Optional[Plan] = None
 
     def spec(self, iters: int) -> mgrit.MGRITSpec:
         return mgrit.MGRITSpec(cf=self.mgrit.cf, levels=self.mgrit.levels,
@@ -66,11 +74,23 @@ class LPStatic:
                                shard_levels=self.mgrit.shard_levels)
 
 
-def eval_F(static: LPStatic, params, z, extra: Extra):
-    """The ODE right-hand side F(t_n, Z) of paper Eq. 1/2."""
-    return block_F(params, z, static.cfg, kind=static.kind,
+def whole_layer(static: LPStatic, params):
+    """One layer's params with its fsdp-cut leaves gathered whole (no
+    gradient flows through the gather)."""
+    return params if static.fsdp is None else static.fsdp.gather_tree(
+        params)
+
+
+def _F(static: LPStatic, whole, z, extra: Extra):
+    return block_F(whole, z, static.cfg, kind=static.kind,
                    causal=static.causal, rope=extra.get("rope"),
                    xa=extra.get("xa"))
+
+
+def eval_F(static: LPStatic, params, z, extra: Extra):
+    """The ODE right-hand side F(t_n, Z) of paper Eq. 1/2; ``params``
+    one layer's as stored (its fsdp-cut leaves are gathered here)."""
+    return _F(static, whole_layer(static, params), z, extra)
 
 
 def make_fwd_step(static: LPStatic, extra: Extra) -> mgrit.StepFn:
@@ -136,7 +156,8 @@ def _adjoint_solve(static: LPStatic, stacked: List, states, lamN, extra,
 def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
     """Per-layer gradients g_theta_n = h*gate_n*(dF/dtheta_n)^T
     lambda_{n+1}, one layer at a time, written into stacked (N, ...)
-    tensors in the order of ``leaves_with_paths(slot["params"])``; and
+    tensors in the order of ``leaves_with_paths(slot["params"])`` (an
+    fsdp-cut leaf's as this rank's piece: reduce-scattered); and
     the cotangent of ``extra["xa"]`` (None where that is None): the sum
     over the layers, in layer order and in float32, of
     h*gate_n*(dF_n/dxa)^T lambda_{n+1} (on a chunk axis each rank sums
@@ -148,17 +169,20 @@ def _param_grads(static: LPStatic, stacked: List, states, rev_lam, extra):
         extra = dict(extra, xa=xa)
     out, d_xa = None, None
     for n, slot in enumerate(stacked):
-        paths, leaves = zip(*leaves_with_paths(slot["params"]))
+        paths, leaves = zip(*leaves_with_paths(
+            whole_layer(static, slot["params"])))
         leaves = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
-            f = eval_F(static, unflatten(zip(paths, leaves)), states[n],
-                       extra)
+            f = _F(static, unflatten(zip(paths, leaves)), states[n], extra)
         ct = (h * slot["gate"].to(rev_lam.dtype)) * rev_lam[n]
         grads = torch.autograd.grad(
             f, leaves if xa is None else [*leaves, xa], ct)
+        del f, leaves               # the whole layer, before the scatter
         if xa is not None:
             *grads, g_xa = grads
             d_xa = g_xa.float() if d_xa is None else d_xa + g_xa.float()
+        if static.fsdp is not None:
+            grads = static.fsdp.scatter_grads(paths, grads)
         if out is None:
             out = [g.new_empty((len(stacked), *g.shape)) for g in grads]
         for acc, g in zip(out, grads):

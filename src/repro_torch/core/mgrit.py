@@ -304,8 +304,10 @@ def _vcycle(step_fn: StepFn, stacked: Sequence, z0, states, zT, g,
     if level + 1 >= spec.levels - 1 or J % cf != 0:
         # exact coarsest solve: serial forward substitution
         cs, czT = serial_solve(step_fn, coarse, z0, h_c, g=g_c, lay=lay)
-    elif not _chunked(lay) or (level + 1 < spec.shard_levels
-                               and (J // cf) % P == 0):
+    elif not _chunked(lay) or P == 1 or (level + 1 < spec.shard_levels
+                                         and (J // cf) % P == 0):
+        # (a chunk axis of one rank holds every layer: gathering them
+        # would only copy them)
         cs, czT, _ = _vcycle(step_fn, coarse, z0, Zc, zT, g_c, spec,
                              level + 1, h_c, lay=lay)
     else:

@@ -125,6 +125,24 @@ class Mesh:
         dist.all_gather(parts, t, group=self.group(axis))
         return torch.cat(parts, dim=dim)
 
+    def reduce_scatter(self, kind: str, t: torch.Tensor, axis: str,
+                       dim: int = 0) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``'s ranks, cut into
+        ``shape[axis]`` equal pieces along ``dim``: the piece at this
+        rank's index (``t`` itself on a one-rank axis). The inverse of
+        :meth:`all_gather`'s layout."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not cut "
+                             f"into {n} equal pieces")
+        front = t.movedim(dim, 0).contiguous()
+        self._count(kind, front)
+        out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
+        dist.reduce_scatter_tensor(out, front, group=self.group(axis))
+        return out.movedim(0, dim)
+
     def all_to_all(self, kind: str, t: torch.Tensor, axis: str,
                    dim: int = 0) -> torch.Tensor:
         """``t`` cut into ``shape[axis]`` equal pieces along ``dim``,

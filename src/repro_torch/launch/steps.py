@@ -53,10 +53,14 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
     tokens of its experts already (the exchange's backward brought
     them): it is divided by the ranks and not summed over its expert
     axis, where a sum would add other experts' gradients of the same
-    shape."""
+    shape. So is an fsdp-cut leaf's (:mod:`repro_torch.parallel.fsdp`):
+    its gather's backward reduce-scattered it over the fsdp axis, a data
+    axis, which summed the data ranks' rows into this rank's piece."""
     mode = "lp" if rcfg.mgrit.enabled else "serial"
     nmb = rcfg.microbatches
-    rules, data, ep = contextlib.nullcontext, (), {}
+    # key path -> the data axes whose ranks' rows a leaf's gradient holds
+    # already (its experts' axis, its fsdp axis)
+    rules, data, summed, pieces = contextlib.nullcontext, (), {}, {}
     if mesh is not None:
         from repro_torch.parallel import params as pparams
         from repro_torch.parallel.sharding import (axis_rules, axis_tuple,
@@ -66,15 +70,26 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
             ("batch",), rcfg.sharding, mesh, (rcfg.shape.global_batch,))[0])
             if mesh.shape[a] > 1)
         shapes = transformer.param_shapes(rcfg)
-        ep = pparams.expert_cut(shapes, pparams.train_specs(
-            shapes, rcfg, mesh), mesh)
-        stray = {a for axes in ep.values() for a in axes} - set(data)
+        specs = pparams.train_specs(shapes, rcfg, mesh)
+        summed = pparams.expert_cut(shapes, specs, mesh)
+        stray = {a for axes in summed.values() for a in axes} - set(data)
         if stray:
             raise NotImplementedError(
                 f"the experts split over {sorted(stray)} and the batch of "
                 f"{rcfg.shape.global_batch} rows over {list(data)}: expert "
                 "parallelism needs the batch rows split over the experts' "
                 "axis")
+        fs = pparams.fsdp_cut(shapes, specs, mesh, rcfg.sharding)
+        stray = {ax for _, ax in fs.values()} - set(data)
+        if stray:
+            raise NotImplementedError(
+                f"fsdp over {sorted(stray)} and the batch of "
+                f"{rcfg.shape.global_batch} rows over {list(data)}: the "
+                "gradients' reduce-scatter sums the batch shards only "
+                "where the fsdp axis is a data axis")
+        for p, (d, ax) in fs.items():
+            summed[p] = summed.get(p, ()) + (ax,)
+            pieces[p] = (d, leaf_at(shapes, p).shape[d] // mesh.shape[ax])
 
     def value_and_grad(params, batch):
         paths, leaves = zip(*leaves_with_paths(params))
@@ -86,6 +101,13 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
         return loss.detach(), diag, paths, grads
 
     def grad_step(params, batch):
+        for p, (d, n) in pieces.items():
+            if leaf_at(params, p).shape[d] != n:
+                raise ValueError(
+                    f"{'.'.join(p)}: dimension {d} holds "
+                    f"{leaf_at(params, p).shape[d]}, not this rank's fsdp "
+                    f"piece of {n}: cut the params with shard_tree(..., "
+                    "sharding=rcfg.sharding)")
         if nmb > 1:
             lsum, g_acc = 0.0, None
             for i in range(nmb):
@@ -103,7 +125,7 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
         if data:
             n = math.prod(mesh.shape[a] for a in data)
             grads = [mesh.all_sum("grad_mean", g.contiguous(), tuple(
-                a for a in data if a not in ep.get(p, ()))) / n
+                a for a in data if a not in summed.get(p, ()))) / n
                 for p, g in zip(paths, grads)]
             lval = mesh.all_sum("loss_mean", lval.reshape(1).clone(),
                                 data)[0] / n
@@ -114,26 +136,31 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
 
 def norm_layers(rcfg: RunConfig, mesh=None):
     """:func:`repro_torch.optim.optimizers.global_norm`'s ``layers``:
-    the key paths of the leaves stacked on a trunk's layer axis (and,
-    under ``mesh``, of the expert-cut leaves), and the function that
-    completes their per-layer sums. Under ``mesh`` an expert-cut leaf's
-    sums (this rank's experts') are summed over its expert axis, in rank
-    order, from one all-gather an axis; then a leaf held in chunk pieces
-    takes every rank's sums from one all-gather a chunk axis (all such
-    leaves at once); else its sums are complete. Every rank then clips
-    by the same norm."""
+    the key paths of the leaves whose sums of squares are completed
+    apart, each with whether it is stacked on a trunk's layer axis (one
+    sum a layer; else one sum), and the function that completes them:
+    the stacked leaves, and under ``mesh`` the expert-cut and fsdp-cut
+    ones. Under ``mesh`` an expert-cut leaf's sums (this rank's
+    experts') are summed over its expert axis, in rank order, from one
+    all-gather an axis; an fsdp-cut leaf's (this rank's piece) over its
+    fsdp axis the same way; then a leaf held in chunk pieces takes every
+    rank's sums from one all-gather a chunk axis (all such leaves at
+    once); else its sums are complete. Every rank then clips by the same
+    norm."""
     from repro_torch.parallel import params as pparams
     from repro_torch.parallel.sharding import axis_tuple
     shapes = transformer.param_shapes(rcfg)
-    layered = {path for path, leaf in leaves_with_paths(shapes)
+    stacked = {path for path, leaf in leaves_with_paths(shapes)
                if pparams.logical_axes_for(path, leaf.shape)[0] == "layers"}
-    axis, ep = {}, {}
+    axis, ep, fs = {}, {}, {}
     if mesh is not None:
         specs = pparams.train_specs(shapes, rcfg, mesh)
-        axis = {p: axis_tuple(leaf_at(specs, p)[0])[0] for p in layered
+        axis = {p: axis_tuple(leaf_at(specs, p)[0])[0] for p in stacked
                 if leaf_at(specs, p)[0] is not None}
         ep = pparams.expert_cut(shapes, specs, mesh)
-        layered |= set(ep)
+        fs = {p: (ax,) for p, (_, ax) in pparams.fsdp_cut(
+            shapes, specs, mesh, rcfg.sharding).items()}
+    layered = {p: p in stacked for p in stacked | set(ep) | set(fs)}
 
     def gathered(kind, per_layer, paths, ax):
         """(ranks, sums) of each of ``paths`` from one all-gather."""
@@ -148,10 +175,11 @@ def norm_layers(rcfg: RunConfig, mesh=None):
 
     def complete(per_layer):
         out = dict(per_layer)
-        for ax in sorted({a for axes in ep.values() for a in axes}):
-            paths = [p for p in out if ax in ep.get(p, ())]
-            out.update({p: v.sum(0) for p, v in gathered(
-                "grad_norm_ep", out, paths, ax).items()})
+        for kind, cut in (("grad_norm_ep", ep), ("grad_norm_fsdp", fs)):
+            for ax in sorted({a for axes in cut.values() for a in axes}):
+                paths = [p for p in out if ax in cut.get(p, ())]
+                out.update({p: v.sum(0) for p, v in gathered(
+                    kind, out, paths, ax).items()})
         for ax in sorted(set(axis.values())):
             paths = [p for p in out if axis.get(p) == ax]
             out.update({p: v.reshape(-1) for p, v in gathered(

@@ -12,7 +12,11 @@ builds the production mesh ((16, 16) or (2, 16, 16) ranks) over the
 group a launcher started (``torchrun``'s environment; one process a
 card), as the reference builds it over its devices; with fewer ranks it
 raises the reference's device-count error. ``--mesh host`` (default)
-runs one process on one device.
+runs one process on one device. Under a mesh the config's own train
+rules run as they are, ``fsdp`` included (granite_34b, grok1_314b and
+qwen3_moe_235b store their big leaves one slice a 'data' rank); fsdp
+cuts only leaves of 4M elements or more, which no ``--reduced`` width
+reaches, so a ``--reduced`` run cuts nothing.
 """
 from __future__ import annotations
 

@@ -289,6 +289,22 @@ def _tp_heads(params, cfg: ModelConfig):
                            for name in ("wk", "wv")}), sq
 
 
+def last_scratch_writer(flat):
+    """The source row each write of ``index_copy_(0, flat, rows)`` takes,
+    where only flat row 0 (the scratch page's first row) has several
+    writers: each of those takes the last of them in (slot, position)
+    order, every other write its own row. Which of several writes to one
+    row lands is undefined on CUDA, and a padded query can read the
+    scratch row (a MoE capacity count then sees it); with the same bytes
+    from every writer the row holds the last writer's, as the
+    reference's scatter leaves it, on both devices and in every run. On
+    the device, no host sync."""
+    idx = torch.arange(flat.shape[0], device=flat.device)
+    scratch = flat == 0
+    last = torch.where(scratch, idx, -1).amax()
+    return torch.where(scratch, last, idx)
+
+
 def paged_attention_apply(params, x, cfg: ModelConfig, *, rope, pk, pv,
                           page_table, lengths, n_new, fused: bool = False):
     """Self-attention reading/writing one layer's page pool.
@@ -339,8 +355,11 @@ def paged_attention_apply(params, x, cfg: ModelConfig, *, rope, pk, pv,
                        torch.zeros_like(pos)).reshape(-1).long()
     pk_flat = pk.view(n_pages * page_size, *pk.shape[2:])
     pv_flat = pv.view(n_pages * page_size, *pv.shape[2:])
-    pk_flat.index_copy_(0, flat, k.to(pk.dtype).reshape(B * S, *k.shape[2:]))
-    pv_flat.index_copy_(0, flat, v.to(pv.dtype).reshape(B * S, *v.shape[2:]))
+    src = last_scratch_writer(flat)
+    pk_flat.index_copy_(0, flat,
+                        k.to(pk.dtype).reshape(B * S, *k.shape[2:])[src])
+    pv_flat.index_copy_(0, flat,
+                        v.to(pv.dtype).reshape(B * S, *v.shape[2:])[src])
 
     if fused:
         out = kops.paged_attention(q, pk, pv, page_table, lengths)

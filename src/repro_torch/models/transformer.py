@@ -23,7 +23,8 @@ serving run every stacked layer in order, padded ones included.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,6 +40,8 @@ from repro_torch.models.layers import (embed_tokens, gather_vocab,
                                        init_embedding, init_norm,
                                        norm_apply, rope_freqs, torch_dtype,
                                        unembed)
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.sharding import current_rules
 from repro_torch.tree import leaves_with_paths, tree_map
 
 # ---------------------------------------------------------------------------
@@ -173,32 +176,73 @@ def _serial_buffer(stacked, z, cfg: ModelConfig, *, kind, causal, rope):
     return z
 
 
+_TRUNKS = ("mid", "enc_mid", "dec_mid")
+
+
+@functools.lru_cache(maxsize=8)
+def _fsdp_plan(rcfg: RunConfig, mesh) -> Optional[fsdp.Plan]:
+    from repro_torch.parallel import params as pparams
+    shapes = param_shapes(rcfg)
+    return fsdp.plan_of(pparams.fsdp_cut(
+        shapes, pparams.train_specs(shapes, rcfg, mesh), mesh,
+        rcfg.sharding), mesh)
+
+
+def fsdp_plan(rcfg: RunConfig) -> Optional[fsdp.Plan]:
+    """The leaves of ``rcfg``'s params stored cut over the fsdp axis
+    under the active training rules
+    (:func:`repro_torch.parallel.sharding.axis_rules`), or None (no
+    rules, no ``sharding.fsdp``, or an fsdp axis of one rank)."""
+    mesh, _ = current_rules()
+    if mesh is None or not rcfg.sharding.fsdp:
+        return None
+    return _fsdp_plan(rcfg, mesh)
+
+
+def train_params(params, rcfg: RunConfig):
+    """``params`` as the training forward reads them: every fsdp-cut
+    leaf outside the ParallelNets gathered whole, its gradient
+    reduce-scattered in the backward (:mod:`repro_torch.parallel.fsdp`);
+    the trunks' leaves stay as stored (each F evaluation gathers its own
+    layer). ``params`` itself without fsdp."""
+    plan = fsdp_plan(rcfg)
+    if plan is None:
+        return params
+    return plan.gather_tree(params, grad=True, skip=_TRUNKS)
+
+
 def trunk_static(rcfg: RunConfig, n_layers: int, *, kind, causal,
-                 mg: MGRITConfig = None) -> LPStatic:
+                 mg: MGRITConfig = None, root: str = "mid") -> LPStatic:
     """The ParallelNet's static description for a model of ``n_layers``
     layers (``rcfg.mgrit``'s, or ``mg``'s, iteration counts), with the
     layout of its chunks and batch rows under the active sharding rules
-    (:func:`repro_torch.core.mgrit.current_layout`; None without)."""
+    (:func:`repro_torch.core.mgrit.current_layout`; None without) and
+    the fsdp-cut leaves of one layer of the trunk at ``root``."""
     plan = depth_plan(n_layers, rcfg.mgrit)
     mg = rcfg.mgrit if mg is None else mg
+    cut = fsdp_plan(rcfg)
     return LPStatic(cfg=rcfg.model, mgrit=mg, kind=kind, causal=causal,
                     layout=mgrit.current_layout(
                         plan.n_mid_padded, mg.cf, mg.shard_levels,
-                        rcfg.shape.global_batch))
+                        rcfg.shape.global_batch),
+                    fsdp=None if cut is None else cut.under(
+                        (root, "params"), lead=1))
 
 
-def _trunk(params_mid, z, rcfg: RunConfig, *, kind, causal, rope,
+def _trunk(params, root: str, z, rcfg: RunConfig, *, kind, causal, rope,
            mode: str, n_layers: int, xa=None):
-    """The ParallelNet of a model of ``n_layers`` layers: MGRIT
-    layer-parallel or exact serial trunk. ``xa``: the encoder's output,
-    for an ``encdec_dec`` trunk. Under a mesh ``params_mid`` holds this
-    rank's chunks (:func:`repro_torch.parallel.params.shard_tree`); the
-    layers around the trunk are replicated and computed on every rank."""
+    """The ParallelNet at ``params[root]`` of a model of ``n_layers``
+    layers: MGRIT layer-parallel or exact serial trunk. ``xa``: the
+    encoder's output, for an ``encdec_dec`` trunk. Under a mesh the trunk
+    holds this rank's chunks (:func:`repro_torch.parallel.params.shard_tree`);
+    the layers around the trunk are replicated and computed on every
+    rank."""
     mg = rcfg.mgrit
     if mode == "serial" or not mg.enabled:
         mg = dataclasses.replace(mg, fwd_iters=0, bwd_iters=0)
-    static = trunk_static(rcfg, n_layers, kind=kind, causal=causal, mg=mg)
-    return lp_forward(static, params_mid, z, {"rope": rope, "xa": xa})
+    static = trunk_static(rcfg, n_layers, kind=kind, causal=causal, mg=mg,
+                          root=root)
+    return lp_forward(static, params[root], z, {"rope": rope, "xa": xa})
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
@@ -232,7 +276,7 @@ def encode(params, batch, rcfg: RunConfig, mode: str = "serial"):
         xe = batch["src_embeds"].to(torch_dtype(cfg.dtype))
     else:
         xe = _embed_inputs(params, {"tokens": batch["src_tokens"]}, cfg)
-    return _trunk(params["enc_mid"], xe, rcfg, kind="attn_mlp",
+    return _trunk(params, "enc_mid", xe, rcfg, kind="attn_mlp",
                   causal=False, rope=_rope_for(cfg, xe.shape[1], xe.device),
                   mode=mode, n_layers=cfg.n_layers)
 
@@ -244,7 +288,7 @@ def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
     cfg = rcfg.model
     xN, n1 = encode(params, batch, rcfg, mode)
     y = embed_tokens(params["embed"], batch["tokens"], cfg)
-    yN, n2 = _trunk(params["dec_mid"], y, rcfg, kind="encdec_dec",
+    yN, n2 = _trunk(params, "dec_mid", y, rcfg, kind="encdec_dec",
                     causal=True, rope=_rope_for(cfg, y.shape[1], y.device),
                     mode=mode, n_layers=cfg.n_dec_layers, xa=xN)
     return yN, torch.cat([n1, n2])
@@ -256,6 +300,7 @@ def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
     for the encoder-decoder family]."""
     cfg = rcfg.model
     kind = block_kind(cfg)
+    params = train_params(params, rcfg)
     if cfg.family == "encdec":
         z, norms = _encdec_trunks(params, batch, rcfg, mode)
     elif cfg.family == "hybrid":
@@ -270,7 +315,7 @@ def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
             _rope_for(cfg, z.shape[1], z.device)
         z = _serial_buffer(params.get("open"), z, cfg, kind=kind,
                            causal=causal, rope=rope)
-        z, norms = _trunk(params["mid"], z, rcfg, kind=kind, causal=causal,
+        z, norms = _trunk(params, "mid", z, rcfg, kind=kind, causal=causal,
                           rope=rope, mode=mode, n_layers=cfg.n_layers)
         z = _serial_buffer(params.get("close"), z, cfg, kind=kind,
                            causal=causal, rope=rope)

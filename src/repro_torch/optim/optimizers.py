@@ -42,20 +42,24 @@ def lr_at(cfg: OptimizerConfig, step: int) -> float:
     return float(cfg.lr * warm * decay)
 
 
+def _sum_sq(x):
+    return torch.sum(torch.square(x.float()))
+
+
 def global_norm(tree, layers=None):
     """sqrt of the sum over leaves, in leaf order, of each leaf's sum of
     squares. ``layers`` (:func:`repro_torch.launch.steps.norm_layers`):
-    (the key paths of the leaves stacked on a layer axis, a function
-    that turns {path: this rank's per-layer sums} into every layer's, in
-    layer order). Such a leaf's sum of squares is the sum of its layers'
-    in layer order, one reduction a layer: the same bits whichever ranks
-    hold which layers."""
+    ({key path: whether the leaf is stacked on a layer axis} of the
+    leaves completed apart, a function that turns {path: this rank's
+    sums} into every layer's, in layer order). Such a leaf's sum of
+    squares is the sum of its layers' (one, unless stacked) in layer
+    order, one reduction a layer: the same bits whichever ranks hold
+    which layers."""
     leaves = leaves_with_paths(tree)
-    paths, complete = layers if layers is not None else ((), None)
-    sums = {p: torch.sum(torch.square(x.float())) for p, x in leaves
-            if p not in paths}
-    per_layer = {p: torch.stack([torch.sum(torch.square(x[n].float()))
-                                 for n in range(x.shape[0])])
+    paths, complete = layers if layers is not None else ({}, None)
+    sums = {p: _sum_sq(x) for p, x in leaves if p not in paths}
+    per_layer = {p: torch.stack([_sum_sq(x[n]) for n in range(x.shape[0])])
+                 if paths[p] else _sum_sq(x).reshape(1)
                  for p, x in leaves if p in paths}
     if per_layer:
         sums.update({p: v.sum() for p, v in complete(per_layer).items()})

@@ -16,10 +16,15 @@ for entry the reference's ``PartitionSpec``):
 
 What this port executes of them: :func:`shard_tree` slices a leaf along
 the logical axes its caller executes. Training executes ``layers``,
-``batch`` and ``experts`` (:data:`EXECUTED`); a leaf whose spec names a
-mesh axis for another logical axis is kept whole on every rank (its
-math is unchanged, only its storage differs from the reference's) and
-listed. Serving executes :data:`SERVE_EXECUTED`: the slots and page
+``batch``, ``experts`` and ``fsdp`` (:data:`EXECUTED`); a leaf whose
+spec names a mesh axis for another logical axis is kept whole on every
+rank (its math is unchanged, only its storage differs from the
+reference's) and listed. ``fsdp`` is no logical axis of a leaf: it names
+the dimension :func:`build_spec`'s fallback storage-shards over
+``ShardingConfig.fsdp`` (:func:`fsdp_dim`), which the callers that cut
+it pass as ``sharding``. Such a leaf is stored in even contiguous
+pieces and rebuilt whole for each use (:mod:`repro_torch.parallel.fsdp`).
+Serving executes :data:`SERVE_EXECUTED`: the slots and page
 pools over ``data``, Megatron tensor parallelism over ``model`` and the
 experts where the rules map them. ``experts`` cuts the expert leaves
 (``w_in`` / ``w_gate`` / ``w_out``, each rank its E/n experts, whose
@@ -86,8 +91,9 @@ _SERVE_LEAF_AXES = {
 _STACKED_ROOTS = ("mid", "enc_mid", "dec_mid")
 _FSDP_MIN_SIZE = 1 << 22  # only storage-shard leaves >= 4M elements
 
-# the logical axes training executes (slices storage and work along)
-EXECUTED = ("layers", "batch", "experts")
+# the logical axes training executes (slices storage and work along);
+# "fsdp" stands for the dimension fsdp_dim names
+EXECUTED = ("layers", "batch", "experts", "fsdp")
 # ... and serving: slots and pools over data, Megatron TP over model,
 # the experts where the rules map them
 SERVE_EXECUTED = ("batch", "pages", "heads", "kv_heads", "mlp", "vocab",
@@ -148,6 +154,22 @@ def build_spec(logical: Tuple[Optional[str], ...], shape,
             _, i = max(cands)
             phys[i] = cfg.fsdp
     return canonical(phys)
+
+
+def fsdp_dim(logical: Tuple[Optional[str], ...], spec,
+             sharding: Optional[ShardingConfig], mesh) -> Optional[int]:
+    """The dimension of a leaf (its ``logical`` axes and ``spec``) that
+    :func:`build_spec`'s fallback placed on ``sharding.fsdp``: the one
+    whose spec entry is that axis while its logical name does not resolve
+    to it. None without such a dimension (or without ``sharding``)."""
+    fs = None if sharding is None else sharding.fsdp
+    if not fs:
+        return None
+    for d, (name, ax) in enumerate(zip(logical, spec, strict=True)):
+        if ax == fs and axis_tuple(resolve_axis(name, sharding,
+                                                mesh)) != (fs,):
+            return d
+    return None
 
 
 def _map_with_path(fn, tree, prefix: Path = ()):
@@ -320,14 +342,18 @@ def model_blocks(path: Path, size: int, cfg: Optional[ModelConfig],
 
 
 def _split_dims(path: Path, leaf, spec, mesh, executed=EXECUTED, cfg=None,
-                logical=None, local=False):
+                logical=None, local=False, sharding=None):
     """(the dims of ``leaf`` cut over ``executed`` logical axes, each
     with its mesh axes and blocks; whether the spec names an axis that
     stays whole: one not executed, or a block split that does not
     divide). ``local``: ``leaf`` is a rank's piece already (an even
-    block's whole size is then its size times the ranks)."""
+    block's whole size is then its size times the ranks). ``sharding``:
+    the rules that made ``spec``, which name its fsdp dimension."""
     split, whole = [], False
-    names = (logical or _logical_of)(path, leaf.shape)
+    names = list((logical or _logical_of)(path, leaf.shape))
+    fd = fsdp_dim(names, spec, sharding, mesh)
+    if fd is not None:
+        names[fd] = "fsdp"
     for d, (name, ax) in enumerate(zip(names, spec, strict=True)):
         if ax is None:
             continue
@@ -347,16 +373,19 @@ def _split_dims(path: Path, leaf, spec, mesh, executed=EXECUTED, cfg=None,
 
 
 def local_slice(leaf, path: Path, spec, mesh, *, executed=EXECUTED,
-                cfg: Optional[ModelConfig] = None, logical=None):
+                cfg: Optional[ModelConfig] = None, logical=None,
+                sharding: Optional[ShardingConfig] = None):
     """This rank's slice of the full ``leaf`` (a tensor or numpy array;
     a view where slicing allows) along the dims cut over ``executed``
     logical axes (``cfg``: the model, for the block layouts of
     :func:`model_blocks`; ``logical``: the leaf's logical axes from its
     path, batch and params trees' by default, :func:`pool_logical` for
-    page pools)."""
+    page pools; ``sharding``: the rules of ``spec``, whose fsdp
+    dimension is then cut too)."""
     if not spec:
         return leaf
-    split, _ = _split_dims(path, leaf, spec, mesh, executed, cfg, logical)
+    split, _ = _split_dims(path, leaf, spec, mesh, executed, cfg, logical,
+                           sharding=sharding)
     for d, axes, blocks in split:
         idx, size = 0, 1
         for a in axes:                       # the first axis is major
@@ -368,7 +397,8 @@ def local_slice(leaf, path: Path, spec, mesh, *, executed=EXECUTED,
 
 def gather_leaf(leaf: torch.Tensor, path: Path, spec, mesh,
                 kind: str = "gather", *, executed=EXECUTED,
-                cfg: Optional[ModelConfig] = None, logical=None):
+                cfg: Optional[ModelConfig] = None, logical=None,
+                sharding: Optional[ShardingConfig] = None):
     """The full leaf from every rank's slice (the inverse of
     :func:`local_slice`): all-gathers along the split dims, the minor
     mesh axis of a dim first; a dim of several blocks is put back
@@ -376,7 +406,7 @@ def gather_leaf(leaf: torch.Tensor, path: Path, spec, mesh,
     if not spec:
         return leaf
     split, _ = _split_dims(path, leaf, spec, mesh, executed, cfg, logical,
-                           local=True)
+                           local=True, sharding=sharding)
     for d, axes, blocks in split:
         if len(blocks) > 1:              # one tensor-parallel axis
             (a,) = axes
@@ -390,13 +420,15 @@ def gather_leaf(leaf: torch.Tensor, path: Path, spec, mesh,
 
 
 def shard_tree(full, specs, mesh, *, executed=EXECUTED,
-               cfg: Optional[ModelConfig] = None,
-               logical=None) -> Tuple[dict, List[Path]]:
+               cfg: Optional[ModelConfig] = None, logical=None,
+               sharding: Optional[ShardingConfig] = None
+               ) -> Tuple[dict, List[Path]]:
     """Each leaf of ``full`` cut to this rank's slice (``local_slice``,
-    cloned so that the full tensor can be freed; a leaf that no axis of
-    2+ ranks cuts is returned as it is), and the key paths of the leaves
-    kept whole although their spec names a mesh axis (an axis not
-    executed, or a block split that does not divide)."""
+    copied contiguous so that the full tensor can be freed; a leaf that
+    no axis of 2+ ranks cuts is returned as it is), and the key paths of
+    the leaves kept whole although their spec names a mesh axis (an axis
+    not executed, or a block split that does not divide). ``sharding``:
+    the rules of ``specs``, for the fsdp dimensions."""
     whole: List[Path] = []
 
     def one(path, leaf):
@@ -404,12 +436,13 @@ def shard_tree(full, specs, mesh, *, executed=EXECUTED,
         if not isinstance(leaf, torch.Tensor) or not spec:
             return leaf
         split, keep = _split_dims(path, leaf, spec, mesh, executed, cfg,
-                                  logical)
+                                  logical, sharding=sharding)
         if keep:
             whole.append(path)
         return local_slice(leaf, path, spec, mesh, executed=executed,
-                           cfg=cfg, logical=logical).clone() if split \
-            else leaf
+                           cfg=cfg, logical=logical, sharding=sharding
+                           ).clone(memory_format=torch.contiguous_format) \
+            if split else leaf
 
     return _map_with_path(one, full), whole
 
@@ -433,14 +466,36 @@ def expert_cut(tree, specs, mesh) -> Dict[Path, Tuple[str, ...]]:
     return out
 
 
+def fsdp_cut(tree, specs, mesh,
+             sharding: ShardingConfig) -> Dict[Path, Tuple[int, str]]:
+    """The leaves of a params tree (full shapes; meta tensors will do)
+    whose fsdp dimension (:func:`fsdp_dim`) is cut over an axis of more
+    than one rank, each with (that dimension, the axis): every rank
+    stores an even contiguous piece of it."""
+    fs = sharding.fsdp
+    if not fs or fs not in mesh.axis_names or mesh.shape[fs] == 1:
+        return {}
+    out = {}
+    for path, leaf in leaves_with_paths(tree):
+        spec = leaf_at(specs, path)
+        if not spec:
+            continue
+        d = fsdp_dim(_logical_of(path, leaf.shape), spec, sharding, mesh)
+        if d is not None:
+            out[path] = (d, fs)
+    return out
+
+
 def gather_tree(local, specs, mesh, *, executed=EXECUTED,
-                cfg: Optional[ModelConfig] = None, logical=None):
+                cfg: Optional[ModelConfig] = None, logical=None,
+                sharding: Optional[ShardingConfig] = None):
     """The inverse of :func:`shard_tree`: every leaf whole on every
     rank."""
     def one(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
         return gather_leaf(leaf, path, leaf_at(specs, path), mesh,
-                           executed=executed, cfg=cfg, logical=logical)
+                           executed=executed, cfg=cfg, logical=logical,
+                           sharding=sharding)
 
     return _map_with_path(one, local)

@@ -111,8 +111,9 @@ def save(ckpt_dir: str, step: int, params, opt_state,
     if mesh is not None:
         from repro_torch.parallel.params import gather_leaf
         gathers = tuple(
-            (lambda p, leaf, sp=sp: gather_leaf(leaf, p, leaf_at(sp, p),
-                                                mesh, kind="ckpt_gather"))
+            (lambda p, leaf, sp=sp: gather_leaf(
+                leaf, p, leaf_at(sp, p), mesh, kind="ckpt_gather",
+                sharding=rcfg.sharding))
             for sp in _mesh_specs(mesh, rcfg, opt_state))
     if not writer:
         _write_npz(None, params, gathers[0])
@@ -225,7 +226,8 @@ def restore(ckpt_dir: str, params_template, opt_template,
     if mesh is not None:
         from repro_torch.parallel.params import local_slice
         cuts = tuple(
-            (lambda p, a, sp=sp: local_slice(a, p, leaf_at(sp, p), mesh))
+            (lambda p, a, sp=sp: local_slice(a, p, leaf_at(sp, p), mesh,
+                                             sharding=rcfg.sharding))
             for sp in _mesh_specs(mesh, rcfg, opt_template))
     params = _load_npz(os.path.join(d, "params.npz"), params_template,
                        cuts[0])

@@ -24,9 +24,10 @@ Under a ``mesh`` (:class:`repro_torch.launch.mesh.Mesh`, one process a
 rank, the mesh's device type that of the params) every rank builds the
 full params from the seed and keeps its slices
 (:func:`repro_torch.parallel.params.shard_tree`: the trunk's chunks
-over the chunk axis, the MoE experts over theirs; ``kept_whole`` lists
-the leaves whose other mesh axes the port does not execute, the MoE
-router among them), reads its rows of each batch, and
+over the chunk axis, the MoE experts over theirs, the fsdp dimension of
+a big leaf over the fsdp axis; ``kept_whole`` lists the leaves whose
+other mesh axes the port does not execute, the MoE router among them),
+reads its rows of each batch, and
 steps through :func:`repro_torch.launch.steps.make_train_fn` under the
 mesh. The probe's residual norms are all-reduced, so every rank takes
 the same branch. Rank 0 logs; checkpoints hold full arrays (see
@@ -92,7 +93,7 @@ class Trainer:
         if mesh is not None:
             specs = pparams.train_specs(self.params, rcfg, mesh)
             self.params, self.kept_whole = pparams.shard_tree(
-                self.params, specs, mesh)
+                self.params, specs, mesh, sharding=rcfg.sharding)
         self.opt_state = optimizers.init_opt_state(rcfg.optimizer,
                                                    self.params)
         self.step = 0
@@ -141,12 +142,14 @@ class Trainer:
             rows = 1 if static.layout is None else math.prod(
                 self.mesh.shape[a] for a in static.layout.batch)
             with torch.no_grad():
-                z = transformer._embed_inputs(self.params, batch, cfg)
+                params = transformer.train_params(self.params, rcfg)
+                z = transformer._embed_inputs(params, batch, cfg)
                 rope = None if kind in ("mamba1", "mamba2") else \
                     transformer._rope_for(cfg, z.shape[1], z.device)
-                z = transformer._serial_buffer(self.params.get("open"), z,
+                z = transformer._serial_buffer(params.get("open"), z,
                                                cfg, kind=kind, causal=causal,
                                                rope=rope)
+                del params
             return lp_mod.lp_diagnose(
                 static, self.params["mid"], z, {"rope": rope},
                 seed_ct=lambda zT: torch.ones_like(zT) / torch.tensor(

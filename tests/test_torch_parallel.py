@@ -175,8 +175,9 @@ def test_train_specs_and_shard_tree_execute_layers_and_batch_only():
     the chunks divide over 'model'), a batch's rows, and an expert leaf's
     experts (qwen3-moe's over 'data', with its layers over 'model'); a
     leaf whose spec names 'model' for its vocab axis is kept whole and
-    listed, as is the router, whose experts dimension is never cut."""
-    assert tparams.EXECUTED == ("layers", "batch", "experts")
+    listed, as is the router, whose experts dimension is never cut (the
+    fsdp dimension, executed too, is held in test_torch_mesh_fsdp.py)."""
+    assert tparams.EXECUTED == ("layers", "batch", "experts", "fsdp")
     tr = registry.get_config("qwen3_1p7b")          # 32 mid layers, cf 2
     mesh = mesh_of((2, 4))
     mesh.index = {"data": 1, "model": 3}.get
