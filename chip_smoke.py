@@ -268,6 +268,7 @@ def fail(msg: str):
 STATIC: dict = {}
 CENSUS: list = []
 SERVED: dict = {}               # model name -> its last smoke-queue streams
+DENSE_REF: dict = {}            # model name -> phase 5c's dense streams
 MOE_REF: dict = {}              # phase 5d's qwen3-moe engine and Trainer
 PHASE_START: list = []          # (phase, perf_counter at its start)
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -1481,7 +1482,7 @@ def depth_text(rcfg) -> str:
 
 
 def run_train(rcfg, required, probe=True, census=False, profiled=None,
-              record=False):
+              record=False, device_only=False):
     """``Trainer.train(3)`` of ``rcfg``, every training launch counter set
     to 0 just before and read just after (the adaptive probe at step 2
     when MGRIT and ``probe`` are on); then one step of each mode (MGRIT
@@ -1489,7 +1490,15 @@ def run_train(rcfg, required, probe=True, census=False, profiled=None,
     them, under the profiler unless ``profiled`` is given and leaves the
     mode out (such a step runs timed, unprofiled), and with ``census``
     the sync census of one more step of each mode (autograd's multithreading off, so the backward's
-    warnings carry their Python line). Fails unless each kernel in
+    warnings carry their Python line). ``device_only``: the profiler
+    records the device's activity alone (no host op events: in a
+    host-bound step they outnumber the device ops, and the trace's cost
+    is its processing, ``key_averages`` over every event, not its
+    collection); the seconds the trace's collection (leaving the
+    profiler) and processing took are printed and kept (``trace_s``).
+    The busy share's window then holds no host-op recording, so it reads
+    a share of a less inflated step than a host-and-device trace's.
+    Fails unless each kernel in
     ``required`` launched, every loss and forward residual norm is
     finite and, under MGRIT with ``probe``, the probe ran at step 2.
     Returns (launches over the 3 steps, {mode: launches in its one
@@ -1516,7 +1525,8 @@ def run_train(rcfg, required, probe=True, census=False, profiled=None,
     trainer = Trainer(rcfg, seed=0)
     torch.cuda.synchronize()
     info = {"init_bytes": torch.cuda.memory_allocated(), "profiled_s": {},
-            "unprofiled_s": {}, "parts_s": {"init": time.perf_counter() - t0}}
+            "unprofiled_s": {}, "trace_s": {},
+            "parts_s": {"init": time.perf_counter() - t0}}
     n_params = sum(p.numel() for _, p in
                    leaves_with_paths(trainer.params))
     print(f"train: {cfg.name} d_model={cfg.d_model} {depth_text(rcfg)}; "
@@ -1580,14 +1590,16 @@ def run_train(rcfg, required, probe=True, census=False, profiled=None,
         batch = shard_batch(trainer.pipeline.batch_at(trainer.step),
                             "cuda")
         before = train_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) if traced \
+        acts = [ProfilerActivity.CUDA] if device_only else \
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) if traced \
                 else contextlib.nullcontext() as prof:
             t0 = time.perf_counter()
             _, _, metrics = step_fn(trainer.params, trainer.opt_state,
                                     batch)
             loss = metrics["loss"].item()
             window = time.perf_counter() - t0
+        collect = time.perf_counter() - t0 - window
         info["profiled_s" if traced else "unprofiled_s"][mode] = window
         how = "under the profiler" if traced else "(not profiled)"
         if not np.isfinite(loss):
@@ -1595,9 +1607,16 @@ def run_train(rcfg, required, probe=True, census=False, profiled=None,
         per_step = {k: v - before[k] for k, v in train_counts().items()
                     if k in required}
         per_mode[mode] = per_step
+        t_avg = time.perf_counter()
         kern = [e for e in prof.key_averages()
                 if getattr(e, "device_type", None) == DeviceType.CUDA] \
             if traced else []
+        if traced:
+            info["trace_s"][mode] = (collect, time.perf_counter() - t_avg)
+            print(f"  the {mode} step's trace ("
+                  f"{'device only' if device_only else 'host and device'}"
+                  f"): collection {collect:.1f} s, processing "
+                  f"{info['trace_s'][mode][1]:.1f} s")
         busy = sum(dev_us(e) for e in kern) / 1e6
         print(f"one {cfg.name} {mode} train step {how}: loss "
               f"{loss:.4f}, {window:.2f} s wall, "
@@ -3588,6 +3607,10 @@ def dense_vs_paged(arch, seed, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dense_counts()
+    if chunked:                 # phase 5g's reference
+        DENSE_REF[cfg.name] = {"reqs": reqs, "tokens": dense[0],
+                               "rows": dense[1], "launches": launches,
+                               "calls": n_calls}
     if cfg.family == "hybrid":
         want = {"paged_ssm_update": cfg.n_layers,
                 "paged_flash_attention": cfg.n_layers // cfg.hybrid_attn_every}
@@ -4331,15 +4354,15 @@ def position_routes(calls, seeds):
     return out
 
 
-def dense_routes(plans, n_layers, prompt_len):
-    """The same map for one dense-oracle run (batch 1): the first call a
-    chunked prefill of the prompt, then a token a call."""
+def dense_routes(plans, n_layers, prompt_len, b=0):
+    """The same map for slot ``b`` of one dense-oracle run: the first
+    call a chunked prefill of the prompt, then a token a call."""
     out = {}
     for c in range(len(plans) // n_layers):
         ex, kp, lg = _host_plans(plans[c * n_layers:(c + 1) * n_layers])
         first = 0 if c == 0 else prompt_len + c - 1
         for s in range(ex.shape[2]):
-            out[first + s] = (ex[:, 0, s], kp[:, 0, s], lg[:, 0, s])
+            out[first + s] = (ex[:, b, s], kp[:, b, s], lg[:, b, s])
     return out
 
 
@@ -5878,6 +5901,974 @@ def serve_mesh_phase(card, refs):
 
 
 
+# -- phase 5g (every run) and --mesh dense: dense decode under a mesh --------
+# 5g (every run, one card): first the lse route (the dense route's paged
+# kernel with each row's log-sum-exp written, ``paged_flash_attention_lse``)
+# against its plain version at row 3d's heads (DENSE_HEADS) over a cache of
+# max_len DENSE_LENS cut into LSE_SPLIT slices (the slot b of a case is
+# rank b's slice: local lengths index - b max_len / LSE_SPLIT for index in
+# LSE_INDICES, so <= 0, inside and past the slice), at decode (S = 1,
+# split-KV) and a 256-row chunk (multi-row), bf16 and float32; and at
+# zamba2_1p2b's heads over one page of LSE_LONG_ROWS rows (bf16, S = 1,
+# local lengths past, inside and before the page). Where a row sees a key
+# the output lies within ATTN_TOL of the plain version's and, element by
+# element, within LSE_OUT_REL (max|plain| + |plain|) of it (a limit that
+# scales with the case: over 10^5 keys the outputs are ~1e-3), and lse
+# within LSE_TOL (float32 on both sides: the products' sums in another
+# order); out is the plain route's (paged_flash_attention) bit for bit;
+# where it sees none the kernel writes 0 and -inf, the plain version the
+# mask's uniform average and -1e30: both lse must be <= -1e29 (zero weight
+# in the merge). Then the lse route is timed at qwen3's slice of a (1, 4)
+# split of max_len 512 (B 4, 128 rows a slot, every row visible) and at
+# zamba2's LSE_LONG_ROWS-row slice of a (1, 4) split of ZAMBA_LONG_ROWS,
+# beside SDPA's efficient kernel asked for its log-sum-exp on the same
+# slice (K/V repeated over the GQA group). Then full-width, full-depth
+# qwen3_1p7b dense decode through make_serve_fn(rcfg, mesh) under its
+# decode_32k rules (decode_sharding()) on a world-1 NCCL mesh in this
+# process: phase 5c's greedy requests, their tokens and every emission's
+# logits bitwise 5c's, the same launches a call, no collective. Then the
+# same rules at (1, 2) on this one card: two gloo ranks spawned on cuda:0,
+# their collectives staged through host memory (host_staged_mesh), the
+# cache's rows cut over 'model' (MAX_LEN / 2 a rank), each rank attending
+# over its rows through
+# the lse route and the partials merged on the heads' owners: every rank's
+# tokens equal, each emission within DENSE_GAP of 5c's (a first divergence
+# only within DENSE_TIE), the lse route launched once a layer and call.
+# --mesh dense (4 cards, NCCL): qwen3_1p7b the same way at
+# DENSE_MESH_SHAPES; zamba2_1p2b under its long_500k rules at (1, 4) over
+# a ZAMBA_LONG_ROWS-row cache and the Mamba2 state filled from a seed,
+# ZAMBA_LONG_NEW tokens decoded from ZAMBA_LONG_ROWS - ZAMBA_LONG_NEW,
+# against one card holding the whole cache; qwen3_moe_235b at MOE_SERVE's
+# 8 layers under its decode rules (experts and fsdp over 'data') at
+# (2, 2), DENSE_MOE_B requests of MOE_PROMPT tokens batched, with 5f's
+# routing-flip accounting; mt_marian at (1, 2), ENCDEC_DECODE's batch and
+# source; and prefix persistence: a (2, 2) qwen3 engine saves its prefix
+# cache after the smoke queue, a fresh (2, 2) engine and a fresh one-card
+# engine load the file, each restoring every saved page.
+LSE_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# out per element: |kernel - plain| <= t (max|plain| + |plain|) over a case
+LSE_OUT_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+LSE_SPLIT = 4
+LSE_INDICES = (63, 200, 511)
+LSE_LONG_ROWS = 131072
+DENSE_MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+ZAMBA_LONG_ROWS = 524288
+ZAMBA_LONG_NEW = 64
+ZAMBA_FILL_ROWS = 8192          # rows drawn by one generator (its seed)
+DENSE_MOE_B, DENSE_MOE_NEW = 2, 16
+DENSE_PREFIX = ROOT / "experiments" / "dense_mesh_prefix.npz"
+DENSE_MESH_SPAWN_S = 900.0
+
+
+def lse_counts():
+    from repro_torch.kernels import paged_attention as pa
+    return {**dense_counts(),
+            "paged_flash_attention_lse": pa.paged_flash_attention_lse.launches}
+
+
+def reset_lse_counts():
+    from repro_torch.kernels import paged_attention as pa
+    reset_serve_counts()
+    reset_train_counts()
+    pa.paged_flash_attention_lse.launches = 0
+
+
+def lse_case(gen, heads, lengths, S, L, dtype):
+    """The lse route against its plain version over B = len(lengths)
+    pages of L rows (one a slot) at local ``lengths``: (max|out| error
+    over the rows that see a key, max|lse| error over them, the largest
+    out error over its per-element limit LSE_OUT_REL). Fails where a row
+    that sees no key carries lse above -1e29 on either side or an output
+    other than 0 from the kernel, where an element of out lies further
+    from the plain version's than t (max|plain| + |plain|) (t =
+    LSE_OUT_REL of the dtype; the limit scales with the case's outputs,
+    which over 10^5 keys are ~1e-3, far under ATTN_TOL), where out is not
+    the plain route's (``paged_flash_attention``) bit for bit, or where a
+    second launch changes a bit."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    h, hkv, hd = heads
+    B = len(lengths)
+
+    def r(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                ).to(dtype)
+    q, pk, pv = r(B, S, h, hd), r(B, L, hkv, hd), r(B, L, hkv, hd)
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out, lse = pa.paged_flash_attention_lse(q, pk, pv, table, lens)
+    out2, lse2 = pa.paged_flash_attention_lse(q, pk, pv, table, lens)
+    route = pa.paged_flash_attention(q, pk, pv, table, lens)
+    want, want_lse = pa.paged_attention_lse_ref(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    seen = (lens[:, None] + torch.arange(S, device="cuda") >= 0)[
+        ..., None].expand(B, S, h)
+    label = (f"lse route H={h}/{hkv} hd={hd} L={L} S={S} lengths="
+             f"{lengths} {str(dtype).split('.')[1]}")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail(f"{label}: a second launch changed the output")
+    if not torch.equal(out, route):
+        fail(f"{label}: out is not the plain route's bit for bit")
+    blank = ~seen
+    if blank.any() and not (bool((lse[blank] <= -1e29).all())
+                            and bool((want_lse[blank] <= -1e29).all())
+                            and bool((out[blank] == 0).all())):
+        fail(f"{label}: a row that sees no key carries weight")
+    if not seen.any():
+        return 0.0, 0.0, 0.0
+    gap = (out.float() - want.float()).abs()[seen]
+    plain = want.float().abs()[seen]
+    t = LSE_OUT_REL[str(dtype).split(".")[1]]
+    rel = (gap / (t * (plain.max() + plain))).max().item()
+    if not rel <= 1.0:
+        fail(f"{label}: out lies {rel:.3g}x its per-element limit "
+             f"{t:g} (max|plain| + |plain|) from the plain version's "
+             f"(max|plain| {plain.max().item():.3e})")
+    o = gap.max().item()
+    ls = (lse - want_lse).abs()[seen].max().item()
+    return o, ls, rel
+
+
+def check_lse_route(gen):
+    """Phase 5g's first part (see above): returns {dtype: (out error,
+    lse error, out error over its per-element limit)}."""
+    import torch
+    err = {}
+
+    def keep(dname, o, ls, rel):
+        e = err.get(dname, (0.0, 0.0, 0.0))
+        err[dname] = (max(e[0], o), max(e[1], ls), max(e[2], rel))
+
+    for heads in DENSE_HEADS:
+        for max_len in DENSE_LENS:
+            L = max_len // LSE_SPLIT
+            for index in LSE_INDICES + (max_len - 1,):
+                lengths = [index - b * L for b in range(LSE_SPLIT)]
+                for S in (1, 256):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        dname = str(dtype).split(".")[1]
+                        o, ls, rel = lse_case(gen, heads, lengths, S, L,
+                                              dtype)
+                        if not (o <= ATTN_TOL[dname] and ls <= LSE_TOL[dname]):
+                            fail(f"lse route H={heads[0]}/{heads[1]} "
+                                 f"max_len={max_len} S={S} {lengths} "
+                                 f"{dname}: out {o:.3e} lse {ls:.3e}")
+                        keep(dname, o, ls, rel)
+    long_lens = ([LSE_LONG_ROWS + 5000], [LSE_LONG_ROWS // 2], [-5])
+    for lengths in long_lens:
+        o, ls, rel = lse_case(gen, (32, 32, 64), lengths, 1, LSE_LONG_ROWS,
+                              torch.bfloat16)
+        print(f"lse route H=32/32 hd=64 one page of {LSE_LONG_ROWS} rows "
+              f"local length {lengths[0]} bf16: max|out| {o:.3e} (limit "
+              f"{ATTN_TOL['bfloat16']:g}; {rel:.3f} of its per-element "
+              f"limit), max|lse| {ls:.3e} (limit {LSE_TOL['bfloat16']:g}); "
+              f"out the plain route's bit for bit")
+        if not (o <= ATTN_TOL["bfloat16"] and ls <= LSE_TOL["bfloat16"]):
+            fail("the lse route disagrees with its plain version at "
+                 "zamba2's long slice")
+        keep("bfloat16", o, ls, rel)
+    for dname, (o, ls, rel) in err.items():
+        print(f"lse route vs plain over DENSE_HEADS x DENSE_LENS cut in "
+              f"{LSE_SPLIT}, local lengths <= 0, inside and past a slice, "
+              f"S 1 and 256, {dname}: max|out| {o:.3e} (limit "
+              f"{ATTN_TOL[dname]:g}; {rel:.3f} of its per-element limit "
+              f"{LSE_OUT_REL[dname]:g} (max|plain| + |plain|)), max|lse| "
+              f"{ls:.3e} (limit {LSE_TOL[dname]:g}); out the plain route's "
+              f"bit for bit")
+    return err
+
+
+def time_lse_route(gen, flush):
+    """The lse route's times at qwen3's (1, 4) slice of max_len 512 and
+    zamba2's LSE_LONG_ROWS-row slice (every row visible): kernel (events
+    and device time), plain, SDPA's efficient kernel with its
+    log-sum-exp on the slice (K/V repeated over the GQA group, no mask:
+    every key visible), and the bound (``kernels.paged_attention.cost``:
+    q, K/V of the visible keys, out once, the table and lengths, and the
+    lse written once)."""
+    import torch
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.kernels import paged_attention as pa
+    rows = {}
+    for name, (h, hkv, hd), B, L in (("qwen3", (H, HKV, HD), MAX_BATCH,
+                                      MAX_LEN // LSE_SPLIT),
+                                     ("zamba2", (32, 32, 64), 1,
+                                      LSE_LONG_ROWS)):
+        def r(*shape):
+            return (torch.randn(shape, generator=gen, device="cuda") * 0.5
+                    ).to(torch.bfloat16)
+        q, pk, pv = r(B, 1, h, hd), r(B, L, hkv, hd), r(B, L, hkv, hd)
+        table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+        lengths = [L - 1] * B
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        g = h // hkv
+        qd = q.transpose(1, 2).contiguous()
+        kd = pk.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+        vd = pv.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+
+        def kernel():
+            return pa.paged_flash_attention_lse(q, pk, pv, table, lens)
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qd, kd, vd, None, True)
+        flops, nbytes = pa.cost(1, h, hkv, hd, 2, lengths, 1)
+        bound, by = bound_ms(flops, nbytes + B * h * 4)   # + the lse
+        row = {"ms": time_ms(kernel, flush=flush),
+               "device_ms": device_ms(kernel, 20, flush),
+               "plain_ms": time_ms(lambda: pa.paged_attention_lse_ref(
+                   q, pk, pv, table, lens), flush=flush),
+               "library_ms": time_ms(library, flush=flush),
+               "library_device_ms": device_ms(library, 20, flush),
+               "bound_ms": bound, "bound_by": by}
+        rows[name] = row
+        print(f"lse route {name} slice B={B} S=1 H={h}/{hkv} hd={hd} "
+              f"rows={L} bf16: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"SDPA efficient with its lse {row['library_ms']:.4f} ms "
+              f"(device {row['library_device_ms']:.4f}), bound "
+              f"{row['bound_ms']:.5f} ms ({by})")
+        del q, pk, pv, kd, vd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def greedy_stream(step, params, cache, prompt, n_new, xa=None):
+    """Greedy decode through a dense step ``step`` (``make_serve_fn``'s):
+    the prompt (B, T) by one chunked-prefill call, then ``n_new`` tokens
+    fed back (the last one unfed). Returns (tokens (n_new, B), each
+    call's logits rows at its last position (B, V), the device seconds a
+    decode call took on average after the first)."""
+    import torch
+    rows, toks = [], []
+    with torch.no_grad(), record_decode_logits() as kept:
+        nxt, cache = step(params, cache, prompt, *(() if xa is None
+                                                   else (xa,)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            toks.append(nxt[:, 0].tolist())
+            if i < n_new - 1:
+                nxt, cache = step(params, cache, nxt, *(() if xa is None
+                                                        else (xa,)))
+        torch.cuda.synchronize()
+        per_call = (time.perf_counter() - t0) / max(n_new - 1, 1)
+        rows = [lg[:, -1] for lg in kept]
+    return toks, rows, per_call
+
+
+def qwen3_dense_streams(mesh, reqs, device="cuda"):
+    """Full-width, full-depth qwen3_1p7b (seed 0, served weights) under
+    its decode_32k rules through ``make_serve_fn(rcfg, mesh)`` (None: one
+    card), each request alone (B 1, MAX_LEN rows): (streams, logits rows,
+    calls, launches, this rank's cache and stored bytes against the
+    whole, ms a decode call)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    rcfg = get_config("qwen3_1p7b", "decode_32k")
+    params = transformer.serving_params(transformer.init_model(
+        rcfg, seed=0, device=device), rcfg.model)
+    whole_bytes = tree_bytes(params)
+    local = params if mesh is None else \
+        steps.shard_decode_params(rcfg, mesh, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = steps.make_serve_fn(rcfg, mesh)
+    out = {"streams": [], "rows": [], "calls": 0, "ms": []}
+    reset_lse_counts()
+    if mesh is not None:
+        mesh.reset_counts()
+    for r in reqs:
+        cache = transformer.init_cache(rcfg, 1, MAX_LEN, device=device,
+                                       mesh=mesh)
+        prompt = torch.from_numpy(r.prompt.astype(np.int64)).to(device)[None]
+        toks, rows, per_call = greedy_stream(step, local, cache, prompt,
+                                             r.max_new_tokens)
+        out["streams"].append(np.asarray([t[0] for t in toks], np.int32))
+        out["rows"].append([x[0] for x in rows])
+        out["calls"] += r.max_new_tokens
+        out["ms"].append(1e3 * per_call)
+    torch.cuda.synchronize()
+    out["launches"] = lse_counts()
+    out["collectives"] = {} if mesh is None else {
+        k: list(v) for k, v in mesh.counts.items()}
+    whole_cache = transformer.init_cache(rcfg, 1, MAX_LEN, device="meta")
+    out["cache_bytes"] = (tree_bytes(cache), tree_bytes(whole_cache))
+    out["stored_bytes"] = (tree_bytes(local), whole_bytes)
+    del local, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves_with_paths
+    return sum(t.numel() * t.element_size()
+               for _, t in leaves_with_paths(tree))
+
+
+def host_rows(rows):
+    """Logits rows as float32 numpy (a spawned rank returns numbers: a
+    tensor would travel as a shared-memory handle its rank takes along
+    when it exits)."""
+    return [[x.float().cpu().numpy() for x in r] for r in rows]
+
+
+def host_staged_mesh(shape):
+    """A gloo mesh at ``shape`` whose collectives take CUDA tensors,
+    staging each through host memory: 5g's ranks share one card, where
+    NCCL takes one rank a card. The port's own :class:`Mesh` hands its
+    backend the tensors as they are; only this script's one-card split
+    builds this one."""
+    from repro_torch.launch.mesh import Mesh, make_mesh
+
+    class HostStagedMesh(Mesh):
+        def exchange(self, kind, send, recv):
+            hs = None if send is None else (send[0].cpu(), send[1])
+            hr = None if recv is None else (recv[0].cpu(), recv[1])
+            super().exchange(kind, hs, hr)
+            if hr is not None:
+                recv[0].copy_(hr[0])
+
+        def broadcast(self, kind, t, axis, src_index):
+            h = t.cpu()
+            super().broadcast(kind, h, axis, src_index)
+            return t.copy_(h)
+
+        def all_sum(self, kind, t, axes):
+            h = t.cpu()
+            super().all_sum(kind, h, axes)
+            return t.copy_(h)
+
+        def all_gather(self, kind, t, axis, dim=0):
+            return super().all_gather(kind, t.cpu(), axis, dim).to(t.device)
+
+        def reduce_scatter(self, kind, t, axis, dim=0):
+            return super().reduce_scatter(kind, t.cpu(), axis,
+                                          dim).to(t.device)
+
+        def all_to_all(self, kind, t, axis, dim=0):
+            return super().all_to_all(kind, t.cpu(), axis, dim).to(t.device)
+
+    return HostStagedMesh(make_mesh(shape, ("data", "model"),
+                                    "cpu").device_mesh)
+
+
+def dense_split_rank(shape, reqs):
+    """One rank of 5g's one-card split (a gloo rank on cuda:0, spawned):
+    ``qwen3_dense_streams`` at ``shape`` over :func:`host_staged_mesh`,
+    with every stream's logits rows on the host."""
+    import torch
+    mesh = host_staged_mesh(shape)
+    out = qwen3_dense_streams(mesh, reqs)
+    out["rows"] = host_rows(out["rows"])
+    out["rank"] = torch.distributed.get_rank()
+    return out
+
+
+def hold_dense_streams(label, reqs, got, ref, card):
+    """Every rank's streams equal, and each one's logits rows against
+    ``ref``'s (phase 5c's dense streams) within DENSE_GAP, a first
+    divergence only on a near-tie."""
+    import torch
+    for r in got:
+        if any(not (a == b).all() for a, b in zip(r["streams"],
+                                                  got[0]["streams"])):
+            fail(f"{label}: the ranks' streams differ")
+    res = []
+    for r in got:
+        rows = {(q.seed, m): torch.as_tensor(ref["rows"][i][m]).to(
+                    torch.device("cuda", 0))
+                for i, q in enumerate(reqs)
+                for m in range(len(ref["rows"][i]))}
+        mine = [[torch.as_tensor(x).to(torch.device("cuda", 0)) for x in rs]
+                for rs in r["rows"]]
+        res.append(check_dense_streams(
+            f"{label} rank {r.get('rank', 0)}", reqs,
+            ([ref["tokens"][i] for i in range(len(reqs))], rows),
+            (r["streams"], mine), card))
+    return res
+
+
+def dense_phase(card, gen, flush):
+    """Phase 5g (see above). Returns (the lse route's kernel row, the
+    phase's numbers)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    err = check_lse_route(gen)
+    times = time_lse_route(gen, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = DENSE_REF["qwen3-1.7b"]
+    reqs = [r for r in ref["reqs"] if r.temperature == 0.0]
+    ref = {"tokens": ref["tokens"][:len(reqs)],
+           "rows": ref["rows"][:len(reqs)], "launches": ref["launches"],
+           "calls": ref["calls"]}
+    # world-1 NCCL mesh: bitwise 5c's dense oracle
+    t1 = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    try:
+        w1 = qwen3_dense_streams(mesh, reqs)
+    finally:
+        dist.destroy_process_group()
+    from repro_torch.configs.registry import get_config
+    depth = transformer.stacked_layer_depth(get_config("qwen3_1p7b",
+                                                       "decode_32k"))
+    same = all((a == b).all() for a, b in zip(w1["streams"],
+                                               ref["tokens"]))
+    same_rows = all(torch.equal(x, y) for a, b in zip(w1["rows"],
+                                                      ref["rows"])
+                    for x, y in zip(a, b, strict=True))
+    per_call = {k: v / w1["calls"] for k, v in w1["launches"].items()}
+    want_pa = depth
+    want_rms = ref["launches"]["rmsnorm_fwd"] / ref["calls"]
+    print(f"[{card}] phase 5g, qwen3_1p7b dense decode through "
+          f"make_serve_fn(rcfg, world-1 NCCL mesh) under decode_sharding: "
+          f"{len(reqs)} greedy requests, tokens "
+          f"{'bitwise' if same else 'DIFFER from'} phase 5c's, every "
+          f"emission's logits {'bitwise' if same_rows else 'DIFFER'}; "
+          f"launches a call {per_call}; collectives "
+          f"{w1['collectives'] or 'none'}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    if not (same and same_rows):
+        fail("phase 5g: the world-1 dense step is not bitwise phase 5c's")
+    if w1["collectives"] or per_call["paged_flash_attention"] != want_pa \
+            or per_call["rmsnorm_fwd"] != want_rms \
+            or w1["launches"]["paged_flash_attention_lse"]:
+        fail(f"phase 5g: the world-1 dense step launched {w1['launches']} "
+             f"or issued {w1['collectives']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (1, 2) on this card: two gloo ranks, the lse route and the merge
+    t1 = time.perf_counter()
+    ranks = spawn_host_ranks(2, dense_split_rank, (1, 2), reqs,
+                             backend="gloo", timeout=DENSE_MESH_SPAWN_S)
+    checks = hold_dense_streams("phase 5g (1, 2) on one card", reqs, ranks,
+                                ref, card)
+    want_lse = depth * ranks[0]["calls"]
+    for r in ranks:
+        n = r["launches"]["paged_flash_attention_lse"]
+        print(f"[{card}] phase 5g (1, 2) on one card rank {r['rank']}: "
+              f"cache {r['cache_bytes'][0] / 2**20:.1f} MiB of "
+              f"{r['cache_bytes'][1] / 2**20:.1f}, stored "
+              f"{r['stored_bytes'][0] / 2**30:.3f} GiB of "
+              f"{r['stored_bytes'][1] / 2**30:.3f}; launches "
+              f"{r['launches']}; collectives "
+              + mesh_counts_text(r["collectives"])
+              + f"; ms a decode call {np.mean(r['ms']):.2f} (one card, "
+              f"world-1 mesh {np.mean(w1['ms']):.2f})")
+        if n != want_lse or r["launches"]["paged_flash_attention"]:
+            fail(f"phase 5g (1, 2): rank {r['rank']} launched the lse route "
+                 f"{n} times (want {want_lse}) or the plain route")
+    print(f"phase 5g: {time.perf_counter() - t0:.1f} s ((1, 2) on one "
+          f"card {time.perf_counter() - t1:.1f} s)")
+    row = {
+        "name": "paged_flash_attention_lse", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:88",
+        # launches: phase 5g's (1, 2) split on one card (rank 0, the
+        # dense decode of 5c's greedy requests); ms/plain_ms/library_ms
+        # at qwen3's (1, 4) slice of max_len 512, zamba2_* at zamba2's
+        # LSE_LONG_ROWS-row slice; max_abs_err bf16 out, lse_max_abs_err
+        # bf16 lse, f32_* float32
+        "launches": ranks[0]["launches"]["paged_flash_attention_lse"],
+        "max_abs_err": err["bfloat16"][0],
+        "lse_max_abs_err": err["bfloat16"][1],
+        "f32_max_abs_err": err["float32"][0],
+        "f32_lse_max_abs_err": err["float32"][1],
+        **times["qwen3"], **{f"zamba2_{k}": v for k, v in
+                             times["zamba2"].items()}}
+    res = {"world1": {"streams_equal": same, "logits_equal": same_rows,
+                      "ms": w1["ms"], "launches": w1["launches"]},
+           "split_1x2": [{k: r[k] for k in ("launches", "collectives",
+                                            "cache_bytes", "stored_bytes",
+                                            "ms")} for r in ranks],
+           "split_checks": checks, "lse_err": err,
+           "wall_s": time.perf_counter() - t0}
+    return row, res
+
+
+def zamba2_long_fill(cache, rcfg, mesh):
+    """Fill a zamba2_1p2b dense cache of ZAMBA_LONG_ROWS rows (this
+    rank's part under ``mesh``; the whole cache without) from seeds: the
+    attention K/V a block of ZAMBA_FILL_ROWS rows a generator (so that
+    each rank draws only its rows and the ranks' rows together are the
+    whole cache's), the Mamba2 conv window and state whole then cut; the
+    index at ZAMBA_LONG_ROWS - ZAMBA_LONG_NEW."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.parallel import params as pparams
+    from repro_torch.parallel import tp
+    from repro_torch.tree import leaf_at
+    attn, mamba = cache["attn"], cache["mamba"]
+    L = attn["k"].shape[2]
+    off = 0
+    if mesh is not None:
+        with tp.active(mesh, rcfg.sharding):
+            seq = tp.seq_split(ZAMBA_LONG_ROWS)
+        off = seq.offset if seq else 0
+    gen = torch.Generator(device="cuda")
+    for layer in range(attn["k"].shape[0]):
+        for c in range(L // ZAMBA_FILL_ROWS):
+            blk = (off + c * ZAMBA_FILL_ROWS) // ZAMBA_FILL_ROWS
+            rows = slice(c * ZAMBA_FILL_ROWS, (c + 1) * ZAMBA_FILL_ROWS)
+            for j, name in enumerate(("k", "v")):
+                gen.manual_seed(1_000_000 * (j + 1) + 1000 * layer + blk)
+                t = attn[name][layer, :, rows]
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda")
+                        * 0.5)
+    whole = transformer.init_cache(rcfg, 1, ZAMBA_LONG_ROWS, device="meta")
+    specs = pparams.cache_specs(whole, rcfg, mesh) if mesh else None
+    for name, scale, seed in (("conv", 0.5, 7), ("h", 0.1, 8)):
+        gen.manual_seed(seed)
+        full = torch.randn(whole["mamba"][name].shape, generator=gen,
+                           device="cuda") * scale
+        if mesh is not None:
+            full = pparams.local_slice(
+                full, ("mamba", name), leaf_at(specs, ("mamba", name)),
+                mesh, executed=pparams.DECODE_EXECUTED, cfg=rcfg.model,
+                logical=pparams.cache_logical)
+        mamba[name].copy_(full)
+    attn["index"].fill_(ZAMBA_LONG_ROWS - ZAMBA_LONG_NEW)
+
+
+def zamba2_long_streams(mesh):
+    """zamba2_1p2b (seed 1, served weights) under its long_500k rules:
+    the filled cache (``zamba2_long_fill``), ZAMBA_LONG_NEW greedy
+    tokens a call from a seeded token (B 1): (tokens, logits rows, ms a
+    decode call, launches, collectives, cache bytes a rank and whole)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    rcfg = get_config("zamba2_1p2b", "long_500k")
+    params = transformer.serving_params(transformer.init_model(
+        rcfg, seed=1, device="cuda"), rcfg.model)
+    local = params if mesh is None else \
+        steps.shard_decode_params(rcfg, mesh, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = transformer.init_cache(rcfg, 1, ZAMBA_LONG_ROWS, device="cuda",
+                                   mesh=mesh)
+    zamba2_long_fill(cache, rcfg, mesh)
+    start = torch.from_numpy(np.random.default_rng(9).integers(
+        0, rcfg.model.vocab_size, (1, 1))).cuda()
+    reset_lse_counts()
+    if mesh is not None:
+        mesh.reset_counts()
+    toks, rows, per_call = greedy_stream(steps.make_serve_fn(rcfg, mesh),
+                                         local, cache, start,
+                                         ZAMBA_LONG_NEW)
+    whole = transformer.init_cache(rcfg, 1, ZAMBA_LONG_ROWS, device="meta")
+    out = {"streams": [np.asarray([t[0] for t in toks], np.int32)],
+           "rows": host_rows([[x[0] for x in rows]]),
+           "ms": [1e3 * per_call],
+           "launches": lse_counts(),
+           "collectives": {} if mesh is None else {
+               k: list(v) for k, v in mesh.counts.items()},
+           "cache_bytes": (tree_bytes(cache), tree_bytes(whole)),
+           "calls": ZAMBA_LONG_NEW}
+    del cache, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_dense_streams(mesh):
+    """qwen3_moe_235b at MOE_SERVE's depth (seed 23) under its decode
+    rules: DENSE_MOE_B greedy requests' prompts (MOE_PROMPT tokens)
+    batched through ``make_serve_fn(rcfg, mesh)``, DENSE_MOE_NEW tokens;
+    this rank's slots' logits rows and routing plans: (tokens (B lists),
+    rows by slot, routes by slot, ms a call, launches, collectives,
+    stored bytes a rank and whole)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.parallel import tp
+    rcfg = moe_serve_config("qwen3_moe_235b")
+    params = transformer.serving_params(transformer.init_model(
+        rcfg, seed=23, device="cuda"), rcfg.model)
+    whole_bytes = tree_bytes(params)
+    local = params if mesh is None else \
+        steps.shard_decode_params(rcfg, mesh, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = moe_requests(np.random.default_rng(23), rcfg.model.vocab_size,
+                        DENSE_MOE_B, False)
+    prompt = torch.from_numpy(np.stack([r.prompt for r in reqs]).astype(
+        np.int64)).cuda()
+    cache = transformer.init_cache(rcfg, DENSE_MOE_B, MAX_LEN,
+                                   device="cuda", mesh=mesh)
+    slots = list(range(DENSE_MOE_B))
+    if mesh is not None:
+        with tp.active(mesh, rcfg.sharding):
+            sp = tp.split("batch", DENSE_MOE_B)
+        if sp is not None:
+            per = DENSE_MOE_B // sp.n
+            slots = slots[sp.r * per:(sp.r + 1) * per]
+    reset_lse_counts()
+    if mesh is not None:
+        mesh.reset_counts()
+    with record_routes() as plans:
+        toks, rows, per_call = greedy_stream(
+            steps.make_serve_fn(rcfg, mesh), local, cache, prompt,
+            DENSE_MOE_NEW)
+    depth = transformer.stacked_layer_depth(rcfg)
+    out = {"tokens": toks, "slots": slots,
+           "rows": {b: host_rows([[x[i] for x in rows]])[0]
+                    for i, b in enumerate(slots)},
+           "routes": {b: dense_routes(plans, depth, MOE_PROMPT, i)
+                      for i, b in enumerate(slots)},
+           "seeds": [r.seed for r in reqs], "ms": [1e3 * per_call],
+           "launches": lse_counts(),
+           "collectives": {} if mesh is None else {
+               k: list(v) for k, v in mesh.counts.items()},
+           "stored_bytes": (tree_bytes(local), whole_bytes)}
+    del cache, local, plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def marian_dense_streams(mesh):
+    """mt_marian (seed 3, served weights) under decode_sharding():
+    ENCDEC_DECODE's batch and source through its encoder (whole weights,
+    on every rank), then ENCDEC_NEW greedy tokens through
+    ``make_serve_fn(rcfg, mesh)`` with ``xa``: (tokens, rows, ms a call,
+    launches, collectives)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import decode_sharding, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    arch, B, S_src = ENCDEC_DECODE[0]
+    rcfg = get_config(arch).replace(sharding=decode_sharding())
+    params = transformer.serving_params(transformer.init_model(
+        rcfg, seed=3, device="cuda"), rcfg.model)
+    rng = np.random.default_rng(3)
+    V = rcfg.model.vocab_size
+    batch = {"src_tokens": torch.from_numpy(
+        rng.integers(0, V, (B, S_src))).cuda()}
+    start = torch.from_numpy(rng.integers(0, V, (B, 1))).cuda()
+    with torch.no_grad():
+        xa, _ = transformer.encode(params, batch, rcfg)
+    local = params if mesh is None else \
+        steps.shard_decode_params(rcfg, mesh, params)
+    del params
+    gc.collect()
+    cache = transformer.init_cache(rcfg, B, ENCDEC_NEW, device="cuda",
+                                   mesh=mesh)
+    reset_lse_counts()
+    if mesh is not None:
+        mesh.reset_counts()
+    toks, rows, per_call = greedy_stream(steps.make_serve_fn(rcfg, mesh),
+                                         local, cache, start, ENCDEC_NEW,
+                                         xa=xa)
+    out = {"tokens": toks,
+           "rows": [x.float().cpu().numpy() for x in rows],
+           "ms": [1e3 * per_call], "launches": lse_counts(),
+           "collectives": {} if mesh is None else {
+               k: list(v) for k, v in mesh.counts.items()}}
+    del cache, local, xa
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_mesh_run(mesh):
+    """A (2, 2) qwen3_1p7b engine (seed 0) serves the smoke queue and
+    saves its prefix cache to DENSE_PREFIX; a fresh engine on the same
+    mesh loads it and serves the queue again: (pages saved, restored,
+    streams of both runs)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    rcfg = get_config("qwen3_1p7b", "decode_32k")
+    params = transformer.init_model(rcfg, seed=0, device="cuda")
+    kw = dict(mesh=mesh, max_batch=MAX_BATCH, page_size=PAGE,
+              max_len=MAX_LEN, device="cuda")
+    eng = ServeEngine(rcfg, params, **kw)
+    V = rcfg.model.vocab_size
+    first = [r.output.tolist() for r in eng.generate(
+        make_queue(np.random.default_rng(0), V))]
+    mesh.reset_counts()
+    saved = eng.save_prefix_cache(str(DENSE_PREFIX))
+    save_colls = {k: list(v) for k, v in mesh.counts.items()}
+    del eng
+    gc.collect()
+    fresh = ServeEngine(rcfg, params, prefix_cache_path=str(DENSE_PREFIX),
+                        **kw)
+    restored = fresh.scheduler.prefix.n_cached_pages
+    again = [r.output.tolist() for r in fresh.generate(
+        make_queue(np.random.default_rng(0), V))]
+    return {"saved": saved, "restored": restored, "first": first,
+            "again": again,
+            "shared": int(fresh.scheduler.stats["shared_tokens"]),
+            "save_collectives": save_colls}
+
+
+def dense_mesh_rank(shape, runs):
+    """One rank of --mesh dense (an NCCL rank on ``cuda:<rank>``): each
+    of ``runs`` at ``shape``; logits rows on the host."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"), "cuda")
+    out = {"rank": torch.distributed.get_rank()}
+    for name in runs:
+        t0 = time.perf_counter()
+        if name == "qwen3":
+            reqs = dense_mesh_requests()
+            r = qwen3_dense_streams(mesh, reqs)
+            r["rows"] = host_rows(r["rows"])
+        elif name == "zamba2":
+            r = zamba2_long_streams(mesh)
+        elif name == "moe":
+            r = moe_dense_streams(mesh)
+        elif name == "marian":
+            r = marian_dense_streams(mesh)
+        else:
+            r = prefix_mesh_run(mesh)
+        r["wall_s"] = time.perf_counter() - t0
+        out[name] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_mesh_requests():
+    """The smoke queue's first DENSE_REQS greedy requests (seed 0), as
+    phase 5c serves them."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    queue = make_queue(np.random.default_rng(0), get_config(
+        "qwen3_1p7b", "decode_32k").model.vocab_size)
+    return [r for r in queue if r.temperature == 0.0][:DENSE_REQS]
+
+
+def rows_check(label, toks_ref, rows_ref, toks, rows, card):
+    """Greedy streams of one slot against one card's: logits within
+    DENSE_GAP at every shared position, a first divergence only where the
+    mesh's token lies within DENSE_TIE of one card's top logit. Returns
+    (max gap, divergence or None)."""
+    import torch
+    worst = 0.0
+    for m, (a, b) in enumerate(zip(toks_ref, toks, strict=True)):
+        gap = _row_gap(torch.as_tensor(rows_ref[m]).float(),
+                       torch.as_tensor(rows[m]).float())
+        worst = max(worst, gap)
+        if gap > DENSE_GAP:
+            fail(f"{label} token {m}: logits {gap:.4f} from one card's "
+                 f"(limit {DENSE_GAP:g})")
+        if a != b:
+            row = torch.as_tensor(rows_ref[m]).float()
+            margin = (row.max() - row[b]).item()
+            print(f"[{card}] {label}: first divergence at token {m} ({a} "
+                  f"one card, {b} the mesh), margin {margin:.4f} (limit "
+                  f"{DENSE_TIE:g})")
+            if margin > DENSE_TIE:
+                fail(f"{label}: a divergence away from a near-tie")
+            return worst, m
+    return worst, None
+
+
+def dense_mesh_phase(card):
+    """--mesh dense (see above), with 4 cards visible: the one-card
+    references in this process, then NCCL ranks at each shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"--mesh dense: not run: {n} CUDA devices visible (needs 4)")
+        return None
+    t0 = time.perf_counter()
+    DENSE_PREFIX.parent.mkdir(parents=True, exist_ok=True)
+    reqs = dense_mesh_requests()
+    ref = {"qwen3": qwen3_dense_streams(None, reqs)}
+    ref["qwen3"]["rows"] = host_rows(ref["qwen3"]["rows"])
+    for name, fn in (("zamba2", lambda: zamba2_long_streams(None)),
+                     ("moe", lambda: moe_dense_streams(None)),
+                     ("marian", lambda: marian_dense_streams(None))):
+        t1 = time.perf_counter()
+        ref[name] = fn()
+        print(f"[{card}] --mesh dense one-card reference {name}: "
+              f"{time.perf_counter() - t1:.1f} s, ms a decode call "
+              f"{np.mean(ref[name]['ms']):.2f}; launches "
+              f"{ref[name]['launches']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"reference_ms": {k: v["ms"] for k, v in ref.items()}}
+    plan = (((1, 2), ("qwen3", "marian")), ((1, 4), ("qwen3", "zamba2")),
+            ((2, 2), ("qwen3", "moe", "prefix")))
+    for shape, runs in plan:
+        t1 = time.perf_counter()
+        ranks = spawn_host_ranks(4 if shape != (1, 2) else 2,
+                                 dense_mesh_rank, shape, runs,
+                                 backend="nccl", timeout=DENSE_MESH_SPAWN_S)
+        key = f"{shape[0]}x{shape[1]}"
+        res = {}
+        q = [r["qwen3"] for r in ranks]
+        checks = hold_dense_streams(f"--mesh dense qwen3 {shape}", reqs, q,
+                                    {"tokens": ref["qwen3"]["streams"],
+                                     "rows": ref["qwen3"]["rows"]}, card)
+        res["qwen3"] = {"checks": checks, "ranks": [
+            {k: r[k] for k in ("launches", "collectives", "cache_bytes",
+                               "stored_bytes", "ms", "wall_s")} for r in q]}
+        for r in q:
+            print(f"[{card}] --mesh dense qwen3 {shape} rank: cache "
+                  f"{r['cache_bytes'][0] / 2**20:.1f} MiB of "
+                  f"{r['cache_bytes'][1] / 2**20:.1f}, stored "
+                  f"{r['stored_bytes'][0] / 2**30:.3f} GiB of "
+                  f"{r['stored_bytes'][1] / 2**30:.3f}; ms a decode call "
+                  f"{np.mean(r['ms']):.2f} (one card "
+                  f"{np.mean(ref['qwen3']['ms']):.2f}); launches "
+                  f"{r['launches']}; collectives a run "
+                  + mesh_counts_text(r["collectives"]))
+        if "zamba2" in runs:
+            z = [r["zamba2"] for r in ranks]
+            gaps = []
+            for i, r in enumerate(z):
+                if not np.array_equal(r["streams"][0], z[0]["streams"][0]):
+                    fail("--mesh dense zamba2: the ranks' tokens differ")
+                gaps.append(rows_check(
+                    f"--mesh dense zamba2 {shape} rank {i}",
+                    ref["zamba2"]["streams"][0].tolist(),
+                    ref["zamba2"]["rows"][0], r["streams"][0].tolist(),
+                    r["rows"][0], card))
+                print(f"[{card}] --mesh dense zamba2_1p2b long_500k {shape} "
+                      f"rank {i}: {ZAMBA_LONG_NEW} tokens from index "
+                      f"{ZAMBA_LONG_ROWS - ZAMBA_LONG_NEW}, max gap "
+                      f"{gaps[-1][0]:.4f} (limit {DENSE_GAP:g}); cache "
+                      f"{r['cache_bytes'][0] / 2**30:.3f} GiB of "
+                      f"{r['cache_bytes'][1] / 2**30:.3f} (one card); ms a "
+                      f"decode call {r['ms'][0]:.2f} (one card "
+                      f"{ref['zamba2']['ms'][0]:.2f}); launches "
+                      f"{r['launches']}; collectives "
+                      + mesh_counts_text(r["collectives"]))
+                if 4 * r["cache_bytes"][0] > r["cache_bytes"][1] + 2**20:
+                    fail("--mesh dense zamba2: a rank holds more than a "
+                         "quarter of the cache")
+            res["zamba2"] = {"gaps": gaps, "ranks": [
+                {k: r[k] for k in ("launches", "collectives",
+                                   "cache_bytes", "ms", "wall_s")}
+                for r in z]}
+        if "moe" in runs:
+            m = [r["moe"] for r in ranks]
+            mref = ref["moe"]
+            if any(r["tokens"] != m[0]["tokens"] for r in m):
+                fail("--mesh dense qwen3-moe: the ranks' tokens differ")
+            reqs_m = [dataclasses.replace(dense_mesh_requests()[0],
+                                          seed=s, prompt=np.zeros(
+                                              MOE_PROMPT, np.int32),
+                                          max_new_tokens=DENSE_MOE_NEW)
+                      for s in mref["seeds"]]
+            tallies = []
+            for i, r in enumerate(m):
+                for b in r["slots"]:
+                    allow, tally = moe_allowance(
+                        {reqs_m[b].seed: mref["routes"][b]},
+                        {reqs_m[b].seed: r["routes"][b]}, MOE_PROMPT)
+                    rows_ref = {(reqs_m[b].seed, k): torch.as_tensor(x).cuda()
+                                for k, x in enumerate(mref["rows"][b])}
+                    check_dense_streams(
+                        f"--mesh dense qwen3-moe {shape} rank {i} slot {b}",
+                        [reqs_m[b]],
+                        ([np.asarray([t[b] for t in mref["tokens"]])],
+                         rows_ref),
+                        ([np.asarray([t[b] for t in r["tokens"]])],
+                         [[torch.as_tensor(x).cuda()
+                           for x in r["rows"][b]]]),
+                        card, allow=allow)
+                    tallies.append(tally)
+                print(f"[{card}] --mesh dense qwen3-moe {shape} rank {i}: "
+                      f"stored {r['stored_bytes'][0] / 2**30:.2f} GiB of "
+                      f"{r['stored_bytes'][1] / 2**30:.2f}; ms a decode "
+                      f"call {r['ms'][0]:.2f} (one card {mref['ms'][0]:.2f})"
+                      f"; routing {tallies[-1]}; collectives "
+                      + mesh_counts_text(r["collectives"]))
+            res["moe"] = {"tallies": tallies, "ranks": [
+                {k: r[k] for k in ("launches", "collectives", "stored_bytes",
+                                   "ms", "wall_s")} for r in m]}
+        if "marian" in runs:
+            a = [r["marian"] for r in ranks]
+            mref = ref["marian"]
+            gaps = []
+            for i, r in enumerate(a):
+                if r["tokens"] != a[0]["tokens"]:
+                    fail("--mesh dense mt_marian: the ranks' tokens differ")
+                for b in range(len(mref["tokens"][0])):
+                    gaps.append(rows_check(
+                        f"--mesh dense mt_marian {shape} rank {i} slot {b}",
+                        [t[b] for t in mref["tokens"]],
+                        [x[b] for x in mref["rows"]],
+                        [t[b] for t in r["tokens"]],
+                        [x[b] for x in r["rows"]], card))
+                print(f"[{card}] --mesh dense mt_marian {shape} rank {i}: "
+                      f"max gap {max(g for g, _ in gaps):.4f}, "
+                      f"{sum(d is not None for _, d in gaps)} near-tie "
+                      f"divergences; ms a decode call {r['ms'][0]:.2f} (one "
+                      f"card {mref['ms'][0]:.2f}); collectives "
+                      + mesh_counts_text(r["collectives"]))
+            res["marian"] = {"max_gap": max(g for g, _ in gaps)}
+        if "prefix" in runs:
+            p = [r["prefix"] for r in ranks]
+            if any(x["saved"] != x["restored"] for x in p) or \
+                    any(x["first"] != p[0]["first"] for x in p):
+                fail(f"--mesh dense prefix: saved {[x['saved'] for x in p]}"
+                     f" restored {[x['restored'] for x in p]}, or the "
+                     "ranks' streams differ")
+            rcfg = get_config("qwen3_1p7b", "decode_32k")
+            params = transformer.init_model(rcfg, seed=0, device="cuda")
+            one = ServeEngine(rcfg, params, max_batch=MAX_BATCH,
+                              page_size=PAGE, max_len=MAX_LEN,
+                              prefix_cache_path=str(DENSE_PREFIX),
+                              device="cuda")
+            restored = one.scheduler.prefix.n_cached_pages
+            again = [r.output.tolist() for r in one.generate(make_queue(
+                np.random.default_rng(0), rcfg.model.vocab_size))]
+            del one, params
+            DENSE_PREFIX.unlink(missing_ok=True)
+            same = sum(a == b for a, b in zip(again, p[0]["first"]))
+            print(f"[{card}] --mesh dense prefix: a (2, 2) engine saved "
+                  f"{p[0]['saved']} pages (collectives "
+                  + mesh_counts_text(p[0]["save_collectives"])
+                  + f"); a fresh (2, 2) engine restored "
+                  f"{p[0]['restored']} ({p[0]['shared']} shared tokens "
+                  f"serving the queue again, "
+                  f"{sum(a == b for a, b in zip(p[0]['again'], p[0]['first']))}"
+                  f"/8 streams as before), a fresh one-card engine "
+                  f"{restored} ({same}/8 streams as the (2, 2) engine's "
+                  f"first run)")
+            if restored != p[0]["saved"]:
+                fail("--mesh dense prefix: the one-card engine restored "
+                     f"{restored} of {p[0]['saved']} pages")
+            res["prefix"] = {"saved": p[0]["saved"],
+                             "restored": [p[0]["restored"], restored],
+                             "same_streams": same}
+        res["wall_s"] = time.perf_counter() - t1
+        print(f"--mesh dense {shape}: {res['wall_s']:.1f} s")
+        out[key] = res
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 # -- the MoE expert axis under a mesh (phases 5e, 5f, 6d, 6e) ---------------
 # Every run: phase 5e also serves qwen3-moe (MOE_SERVE's 8 layers, seed
 # 23) through a world-1 NCCL mesh, and phase 6e trains the reduced
@@ -6884,6 +7875,19 @@ def main() -> int:
     print("phase 5f: not run: its NCCL ranks run with --mesh on 2 or more "
           "cards")
 
+    PHASE_START.append(("5g", time.perf_counter()))
+    # -- 5g. dense-cache decode under a mesh: the lse route vs plain, qwen3
+    # through a world-1 NCCL mesh bitwise 5c's, then at (1, 2) on this card
+    # (two gloo ranks); --mesh dense runs the multi-card shapes -----------
+    lse_gen = torch.Generator(device="cuda")
+    lse_gen.manual_seed(25)
+    lse_row, dense_mesh_res = dense_phase(card, lse_gen, flush)
+    DENSE_REF.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("--mesh dense: not run: its NCCL ranks run with --mesh dense on "
+          "4 cards")
+
     PHASE_START.append(("6", time.perf_counter()))
     # -- 6. training: gradients at reduced depth, then full depth; the
     # dry-run counts of every train run (phase 9) on the host meanwhile ---
@@ -6959,12 +7963,17 @@ def main() -> int:
     for arch, B, S in PAPER_TRAIN:
         # one profiled step (MGRIT, which phase 9 reads), the serial one
         # unprofiled: these steps are host-bound (124551 device ops a
-        # bert128 step) and the trace's processing, not the step, took
-        # most of the phase
+        # bert128 step) and the trace's processing (key_averages over
+        # its events), not the step nor the trace's collection, took
+        # most of the phase; it records the device's activity alone (the
+        # busy share, the device ops and the largest rows are all phase 9
+        # and PERF.md read), and its collection and processing seconds
+        # are printed
         paper_train[arch] = run_train(paper_train_config(arch, B, S),
                                       flash_kernels,
                                       probe=arch != "mt_marian",
-                                      profiled=("MGRIT (lp)",))
+                                      profiled=("MGRIT (lp)",),
+                                      device_only=True)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -7112,6 +8121,7 @@ def main() -> int:
             "zamba2_bound_by": byz, "device_ms": dm,
             "zamba2_device_ms": dz})
     kernels += dense_kernel_rows(dense_launches, dense_err, dense_rows)
+    kernels.append(lse_row)
     dl = dense_launches
     samp = kernels[1]
     samp["launches_dense"] = {a: n["topk_topp_mask"] for a, n in dl.items()}
@@ -7193,6 +8203,7 @@ def main() -> int:
     print("checkpoint: " + json.dumps(ckpt_res))
     print("mesh: " + json.dumps(mesh_res))
     print("serve_mesh: " + json.dumps(serve_mesh_res))
+    print("dense_mesh: " + json.dumps(dense_mesh_res))
     print("census: " + json.dumps(CENSUS))
     print("roofline: " + json.dumps(roof_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
@@ -7226,6 +8237,16 @@ def main_mesh(mode: str = "") -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
     build.build()
     static_check()
+    if mode == "dense":
+        res = dense_mesh_phase(card)
+        print("dense_mesh: " + json.dumps(res))
+        print(f"chip_smoke --mesh dense: {time.perf_counter() - t_start:.1f}"
+              " s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     serve_res = {}
     if mode in ("", "serve"):
         refs = {arch: serve_reference(arch, card) for arch in SERVE_SEEDS}
@@ -7267,6 +8288,6 @@ def main_mesh(mode: str = "") -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"], ["--mesh", "moe"],
-                        ["--mesh", "fsdp"]):
+                        ["--mesh", "fsdp"], ["--mesh", "dense"]):
         sys.exit(main_mesh(mode="".join(sys.argv[2:])))
     sys.exit(main())

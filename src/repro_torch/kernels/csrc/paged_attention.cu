@@ -12,6 +12,15 @@
 // slot's written length); a masked key adds exactly zero (its p is 0),
 // m, l and acc are float32, masked logits are -1e30 (never -inf), and
 // the output is acc / max(l, 1e-30) — the reference's numerics.
+// A row that sees no key (a rank's sequence slice that starts after the
+// query: lengths[b] + i < 0) writes out = 0.
+//
+// Optionally every design also writes each row's log-sum-exp of its
+// scaled logits, lse = m + log(l) in float32 (B, S, H): the weight a
+// partial softmax over one slice of the keys carries when the partials of
+// several slices are merged (the dense cache cut along the sequence over
+// ranks). A row that sees no key has l = 0 and lse = -inf, so it carries
+// zero weight. Without the lse pointer nothing else changes.
 //
 // The rows of one block are (position, head) pairs of the g = H / Hkv
 // query heads that share a KV head, so every K/V row is read from device
@@ -77,6 +86,15 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kWarpKeys = kSplitKeys / kWarps;   // 16 keys a warp
 constexpr int kGroupKeys = kWarpKeys / 2;        // per cp.async group
 constexpr int kSplitMaxRows = 64;      // S x g up to this: split path
+
+// keys 0 .. n-1 a block walks: up to its last row's position, at most
+// the table's P x page_size rows (64-bit: one page of a dense cache may
+// hold 2^19 rows); <= 0 where that position precedes the slice's first key
+__device__ __forceinline__ int visible_keys(int P, int page_size,
+                                           int last_qpos) {
+  const long long cap = (long long)P * page_size;
+  return (int)min(cap, (long long)last_qpos + 1);
+}
 
 // rows (position x head) of one split block: 1, 2 or 4
 __host__ __device__ constexpr int split_rows(int R) {
@@ -153,7 +171,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ pk,
   const int row0 = tile * ROWS;
   const int rows = min(ROWS, S * g - row0);
   const int len = lengths[b];
-  const int n_keys = min(P * page_size, len + (row0 + rows - 1) / g + 1);
+  const int n_keys = visible_keys(P, page_size, len + (row0 + rows - 1) / g);
   const int key0 = split * kSplitKeys;
   const size_t prow = ((size_t)(b * Hkv + hkv) * row_tiles * ROWS + row0)
                       * n_split + split;      // + r * n_split for row r
@@ -337,7 +355,8 @@ __global__ void __launch_bounds__(kThreads)
 paged_combine_kernel(const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
                      const float* __restrict__ part_acc, T* __restrict__ out,
-                     int S, int H, int Hkv, int n_split, int rows_pad) {
+                     float* __restrict__ lse, int S, int H, int Hkv,
+                     int n_split, int rows_pad) {
   const int hkv = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
   const int e = blockIdx.x * kThreads + threadIdx.x;
@@ -354,6 +373,8 @@ paged_combine_kernel(const float* __restrict__ part_m,
   }
   const int s = r / g, h = hkv * g + r % g;
   store(&out[((size_t)(b * S + s) * H + h) * HD + d], a / fmaxf(ls, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[(size_t)(b * S + s) * H + h] = mx + logf(ls);
 }
 
 // ---- multi-row, bf16: tensor cores -----------------------------------
@@ -399,8 +420,8 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ pv,
                  const int* __restrict__ page_table,
                  const int* __restrict__ lengths,
-                 __nv_bfloat16* __restrict__ out, int S, int H, int Hkv,
-                 int page_size, int P, float scale) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int S, int H, int Hkv, int page_size, int P, float scale) {
   constexpr int LD = HD + kPad;          // smem row stride (elements)
   constexpr int C = HD / 8;              // 16-byte chunks per head row
   constexpr int KT = HD / 16;            // k-steps of Q K^T
@@ -415,7 +436,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = blockIdx.x * kMmaRows;
   const int rows = min(kMmaRows, S * g - row0);
   const int len = lengths[b];
-  const int n_keys = min(P * page_size, len + (row0 + rows - 1) / g + 1);
+  const int n_keys = visible_keys(P, page_size, len + (row0 + rows - 1) / g);
   const int n_tiles = (n_keys + kMmaKeys - 1) / kMmaKeys;
   const int* table = page_table + (size_t)b * P;
 
@@ -544,6 +565,7 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();                     // stage t % 2 is free again
     if (t + 2 < n_tiles) load_tile(t + 2, t % 2);
   }
+  cp_async_wait<0>();                    // no tile ran: n_keys <= 0
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -556,6 +578,9 @@ paged_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = half ? rb : ra;
     if (r >= rows) continue;
     const int s_ = (row0 + r) / g, h = hkv * g + (row0 + r) % g;
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(size_t)(b * S + s_) * H + h] =
+          half ? m_b + logf(l_b) : m_a + logf(l_a);
     __nv_bfloat16* orow = out + ((size_t)(b * S + s_) * H + h) * HD;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -578,7 +603,8 @@ paged_rows_kernel(const T* __restrict__ q, const T* __restrict__ pk,
                   const T* __restrict__ pv,
                   const int* __restrict__ page_table,
                   const int* __restrict__ lengths, T* __restrict__ out,
-                  int S, int H, int Hkv, int page_size, int P, float scale) {
+                  float* __restrict__ lse, int S, int H, int Hkv,
+                  int page_size, int P, float scale) {
   __shared__ float sq[kRows][HD];
   __shared__ float sk[kKeys][HD + 1];   // +1: score loop reads columns
   __shared__ float sv[kKeys][HD];
@@ -605,8 +631,7 @@ paged_rows_kernel(const T* __restrict__ q, const T* __restrict__ pk,
     sm[tid] = kMasked;
     sl[tid] = 0.f;
   }
-  const int last_qpos = len + (row0 + rows - 1) / g;
-  const int n_keys = min(P * page_size, last_qpos + 1);
+  const int n_keys = visible_keys(P, page_size, len + (row0 + rows - 1) / g);
   __syncthreads();
 
   for (int j0 = 0; j0 < n_keys; j0 += kKeys) {
@@ -643,7 +668,9 @@ paged_rows_kernel(const T* __restrict__ q, const T* __restrict__ pk,
       for (int jj = 0; jj < kKeys; ++jj) mx = fmaxf(mx, sp[tid][jj]);
       float sum = 0.f;
       for (int jj = 0; jj < kKeys; ++jj) {
-        const float p = expf(sp[tid][jj] - mx);
+        // a row that sees no key keeps p = 0 (out 0, lse -inf); for any
+        // other row expf(kMasked - mx) is 0 already
+        const float p = sp[tid][jj] == kMasked ? 0.f : expf(sp[tid][jj] - mx);
         sp[tid][jj] = p;
         sum += p;
       }
@@ -669,6 +696,10 @@ paged_rows_kernel(const T* __restrict__ q, const T* __restrict__ pk,
     const int s = (row0 + r) / g, h = hkv * g + (row0 + r) % g;
     store(&out[((size_t)(b * S + s) * H + h) * HD + d],
           sacc[r][d] / fmaxf(sl[r], 1e-30f));
+  }
+  if (lse != nullptr && tid < rows) {
+    const int s = (row0 + tid) / g, h = hkv * g + (row0 + tid) % g;
+    lse[(size_t)(b * S + s) * H + h] = sm[tid] + logf(sl[tid]);
   }
 }
 
@@ -701,7 +732,8 @@ int allow_smem(K kernel, int bytes) {
 
 template <typename T, int HD, int ROWS>
 int launch_split(const T* q, const T* pk, const T* pv, const int* table,
-                 const int* lens, T* out, float* work, const Plan& pl, int B,
+                 const int* lens, T* out, float* lse, float* work,
+                 const Plan& pl, int B,
                  int S, int H, int Hkv, int page_size, int P, float scale,
                  cudaStream_t st) {
   const int kv = kWarps * 2 * kWarpKeys * HD * (int)sizeof(T);
@@ -722,13 +754,15 @@ int launch_split(const T* q, const T* pk, const T* pv, const int* table,
   const int R = S * (H / Hkv);
   paged_combine_kernel<T, HD>
       <<<dim3((R * HD + kThreads - 1) / kThreads, Hkv, B), kThreads, 0, st>>>(
-          pm, plv, pacc, out, S, H, Hkv, pl.n_split, pl.row_tiles * ROWS);
+          pm, plv, pacc, out, lse, S, H, Hkv, pl.n_split,
+          pl.row_tiles * ROWS);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* pk, const void* pv, const int* table,
-              const int* lens, void* out, float* work, const Plan& pl, int B,
+              const int* lens, void* out, float* lse, float* work,
+              const Plan& pl, int B,
               int S, int H, int Hkv, int page_size, int P, float scale,
               cudaStream_t st) {
   const T* qt = static_cast<const T*>(q);
@@ -737,13 +771,15 @@ int launch_hd(const void* q, const void* pk, const void* pv, const int* table,
   T* ot = static_cast<T*>(out);
   if (pl.split) {
     if (pl.rows == 1)
-      return launch_split<T, HD, 1>(qt, kt, vt, table, lens, ot, work, pl, B,
-                                    S, H, Hkv, page_size, P, scale, st);
+      return launch_split<T, HD, 1>(qt, kt, vt, table, lens, ot, lse, work,
+                                    pl, B, S, H, Hkv, page_size, P, scale,
+                                    st);
     if (pl.rows == 2)
-      return launch_split<T, HD, 2>(qt, kt, vt, table, lens, ot, work, pl, B,
-                                    S, H, Hkv, page_size, P, scale, st);
-    return launch_split<T, HD, 4>(qt, kt, vt, table, lens, ot, work, pl, B, S,
-                                  H, Hkv, page_size, P, scale, st);
+      return launch_split<T, HD, 2>(qt, kt, vt, table, lens, ot, lse, work,
+                                    pl, B, S, H, Hkv, page_size, P, scale,
+                                    st);
+    return launch_split<T, HD, 4>(qt, kt, vt, table, lens, ot, lse, work, pl,
+                                  B, S, H, Hkv, page_size, P, scale, st);
   }
   const int R = S * (H / Hkv);
   if constexpr (sizeof(T) == 2) {
@@ -752,29 +788,34 @@ int launch_hd(const void* q, const void* pk, const void* pv, const int* table,
     if (attr) return attr;
     paged_mma_kernel<HD><<<dim3((R + kMmaRows - 1) / kMmaRows, Hkv, B),
                            kThreads, smem, st>>>(
-        qt, kt, vt, table, lens, ot, S, H, Hkv, page_size, P, scale);
+        qt, kt, vt, table, lens, ot, lse, S, H, Hkv, page_size, P, scale);
   } else {
     paged_rows_kernel<T, HD><<<dim3((R + kRows - 1) / kRows, Hkv, B),
                                kThreads, 0, st>>>(
-        qt, kt, vt, table, lens, ot, S, H, Hkv, page_size, P, scale);
+        qt, kt, vt, table, lens, ot, lse, S, H, Hkv, page_size, P, scale);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* pk, const void* pv, const int* table,
-           const int* lens, void* out, float* work, const Plan& pl, int B,
+           const int* lens, void* out, float* lse, float* work,
+           const Plan& pl, int B,
            int S, int H, int Hkv, int hd, int page_size, int P, float scale,
            cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_hd<T, 16>(q, pk, pv, table, lens, out, work, pl,
-                                     B, S, H, Hkv, page_size, P, scale, st);
-    case 32: return launch_hd<T, 32>(q, pk, pv, table, lens, out, work, pl,
-                                     B, S, H, Hkv, page_size, P, scale, st);
-    case 64: return launch_hd<T, 64>(q, pk, pv, table, lens, out, work, pl,
-                                     B, S, H, Hkv, page_size, P, scale, st);
-    case 128: return launch_hd<T, 128>(q, pk, pv, table, lens, out, work, pl,
-                                       B, S, H, Hkv, page_size, P, scale, st);
+    case 16: return launch_hd<T, 16>(q, pk, pv, table, lens, out, lse, work,
+                                     pl, B, S, H, Hkv, page_size, P, scale,
+                                     st);
+    case 32: return launch_hd<T, 32>(q, pk, pv, table, lens, out, lse, work,
+                                     pl, B, S, H, Hkv, page_size, P, scale,
+                                     st);
+    case 64: return launch_hd<T, 64>(q, pk, pv, table, lens, out, lse, work,
+                                     pl, B, S, H, Hkv, page_size, P, scale,
+                                     st);
+    case 128: return launch_hd<T, 128>(q, pk, pv, table, lens, out, lse, work,
+                                       pl, B, S, H, Hkv, page_size, P, scale,
+                                       st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -809,12 +850,13 @@ extern "C" int paged_attention_plan(int dtype, int B, int S, int H, int Hkv,
 
 // dtype: 0 = float32, 1 = bfloat16. Layouts (all contiguous, 16-byte
 // aligned): q/out (B, S, H, hd); pk/pv (n_pages, page_size, Hkv, hd);
-// page_table (B, P) int32; lengths (B,) int32; workspace float32 of
-// workspace_floats >= paged_attention_plan's out[4]. Returns
-// cudaGetLastError() after the launches.
+// page_table (B, P) int32; lengths (B,) int32; lse float32 (B, S, H) or
+// null (not written); workspace float32 of workspace_floats >=
+// paged_attention_plan's out[4]. Returns cudaGetLastError() after the
+// launches.
 extern "C" int paged_attention_launch(
     const void* q, const void* pk, const void* pv, const void* page_table,
-    const void* lengths, void* out, void* workspace,
+    const void* lengths, void* out, void* lse, void* workspace,
     long long workspace_floats, int dtype, int B, int S, int H, int Hkv,
     int hd, int page_size, int P, float scale, void* stream) {
   if (bad_shape(B, S, H, Hkv, page_size, P)) return (int)cudaErrorInvalidValue;
@@ -825,12 +867,13 @@ extern "C" int paged_attention_launch(
   const int* table = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(lengths);
   float* work = static_cast<float*>(workspace);
+  float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, pk, pv, table, lens, out, work, pl, B, S, H, Hkv,
-                         hd, page_size, P, scale, st);
+    return launch<float>(q, pk, pv, table, lens, out, lse_f, work, pl, B, S,
+                         H, Hkv, hd, page_size, P, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, pk, pv, table, lens, out, work, pl, B, S,
-                                 H, Hkv, hd, page_size, P, scale, st);
+    return launch<__nv_bfloat16>(q, pk, pv, table, lens, out, lse_f, work, pl,
+                                 B, S, H, Hkv, hd, page_size, P, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -164,7 +164,8 @@ def ssm_scan(dt, x, A, B, C, D, *, heads=None):
     return ss.ssm_scan_ref(dt, x, A, B, C, D)
 
 
-def paged_attention(q, pk, pv, page_table, lengths):
+def paged_attention(q, pk, pv, page_table, lengths, *,
+                    return_lse: bool = False):
     """Paged flash-decode attention in model layout.
 
     q: (B, S, H, hd) new-token queries (post-rope); pk/pv: (n_pages,
@@ -173,17 +174,32 @@ def paged_attention(q, pk, pv, page_table, lengths):
     lengths: (B,). Returns (B, S, H, hd). On meta the lengths are unknown:
     every slot is counted with its table full (the context of P pages
     less the S new rows), the decode shapes' cache of ``seq_len``.
+
+    ``return_lse``: (out, lse), lse (B, S, H) float32 each row's
+    log-sum-exp of its scaled logits (the lse route: the kernels with the
+    log-sum-exp written, ``paged_flash_attention_lse``, on the card; its
+    plain version on the CPU). A row that sees no key (``lengths`` may be
+    negative: a slice of the keys that starts after the query) carries
+    lse <= -1e30, zero weight when partials are merged.
     """
     if q.is_cuda:
+        if return_lse:
+            return pa.paged_flash_attention_lse(q, pk, pv, page_table,
+                                                lengths)
         return pa.paged_flash_attention(q, pk, pv, page_table, lengths)
     if q.is_meta:
         B, S, H, hd = q.shape
         P = page_table.shape[1]
         full = [P * pk.shape[1] - S] * B
-        _record("paged_flash_attention",
+        _record("paged_flash_attention_lse" if return_lse
+                else "paged_flash_attention",
                 pa.cost(S, H, pk.shape[2], hd, q.element_size(), full, P),
                 not _tensor_core(q.dtype))
-        return _empty(q.shape, q.dtype)
+        out = _empty(q.shape, q.dtype)
+        return (out, _empty(q.shape[:3], torch.float32)) if return_lse \
+            else out
+    if return_lse:
+        return pa.paged_attention_lse_ref(q, pk, pv, page_table, lengths)
     return pa.paged_attention_ref(q, pk, pv, page_table, lengths)
 
 

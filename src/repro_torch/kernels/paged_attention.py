@@ -9,12 +9,17 @@ logical page p from physical page ``page_table[b, p]``.
   same contractions, mask constant and casts as the model's
   ``dot_attention`` path, so on the CPU the fused and gathered serve
   paths agree bitwise (the reference's own contract).
+- :func:`paged_attention_lse_ref` is the plain version of the route that
+  also returns each row's log-sum-exp (float32, (B, S, H)), the weight
+  of a partial softmax over one slice of the keys: the dense cache cut
+  along the sequence over ranks merges the slices' partials by it.
 - :func:`paged_flash_attention` launches ``csrc/paged_attention.cu``
   (which TPU kernel it replaces, what bounds it and its two designs,
   split-KV decode and tensor-core multi-row, are in the source's
-  header); :func:`plan` reports which design a shape takes. It takes
-  CUDA tensors only and raises on anything else; it never falls back to
-  the plain version.
+  header); :func:`plan` reports which design a shape takes;
+  :func:`paged_flash_attention_lse` launches the same kernels with the
+  log-sum-exp written too. Both take CUDA tensors only and raise on
+  anything else; they never fall back to the plain version.
 """
 from __future__ import annotations
 
@@ -51,18 +56,47 @@ def _dot_attention_paged(q, kd, vd, lengths, *, scale=None):
     return out.reshape(B, Sq, H, hd)
 
 
-def paged_attention_ref(q, pk, pv, page_table, lengths):
-    """Plain version in model layout — q: (B, S, H, hd); pk/pv page pools
-    (n_pages, page_size, Hkv, hd); page_table (B, P); lengths (B,).
-    Returns (B, S, H, hd) in q's dtype."""
-    B = q.shape[0]
+def _gathered(pk, pv, page_table):
+    """The slots' K and V rows in logical order: (B, P*page_size, Hkv, hd)
+    each."""
+    B = page_table.shape[0]
     n_pages, page_size = pk.shape[0], pk.shape[1]
     pk_flat = pk.reshape(n_pages * page_size, *pk.shape[2:])
     pv_flat = pv.reshape(n_pages * page_size, *pv.shape[2:])
     gather = (page_table.long()[:, :, None] * page_size
               + torch.arange(page_size, device=pk.device)).reshape(B, -1)
-    return _dot_attention_paged(q, pk_flat[gather], pv_flat[gather],
-                                lengths.long())
+    return pk_flat[gather], pv_flat[gather]
+
+
+def paged_attention_ref(q, pk, pv, page_table, lengths):
+    """Plain version in model layout — q: (B, S, H, hd); pk/pv page pools
+    (n_pages, page_size, Hkv, hd); page_table (B, P); lengths (B,).
+    Returns (B, S, H, hd) in q's dtype."""
+    kd, vd = _gathered(pk, pv, page_table)
+    return _dot_attention_paged(q, kd, vd, lengths.long())
+
+
+def paged_attention_lse_ref(q, pk, pv, page_table, lengths):
+    """:func:`paged_attention_ref` and each row's log-sum-exp of its
+    scaled, masked float32 logits, (B, S, H) float32; the output is the
+    plain version's own, bit for bit. A row that sees no key (``lengths
+    + i < 0``: a sequence slice that starts after the query) keeps the
+    mask's uniform average as its output, and its lse is -1e30 +
+    log(keys), which is -1e30 in float32: merged with any row that sees
+    a key it carries zero weight."""
+    B, Sq, H, hd = q.shape
+    kd, vd = _gathered(pk, pv, page_table)
+    Hkv = kd.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg.float(),
+                          kd.float()) * hd ** -0.5
+    qpos = lengths.long()[:, None] + torch.arange(Sq, device=q.device)
+    mask = (qpos[:, :, None] >= torch.arange(kd.shape[1], device=q.device)
+            )[:, None, None]
+    lse = torch.logsumexp(torch.where(mask, logits, torch.full_like(
+        logits, NEG_INF)), dim=-1)                      # (B, Hkv, g, Sq)
+    out = _dot_attention_paged(q, kd, vd, lengths.long())
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
 
 
 def cost(S, H, Hkv, hd, itemsize, lengths, P):
@@ -85,7 +119,7 @@ def _lib():
     fn = lib.paged_attention_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_attention_plan.restype = ctypes.c_int
         lib.paged_attention_plan.argtypes = [ctypes.c_int] * 8 + [
@@ -117,6 +151,29 @@ def paged_flash_attention(q, pk, pv, page_table, lengths):
     """The CUDA kernels, same contract as :func:`paged_attention_ref`.
     Every call adds one to ``paged_flash_attention.launches`` (the split
     path's combine kernel is part of the same call)."""
+    out, _ = _launch(q, pk, pv, page_table, lengths, False)
+    paged_flash_attention.launches += 1
+    return out
+
+
+paged_flash_attention.launches = 0
+
+
+def paged_flash_attention_lse(q, pk, pv, page_table, lengths):
+    """The same kernels with each row's log-sum-exp written too: (out,
+    lse (B, S, H) float32), the contract of
+    :func:`paged_attention_lse_ref` except that a row that sees no key
+    writes out = 0 and lse = -inf. Every call adds one to
+    ``paged_flash_attention_lse.launches``."""
+    out = _launch(q, pk, pv, page_table, lengths, True)
+    paged_flash_attention_lse.launches += 1
+    return out
+
+
+paged_flash_attention_lse.launches = 0
+
+
+def _launch(q, pk, pv, page_table, lengths, with_lse: bool):
     if not (q.is_cuda and pk.is_cuda and pv.is_cuda and page_table.is_cuda
             and lengths.is_cuda):
         raise ValueError("paged_flash_attention takes CUDA tensors only; "
@@ -144,20 +201,18 @@ def paged_flash_attention(q, pk, pv, page_table, lengths):
                    else t.to(torch.int32).contiguous()
                    for t in (page_table, lengths))
     out = torch.empty_like(q)
+    lse = q.new_empty((B, S, H), dtype=torch.float32) if with_lse else None
     if B == 0 or S == 0:
-        return out
+        return out, lse
     lib = _lib()
     n_work = plan(q.dtype, B, S, H, Hkv, hd, page_size, P).workspace
     work = q.new_empty(n_work, dtype=torch.float32) if n_work else None
     rc = lib.paged_attention_launch(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
         lens.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         work.data_ptr() if work is not None else None, n_work,
         _DTYPE_CODE[q.dtype], B, S, H, Hkv, hd, page_size, P, hd ** -0.5,
         build.stream_ptr(q))
     build.check(rc, "paged_attention_launch")
-    paged_flash_attention.launches += 1
-    return out
-
-
-paged_flash_attention.launches = 0
+    return out, lse

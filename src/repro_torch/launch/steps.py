@@ -15,6 +15,14 @@ data rank's slots only (:class:`SlotRows`): each rank uploads its own
 rows of the slot arrays with its page table in its own page ids, every
 rank of a data group samples the same whole-vocab rows, and the sampled
 tokens are gathered over ``data`` before the host reads them.
+
+The dense-cache serve step (:func:`make_serve_fn`) takes the mesh too,
+as the reference's does: under ``rcfg.sharding`` (the reference's
+``decode_sharding``, or the serve engine's rules) it runs on this rank's
+part of the weights (:func:`shard_decode_params`) and of the cache
+(``transformer.init_cache(..., mesh=)``), its slots cut over the batch's
+axis, the cache's rows over ``kv_seq``'s, the fsdp-cut leaves gathered
+for each layer (:func:`decode_fsdp_plan`).
 """
 from __future__ import annotations
 
@@ -231,6 +239,36 @@ def shardings_for_decode(rcfg: RunConfig, mesh, params_sds, cache_sds):
             pparams.cache_specs(cache_sds, rcfg, mesh), (None, None))
 
 
+def shard_decode_params(rcfg: RunConfig, mesh, params):
+    """This rank's part of the whole ``params`` for
+    :func:`make_serve_fn` ``(rcfg, mesh)``: the reference's param specs
+    under ``rcfg.sharding`` executed as the serve engine executes them
+    (Megatron tensor parallelism over the heads' axis, the experts where
+    mapped, a Mamba mixer's per-row vectors cut with its rows), and the
+    leaves the fsdp fallback storage-shards stored one slice a rank of
+    its axis."""
+    from repro_torch.parallel import params as pparams
+    logical = pparams.serve_logical_axes_for
+    specs = pparams.param_specs(params, rcfg, mesh, logical)
+    return pparams.shard_tree(params, specs, mesh,
+                              executed=pparams.DECODE_EXECUTED,
+                              cfg=rcfg.model, logical=logical,
+                              sharding=rcfg.sharding)[0]
+
+
+def decode_fsdp_plan(rcfg: RunConfig, mesh):
+    """The :class:`repro_torch.parallel.fsdp.Plan` of the leaves
+    :func:`shard_decode_params` stores one slice a rank of (None where
+    the rules cut none over an axis of more than one rank)."""
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel import params as pparams
+    shapes = transformer.param_shapes(rcfg)
+    specs = pparams.param_specs(shapes, rcfg, mesh,
+                                pparams.serve_logical_axes_for)
+    return fsdp.plan_of(pparams.fsdp_cut(shapes, specs, mesh,
+                                         rcfg.sharding), mesh)
+
+
 class SlotRows:
     """A mesh engine's slots and pages on this rank: its data group's
     contiguous range of the ``max_batch`` slots (``batch`` over
@@ -309,7 +347,7 @@ def make_prefill_fn(rcfg: RunConfig):
     return prefill_step
 
 
-def make_serve_fn(rcfg: RunConfig):
+def make_serve_fn(rcfg: RunConfig, mesh=None):
     """Dense greedy decode step: (params, cache, tokens (B, T)) -> (next
     (B, 1), cache), tokens and cache on one device. T > 1 chunk-prefills
     the prompt into the cache in one call (attention kinds). This is the
@@ -317,11 +355,46 @@ def make_serve_fn(rcfg: RunConfig):
     engine's dense comparison probe; production decode goes through
     :func:`make_paged_serve_fn` and a ``repro_torch.serve.cache``
     backend. The encoder-decoder family's step takes the encoder output
-    too: (params, cache, tokens, xa)."""
+    too: (params, cache, tokens, xa).
+
+    Under ``mesh`` (explicit SPMD, one process a rank, the rules
+    ``rcfg.sharding``): ``params`` is this rank's part
+    (:func:`shard_decode_params`, or a mesh engine's backend's), ``cache``
+    its part (``transformer.init_cache(..., mesh=mesh)``), ``tokens`` and
+    ``xa`` the whole batch; the rank runs its slots (the batch's axis)
+    tensor-parallel, the cache cut along the sequence where ``kv_seq``
+    maps, the fsdp-cut leaves gathered for each layer, and every rank
+    returns the whole batch's next tokens (one all-gather over the
+    batch's axis, ``dp_tokens``). A world-1 mesh runs the step without
+    one, bit for bit."""
+    if mesh is None:
+        def step(params, cache, tokens, xa=None):
+            return transformer.decode_step(params, cache, tokens, rcfg,
+                                           xa=xa)
+        rules = contextlib.nullcontext
+    else:
+        plan = decode_fsdp_plan(rcfg, mesh)
+        rules = functools.partial(tp.active, mesh, rcfg.sharding)
+
+        def step(params, cache, tokens, xa=None):
+            rows = tp.split("batch", tokens.shape[0])
+            if rows is not None:
+                per = tokens.shape[0] // rows.n
+                tokens = tokens[rows.r * per:(rows.r + 1) * per]
+                if xa is not None:
+                    xa = xa[rows.r * per:(rows.r + 1) * per]
+            return transformer.decode_step(params, cache, tokens, rcfg,
+                                           xa=xa, fsdp_plan=plan)
+
     def serve_step(params, cache, tokens, xa=None):
-        logits, cache = transformer.decode_step(params, cache, tokens, rcfg,
-                                                xa=xa)
-        return torch.argmax(logits[:, -1].float(), dim=-1)[:, None], cache
+        with rules():
+            logits, cache = step(params, cache, tokens, xa)
+            nxt = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+            rows = None if mesh is None else \
+                tp.split("batch", tokens.shape[0])
+            if rows is not None:
+                nxt = rows.all_gather("dp_tokens", nxt, 0)
+        return nxt, cache
 
     if rcfg.model.family == "encdec":
         return serve_step

@@ -163,9 +163,27 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
     copy), and the query rows at those positions attend over the whole
     cache (:func:`_cached_core`). Returns (y, new_cache), new_cache
     holding the same k/v tensors and ``index + S``.
+
+    Under :func:`repro_torch.parallel.tp.active` (the dense decode step
+    under a mesh, cross-attention included) each rank projects its query
+    heads and the KV heads they read, as the paged path does (``wo``
+    row-parallel). Where ``kv_seq`` cuts the cache along the sequence
+    (:func:`repro_torch.parallel.tp.seq_split`) the cache holds every KV
+    head of this rank's slice of the rows instead: the new K/V rows of
+    the heads cut over the ranks are gathered (``kv_seq_kv``), the query
+    heads too where their axis also cuts the sequence (``kv_seq_q``),
+    each rank attends over its slice with the log-sum-exp route and the
+    slices' partials are merged onto the ranks that own each head
+    (:func:`repro_torch.parallel.tp.merge_partials`).
     """
     dt = torch_dtype(cfg.dtype)
     x = x.to(dt)
+    seq = None if cache is None else tp.seq_split(cache["k"].shape[1],
+                                                  local=True)
+    if seq is None:
+        params, sq = _tp_heads(params, cfg)
+    else:
+        sq = kv_split(cfg)[0]
     q, k, v = _project_qkv(params, x, xa, cfg)
     if xa is None and rope is not None:
         cos, sin = rope
@@ -177,7 +195,10 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
     if cache is not None:
         if not causal:
             raise ValueError("a KV cache takes causal self-attention only")
-        out = _cached_core(q, k, v, cache)
+        if seq is None:
+            out = _cached_core(q, k, v, cache)
+        else:
+            out = _seq_cached_core(q, k, v, cache, cfg, sq, seq)
         new_cache = {"k": cache["k"], "v": cache["v"],
                      "index": cache["index"] + S}
     elif kops.kernel_route(q):
@@ -188,8 +209,8 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
     else:
         out = dot_attention(q, k, v, causal=causal)
     h, hd, d = params["wo"].shape
-    y = out.reshape(*out.shape[:2], h * hd) \
-        @ params["wo"].to(dt).reshape(h * hd, d)
+    y = tp.row_parallel(sq, "tp_attn", out.reshape(*out.shape[:2], h * hd),
+                        params["wo"].to(dt).reshape(h * hd, d))
     return y if cache is None else (y, new_cache)
 
 
@@ -221,13 +242,54 @@ def _cached_core(q, k, v, cache):
                                 idx.to(torch.int32).expand(B))
 
 
+def _seq_cached_core(q, k, v, cache, cfg: ModelConfig, sq, seq):
+    """:func:`_cached_core` over this rank's slice of the cache's rows
+    (``seq``, a :class:`repro_torch.parallel.tp.SeqSplit`), which holds
+    every KV head. q: this rank's query heads (``sq`` their split or
+    None); k, v: its KV heads where ``sq`` cuts them, else all of them.
+    Returns this rank's query heads' attention over the whole
+    sequence."""
+    if sq is not None and tp.split("kv_heads", cfg.n_kv_heads):
+        kv = sq.all_gather("kv_seq_kv", torch.cat([k, v], dim=-1), 2)
+        k, v = kv.chunk(2, dim=-1)
+    if sq is not None and sq.axis in seq.axes:
+        q = sq.all_gather("kv_seq_q", q, 2)
+    ck, cv, idx = cache["k"], cache["v"], cache["index"]
+    B, S = q.shape[:2]
+    L = ck.shape[1]
+    W = min(S, L)
+    # the global write clamp first (dynamic_update_slice's), then the W
+    # local rows of the window that holds this rank's share of the new
+    # rows; rows of the window outside it keep their contents, so every
+    # index written is distinct and nothing reads ``index`` on the host
+    lo = torch.clamp(idx, max=L * seq.n - S) - seq.offset
+    rows = torch.clamp(lo, 0, L - W) + torch.arange(W, device=ck.device)
+    src = rows - lo
+    take = ((src >= 0) & (src < S))[None, :, None, None]
+    src = torch.clamp(src, 0, S - 1)
+    for c, new in ((ck, k), (cv, v)):
+        c.index_copy_(1, rows, torch.where(take, new.to(c.dtype)[:, src],
+                                           c[:, rows]))
+    table = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    local = (idx - seq.offset).to(torch.int32).expand(B)
+    out, lse = kops.paged_attention(q, ck, cv, table, local, return_lse=True)
+    return tp.merge_partials(out, lse, sq, seq)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                   *, device=None):
     """Stacked-over-layers dense KV cache: k/v (L, B, max_len, Hkv, hd) in
-    ``cfg.dtype`` and a 0-d int32 ``index``, all on ``device``."""
+    ``cfg.dtype`` and a 0-d int32 ``index``, all on ``device``. Under
+    :func:`repro_torch.parallel.tp.active` this rank's part: its slots
+    where ``batch`` cuts them, and its slice of the rows with every KV
+    head where ``kv_seq`` cuts the sequence, else the KV heads its query
+    heads read (:func:`kv_split`)."""
     hd = cfg.resolved_head_dim
     dt = torch_dtype(cfg.dtype)
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    seq = tp.seq_split(max_len)
+    kv = None if seq is not None else kv_split(cfg)[1]
+    shape = (n_layers, tp.local_rows(batch), seq.size if seq else max_len,
+             kv[1] - kv[0] if kv else cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "index": torch.zeros((), dtype=torch.int32, device=device)}
@@ -262,6 +324,27 @@ def kv_split(cfg: ModelConfig):
             "unevenly: neither divides the other")
     lo = sq.r * Hkv // n
     return sq, (lo, lo + max(Hkv // n, 1))
+
+
+def narrow_kv_split(cfg: ModelConfig):
+    """Under :func:`repro_torch.parallel.tp.active`: the split of the
+    query heads where each rank's KV holds only the one KV head its query
+    heads read (:func:`kv_split`'s MQA case, the spec keeping the KV
+    heads whole), else None."""
+    sq, _ = kv_split(cfg)
+    if sq is not None and not tp.split("kv_heads", cfg.n_kv_heads):
+        return sq
+    return None
+
+
+def gather_narrow_kv(mesh, kind: str, t: torch.Tensor, sq,
+                     n_kv_heads: int) -> torch.Tensor:
+    """Every KV head of ``t`` (heads on dim 3), from ranks that each hold
+    the one KV head of their query heads (:func:`narrow_kv_split`'s
+    ``sq``): one all-gather over ``sq``'s axis, head h taken from the
+    first rank of its group."""
+    got = mesh.all_gather(kind, t, sq.axis, dim=3)
+    return got[:, :, :, [h * sq.n // n_kv_heads for h in range(n_kv_heads)]]
 
 
 def init_paged_kv_cache(cfg: ModelConfig, n_layers: int, n_pages: int,

@@ -345,17 +345,31 @@ def _dense_state(shape, device):
     return flat[page:].view(shape)
 
 
+def _local_inner(cfg: ModelConfig, batch: int):
+    """(this rank's slots, conv channels, rows under
+    :func:`repro_torch.parallel.tp.active`: mamba1's di, mamba2's heads)
+    of a dense decode state; all of them outside it."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    sp = inner_split(cfg)
+    n = sp.n if sp else 1
+    rows = di if pparams.mamba_version(cfg) == 1 else di // s.headdim
+    return (tp.local_rows(batch),
+            tp.local_size(pparams.mamba_blocks(cfg, "conv"), n), rows // n)
+
+
 def init_mamba1_cache(cfg: ModelConfig, batch: int, n_layers: int, *,
                       device=None):
     """Dense decode state stacked over layers: conv (L, B, K-1, di) in
     ``cfg.dtype``, h (L, B, di, d_state) float32 (one spare page of
-    storage before it, :func:`_dense_state`)."""
+    storage before it, :func:`_dense_state`); under
+    :func:`repro_torch.parallel.tp.active` this rank's slots and rows."""
     s = cfg.ssm
-    di = s.expand * cfg.d_model
+    b, ci, di = _local_inner(cfg, batch)
     return {
-        "conv": torch.zeros((n_layers, batch, s.d_conv - 1, di),
+        "conv": torch.zeros((n_layers, b, s.d_conv - 1, ci),
                             dtype=torch_dtype(cfg.dtype), device=device),
-        "h": _dense_state((n_layers, batch, di, s.d_state), device),
+        "h": _dense_state((n_layers, b, di, s.d_state), device),
     }
 
 
@@ -363,15 +377,15 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, n_layers: int, *,
                       device=None):
     """Mamba2's dense decode state: conv (L, B, K-1, di + 2 d_state) in
     ``cfg.dtype``, h (L, B, heads, headdim, d_state) float32 (one spare
-    page of storage before it)."""
+    page of storage before it); under
+    :func:`repro_torch.parallel.tp.active` this rank's slots, conv
+    channels ``[x | B C]`` and heads."""
     s = cfg.ssm
-    di = s.expand * cfg.d_model
-    nh = di // s.headdim
+    b, ci, nh = _local_inner(cfg, batch)
     return {
-        "conv": torch.zeros((n_layers, batch, s.d_conv - 1,
-                             di + 2 * s.d_state),
+        "conv": torch.zeros((n_layers, b, s.d_conv - 1, ci),
                             dtype=torch_dtype(cfg.dtype), device=device),
-        "h": _dense_state((n_layers, batch, nh, s.headdim, s.d_state),
+        "h": _dense_state((n_layers, b, nh, s.headdim, s.d_state),
                           device),
     }
 
@@ -385,18 +399,24 @@ def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
     layer's {"conv": (B, K-1, di), "h": (B, di, d_state)} (both updated
     in place) the recurrence continues from it (:func:`_cached_scan`,
     order "dbx") and, as in the reference and the paged mixer, rounds
-    before adding ``D * xc`` in ``cfg.dtype``; returns (out, cache)."""
+    before adding ``D * xc`` in ``cfg.dtype``; returns (out, cache).
+
+    Under :func:`repro_torch.parallel.tp.active` (the dense decode step
+    under a mesh) each rank runs its di rows as the paged mixer does:
+    ``x_proj`` and ``out_proj`` row-parallel."""
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
     dtr = _dt_rank(cfg)
+    sp = inner_split(cfg)
 
     xin, z = (x @ params["in_proj"].to(dt_)).chunk(2, dim=-1)
     xc = F.silu(_causal_conv(xin, params["conv_w"].to(dt_),
                              params["conv_b"].to(dt_),
                              None if cache is None else cache["conv"]))
-    dtr_v, Bm, Cm = torch.split(xc @ params["x_proj"].to(dt_),
-                                [dtr, s.d_state, s.d_state], dim=-1)
+    dtr_v, Bm, Cm = torch.split(
+        tp.row_parallel(sp, "tp_ssm_dbc", xc, params["x_proj"].to(dt_)),
+        [dtr, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dtr_v @ params["dt_proj"].to(dt_)
                     + params["dt_bias"].to(dt_))
     A = -torch.exp(params["A_log"].float())
@@ -408,7 +428,7 @@ def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
                          cache["h"], order="dbx").to(dt_)
         y = y + params["D"].to(dt_)[None, None, :] * xc
     y = y * F.silu(z)
-    out = y @ params["out_proj"].to(dt_)
+    out = tp.row_parallel(sp, "tp_ssm_out", y, params["out_proj"].to(dt_))
     return out if cache is None else (out, cache)
 
 
@@ -423,12 +443,14 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
     layer's {"conv": (B, K-1, di + 2 d_state), "h": (B, heads, headdim,
     d_state)} (both updated in place) the recurrence continues from it
     (:func:`_cached_scan` over h viewed as rows, order "dxb"); returns
-    (out, cache)."""
+    (out, cache). Under :func:`repro_torch.parallel.tp.active` each rank
+    runs its heads as :func:`mamba2_paged_apply` does."""
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
     B, S = x.shape[:2]
-    di = s.expand * x.shape[-1]
+    sp = inner_split(cfg)
+    di = s.expand * x.shape[-1] // (sp.n if sp else 1)
     nh = di // s.headdim
 
     z, xbc, dt = torch.split(x @ params["in_proj"].to(dt_),
@@ -454,9 +476,20 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
         y = ys + params["D"].float()[None, None, :, None] * xh
         y = y.reshape(B, S, di).to(dt_)
     y = y * F.silu(z)
-    y = kops.rmsnorm(y, params["norm_scale"])                 # gated RMSNorm
-    out = y @ params["out_proj"].to(dt_)
+    out = _gated_norm_out(params, y, sp, di, dt_)
     return out if cache is None else (out, cache)
+
+
+def _gated_norm_out(params, y, sp, di: int, dt_):
+    """Mamba2's gated RMSNorm (over the whole di: under a split the rows
+    are gathered and each rank keeps its own columns) and ``out_proj``
+    (row-parallel under a split)."""
+    if sp is None:
+        y = kops.rmsnorm(y, params["norm_scale"])             # gated RMSNorm
+    else:
+        y = kops.rmsnorm(sp.all_gather("tp_ssm_norm", y, -1),
+                         params["norm_scale"])[..., sp.r * di:(sp.r + 1) * di]
+    return tp.row_parallel(sp, "tp_ssm_out", y, params["out_proj"].to(dt_))
 
 
 # ---------------------------------------------------------------------------
@@ -640,13 +673,7 @@ def mamba2_paged_apply(params, x, cfg: ModelConfig, *, conv_pool, h_pool,
     y = y + params["D"].float()[None, None, :, None] * xh
     y = y.reshape(B, S, di).to(dt_)
     y = y * F.silu(z)
-    if sp is None:
-        y = kops.rmsnorm(y, params["norm_scale"])             # gated RMSNorm
-    else:
-        # the norm is over the whole di: gather the rows, keep own columns
-        y = kops.rmsnorm(sp.all_gather("tp_ssm_norm", y, -1),
-                         params["norm_scale"])[..., sp.r * di:(sp.r + 1) * di]
-    out = tp.row_parallel(sp, "tp_ssm_out", y, params["out_proj"].to(dt_))
+    out = _gated_norm_out(params, y, sp, di, dt_)
 
     if not commit:
         return out, xp, hs_b

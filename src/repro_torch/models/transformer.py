@@ -40,7 +40,7 @@ from repro_torch.models.layers import (embed_tokens, gather_vocab,
                                        init_embedding, init_norm,
                                        norm_apply, rope_freqs, torch_dtype,
                                        unembed)
-from repro_torch.parallel import fsdp
+from repro_torch.parallel import fsdp, tp
 from repro_torch.parallel.sharding import current_rules
 from repro_torch.tree import leaves_with_paths, tree_map
 
@@ -352,12 +352,21 @@ def prefill(params, batch, rcfg: RunConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_cache(rcfg: RunConfig, batch: int, max_len: int, *, device=None):
+def init_cache(rcfg: RunConfig, batch: int, max_len: int, *, device=None,
+               mesh=None):
     """The dense decode cache of every stacked layer, on ``cuda`` unless
     ``device="cpu"`` (see ``resolve_device``): KV (L, B, max_len, Hkv, hd)
     + ``index`` for attention stacks (the encoder-decoder's decoder
     trunk), conv window + state for SSM stacks, both for the hybrid
-    family (its shared attention block keeps one KV layer a position)."""
+    family (its shared attention block keeps one KV layer a position).
+    ``mesh``: this rank's part under ``rcfg.sharding`` (the slots over
+    the batch's axis, the rows over ``kv_seq``'s, KV heads and SSM rows
+    over the tensor-parallel axis), the cache
+    :func:`repro_torch.launch.steps.make_serve_fn` ``(rcfg, mesh)``
+    takes."""
+    if mesh is not None:
+        with tp.active(mesh, rcfg.sharding):
+            return init_cache(rcfg, batch, max_len, device=device)
     cfg = rcfg.model
     kind = block_kind(cfg)
     dev = resolve_device(device)
@@ -379,7 +388,8 @@ def init_cache(rcfg: RunConfig, batch: int, max_len: int, *, device=None):
     return attn_mod.init_kv_cache(cfg, batch, max_len, n, device=dev)
 
 
-def decode_step(params, cache, tokens, rcfg: RunConfig, xa=None):
+def decode_step(params, cache, tokens, rcfg: RunConfig, xa=None, *,
+                fsdp_plan=None):
     """Cached decode: tokens (B, T) on the cache's device. Returns
     (logits (B, T, V), cache) — the cache updated **in place** (the
     reference returns a new one) and returned.
@@ -391,7 +401,15 @@ def decode_step(params, cache, tokens, rcfg: RunConfig, xa=None):
     included. ``xa``: the encoder's output (B, S_src, D) for the
     encoder-decoder family, whose decoder trunk (``dec_mid``) runs here.
     Positions come from ``cache["index"]`` on the device; nothing is read
-    back to the host."""
+    back to the host.
+
+    Under :func:`repro_torch.parallel.tp.active` (the dense step under a
+    mesh: ``params`` and ``cache`` this rank's parts, ``tokens`` and
+    ``xa`` its slots) the logits are gathered over the vocab's ranks.
+    ``fsdp_plan``: a :class:`repro_torch.parallel.fsdp.Plan` of the
+    leaves ``params`` holds one slice a rank of: the embeddings and the
+    other unstacked leaves are gathered whole once a call, each stacked
+    layer's just before it runs."""
     cfg = rcfg.model
     kind = block_kind(cfg)
     if tokens.shape[1] != 1 and (cfg.family == "hybrid"
@@ -399,15 +417,21 @@ def decode_step(params, cache, tokens, rcfg: RunConfig, xa=None):
         raise NotImplementedError(
             "chunked prefill requires attention blocks; SSM/hybrid caches "
             "advance token-by-token")
+    whole = _layer_gather(fsdp_plan, ())
+    params = dict(params, **whole({k: params[k] for k in (
+        "embed", "final_norm", "shared_attn") if k in params}))
     z = embed_tokens(params["embed"], tokens, cfg)
     if cfg.family == "hybrid":
-        return _decode_hybrid(params, cache, z, rcfg)
+        return _decode_hybrid(params, cache, z, rcfg, fsdp_plan)
     if cfg.family == "encdec":
         layers = mgrit.slots(params["dec_mid"]["params"])
         gates = params["dec_mid"]["gate"]
         kind = "encdec_dec"
+        plans = [_layer_gather(fsdp_plan, ("dec_mid", "params"), 1)
+                 ] * len(layers)
     else:
         layers, gates = _all_layers_stacked(params)
+        plans = _stack_gathers(params, fsdp_plan)
     if kind in ("mamba1", "mamba2"):
         rope = None
         layer_cache = [{"conv": c, "h": h}
@@ -422,17 +446,45 @@ def decode_step(params, cache, tokens, rcfg: RunConfig, xa=None):
         raise ValueError(f"{len(layers)} layers but the cache stacks "
                          f"{len(layer_cache)}")
     for i, p in enumerate(layers):
-        z, _ = block_step(p, z, cfg, kind=kind, causal=True, h=1.0,
-                          gate=gates[i], rope=rope, xa=xa,
+        z, _ = block_step(plans[i](p), z, cfg, kind=kind, causal=True,
+                          h=1.0, gate=gates[i], rope=rope, xa=xa,
                           cache=layer_cache[i])
     if "index" in cache:
         cache["index"] += tokens.shape[1]
-    logits = unembed(params["embed"],
-                     norm_apply(params["final_norm"], z, cfg), cfg)
+    logits = gather_vocab(unembed(params["embed"],
+                                  norm_apply(params["final_norm"], z, cfg),
+                                  cfg), cfg)
     return logits, cache
 
 
-def _decode_hybrid(params, cache, z, rcfg: RunConfig):
+def _layer_gather(plan, prefix, lead: int = 0):
+    """The function that makes a subtree at ``prefix`` (``lead``: of one
+    layer of a stack) whole from ``plan``'s cut leaves (identity without
+    a plan or a cut leaf there)."""
+    sub = None if plan is None else plan.under(prefix, lead)
+    if sub is None:
+        return lambda tree: tree
+    return sub.gather_tree
+
+
+def _stack_gathers(params, plan):
+    """:func:`_layer_gather` of every layer :func:`_all_layers_stacked`
+    lists, in its order."""
+    out = []
+    for name in ("open", "mid", "close"):
+        p = params.get(name)
+        stack = p["params"] if name == "mid" and p is not None else p
+        if stack is None:
+            continue
+        n = (len(stack) if isinstance(stack, list)
+             else leaves_with_paths(stack)[0][1].shape[0])
+        prefix = (name, "params") if name == "mid" else (name,)
+        out += [_layer_gather(None if isinstance(stack, list) else plan,
+                              prefix, 1)] * n
+    return out
+
+
+def _decode_hybrid(params, cache, z, rcfg: RunConfig, fsdp_plan=None):
     """One token of the hybrid family: the mamba2 backbone against its
     dense states, the shared attention block after every
     ``hybrid_attn_every`` layers against its KV layer."""
@@ -444,10 +496,11 @@ def _decode_hybrid(params, cache, z, rcfg: RunConfig):
     rope = rope_freqs(cfg.resolved_head_dim, cfg.rope_theta,
                       torch.atleast_1d(idx))
     backbone = mgrit.slots(params["backbone"])
+    whole = _layer_gather(fsdp_plan, ("backbone",), 1)
     li = 0
     for s_i in range(n_seg + (1 if rem else 0)):
         for _ in range(k if s_i < n_seg else rem):
-            z, _ = block_step(backbone[li], z, cfg, kind="mamba2",
+            z, _ = block_step(whole(backbone[li]), z, cfg, kind="mamba2",
                               causal=True,
                               cache={"conv": mamba["conv"][li],
                                      "h": mamba["h"][li]})
@@ -458,8 +511,9 @@ def _decode_hybrid(params, cache, z, rcfg: RunConfig):
                               cache={"k": attn["k"][s_i],
                                      "v": attn["v"][s_i], "index": idx})
     attn["index"] += 1
-    logits = unembed(params["embed"],
-                     norm_apply(params["final_norm"], z, cfg), cfg)
+    logits = gather_vocab(unembed(params["embed"],
+                                  norm_apply(params["final_norm"], z, cfg),
+                                  cfg), cfg)
     return logits, cache
 
 

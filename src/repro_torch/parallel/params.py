@@ -26,7 +26,11 @@ it pass as ``sharding``. Such a leaf is stored in even contiguous
 pieces and rebuilt whole for each use (:mod:`repro_torch.parallel.fsdp`).
 Serving executes :data:`SERVE_EXECUTED`: the slots and page
 pools over ``data``, Megatron tensor parallelism over ``model`` and the
-experts where the rules map them. ``experts`` cuts the expert leaves
+experts where the rules map them. The dense decode step under a mesh
+executes :data:`DECODE_EXECUTED`: serving's axes, the dense cache's
+rows over ``kv_seq`` and the fsdp fallback's storage cut
+(:func:`repro_torch.launch.steps.shard_decode_params`). ``experts``
+cuts the expert leaves
 (``w_in`` / ``w_gate`` / ``w_out``, each rank its E/n experts, whose
 products it runs: :mod:`repro_torch.models.moe`); the router's experts
 dimension is never cut (every rank routes its own tokens over all E),
@@ -98,6 +102,9 @@ EXECUTED = ("layers", "batch", "experts", "fsdp")
 # the experts where the rules map them
 SERVE_EXECUTED = ("batch", "pages", "heads", "kv_heads", "mlp", "vocab",
                   "experts")
+# ... and the dense decode step: serving's axes, the cache's rows over
+# kv_seq, big leaves stored one slice a rank of the fsdp axis
+DECODE_EXECUTED = SERVE_EXECUTED + ("kv_seq", "fsdp")
 _TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
@@ -298,6 +305,11 @@ def _logical_of(path: Path, shape) -> tuple:
 def pool_logical(path: Path, shape) -> tuple:
     """A page-pool leaf's logical axes (:func:`paged_state_specs`)."""
     return _PAGED_POOL_AXES.get((path[-1], len(shape)), (None,) * len(shape))
+
+
+def cache_logical(path: Path, shape) -> tuple:
+    """A dense decode cache leaf's logical axes (:func:`cache_specs`)."""
+    return _CACHE_AXES.get((path[-1], len(shape)), (None,) * len(shape))
 
 
 def mamba_version(cfg: ModelConfig) -> int:

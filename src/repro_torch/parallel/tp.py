@@ -11,9 +11,14 @@ weight (the serve backend cut the weights once, with
 :func:`repro_torch.parallel.params.shard_tree`), and sums or gathers
 over that axis through the mesh's counted collectives. The MoE's
 expert axis reads the same rules (:func:`current`;
-:func:`repro_torch.models.moe.expert_split`). Outside :func:`active`
-(training, the dense decode, an engine without a mesh) :func:`split`
-is None everywhere and the model code runs as it always did.
+:func:`repro_torch.models.moe.expert_split`). The dense-cache decode
+step under a mesh (:func:`repro_torch.launch.steps.make_serve_fn`)
+enters it too: there ``batch`` cuts the slots over the data ranks and
+``kv_seq`` may cut the cache along the sequence (:func:`seq_split`),
+each rank attending over its slice and the slices' partial softmaxes
+merged by their log-sum-exp (:func:`merge_partials`). Outside
+:func:`active` (training, an engine without a mesh) :func:`split` is
+None everywhere and the model code runs as it always did.
 
 A dimension may be packed from several blocks that split apart (mamba1's
 ``in_proj`` is ``[x | z]``): a layout is a list of ``(size, split)``
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -91,6 +97,99 @@ def split(logical: str, full: int) -> Optional[Split]:
     if ax is None or full % mesh.shape[ax]:
         return None
     return Split(mesh, ax, mesh.shape[ax], mesh.index(ax))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """The dense cache's sequence cut over the mesh ``axes`` (the first
+    major, each of more than one rank): ``n`` slices of ``size`` rows,
+    this rank's the ``r``-th, from row ``offset``."""
+    mesh: object
+    axes: Tuple[str, ...]
+    n: int
+    r: int
+    size: int
+
+    @property
+    def offset(self) -> int:
+        return self.r * self.size
+
+
+def seq_split(rows: int, local: bool = False) -> Optional[SeqSplit]:
+    """The cut of a dense cache of ``rows`` rows (``local``: this rank's
+    slice holds ``rows``) along its sequence under :func:`active`, or
+    None: outside it, or where ``kv_seq`` maps to no axis of more than
+    one rank. A whole length that does not divide over those ranks
+    raises (the reference's spec would keep it whole on every rank; the
+    port cuts the sequence wherever the rules say)."""
+    rules = getattr(_ctx, "rules", None)
+    if rules is None:
+        return None
+    mesh, cfg = rules
+    axes = tuple(a for a in axis_tuple(resolve_axis("kv_seq", cfg, mesh))
+                 if mesh.shape[a] > 1)
+    if not axes:
+        return None
+    if axis_of(mesh, cfg, "batch") in axes:
+        raise NotImplementedError(
+            f"kv_seq over {axes} and the batch over "
+            f"{axis_of(mesh, cfg, 'batch')!r}: one axis cannot cut both")
+    n = math.prod(mesh.shape[a] for a in axes)
+    if not local and rows % n:
+        raise NotImplementedError(
+            f"a dense cache of {rows} rows does not cut into {n} slices "
+            f"over {axes}: take a max_len that divides")
+    r = 0
+    for a in axes:
+        r = r * mesh.shape[a] + mesh.index(a)
+    return SeqSplit(mesh, axes, n, r, rows if local else rows // n)
+
+
+def local_rows(full: int) -> int:
+    """This rank's share of ``full`` slots (the ``batch`` dimension)
+    under :func:`active`: ``full`` itself where it is not cut."""
+    sp = split("batch", full)
+    return full // sp.n if sp else full
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   heads: Optional[Split], seq: SeqSplit) -> torch.Tensor:
+    """Attention over the whole sequence from this rank's partial over
+    its slice: ``out`` (B, S, Hq, hd) and ``lse`` (B, S, Hq) float32, the
+    query heads it attended. Where ``heads`` cuts the query heads over
+    one of ``seq``'s axes, one all-to-all over that axis sends each head
+    block's partial to the rank that owns those heads; over every other
+    axis of ``seq`` one all-gather brings the other slices' partials.
+    Then the partials are merged in rank order, each weighted by
+    exp(lse - max): a slice that holds no key of a row (lse -inf, or
+    -1e30 from the plain version) weighs zero. Returns (B, S, H_own, hd)
+    in ``out``'s dtype, the same bits on every rank of a head group."""
+    B, S, Hq, hd = out.shape
+    o, ls = out.float(), lse
+    mesh = seq.mesh
+    n = 1
+    if heads is not None and heads.axis in seq.axes:
+        n = heads.n
+        o = o.unflatten(2, (n, Hq // n)).movedim(2, 0)
+        ls = ls.unflatten(2, (n, Hq // n)).movedim(2, 0)
+    else:
+        o, ls = o[None], ls[None]
+    h_own = o.shape[3]
+    pack = torch.cat([o.reshape(n, -1), ls.reshape(n, -1)], dim=1)
+    if n > 1:
+        pack = mesh.all_to_all("kv_seq_combine", pack, heads.axis, dim=0)
+    for a in seq.axes:
+        if heads is not None and a == heads.axis:
+            continue
+        pack = mesh.all_gather("kv_seq_combine", pack, a, dim=0)
+    k = pack.shape[0]
+    n_o = B * S * h_own * hd
+    o = pack[:, :n_o].reshape(k, B, S, h_own, hd)
+    ls = pack[:, n_o:].reshape(k, B, S, h_own)
+    m = ls.amax(dim=0)
+    w = torch.exp(ls - m)
+    num = (w[..., None] * o).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(out.dtype)
 
 
 def current():

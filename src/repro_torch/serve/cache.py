@@ -34,8 +34,13 @@ device copies of a fork, a spill and a restore touch the pages this
 rank holds. The MoE family's experts run their ``d_ff`` over ``model``
 and, where the rules map ``experts`` (to the slots' axis), each data
 rank holds its E/n experts and exchanges the rows of its slots with the
-others (:mod:`repro_torch.models.moe`). Not under a mesh: the
-encoder-decoder family.
+others (:mod:`repro_torch.models.moe`). The prefix cache's contents
+are read and written through the backend (:meth:`CacheBackend.
+page_contents` / :meth:`CacheBackend.write_page_contents`), whole heads
+and global pages, so that a file saved on any mesh loads on any other.
+Not under a mesh: the encoder-decoder family, and rules beyond
+``serve_sharding``'s axes (``kv_seq`` and ``fsdp`` run only through the
+dense step, :func:`repro_torch.launch.steps.make_serve_fn`).
 """
 from __future__ import annotations
 
@@ -58,12 +63,16 @@ from repro_torch.models.blocks import block_kind
 from repro_torch.obs import profile as obs_profile
 from repro_torch.parallel import params as pparams
 from repro_torch.parallel import tp
-from repro_torch.serve.kv_pages import PageAllocator, state_leaves
-from repro_torch.tree import leaves_with_paths, unflatten
+from repro_torch.serve.kv_pages import (PageAllocator, _from_numpy,
+                                        _to_numpy, read_pages, state_leaves,
+                                        write_pages)
+from repro_torch.tree import leaf_at, leaves_with_paths, unflatten
 
-MESH_KV_SEQ = ("rules that split kv_seq or fsdp (decode_sharding) are not "
-               "executed under a mesh: ROADMAP Queue 1, dense-cache decode "
-               "under a mesh")
+MESH_KV_SEQ = ("the paged engine executes serve_sharding's axes only: rules "
+               "that split kv_seq or store leaves over fsdp (decode_sharding)"
+               " run through the dense step, launch.steps.make_serve_fn("
+               "rcfg, mesh); ROADMAP Queue 1, the paged engine under rules "
+               "beyond serve_sharding")
 
 
 @dataclasses.dataclass
@@ -218,7 +227,7 @@ class CacheBackend:
         with self._rules():
             return self._init_pools(self._local_pages(n_pages))
 
-    def _init_pools(self, n_pages: int):
+    def _init_pools(self, n_pages: int, device=None):
         raise NotImplementedError
 
     def shard_state(self, state):
@@ -493,11 +502,111 @@ class CacheBackend:
             leaf[:, idx] = d.to(leaf.device, leaf.dtype)
         return state
 
+    # -- prefix-cache persistence: whole pages on the host ----------------
+
+    def _narrow_kv(self):
+        """The split of the query heads where each rank's KV pools hold
+        only the one KV head its query heads read (the spec keeps them
+        whole), else None."""
+        with self._rules():
+            return attn_mod.narrow_kv_split(self.rcfg.model)
+
+    def _page_specs(self, state):
+        """(key path, spec with the page axis whole) of each pool leaf in
+        :func:`state_leaves` order: the tensor-parallel cut of the
+        pages' contents."""
+        whole = self._init_pools(self.alloc.n_pages, torch.device("meta"))
+        specs = pparams.paged_state_specs(whole, self.rcfg, self.mesh)
+        paths = _state_paths(state)
+        return [(p, tuple(None if d == 1 else a for d, a in enumerate(
+            leaf_at(specs, p)))) for p in paths]
+
+    def page_contents(self, state, pages):
+        """The contents of the global ``pages`` in every pool leaf, one
+        host array a leaf (:func:`~repro_torch.serve.kv_pages.
+        state_leaves` order, page axis 1), whole: every KV head, every SSM
+        row. Under a mesh every rank calls it and gets the same arrays:
+        each data rank gives the pages of its range (one all-gather over
+        ``data``, ``prefix_io``) and each model rank its heads or rows."""
+        if self.mesh is None:
+            return read_pages(state, pages)
+        pages = np.asarray(pages, np.int64)
+        rows, mesh, cfg = self.rows, self.mesh, self.rcfg.model
+        owner = np.asarray([self.alloc.group_of(int(p)) for p in pages],
+                           np.int64)
+        mine = np.nonzero(owner == rows.index)[0]
+        narrow = self._narrow_kv()
+        out = []
+        for (path, spec), leaf in zip(self._page_specs(state),
+                                      state_leaves(state), strict=True):
+            part = leaf.new_zeros((leaf.shape[0], len(pages),
+                                   *leaf.shape[2:]))
+            part[:, torch.as_tensor(mine, device=leaf.device)] = leaf[
+                :, torch.as_tensor(pages[mine] - rows.base,
+                                   device=leaf.device)]
+            if rows.n > 1:
+                every = mesh.all_gather("prefix_io", part[None], rows.axis)
+                part = every[torch.as_tensor(owner, device=leaf.device), :,
+                             torch.arange(len(pages), device=leaf.device)
+                             ].movedim(0, 1)
+            if narrow is not None and path[-1] in ("k", "v"):
+                part = attn_mod.gather_narrow_kv(mesh, "prefix_io", part,
+                                                 narrow, cfg.n_kv_heads)
+            else:
+                part = pparams.gather_leaf(
+                    part, path, spec, mesh, "prefix_io",
+                    executed=pparams.SERVE_EXECUTED, cfg=cfg,
+                    logical=pparams.pool_logical)
+            out.append(_to_numpy(part))
+        return out
+
+    def write_page_contents(self, state, pages, arrays):
+        """The inverse of :meth:`page_contents`: whole ``arrays`` (one a
+        leaf) written into the global ``pages``, in place; under a mesh
+        each rank writes the pages of its data range, its own heads or
+        rows of them, and nothing else."""
+        if self.mesh is None:
+            write_pages(state, pages, arrays)
+            return state
+        pages = np.asarray(pages, np.int64)
+        rows, cfg = self.rows, self.rcfg.model
+        mine = np.nonzero(np.asarray([self.alloc.group_of(int(p))
+                                      for p in pages]) == rows.index)[0]
+        if not mine.size:
+            return state
+        kv = None
+        if self._narrow_kv() is not None:
+            with self._rules():
+                kv = attn_mod.kv_split(cfg)[1]
+        for (path, spec), leaf, a in zip(self._page_specs(state),
+                                         state_leaves(state), arrays,
+                                         strict=True):
+            whole = _from_numpy(a[:, mine], leaf)
+            if kv is not None and path[-1] in ("k", "v"):
+                local = whole[:, :, :, kv[0]:kv[1]]
+            else:
+                local = pparams.local_slice(
+                    whole, path, spec, self.mesh,
+                    executed=pparams.SERVE_EXECUTED, cfg=cfg,
+                    logical=pparams.pool_logical)
+            leaf[:, torch.as_tensor(pages[mine] - rows.base,
+                                    device=leaf.device)] = local
+        return state
+
     def page_nbytes(self, state) -> int:
         """Bytes one physical page occupies across every pool leaf (this
         rank's part of it under a mesh)."""
         return sum(leaf.element_size() * leaf.numel() // leaf.shape[1]
                    for leaf in state_leaves(state))
+
+
+def _state_paths(state, prefix=()):
+    """Key paths of a state tree's leaves in :func:`state_leaves`
+    order."""
+    if isinstance(state, dict):
+        return [p for k in sorted(state)
+                for p in _state_paths(state[k], prefix + (k,))]
+    return [prefix]
 
 
 def _to_device(tree, device):
@@ -517,10 +626,10 @@ class PagedKVBackend(CacheBackend):
         return functools.partial(transformer.paged_decode_step,
                                  fused=self.fused)
 
-    def _init_pools(self, n_pages: int):
+    def _init_pools(self, n_pages: int, device=None):
         return transformer.init_paged_cache(self.rcfg, n_pages,
                                             self.page_size,
-                                            device=self.device)
+                                            device=device or self.device)
 
     def _verify_fns(self):
         # rollback = truncate lengths: stale KV beyond them is masked
@@ -545,9 +654,9 @@ class SSMStateBackend(CacheBackend):
                                  page_size=self.page_size,
                                  fused=self.fused)
 
-    def _init_pools(self, n_pages: int):
+    def _init_pools(self, n_pages: int, device=None):
         return transformer.init_paged_ssm_cache(self.rcfg, n_pages,
-                                                device=self.device)
+                                                device=device or self.device)
 
     def _verify_fns(self):
         # rollback = the deferred commit publishes the accepted prefix only
@@ -576,9 +685,10 @@ class HybridBackend(CacheBackend):
                                  page_size=self.page_size,
                                  fused=self.fused)
 
-    def _init_pools(self, n_pages: int):
+    def _init_pools(self, n_pages: int, device=None):
         return transformer.init_paged_hybrid_cache(
-            self.rcfg, n_pages, self.page_size, device=self.device)
+            self.rcfg, n_pages, self.page_size,
+            device=device or self.device)
 
     def _verify_fns(self):
         return (functools.partial(transformer.hybrid_paged_verify_step,

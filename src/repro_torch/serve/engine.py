@@ -19,7 +19,11 @@ each building the same engine from the same weights and submitting the
 same requests) it serves as explicit SPMD under the reference's
 ``serve_sharding`` rules: Megatron tensor parallelism over ``model``,
 the slots and page pools over ``data``; every rank returns every
-request's tokens.
+request's tokens; its dense probe and dense oracle run the dense step
+under the same rules (:func:`repro_torch.launch.steps.make_serve_fn`
+``(rcfg, mesh)``) on the weights the backend holds cut, and its prefix
+cache saves and loads whole pages (one file, the reference's format,
+any mesh shape on either side).
 ``spec=SpecConfig(cf, k)`` turns on coarse-propagator speculative
 decoding (:mod:`repro_torch.serve.spec`): the paper's coarse grid drafts
 k tokens per wave from the same weights and the full model verifies
@@ -52,12 +56,6 @@ from repro_torch.serve.kv_pages import region_table
 from repro_torch.serve.scheduler import Scheduler, bucket_len
 from repro_torch.serve.spec import SpecConfig
 
-
-MESH_PREFIX_IO = ("prefix-cache save and load on a mesh of more than one "
-                  "rank are not ported: ROADMAP Queue 1, prefix-cache "
-                  "persistence under a mesh")
-MESH_DENSE = ("the dense-cache route under a mesh (kv_seq / fsdp) is not "
-              "ported: ROADMAP Queue 1, dense-cache decode under a mesh")
 
 
 @dataclasses.dataclass
@@ -154,9 +152,7 @@ class ServeEngine:
                 ``data`` (with ``experts="data"`` the MoE experts too).
                 Every rank builds its engine with the same arguments and
                 drives it with the same calls; the device follows the
-                mesh (NCCL: ``cuda``; gloo: pass ``device="cpu"``). Not
-                under a mesh: the dense probe (``throughput_probe(paged=False)``) and
-                prefix-cache save / load on more than one rank.
+                mesh (NCCL: ``cuda``; gloo: pass ``device="cpu"``).
             max_len / max_batch / page_size / n_pages / share_prefix:
                 forwarded to the :class:`~repro.serve.scheduler.Scheduler`
                 (``n_pages`` sizes the page pool; 0 = every slot can hold
@@ -214,8 +210,9 @@ class ServeEngine:
         self.backend = self.scheduler.backend
         self.device = self.backend.device
         # dense-cache decode fn: the serial-forward oracle and the
-        # comparison probe (throughput_probe(paged=False))
-        self._decode = steps_mod.make_serve_fn(self.backend.rcfg)
+        # comparison probe (throughput_probe(paged=False)), under the
+        # backend's rules on a mesh
+        self._decode = steps_mod.make_serve_fn(self.backend.rcfg, mesh)
         if prefix_cache_path and os.path.exists(prefix_cache_path):
             self.load_prefix_cache(prefix_cache_path)
 
@@ -223,29 +220,39 @@ class ServeEngine:
 
     def save_prefix_cache(self, path: str) -> int:
         """Persist the prefix trie + the device contents of its pinned
-        pages to ``path`` (npz). Returns the number of pages saved."""
+        pages to ``path`` (npz). Returns the number of pages saved. Under
+        a mesh every rank calls it: the ranks give their pages and heads
+        (:meth:`~repro_torch.serve.cache.CacheBackend.page_contents`),
+        global rank 0 writes the file, whole heads and global contents,
+        and every rank returns once it is written."""
         sched = self.scheduler
         if sched.prefix is None:
             raise ValueError("engine was built with share_prefix=False")
-        self._one_rank(MESH_PREFIX_IO)
-        return sched.prefix.save(path, sched.state)
+        if self.mesh is None:
+            return sched.prefix.save(path, sched.state)
+        import torch.distributed as dist
+        n = sched.prefix.save(path, sched.state,
+                              read=self.backend.page_contents,
+                              write_file=dist.get_rank() == 0)
+        self.mesh.barrier()
+        return n
 
     def load_prefix_cache(self, path: str) -> int:
         """Restore a saved prefix cache into this engine's (empty) trie
         and page pool — a warm restart: prompts whose prefixes were
         cached before the restart skip their prefill again. Returns the
         number of pages restored (pages that no longer fit the pool are
-        dropped with their subtrees)."""
+        dropped with their subtrees; a file saved with another page size
+        raises). Under a mesh every rank reads the file: each saved
+        root's subtree
+        goes to one data rank's page range, whose ranks write its pages,
+        each its own heads."""
         sched = self.scheduler
         if sched.prefix is None:
             raise ValueError("engine was built with share_prefix=False")
-        self._one_rank(MESH_PREFIX_IO)
-        sched.state, n = sched.prefix.load(path, sched.state)
+        sched.state, n = sched.prefix.load(
+            path, sched.state, write=self.backend.write_page_contents)
         return n
-
-    def _one_rank(self, what: str) -> None:
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(what)
 
     # -- reporting ----------------------------------------------------------
 
@@ -401,10 +408,9 @@ class ServeEngine:
         synchronizes before and after its steps."""
         if paged:
             return self._paged_probe(batch, steps, table_pages)
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_DENSE)
-        cache = transformer.init_cache(self.rcfg, batch, self.max_len,
-                                       device=self.device)
+        cache = transformer.init_cache(self.backend.rcfg, batch,
+                                       self.max_len, device=self.device,
+                                       mesh=self.mesh)
         tok = torch.ones((batch, 1), dtype=torch.long, device=self.device)
         params = self.backend.params
         tok, cache = self._decode(params, cache, tok)          # warm-up
@@ -414,6 +420,30 @@ class ServeEngine:
             tok, cache = self._decode(params, cache, tok)
         _sync(self.device)
         return batch * steps / (time.perf_counter() - t0)
+
+    def dense_oracle(self, prompt, max_new_tokens: int) -> np.ndarray:
+        """The greedy stream of one request through the dense step (the
+        serial-forward oracle the paged engine is held against), on the
+        weights the backend serves with and, under a mesh, its rules:
+        a dense cache of one slot and ``max_len`` rows, the prompt by one
+        chunked-prefill call (attention families) or a token a call (SSM,
+        hybrid). Every rank returns the same tokens."""
+        rcfg = self.backend.rcfg
+        cache = transformer.init_cache(rcfg, 1, self.max_len,
+                                       device=self.device, mesh=self.mesh)
+        toks = torch.as_tensor(np.asarray(prompt, np.int64),
+                               device=self.device)[None]
+        attn = rcfg.model.family == "decoder"
+        feeds = [toks] if attn else [toks[:, i:i + 1]
+                                     for i in range(toks.shape[1])]
+        with torch.no_grad():
+            for f in feeds:
+                nxt, cache = self._decode(self.backend.params, cache, f)
+            out = [nxt]
+            for _ in range(max_new_tokens - 1):
+                nxt, cache = self._decode(self.backend.params, cache, nxt)
+                out.append(nxt)
+        return torch.cat(out, dim=1)[0].cpu().numpy().astype(np.int32)
 
     def _scratch_table(self, batch: int, n_tokens: int,
                        min_pages: int = 0):

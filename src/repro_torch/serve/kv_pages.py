@@ -487,14 +487,21 @@ class PrefixCache:
     # prompt prefixes skip their prefill again without recomputation.
     # State leaves are saved in jax.tree order (:func:`state_leaves`,
     # page axis 1 by the CacheBackend convention) — load requires the
-    # same model config. The page pools are updated in place.
+    # same model config. The page pools are updated in place. Under a
+    # mesh the backend reads and writes the contents (``read`` /
+    # ``write``: whole heads, global pages) and one rank writes the file.
 
-    def save(self, path: str, state) -> int:
+    def save(self, path: str, state, read=None, write_file: bool = True
+             ) -> int:
         """Write the trie structure + pinned page contents to ``path``.
         ``state`` is the backend's device state whose pages the trie
         pins. Tail entries (token-granular partial pages) ride along in
         parallel ``tail_*`` arrays, keys padded to page_size with -1.
-        Returns the number of pages saved (full + tail)."""
+        ``read(state, pages)``: the pages' contents, one host array a
+        state leaf (default: this device's pools, :func:`read_pages`);
+        ``write_file`` False builds everything but writes nothing (the
+        other ranks of a mesh). Returns the number of pages saved (full +
+        tail)."""
         recs: List[Tuple[int, Tuple[int, ...], int]] = []
         tail_recs: List[Tuple[int, Tuple[int, ...], int]] = []
 
@@ -526,18 +533,22 @@ class PrefixCache:
             "tail_pages": tail_pages,
         }
         all_pages = np.concatenate([pages, tail_pages])
-        for i, leaf in enumerate(state_leaves(state)):
-            idx = torch.as_tensor(all_pages, dtype=torch.long,
-                                  device=leaf.device)
-            data[f"leaf_{i}"] = _to_numpy(leaf[:, idx])
-        np.savez(path, **data)
+        for i, a in enumerate((read or read_pages)(state, all_pages)):
+            data[f"leaf_{i}"] = a
+        if write_file:
+            np.savez(path, **data)
         return len(recs) + len(tail_recs)
 
-    def load(self, path: str, state):
+    def load(self, path: str, state, write=None):
         """Restore a saved cache into this (empty) trie: allocates fresh
         pages, scatters the saved contents into ``state``, and rebuilds
         the trie nodes pinning them. Nodes that no longer fit the pool —
         or whose parent was dropped — are skipped with their subtrees.
+        With several allocator groups (a mesh's data ranks) each saved
+        root's subtree goes to one group, the one with the most free
+        pages when it is reached: a slot's prefix chain must stay in its
+        rank's range. ``write(state, pages, arrays)`` scatters the
+        contents (default: this device's pools, :func:`write_pages`).
         Returns (state, n_pages_restored); ``state``'s pools are
         written in place."""
         d = np.load(path)
@@ -560,7 +571,8 @@ class PrefixCache:
             if key in children:                # already cached post-restart
                 nodes[i] = children[key]
                 continue
-            got = self.alloc.alloc(1)
+            got = self.alloc.alloc(1, self._load_group(
+                None if parent < 0 else nodes[parent]))
             if got is None:
                 continue                       # pool full: drop subtree
             new_ids[i] = got[0]
@@ -584,7 +596,8 @@ class PrefixCache:
             key = tuple(int(t) for t in d["tail_keys"][i][:klen])
             if any(len(o) >= klen and o[:klen] == key for o in owner):
                 continue                       # already cached/subsumed
-            got = self.alloc.alloc(1)
+            got = self.alloc.alloc(1, self._load_group(
+                None if parent < 0 else nodes[parent]))
             if got is None:
                 continue                       # pool full: drop entry
             tail_new[i] = got[0]
@@ -594,9 +607,38 @@ class PrefixCache:
         if kept or tail_kept:
             src = kept + [n + i for i in tail_kept]
             dst = np.concatenate([new_ids[kept], tail_new[tail_kept]])
-            for j, leaf in enumerate(state_leaves(state)):
-                idx = torch.as_tensor(dst, dtype=torch.long,
-                                      device=leaf.device)
-                leaf[:, idx] = _from_numpy(d[f"leaf_{j}"][:, src], leaf)
+            (write or write_pages)(state, dst, [
+                d[f"leaf_{j}"][:, src]
+                for j in range(len(state_leaves(state)))])
         return state, len(kept) + len(tail_kept)
+
+    def _load_group(self, parent: Optional[_PrefixNode]) -> int:
+        """The allocator group a restored page joins: its parent's, and
+        for a root the group with the most free pages (the lowest of
+        equals)."""
+        if parent is not None:
+            return self.alloc.group_of(parent.page)
+        return max(range(self.alloc.groups),
+                   key=lambda g: (self.alloc.n_free_in(g), -g))
+
+
+def read_pages(state, pages) -> List[np.ndarray]:
+    """The contents of ``pages`` in every pool leaf of a one-device
+    ``state``, one host array a leaf (:func:`state_leaves` order, page
+    axis 1)."""
+    out = []
+    for leaf in state_leaves(state):
+        idx = torch.as_tensor(np.asarray(pages), dtype=torch.long,
+                              device=leaf.device)
+        out.append(_to_numpy(leaf[:, idx]))
+    return out
+
+
+def write_pages(state, pages, arrays) -> None:
+    """The inverse of :func:`read_pages`: ``arrays`` (one a leaf) written
+    into ``pages`` of every pool leaf, in place."""
+    for leaf, a in zip(state_leaves(state), arrays, strict=True):
+        idx = torch.as_tensor(np.asarray(pages), dtype=torch.long,
+                              device=leaf.device)
+        leaf[:, idx] = _from_numpy(a, leaf)
 

@@ -332,6 +332,41 @@ def test_paged_decode_split_edges_match_plain_on_card(g, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol,lse_tol", [(torch.float32, 2e-5, 1e-4),
+                                               (torch.bfloat16, 2e-2, 1e-3)])
+@pytest.mark.parametrize("S", [1, 256])
+def test_paged_lse_route_matches_plain_on_card(S, dtype, tol, lse_tol):
+    """The lse route over one page of 128 rows a slot (a rank's slice of
+    the dense cache) at local lengths before, inside and past it: out
+    within ``tol`` and lse within ``lse_tol`` of the plain version where
+    a row sees a key; out 0 and lse -inf (the plain version's -1e30)
+    where it sees none; the plain route's out bit for bit."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S)
+    lens = torch.tensor([-300, -1, 0, 63, 127, 500], dtype=torch.int32,
+                        device="cuda")
+    B, L, H, Hkv, hd = len(lens), 128, 16, 8, 128
+
+    def r(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.5
+                ).to(dtype)
+    q, pk, pv = r(B, S, H, hd), r(B, L, Hkv, hd), r(B, L, Hkv, hd)
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    out, lse = tpa.paged_flash_attention_lse(q, pk, pv, table, lens)
+    plain = tpa.paged_flash_attention(q, pk, pv, table, lens)
+    want, want_lse = tpa.paged_attention_lse_ref(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    seen = (lens[:, None] + torch.arange(S, device="cuda") >= 0)[
+        ..., None].expand(B, S, H)
+    assert torch.equal(out, plain)
+    assert (out.float() - want.float()).abs().amax(-1)[seen].max() <= tol
+    assert (lse - want_lse).abs()[seen].max() <= lse_tol
+    assert bool((out[~seen] == 0).all())
+    assert bool((lse[~seen] == -float("inf")).all())
+    assert bool((want_lse[~seen] <= -1e29).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S,lengths", [(1, [287, 301, 150, 64]),
                                        (256, [0, 37, 100, 200])])
 def test_paged_flash_attention_is_bit_repeatable_on_card(S, lengths):

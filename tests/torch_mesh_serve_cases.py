@@ -225,16 +225,13 @@ def skew_case(mesh, case):
 
 
 def refusal_case(mesh, case):
-    """What a mesh engine refuses, each message naming its ROADMAP
-    item: the dense probe, rules that split kv_seq or fsdp."""
+    """The dense probe a mesh engine runs, and what it refuses, the
+    message naming its ROADMAP item: rules that split kv_seq or fsdp."""
     out = {}
     rcfg = family_rcfg("decoder")
     eng = ServeEngine(rcfg, transformer.init_model(rcfg, device="cpu"),
                       mesh=mesh, **KW)
-    try:
-        eng.throughput_probe(2, paged=False)
-    except NotImplementedError as e:
-        out["dense"] = str(e)
+    out["dense"] = eng.throughput_probe(2, paged=False)
     try:
         ServeEngine(rcfg, transformer.init_model(rcfg, device="cpu"),
                     mesh=mesh, sharding=registry.decode_sharding(), **KW)
