@@ -99,7 +99,18 @@ logits and its launches bitwise phase 5d's second engine's. Phase 5f
 runs with ``--mesh`` only, on 2 or more cards (``python3 chip_smoke.py
 --mesh``: phases 5e, 5f, 6, 6c and 6d alone; ``--mesh serve``: 5e and
 5f; ``--mesh moe``: 5f's and 6d's qwen3-moe parts alone; ``--mesh
-fsdp``: 6d's granite and qwen3-moe parts alone): NCCL ranks serve
+fsdp``: 6d's granite and qwen3-moe parts alone; ``--mesh tp`` (4
+cards): Megatron tensor parallelism in training, qwen3 at (1, 4) (its
+(1, 2) runs in ``--mesh``'s 6d) and zamba2 at full width and depth at
+(1, 4) and (2, 2), each rank's first gradient and two Trainer steps
+against one card's run, the float32 split's gradient leaves and norm
+and, after two float32 Trainer steps, its params and moments,
+stored bytes, peak memory, step seconds, collectives and launches a
+rank; ``--mesh dense``: dense decode under a mesh and a (2, 2) prefix
+file loaded by a one-card engine, held to the (2, 2) engine's streams;
+phase 6g (every run) trains zamba2 through a world-1 NCCL mesh bitwise
+phase 7's run and holds its 6-layer gradient at (1, 2) on this card
+through two gloo ranks): NCCL ranks serve
 the smoke queue, fused and gathered, qwen3_1p7b at (1, 2), (2, 1), (1,
 4) and (2, 2) and falcon_mamba_7b and zamba2_1p2b at (1, 2); every
 rank's streams equal, each emission's logits within DENSE_GAP of the
@@ -115,8 +126,10 @@ in this process (the losses and every param leaf's sha256 bit for bit
 the one-device run's after the same two steps, the collectives of each
 step printed by kind and bytes), and where 2 or more cards are visible
 (phase 6d) on NCCL ranks spawned over 2 cards at (1, 2), and over 4 at
-(1, 4) where 4 are visible (each rank's losses, and the sha256 of every
-param leaf gathered whole after the two steps, bit for bit 6c's; step
+(1, 4) where 4 are visible, the vocab cut over 'model' as the training
+rules say (the embeddings, zT and the state the head reads bitwise one
+card's; the first batch's gradient within TP_GRAD_COS / TP_GRAD_NORM
+and the losses within TP_LOSS_REL of one card's; stored bytes, step
 seconds, peak memory, halo bytes); with one card it prints that 6d did
 not run. 6d then holds the full-width qwen3_moe_235b gradient (5
 stacked layers, B 4) gathered from NCCL ranks at (2, 1) and (4, 1), the
@@ -4961,20 +4974,23 @@ def mesh_counts_text(counts) -> str:
                      for k, (n, b) in sorted(counts.items())) or "none"
 
 
-def mesh_train(mesh, device, rcfg=None, progress=False):
+def mesh_train(mesh, device, rcfg=None, progress=False, trainer=None):
     """``Trainer(rcfg, mesh=mesh)`` (default ``qwen3_train_config()``;
-    ``mesh`` None: one device): MESH_STEPS steps at phase 6's seed and
-    data, one ``train(1)`` each, the mesh's collective counts reset
-    before each step and read after it. The training launch counters are set to 0 just before the first
+    ``mesh`` None: one device; ``trainer``: that one, built already):
+    MESH_STEPS steps at phase 6's seed and data, one ``train(1)`` each,
+    the mesh's collective counts reset before each step and read after
+    it. The training launch counters are set to 0 just before the first
     step and read after the last. With ``progress`` global rank 0 prints
     a line after the init and after each step (memory, seconds). Returns
     the losses, each step's seconds and collectives, the launches, the
-    peak memory (GiB) and the trainer."""
+    peak memory (GiB), the bytes this rank stores (params and optimizer
+    state) and the trainer."""
     import torch
     from repro_torch.train.trainer import Trainer
     t0 = time.perf_counter()
-    trainer = Trainer(rcfg or qwen3_train_config(), mesh=mesh, seed=0,
-                      device=device)
+    if trainer is None:
+        trainer = Trainer(rcfg or qwen3_train_config(), mesh=mesh, seed=0,
+                          device=device)
     say = progress and (mesh is None or torch.distributed.get_rank() == 0)
 
     def report(what):
@@ -5001,32 +5017,20 @@ def mesh_train(mesh, device, rcfg=None, progress=False):
     return {"losses": losses, "step_s": secs, "collectives": colls,
             "launches": train_counts(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "stored_gb": stored_bytes(trainer.params, trainer.opt_state)
+            / 1e9,
             "kept_whole": [".".join(p) for p in trainer.kept_whole]}, trainer
 
 
-def mesh_rank(shape):
-    """One rank of phase 6d (a spawned process, its card
-    ``cuda:<rank>``): ``mesh_train`` on a ("data", "model") mesh of
-    ``shape``, then the params gathered whole on every rank and, on rank
-    0, the sha256 of every leaf (``state_digest``); returns its numbers
-    (no tensors)."""
-    import torch
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer
-    from repro_torch.parallel import params as pparams
-    mesh = make_mesh(shape, ("data", "model"), "cuda")
-    res, trainer = mesh_train(mesh, f"cuda:{torch.cuda.current_device()}")
-    rank = torch.distributed.get_rank()
-    t0 = time.perf_counter()
-    rcfg = trainer.rcfg
-    specs = pparams.train_specs(transformer.param_shapes(rcfg), rcfg, mesh)
-    full = pparams.gather_tree(trainer.params, specs, mesh,
-                               sharding=rcfg.sharding)
-    digest = state_digest(full, {"step": trainer.opt_state["step"]}) \
-        if rank == 0 else None
-    del trainer, full
-    return {"rank": rank, "device": torch.cuda.current_device(),
-            "digest": digest, "digest_s": time.perf_counter() - t0, **res}
+def stored_bytes(params, opt_state) -> int:
+    """The bytes of a params tree and its optimizer state (m, v and an
+    fp32 master copy where there is one), as stored (a rank's slices
+    under a mesh; meta tensors will do)."""
+    from repro_torch.tree import leaves_with_paths
+    trees = [params] + [opt_state[k] for k in ("m", "v", "master")
+                        if k in opt_state]
+    return sum(t.numel() * t.element_size() for tree in trees
+               for _, t in leaves_with_paths(tree))
 
 
 def mesh_phase(card, ref):
@@ -5037,10 +5041,13 @@ def mesh_phase(card, ref):
     ``at_step_2``) bit for bit, and every training kernel must launch.
     Phase 6d, where 2 or more cards are visible: the same training on
     ``spawn_host_ranks`` NCCL ranks at (1, 2), and at (1, 4) with 4
-    cards; each rank's losses and the params gathered whole after the
-    steps must equal 6c's bit for bit (the digests; differing leaves
-    are named); printed beside each rank's step seconds, peak memory,
-    halo and hand-off bytes. Returns the phase's numbers."""
+    cards (``tp_train_shape``: the vocab cut over 'model' as the rules
+    say, so the head's sums cross ranks: the embeddings, zT and the
+    state the head reads bitwise one card's, the first batch's gradient
+    within TP_GRAD_COS / TP_GRAD_NORM and the losses within TP_LOSS_REL
+    of 6c's); printed beside each rank's stored bytes, step seconds,
+    peak memory, halo and hand-off bytes. Returns the phase's
+    numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.hostdev import spawn_host_ranks
@@ -5091,49 +5098,544 @@ def mesh_phase(card, ref):
         return out
     out["6d"] = {}
     for shape in [(1, 2)] + ([(1, 4)] if n >= 4 else []):
-        t0 = time.perf_counter()
-        ranks = spawn_host_ranks(shape[0] * shape[1], mesh_rank, shape,
-                                 backend="nccl", timeout=MESH_SPAWN_S)
-        wall = time.perf_counter() - t0
-        name = f"{shape[0]}x{shape[1]}"
-        got = ranks[0]["digest"]
-        differ = sorted(k for k in want["digest"]
-                        if got.get(k) != want["digest"][k])
-        print(f"[{card}] phase 6d {shape}: {len(want['digest']) - 1} param "
-              "leaves gathered whole after the steps: "
-              + (f"{len(differ)} DIFFER from 6c's: {differ[:8]}" if differ
-                 else "every digest equal to 6c's")
-              + f" (gather and digest {ranks[0]['digest_s']:.1f} s)")
-        if differ:
-            fail(f"phase 6d {shape}: the params after {MESH_STEPS} steps "
-                 f"differ from 6c's: {differ[:8]}")
-        for r in ranks:
-            rel = max(abs(a - b) / abs(b) for a, b in
-                      zip(r["losses"], want["losses"], strict=True))
-            halo = r["collectives"][-1].get("halo", [0, 0])
-            hand = r["collectives"][-1].get("handoff", [0, 0])
-            print(f"[{card}] phase 6d {shape} rank {r['rank']} (cuda:"
-                  f"{r['device']}): losses {r['losses']} ("
-                  + ("bitwise 6c's" if r["losses"] == want["losses"] else
-                     f"largest relative gap to 6c {rel:.3e}")
-                  + f"); steps {[round(x, 3) for x in r['step_s']]} s; "
-                  f"peak {r['peak_gib']:.1f} GiB; step 1 sends: halo "
-                  f"{halo[0]}x ({halo[1] / max(halo[0], 1) / 2**20:.1f} "
-                  f"MiB each), hand-off {hand[0]}x; collectives by kind: "
-                  + mesh_counts_text(r["collectives"][-1]))
-            if r["losses"] != want["losses"]:
-                fail(f"phase 6d {shape}: rank {r['rank']}'s losses "
-                     f"{r['losses']} are not 6c's {want['losses']}")
-            if min(r["launches"].get(k, 0) for k in (
-                    "flash_attention_fwd", "flash_attention_bwd",
-                    "rmsnorm_fwd", "rmsnorm_bwd")) <= 0:
-                fail(f"phase 6d {shape}: rank {r['rank']} launched no "
-                     f"training kernel: {r['launches']}")
-        print(f"phase 6d {shape}: {wall:.1f} s wall (spawn, init, "
-              f"{MESH_STEPS} steps); the coarse solve is a hand-off (no "
-              "coarse all-gather at levels 2)")
-        out["6d"][name] = {"ranks": ranks, "wall_s": wall}
+        out["6d"][f"{shape[0]}x{shape[1]}"] = tp_train_shape(
+            card, shape, "qwen3", want["losses"])
     return out
+
+
+# -- phase 6d's qwen3, --mesh tp and phase 6g (every run): Megatron tensor
+# parallelism in training. Every training rule cuts the vocab over 'model'
+# (the head and the loss vocab-parallel), and zamba2's tp_sharding its
+# heads, MLP and Mamba2 rows too, so the sums cross ranks: the embeddings
+# (one non-zero term summed with zeros) and, where only the vocab is cut,
+# zT and the state the head reads stay bitwise one card's; the gradient is
+# held by its direction and norm to one card's: in float32 within
+# TP_GRAD_COS / TP_GRAD_NORM (the MoE checks' limits), and in bf16 within
+# them too or no farther from one card's than one card's bf16 gradient lies
+# from its float32 twin, computed beside it (any reordering of a
+# contraction flips bf16 roundings that the adjoint carries through as
+# another bf16 realization: qwen3's vocab split alone reads 0.99980 at full
+# depth, one card's own bf16-vs-float32 0.99918 at 10 layers). The losses
+# are held within TP_LOSS_REL. 6g (every run, one card): full-width full-depth
+# zamba2 through a world-1 NCCL mesh, losses
+# and every state leaf's sha256 after two steps bitwise phase 7's one-device
+# run, no collective issued; then its gradient at TP_SPLIT_LAYERS layers
+# (the shared attention block after the sixth) at (1, 2) on this card
+# through two gloo ranks over host_staged_mesh. --mesh tp (4 cards): the
+# first batch's gradient and two Trainer steps of zamba2 at full width and
+# depth at (1, 4) and (2, 2), and of qwen3 at (1, 4) (6d runs its (1, 2)),
+# against one card's run in this process; stored bytes a rank beside one
+# card's, peak memory, step seconds, collectives by kind and bytes,
+# launches.
+TP_GRAD_COS, TP_GRAD_NORM = MOE_GRAD_COS, MOE_GRAD_NORM
+TP_LOSS_REL = 1e-3
+TP_SPLIT_LAYERS = 6
+# the split in float32, held leaf by leaf against one card's: a gradient
+# leaf's, and after MESH_STEPS Trainer steps each AdamW moment leaf's,
+# largest error within TP_F32_LEAF of the leaf's largest magnitude (the
+# gradient's measured at most 3.99e-05 under --mesh tp on 4 H100 80GB
+# HBM3 at 700 W); the gradient norm the clip reads (norm_layers) within
+# TP_NORM_REL of one card's. The moments are linear and quadratic in the
+# clipped gradient, so they show a wrong partial sum or clip norm. AdamW
+# moves an element by up to about lr a step whatever its gradient's size,
+# so where a gradient is near 0 its rounding decides the direction: a
+# param leaf is held to TP_F32_LEAF of its largest beyond what the steps
+# can move an element apart (``tp_f32_steps``), which shows a slice out of
+# place. The Trainer steps run at TP_F32_LAYERS layers: full width, a
+# depth that holds every kind of leaf (zamba2's shared block after the
+# sixth layer).
+TP_F32_LEAF = 1e-3
+TP_NORM_REL = 1e-5
+TP_F32_LAYERS = {"qwen3": 10, "zamba2": TP_SPLIT_LAYERS}
+
+
+def tp_config(which):
+    """``qwen3``: ``qwen3_train_config()``; ``zamba2``:
+    ``zamba2_train_config()`` (B 1: at (2, 2) both data ranks run the
+    row); ``<name>@<n>``: either at n layers."""
+    rcfg = qwen3_train_config() if which.startswith("qwen3") else \
+        zamba2_train_config()
+    if "@" in which:
+        rcfg = rcfg.replace(model=dataclasses.replace(
+            rcfg.model, n_layers=int(which.split("@")[1])))
+    return rcfg
+
+
+def tp_f32_config(which):
+    """``tp_config(which)``'s model at TP_F32_LAYERS layers, float32
+    compute."""
+    name = which.split("@")[0]
+    rcfg = tp_config(f"{name}@{TP_F32_LAYERS[name]}")
+    return rcfg.replace(model=dataclasses.replace(rcfg.model,
+                                                  dtype="float32"))
+
+
+def tp_f32_reference(which, dev):
+    """One device's ``Trainer`` of ``tp_f32_config(which)`` (seed 0),
+    MESH_STEPS steps of one ``train(1)`` each: its losses and, in host
+    memory, its params and AdamW moments after them ("params", "m",
+    "v": {path: tensor})."""
+    import torch
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaves_with_paths
+    tr = Trainer(tp_f32_config(which), seed=0, device=dev)
+    losses = []
+    for _ in range(MESH_STEPS):
+        losses += tr.train(1, log_every=0).losses
+    ref = {"losses": losses}
+    for k, tree in (("params", tr.params), ("m", tr.opt_state["m"]),
+                    ("v", tr.opt_state["v"])):
+        ref[k] = {p: t.detach().cpu() for p, t in leaves_with_paths(tree)}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_f32_steps(mesh, dev, which, ref):
+    """Every rank of ``mesh``: ``Trainer(tp_f32_config(which), mesh=mesh)``
+    MESH_STEPS steps as ``tp_f32_reference`` takes them, then its params
+    and moments gathered whole a leaf at a time. On global rank 0
+    (``ref``: that function's result) each leaf's largest error against
+    one device's over that leaf's largest magnitude; a param's less what
+    two runs' steps can move an element apart, 2.02 x the sum of the
+    steps' lr x (1 + weight decay x the leaf's largest magnitude) (an
+    AdamW step moves an element by at most 1.0004 x lr at betas 0.9 /
+    0.95, plus the decay), floored at 0. Returns
+    {"f32_losses", "f32_worst": {"params" / "m" / "v": the worst leaves,
+    (name, value)}} (the worst on rank 0 only)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import lr_at
+    from repro_torch.parallel import params as pparams
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaf_at, leaves_with_paths
+    r32 = tp_f32_config(which)
+    opt = r32.optimizer
+    moved = 2.02 * sum(lr_at(opt, t + 1) for t in range(MESH_STEPS))
+    tr = Trainer(r32, mesh=mesh, seed=0, device=dev)
+    losses = []
+    for _ in range(MESH_STEPS):
+        losses += tr.train(1, log_every=0).losses
+    specs = pparams.train_specs(transformer.param_shapes(r32), r32, mesh)
+    rank0 = dist.get_rank() == 0
+    errs = {"params": {}, "m": {}, "v": {}}
+    for name, tree in (("params", tr.params), ("m", tr.opt_state["m"]),
+                       ("v", tr.opt_state["v"])):
+        for p, leaf in leaves_with_paths(tree):
+            whole = pparams.gather_leaf(
+                leaf, p, leaf_at(specs, p), mesh, kind="check_gather",
+                cfg=r32.model, sharding=r32.sharding)
+            if rank0 and p[-1] != "gate":
+                want = ref[name][p].to(whole.device).float()
+                top = want.abs().max().item()
+                err = (whole.detach().float() - want).abs().max().item()
+                if name == "params":
+                    err = max(0.0, err - moved * (1 + opt.weight_decay * top))
+                errs[name][".".join(p)] = err / max(top, 1e-30)
+            del whole
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32_losses": losses,
+            "f32_worst": {k: sorted(v.items(), key=lambda kv: -kv[1])[:4]
+                          for k, v in errs.items()} if rank0 else None}
+
+
+def tensor_digest(t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().contiguous().view(-1).view(
+        torch.uint8).cpu().numpy()).hexdigest()
+
+
+def tp_states(params, batch, rcfg, mesh):
+    """sha256 of the token embeddings and, for a decoder, of the trunk's
+    output zT and of the state the head reads (after the final norm),
+    under ``mesh``'s training rules (None: one device); no gradient."""
+    import contextlib
+    import torch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.blocks import block_kind
+    from repro_torch.parallel.sharding import axis_rules
+    cfg = rcfg.model
+    rules = contextlib.nullcontext() if mesh is None else \
+        axis_rules(mesh, rcfg.sharding)
+    with torch.no_grad(), rules:
+        p = tr.train_params(params, rcfg)
+        z = tr._embed_inputs(p, batch, cfg)
+        out = {"embed": tensor_digest(z)}
+        if cfg.family == "hybrid":
+            return out
+        kind = block_kind(cfg)
+        rope = tr._rope_for(cfg, z.shape[1], z.device)
+        z = tr._serial_buffer(p.get("open"), z, cfg, kind=kind,
+                              causal=True, rope=rope)
+        zT, _ = tr._trunk(p, "mid", z, rcfg, kind=kind, causal=True,
+                          rope=rope, mode="lp", n_layers=cfg.n_layers)
+        out["zT"] = tensor_digest(zT)
+        del z, zT
+        out["prehead"] = tensor_digest(tr.hidden_states(params, batch,
+                                                        rcfg)[0])
+    return out
+
+
+def leaf_errors_all(got, want):
+    """{leaf: max|got - want| / max|want|} (the gates left out)."""
+    out = {}
+    for path, w in want.items():
+        if path[-1] == "gate":
+            continue
+        g = got[path].to(w.device)
+        den = w.float().abs().max().item()
+        out[".".join(path)] = (g.float() - w.float()).abs().max().item() \
+            / max(den, 1e-30)
+    return out
+
+
+def tp_rank(shape, which, steps, staged=False):
+    """One rank of a tensor-parallel training check (a spawned process:
+    an NCCL rank on ``cuda:<rank>``, or with ``staged`` a gloo rank on
+    cuda:0 over ``host_staged_mesh``). Global rank 0 first takes one
+    card's gradients of ``tp_config(which)``'s first batch (seed 0,
+    moved to host memory), in its bf16 compute and in float32, and its
+    ``tp_states``; then every rank builds its slices on the mesh (the
+    ``Trainer``'s where it steps), its ``tp_states`` (at (1, n), where a
+    rank holds every row), the gradient of its rows of the first batch
+    through ``make_grad_fn(rcfg, mesh)`` and the gradient norm (launch
+    and collective counters set to 0 just before, read just after) and
+    the same gradient in float32, each gathered whole (on rank 0 their
+    cosines and norm differences to one card's, and their largest leaf
+    errors), then ``steps`` Trainer steps (``mesh_train``) and, where
+    there are steps, the float32 Trainer check (``tp_f32_reference`` on
+    rank 0 first, ``tp_f32_steps``). Returns numbers only."""
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import make_pipeline, shard_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    from repro_torch.parallel import params as pparams
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaves_with_paths, tree_map
+    rcfg = tp_config(which)
+    r32 = rcfg.replace(model=dataclasses.replace(rcfg.model,
+                                                 dtype="float32"))
+    rank = dist.get_rank()
+    dev = "cuda" if staged else f"cuda:{torch.cuda.current_device()}"
+    host_batch = make_pipeline(rcfg, 0).batch_at(0)
+    out = {"rank": rank, "device": torch.cuda.current_device()}
+    refs, ref32 = {}, None
+    if rank == 0:
+        t0 = time.perf_counter()
+        params = transformer.init_model(rcfg, seed=0, device=dev)
+        b = shard_batch(host_batch, dev)
+        out["one_states"] = tp_states(params, b, rcfg, None)
+        for name, cfg_ in (("bf16", rcfg), ("f32", r32)):
+            out[f"one_loss_{name}"], g = grads_of(params, b, cfg_,
+                                                  mode="lp")
+            out[f"one_norm_{name}"] = math.sqrt(sum(
+                float(x.double().square().sum()) for x in g.values()))
+            refs[name] = {p: x.cpu() for p, x in g.items()}
+            del g
+        # the bf16 floor: one card's bf16 gradient against its float32 twin
+        out["floor_cos"], out["floor_norm"] = grad_direction(refs["bf16"],
+                                                             refs["f32"])
+        del params, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        if steps:
+            ref32 = tp_f32_reference(which, dev)
+        out["one_s"] = time.perf_counter() - t0
+    mesh = host_staged_mesh(shape) if staged else \
+        make_mesh(shape, ("data", "model"), "cuda")
+    trainer = None
+    if steps:
+        trainer = Trainer(rcfg, mesh=mesh, seed=0, device=dev)
+        local, whole = trainer.params, trainer.kept_whole
+    else:                   # a host-staged mesh is on the CPU: no Trainer
+        full = transformer.init_model(rcfg, seed=0, device=dev)
+        local, whole = pparams.shard_tree(
+            full, pparams.train_specs(full, rcfg, mesh), mesh,
+            cfg=rcfg.model, sharding=rcfg.sharding)
+        del full
+        out["stored_gb"] = stored_bytes(local, optimizers.init_opt_state(
+            rcfg.optimizer, tree_map(lambda t: t.to("meta"), local))) / 1e9
+    out["kept_whole"] = [".".join(p) for p in whole]
+    batch = shard_batch(host_batch, dev, mesh, rcfg)
+    out["states"] = tp_states(local, batch, rcfg, mesh) \
+        if shape[0] == 1 else None
+    specs = pparams.train_specs(transformer.param_shapes(rcfg), rcfg, mesh)
+    for name, cfg_ in (("bf16", rcfg), ("f32", r32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_counts()
+        reset_train_counts()
+        t0 = time.perf_counter()
+        loss, _, grads = steps_mod.make_grad_fn(cfg_, mesh)(local, batch)
+        gn = optimizers.global_norm(grads, steps_mod.norm_layers(cfg_, mesh))
+        torch.cuda.synchronize()
+        if name == "bf16":      # the main path's numbers
+            out.update(loss=loss.item(), grad_norm=gn.item(),
+                       grad_s=time.perf_counter() - t0,
+                       grad_launches=train_counts(),
+                       grad_collectives={k: list(v) for k, v in
+                                         mesh.counts.items()},
+                       grad_peak_gib=torch.cuda.max_memory_allocated()
+                       / 2**30)
+        else:
+            out.update(loss_f32=loss.item(), grad_norm_f32=gn.item())
+        full_g = pparams.gather_tree(grads, specs, mesh, cfg=rcfg.model,
+                                     sharding=rcfg.sharding)
+        del grads
+        if rank == 0:
+            got = dict(leaves_with_paths(full_g))
+            out[f"cos_{name}"], out[f"norm_{name}"] = grad_direction(
+                got, refs[name])
+            errs = leaf_errors_all(got, refs.pop(name))
+            out[f"worst_{name}"] = sorted(errs.items(),
+                                          key=lambda kv: -kv[1])[:4]
+            del got
+        del full_g
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, local
+    if steps:
+        res, trainer = mesh_train(mesh, dev, trainer=trainer)
+        out.update(res)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if steps:
+        out.update(tp_f32_steps(mesh, dev, which, ref32))
+        if rank == 0:
+            out["one_f32_losses"] = ref32["losses"]
+        del ref32
+    return out
+
+
+TP_KERNELS = {"qwen3": ("flash_attention_fwd", "flash_attention_bwd",
+                        "rmsnorm_fwd", "rmsnorm_bwd"),
+              "zamba2": ("flash_attention_fwd", "flash_attention_bwd",
+                         "rmsnorm_fwd", "rmsnorm_bwd", "ssm_scan_fwd",
+                         "ssm_scan_bwd")}
+
+
+def tp_train_shape(card, shape, which, ref_losses, one_gb=None,
+                   staged=False):
+    """``tp_rank`` on the ranks of ``shape`` (``staged``: two gloo ranks
+    on this card, the gradient alone; else NCCL ranks over the cards,
+    with MESH_STEPS Trainer steps held to ``ref_losses``, one card's),
+    its numbers printed and held: the first batch's gradient in float32
+    within TP_GRAD_COS / TP_GRAD_NORM of one card's and every leaf within
+    TP_F32_LEAF of its largest magnitude, its norm as the clip reads it
+    the same on every rank and within TP_NORM_REL of one card's; in bf16
+    (the main path) within TP_GRAD_COS / TP_GRAD_NORM too or within one
+    card's bf16-vs-float32 distance, its norm the same on every rank;
+    every rank the same loss within TP_LOSS_REL of one card's, the
+    embeddings (and for a decoder zT and the state the head reads)
+    bitwise one card's at (1, n), every kernel of the path launched on
+    every rank, a tensor-parallel collective issued, nothing kept whole,
+    the Trainer's losses the same on every rank and within TP_LOSS_REL of
+    ``ref_losses``; the float32 Trainer's losses the same on every rank
+    and within TP_NORM_REL of one card's, its params and moments within
+    TP_F32_LEAF of one card's. Returns the ranks' numbers."""
+    import math
+    from repro_torch.launch.hostdev import spawn_host_ranks
+    t0 = time.perf_counter()
+    steps = 0 if staged else MESH_STEPS
+    ranks = spawn_host_ranks(shape[0] * shape[1], tp_rank, shape, which,
+                             steps, staged,
+                             backend="gloo" if staged else "nccl",
+                             timeout=MESH_SPAWN_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    label = f"phase {'6g' if staged else '6d'} {which} {shape}"
+    kern = TP_KERNELS[which.split("@")[0]]
+    # the split's arithmetic, in float32: within the MoE checks' limits
+    # of one card's float32 gradient; in bf16 (the main path) within them
+    # too, or no farther from one card's bf16 gradient than that one lies
+    # from its float32 twin (bf16's own rounding, which any reordering of
+    # a contraction carries through the adjoint as another realization)
+    ok32 = grads_agree(r0["cos_f32"], r0["norm_f32"])
+    ok16 = grads_agree(r0["cos_bf16"], r0["norm_bf16"]) or (
+        1 - r0["cos_bf16"] <= 1 - r0["floor_cos"]
+        and r0["norm_bf16"] <= max(TP_GRAD_NORM, r0["floor_norm"]))
+    rel = abs(r0["loss"] - r0["one_loss_bf16"]) / abs(r0["one_loss_bf16"])
+    rel32 = abs(r0["loss_f32"] - r0["one_loss_f32"]) / abs(
+        r0["one_loss_f32"])
+    norm32 = abs(r0["grad_norm_f32"] - r0["one_norm_f32"]) \
+        / r0["one_norm_f32"]
+    leaf32 = r0["worst_f32"][0][1]
+    print(f"[{card}] {label}: first batch's gradient gathered whole vs one "
+          f"card's: float32 cosine {r0['cos_f32']:.9f} (> {TP_GRAD_COS}), "
+          f"norm rel diff {r0['norm_f32']:.3e} (< {TP_GRAD_NORM:g}), loss "
+          f"rel {rel32:.3e}; bf16 cosine {r0['cos_bf16']:.7f}, norm rel "
+          f"diff {r0['norm_bf16']:.3e} (> {TP_GRAD_COS} and < "
+          f"{TP_GRAD_NORM:g}, or within one card's bf16 vs float32: cosine "
+          f"{r0['floor_cos']:.7f}, norm {r0['floor_norm']:.3e}), loss "
+          f"{r0['loss']:.6f} vs {r0['one_loss_bf16']:.6f} (rel {rel:.3e}, < "
+          f"{TP_LOSS_REL:g}); largest leaf errors float32 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in r0["worst_f32"])
+          + f" (< {TP_F32_LEAF:g}); bf16 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in r0["worst_bf16"])
+          + f"; float32 norm (norm_layers) {r0['grad_norm_f32']:.9f} vs one "
+          f"card's {r0['one_norm_f32']:.9f} (rel {norm32:.3e}, < "
+          f"{TP_NORM_REL:g}); one card's gradients and references "
+          f"{r0['one_s']:.1f} s")
+    if not (ok32 and ok16) or rel >= TP_LOSS_REL or rel32 >= TP_LOSS_REL \
+            or not leaf32 <= TP_F32_LEAF or not norm32 <= TP_NORM_REL:
+        fail(f"{label}: the mesh gradient, its norm or the loss is off one "
+             "card's")
+    for r in ranks:
+        if r["loss"] != r0["loss"]:
+            fail(f"{label}: rank {r['rank']}'s loss {r['loss']} is not rank "
+                 f"0's {r0['loss']}")
+        if (r["grad_norm"], r["grad_norm_f32"]) != (r0["grad_norm"],
+                                                    r0["grad_norm_f32"]):
+            fail(f"{label}: rank {r['rank']} clips by another norm than rank "
+                 f"0: {r['grad_norm']} / {r['grad_norm_f32']} vs "
+                 f"{r0['grad_norm']} / {r0['grad_norm_f32']}")
+        if r["states"] is not None:
+            same = {k: r["states"][k] == v
+                    for k, v in r0["one_states"].items()}
+            print(f"[{card}] {label} rank {r['rank']}: bitwise one card's: "
+                  + ", ".join(f"{k} {'yes' if v else 'NO'}"
+                              for k, v in same.items()))
+            if not all(same.values()):
+                fail(f"{label}: rank {r['rank']}'s states differ from one "
+                     f"card's: {same}")
+        gl = r["grad_launches"]
+        print(f"[{card}] {label} rank {r['rank']} (cuda:{r['device']}): "
+              f"gradient {r['grad_s']:.2f} s, peak "
+              f"{r['grad_peak_gib']:.1f} GiB, norm {r['grad_norm']:.6f}; "
+              f"stored {r['stored_gb']:.3f} GB"
+              + (f" (one card {one_gb:.3f})" if one_gb else "")
+              + f"; launches {gl}; collectives: "
+              + mesh_counts_text(r["grad_collectives"]))
+        if min(gl.get(k, 0) for k in kern) <= 0:
+            fail(f"{label}: rank {r['rank']} launched no {kern} kernel: "
+                 f"{gl}")
+        if not any(k.startswith("tp_") for k in r["grad_collectives"]):
+            fail(f"{label}: rank {r['rank']} issued no tensor-parallel "
+                 "collective")
+        if r["kept_whole"]:
+            fail(f"{label}: rank {r['rank']} keeps {r['kept_whole']} whole")
+        if not steps:
+            continue
+        lr = max(abs(a - b) / abs(b) for a, b in
+                 zip(r["losses"], ref_losses, strict=True))
+        halo = r["collectives"][-1].get("halo", [0, 0])
+        hand = r["collectives"][-1].get("handoff", [0, 0])
+        print(f"[{card}] {label} rank {r['rank']}: Trainer losses "
+              f"{r['losses']} (one card {ref_losses}, largest rel gap "
+              f"{lr:.3e}); steps {[round(x, 3) for x in r['step_s']]} s; "
+              f"peak {r['peak_gib']:.1f} GiB; launches {r['launches']}; "
+              f"step 1 sends: halo {halo[0]}x, hand-off {hand[0]}x; "
+              "collectives by kind: " + mesh_counts_text(r["collectives"][-1]))
+        if r["losses"] != r0["losses"] or lr >= TP_LOSS_REL \
+                or not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"{label}: rank {r['rank']}'s Trainer losses {r['losses']}"
+                 f" are off one card's {ref_losses} or rank 0's")
+        if min(r["launches"].get(k, 0) for k in kern) <= 0:
+            fail(f"{label}: rank {r['rank']} launched no training kernel: "
+                 f"{r['launches']}")
+        if r["f32_losses"] != r0["f32_losses"]:
+            fail(f"{label}: rank {r['rank']}'s float32 Trainer losses "
+                 f"{r['f32_losses']} are not rank 0's {r0['f32_losses']}")
+    if steps:
+        w = r0["f32_worst"]
+        lr32 = max(abs(a - b) / abs(b) for a, b in
+                   zip(r0["f32_losses"], r0["one_f32_losses"], strict=True))
+        print(f"[{card}] {label}: float32 Trainer at "
+              f"{TP_F32_LAYERS[which.split('@')[0]]} layers, {MESH_STEPS} "
+              f"steps: losses {r0['f32_losses']} vs one card's "
+              f"{r0['one_f32_losses']} (largest rel gap {lr32:.3e}, < "
+              f"{TP_NORM_REL:g}); largest leaf errors (< {TP_F32_LEAF:g}) "
+              + "; ".join(f"{name} " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in w[name])
+                  for name in ("params", "m", "v")))
+        if not (lr32 < TP_NORM_REL
+                and max(w[k][0][1] for k in w) <= TP_F32_LEAF):
+            fail(f"{label}: the float32 Trainer's losses, params or "
+                 "moments are off one card's")
+    print(f"{label}: {wall:.1f} s wall (spawn, one card's gradient, init, "
+          f"gradient, {steps} steps)")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def tp_phase(card, ref):
+    """Phase 6g (see above): ``ref`` is phase 7's zamba2 ``at_step_2``.
+    Returns the phase's numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    try:
+        res, trainer = mesh_train(mesh, "cuda", zamba2_train_config())
+        digest = state_digest(trainer.params,
+                              {"step": trainer.opt_state["step"]})
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = digest == ref["digest"]
+    colls = [c for c in res["collectives"] if c]
+    print(f"[{card}] phase 6g, zamba2_1p2b (full width and depth, "
+          f"tp_sharding) through a world-1 NCCL mesh: losses "
+          f"{res['losses']} vs one device {ref['losses']}: "
+          + ("bitwise" if res["losses"] == ref["losses"] else "DIFFER")
+          + f"; {len(digest) - 1} state leaf digests "
+          + ("all equal" if same else "DIFFER")
+          + f"; collectives {colls or 'none'}; launches {res['launches']}; "
+          f"kept whole {res['kept_whole']}")
+    if res["losses"] != ref["losses"] or not same or colls:
+        fail("phase 6g: the world-1 mesh run is not bitwise the one-device "
+             "run, or it issued a collective")
+    w1 = time.perf_counter() - t0
+    split = tp_train_shape(card, (1, 2), f"zamba2@{TP_SPLIT_LAYERS}", None,
+                           staged=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 6g: {wall:.1f} s (world 1 {w1:.1f}, the (1, 2) split "
+          f"{split['wall_s']:.1f})")
+    return {"world1": {**res, "digest_equal": same}, "split": split,
+            "wall_s": wall}
+
+
+def tp_mesh_phase(card):
+    """--mesh tp (see above), with 4 cards visible: one card's Trainer
+    (MESH_STEPS steps) of full-width qwen3 and zamba2 in this process,
+    then NCCL ranks at each shape. Returns the numbers."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"--mesh tp: not run: {n} CUDA devices visible (needs 4)")
+        return None
+    out = {}
+    for which, shapes in (("qwen3", ((1, 4),)),
+                          ("zamba2", ((1, 4), (2, 2)))):
+        t0 = time.perf_counter()
+        one, trainer = mesh_train(None, "cuda", tp_config(which))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{card}] --mesh tp {which} one card: losses {one['losses']}"
+              f"; steps {[round(x, 3) for x in one['step_s']]} s; peak "
+              f"{one['peak_gib']:.1f} GiB; stored {one['stored_gb']:.3f} "
+              f"GB; launches {one['launches']} ({time.perf_counter() - t0:.1f}"
+              " s)")
+        out[which] = {"one": one}
+        for shape in shapes:
+            out[which][f"{shape[0]}x{shape[1]}"] = tp_train_shape(
+                card, shape, which, one["losses"], one["stored_gb"])
+    return out
+
 
 # -- phase 6f (every run) and --mesh fsdp: granite_34b under fsdp -----------
 # 6f: full-width granite_34b (MQA 48/1 heads of 128, layernorm, gelu) at
@@ -6589,10 +7091,12 @@ def marian_dense_streams(mesh):
 
 
 def prefix_mesh_run(mesh):
-    """A (2, 2) qwen3_1p7b engine (seed 0) serves the smoke queue and
-    saves its prefix cache to DENSE_PREFIX; a fresh engine on the same
-    mesh loads it and serves the queue again: (pages saved, restored,
-    streams of both runs)."""
+    """A (2, 2) qwen3_1p7b engine (seed 0) serves the smoke queue, each
+    emission's logits row recorded, and saves its prefix cache to
+    DENSE_PREFIX; a fresh engine on the same mesh loads it and serves
+    the queue again: (pages saved, restored, streams of both runs, and
+    on a rank of model index 0 its data group's rows of the first run,
+    float32 on the host, by (seed, emission index))."""
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer
@@ -6603,8 +7107,15 @@ def prefix_mesh_run(mesh):
               max_len=MAX_LEN, device="cuda")
     eng = ServeEngine(rcfg, params, **kw)
     V = rcfg.model.vocab_size
-    first = [r.output.tolist() for r in eng.generate(
-        make_queue(np.random.default_rng(0), V))]
+    queue = make_queue(np.random.default_rng(0), V)
+    with record_spec_logits() as calls:
+        first = [r.output.tolist() for r in eng.generate(queue)]
+    rows = {}
+    if mesh.index("model") == 0:
+        rows = {k: v.float().cpu().numpy() for k, v in emitted_rows(
+            _local_calls(calls, eng.backend.rows),
+            {r.seed for r in queue}).items()}
+    del calls
     mesh.reset_counts()
     saved = eng.save_prefix_cache(str(DENSE_PREFIX))
     save_colls = {k: list(v) for k, v in mesh.counts.items()}
@@ -6616,7 +7127,7 @@ def prefix_mesh_run(mesh):
     again = [r.output.tolist() for r in fresh.generate(
         make_queue(np.random.default_rng(0), V))]
     return {"saved": saved, "restored": restored, "first": first,
-            "again": again,
+            "again": again, "first_rows": rows,
             "shared": int(fresh.scheduler.stats["shared_tokens"]),
             "save_collectives": save_colls}
 
@@ -6683,6 +7194,78 @@ def rows_check(label, toks_ref, rows_ref, toks, rows, card):
                 fail(f"{label}: a divergence away from a near-tie")
             return worst, m
     return worst, None
+
+
+def prefix_check(card, p):
+    """--mesh dense's prefix part, from the (2, 2) ranks' ``prefix_mesh_run``
+    results ``p``: every rank saved and restored the same pages and
+    served the same streams; a fresh one-card engine loads the file
+    (every page) and serves the smoke queue, held to the (2, 2) engine's
+    first run (``check_dense_streams``). Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    if any(x["saved"] != x["restored"] for x in p) or \
+            any(x["first"] != p[0]["first"] for x in p):
+        fail(f"--mesh dense prefix: saved {[x['saved'] for x in p]}"
+             f" restored {[x['restored'] for x in p]}, or the "
+             "ranks' streams differ")
+    rcfg = get_config("qwen3_1p7b", "decode_32k")
+    params = transformer.init_model(rcfg, seed=0, device="cuda")
+    one = ServeEngine(rcfg, params, max_batch=MAX_BATCH,
+                      page_size=PAGE, max_len=MAX_LEN,
+                      prefix_cache_path=str(DENSE_PREFIX),
+                      device="cuda")
+    restored = one.scheduler.prefix.n_cached_pages
+    if restored != p[0]["saved"]:
+        fail("--mesh dense prefix: the one-card engine restored "
+             f"{restored} of {p[0]['saved']} pages")
+    queue = make_queue(np.random.default_rng(0), rcfg.model.vocab_size)
+    with record_spec_logits() as calls:
+        again = [r.output.tolist() for r in one.generate(queue)]
+        torch.cuda.synchronize()
+    one_rows = emitted_rows(calls, {r.seed for r in queue})
+    del one, params, calls
+    DENSE_PREFIX.unlink(missing_ok=True)
+    same = sum(a == b for a, b in zip(again, p[0]["first"]))
+    # the one-card engine that loaded the (2, 2) engine's pages, held to
+    # that engine's first run: logits within DENSE_GAP at every shared
+    # position, a first divergence only on a near-tie (DENSE_TIE;
+    # sampled: of the perturbed scores)
+    mesh_rows = {k: v for x in p for k, v in x["first_rows"].items()}
+    matched, worst, div = check_dense_streams(
+        "--mesh dense prefix, one card from the (2, 2) file",
+        queue, ([np.asarray(a) for a in again], one_rows),
+        ([np.asarray(a) for a in p[0]["first"]],
+         [[torch.as_tensor(mesh_rows[(q.seed, m)]).cuda()
+           for m in range(len(p[0]["first"][i]))]
+          for i, q in enumerate(queue)]), card)
+    del one_rows, mesh_rows
+    print(f"[{card}] --mesh dense prefix: one card vs the (2, 2) "
+          f"engine: {matched}/8 streams bitwise, max logit gap "
+          f"{worst:.4f} (limit {DENSE_GAP:g}), {len(div)} "
+          "divergences, each on a near-tie or a mask's edge: "
+          + "; ".join(f"request {d['request']} token {d['token']} "
+                      f"margin {d['margin']:.4f}"
+                      + (" (sampled)" if d["sampled"] else "")
+                      + (" (mask edge)" if d["mask_edge"] else "")
+                      for d in div))
+    print(f"[{card}] --mesh dense prefix: a (2, 2) engine saved "
+          f"{p[0]['saved']} pages (collectives "
+          + mesh_counts_text(p[0]["save_collectives"])
+          + f"); a fresh (2, 2) engine restored "
+          f"{p[0]['restored']} ({p[0]['shared']} shared tokens "
+          f"serving the queue again, "
+          f"{sum(a == b for a, b in zip(p[0]['again'], p[0]['first']))}"
+          f"/8 streams as before), a fresh one-card engine "
+          f"{restored} ({same}/8 streams as the (2, 2) engine's "
+          f"first run)")
+    for x in p:
+        x.pop("first_rows")
+    return {"saved": p[0]["saved"], "restored": [p[0]["restored"], restored],
+            "same_streams": same, "max_gap": worst, "divergences": div}
 
 
 def dense_mesh_phase(card):
@@ -6828,40 +7411,7 @@ def dense_mesh_phase(card):
                       + mesh_counts_text(r["collectives"]))
             res["marian"] = {"max_gap": max(g for g, _ in gaps)}
         if "prefix" in runs:
-            p = [r["prefix"] for r in ranks]
-            if any(x["saved"] != x["restored"] for x in p) or \
-                    any(x["first"] != p[0]["first"] for x in p):
-                fail(f"--mesh dense prefix: saved {[x['saved'] for x in p]}"
-                     f" restored {[x['restored'] for x in p]}, or the "
-                     "ranks' streams differ")
-            rcfg = get_config("qwen3_1p7b", "decode_32k")
-            params = transformer.init_model(rcfg, seed=0, device="cuda")
-            one = ServeEngine(rcfg, params, max_batch=MAX_BATCH,
-                              page_size=PAGE, max_len=MAX_LEN,
-                              prefix_cache_path=str(DENSE_PREFIX),
-                              device="cuda")
-            restored = one.scheduler.prefix.n_cached_pages
-            again = [r.output.tolist() for r in one.generate(make_queue(
-                np.random.default_rng(0), rcfg.model.vocab_size))]
-            del one, params
-            DENSE_PREFIX.unlink(missing_ok=True)
-            same = sum(a == b for a, b in zip(again, p[0]["first"]))
-            print(f"[{card}] --mesh dense prefix: a (2, 2) engine saved "
-                  f"{p[0]['saved']} pages (collectives "
-                  + mesh_counts_text(p[0]["save_collectives"])
-                  + f"); a fresh (2, 2) engine restored "
-                  f"{p[0]['restored']} ({p[0]['shared']} shared tokens "
-                  f"serving the queue again, "
-                  f"{sum(a == b for a, b in zip(p[0]['again'], p[0]['first']))}"
-                  f"/8 streams as before), a fresh one-card engine "
-                  f"{restored} ({same}/8 streams as the (2, 2) engine's "
-                  f"first run)")
-            if restored != p[0]["saved"]:
-                fail("--mesh dense prefix: the one-card engine restored "
-                     f"{restored} of {p[0]['saved']} pages")
-            res["prefix"] = {"saved": p[0]["saved"],
-                             "restored": [p[0]["restored"], restored],
-                             "same_streams": same}
+            res["prefix"] = prefix_check(card, [r["prefix"] for r in ranks])
         res["wall_s"] = time.perf_counter() - t1
         print(f"--mesh dense {shape}: {res['wall_s']:.1f} s")
         out[key] = res
@@ -7945,9 +8495,16 @@ def main() -> int:
             ("falcon", falcon_train_config(),
              ("rmsnorm_fwd", "rmsnorm_bwd") + scan_kernels),
             ("zamba2", zamba2_train_config(), attn_kernels + scan_kernels)):
-        ssm_train[fam] = run_train(rcfg, need)
+        ssm_train[fam] = run_train(rcfg, need, record=fam == "zamba2")
         gc.collect()
         torch.cuda.empty_cache()
+
+    PHASE_START.append(("6g", time.perf_counter()))
+    # -- 6g. Megatron TP in training: zamba2 through a world-1 NCCL mesh
+    # bitwise phase 7's run, then its gradient at (1, 2) on this card -----
+    tp_res = tp_phase(card, ssm_train["zamba2"][3]["at_step_2"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     PHASE_START.append(("8", time.perf_counter()))
     # -- 8. the paper's encoder and encoder-decoder families: gradients at
@@ -8041,6 +8598,10 @@ def main() -> int:
         row["launches_mesh"] = mesh_res["6c"]["launches"][name]
         for shape, r in (mesh_res["6d"] or {}).items():
             row[f"launches_mesh_{shape}"] = r["ranks"][0]["launches"][name]
+        # launches_tp_1x2: phase 6g's (1, 2) split of zamba2, a rank's
+        # count over its gradient (its heads, rows and vocab columns)
+        row["launches_tp_1x2"] = tp_res["split"]["ranks"][0][
+            "grad_launches"][name]
         if src == "rmsnorm":
             # device_* the device work alone (device_ms); qk_norm_* at
             # qk-norm's (131072, 128) rows
@@ -8114,6 +8675,8 @@ def main() -> int:
             "bound_ms": bm, "bound_by": by, "library_ms": None,
             "launches_falcon": per_path["falcon"],
             "launches_zamba2": per_path["zamba2"],
+            "launches_tp_1x2": tp_res["split"]["ranks"][0][
+                "grad_launches"][name],
             "launches_per_step": {
                 f"{fam} {mode}": n[name] for fam in ssm_train
                 for mode, n in ssm_train[fam][1].items()},
@@ -8204,6 +8767,7 @@ def main() -> int:
     print("mesh: " + json.dumps(mesh_res))
     print("serve_mesh: " + json.dumps(serve_mesh_res))
     print("dense_mesh: " + json.dumps(dense_mesh_res))
+    print("tp_train: " + json.dumps(tp_res))
     print("census: " + json.dumps(CENSUS))
     print("roofline: " + json.dumps(roof_res))
     print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
@@ -8237,11 +8801,11 @@ def main_mesh(mode: str = "") -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
     build.build()
     static_check()
-    if mode == "dense":
-        res = dense_mesh_phase(card)
-        print("dense_mesh: " + json.dumps(res))
-        print(f"chip_smoke --mesh dense: {time.perf_counter() - t_start:.1f}"
-              " s")
+    if mode in ("dense", "tp"):
+        res = (dense_mesh_phase if mode == "dense" else tp_mesh_phase)(card)
+        print(f"{mode}_mesh: " + json.dumps(res))
+        print(f"chip_smoke --mesh {mode}: "
+              f"{time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8288,6 +8852,7 @@ def main_mesh(mode: str = "") -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] in (["--mesh"], ["--mesh", "serve"], ["--mesh", "moe"],
-                        ["--mesh", "fsdp"], ["--mesh", "dense"]):
+                        ["--mesh", "fsdp"], ["--mesh", "dense"],
+                        ["--mesh", "tp"]):
         sys.exit(main_mesh(mode="".join(sys.argv[2:])))
     sys.exit(main())

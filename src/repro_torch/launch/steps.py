@@ -57,11 +57,17 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
     over the chunk axis, the batch rows over the data axes, the experts
     over theirs. The gradients and the loss are then averaged over the
     data axes of more than one rank (the mean of equal row shards is the
-    global mean). An expert-cut leaf's gradient holds every rank's
-    tokens of its experts already (the exchange's backward brought
-    them): it is divided by the ranks and not summed over its expert
-    axis, where a sum would add other experts' gradients of the same
-    shape. So is an fsdp-cut leaf's (:mod:`repro_torch.parallel.fsdp`):
+    global mean). A leaf cut over a tensor-parallel axis (``heads``,
+    ``kv_heads``, ``mlp``, ``vocab``: the Megatron split, each rank its
+    heads, columns or vocab rows) holds this rank's slice of the
+    gradient, averaged over the data axes only; a leaf, or a whole
+    block of a cut leaf, that the ranks of such an axis read in part
+    (:func:`repro_torch.parallel.params.tp_partial`) is first summed over
+    it (``grad_tp``, one all-reduce an axis). An expert-cut leaf's
+    gradient holds every rank's tokens of its experts already (the
+    exchange's backward brought them): it is divided by the ranks and
+    not summed over its expert axis, where a sum would add other
+    experts' gradients of the same shape. So is an fsdp-cut leaf's (:mod:`repro_torch.parallel.fsdp`):
     its gather's backward reduce-scattered it over the fsdp axis, a data
     axis, which summed the data ranks' rows into this rank's piece."""
     mode = "lp" if rcfg.mgrit.enabled else "serial"
@@ -69,6 +75,7 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
     # key path -> the data axes whose ranks' rows a leaf's gradient holds
     # already (its experts' axis, its fsdp axis)
     rules, data, summed, pieces = contextlib.nullcontext, (), {}, {}
+    partial, slices = {}, {}
     if mesh is not None:
         from repro_torch.parallel import params as pparams
         from repro_torch.parallel.sharding import (axis_rules, axis_tuple,
@@ -98,6 +105,16 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
         for p, (d, ax) in fs.items():
             summed[p] = summed.get(p, ()) + (ax,)
             pieces[p] = (d, leaf_at(shapes, p).shape[d] // mesh.shape[ax])
+        partial = pparams.tp_partial(shapes, mesh, rcfg)
+        if set(partial) & set(fs):
+            raise NotImplementedError(
+                f"{sorted('.'.join(p) for p in set(partial) & set(fs))}: "
+                "fsdp cuts a leaf that the tensor-parallel ranks read in "
+                "part")
+        cut = pparams.tp_cut(shapes, specs, mesh, rcfg.model, rcfg.sharding)
+        slices = {p: tuple(pparams.local_slice(
+            leaf_at(shapes, p), p, leaf_at(specs, p), mesh,
+            cfg=rcfg.model, sharding=rcfg.sharding).shape) for p in cut}
 
     def value_and_grad(params, batch):
         paths, leaves = zip(*leaves_with_paths(params))
@@ -116,6 +133,13 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
                     f"{leaf_at(params, p).shape[d]}, not this rank's fsdp "
                     f"piece of {n}: cut the params with shard_tree(..., "
                     "sharding=rcfg.sharding)")
+        for p, want in slices.items():
+            got = tuple(leaf_at(params, p).shape)
+            if got != want:
+                raise ValueError(
+                    f"{'.'.join(p)}: holds {got}, not this rank's "
+                    f"tensor-parallel slice {want}: cut the params with "
+                    "shard_tree(..., cfg=rcfg.model, sharding=rcfg.sharding)")
         if nmb > 1:
             lsum, g_acc = 0.0, None
             for i in range(nmb):
@@ -130,6 +154,8 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
             lval = lsum / nmb
         else:
             lval, diag, paths, grads = value_and_grad(params, batch)
+        if partial:
+            grads = _sum_partial(mesh, paths, list(grads), partial)
         if data:
             n = math.prod(mesh.shape[a] for a in data)
             grads = [mesh.all_sum("grad_mean", g.contiguous(), tuple(
@@ -142,25 +168,53 @@ def make_grad_fn(rcfg: RunConfig, mesh=None):
     return grad_step
 
 
+def _sum_partial(mesh, paths, grads, partial):
+    """``grads`` with each leaf (or last-dimension range) of ``partial``
+    (:func:`repro_torch.parallel.params.tp_partial`) summed over its
+    axis: one all-reduce an axis of every such piece, flattened."""
+    at = dict(zip(paths, range(len(paths))))
+    for ax in sorted({a for a, _ in partial.values()}):
+        mine = [(at[p], rng) for p, (a, rng) in partial.items() if a == ax]
+        views = [grads[i] if rng is None else grads[i][..., rng[0]:rng[1]]
+                 for i, rng in mine]
+        flat = mesh.all_sum("grad_tp", torch.cat(
+            [v.reshape(-1) for v in views]), (ax,))
+        o = 0
+        for (i, rng), v in zip(mine, views):
+            piece = flat[o:o + v.numel()].view(v.shape)
+            o += v.numel()
+            if rng is None:
+                grads[i] = piece
+            else:
+                g = grads[i].clone()
+                g[..., rng[0]:rng[1]] = piece
+                grads[i] = g
+    return grads
+
+
 def norm_layers(rcfg: RunConfig, mesh=None):
     """:func:`repro_torch.optim.optimizers.global_norm`'s ``layers``:
     the key paths of the leaves whose sums of squares are completed
     apart, each with whether it is stacked on a trunk's layer axis (one
     sum a layer; else one sum), and the function that completes them:
-    the stacked leaves, and under ``mesh`` the expert-cut and fsdp-cut
-    ones. Under ``mesh`` an expert-cut leaf's sums (this rank's
-    experts') are summed over its expert axis, in rank order, from one
-    all-gather an axis; an fsdp-cut leaf's (this rank's piece) over its
-    fsdp axis the same way; then a leaf held in chunk pieces takes every
+    the stacked leaves, and under ``mesh`` the expert-cut, fsdp-cut and
+    tensor-parallel-cut ones; and the leaves of which this rank counts
+    only some pieces (a function a leaf: the pieces). Under ``mesh`` an
+    expert-cut leaf's sums (this rank's experts') are summed over its
+    expert axis, in rank order, from one all-gather an axis; an fsdp-cut
+    leaf's (this rank's piece) over its fsdp axis the same way, a
+    tensor-parallel-cut one's over its axis too (a whole block of such a
+    leaf, the same on every rank once summed, counted by the axis's
+    first rank only); then a leaf held in chunk pieces takes every
     rank's sums from one all-gather a chunk axis (all such leaves at
-    once); else its sums are complete. Every rank then clips by the same
-    norm."""
+    once); else its sums are complete (a leaf held whole counted once).
+    Every rank then clips by the same norm."""
     from repro_torch.parallel import params as pparams
     from repro_torch.parallel.sharding import axis_tuple
     shapes = transformer.param_shapes(rcfg)
     stacked = {path for path, leaf in leaves_with_paths(shapes)
                if pparams.logical_axes_for(path, leaf.shape)[0] == "layers"}
-    axis, ep, fs = {}, {}, {}
+    axis, ep, fs, tpc, parts = {}, {}, {}, {}, {}
     if mesh is not None:
         specs = pparams.train_specs(shapes, rcfg, mesh)
         axis = {p: axis_tuple(leaf_at(specs, p)[0])[0] for p in stacked
@@ -168,7 +222,13 @@ def norm_layers(rcfg: RunConfig, mesh=None):
         ep = pparams.expert_cut(shapes, specs, mesh)
         fs = {p: (ax,) for p, (_, ax) in pparams.fsdp_cut(
             shapes, specs, mesh, rcfg.sharding).items()}
-    layered = {p: p in stacked for p in stacked | set(ep) | set(fs)}
+        tpc = pparams.tp_cut(shapes, specs, mesh, rcfg.model,
+                             rcfg.sharding)
+        for p, (ax, rng) in pparams.tp_partial(shapes, mesh, rcfg).items():
+            if rng is not None and mesh.index(ax) != 0:
+                parts[p] = functools.partial(_around, *rng)
+    layered = {p: p in stacked
+               for p in stacked | set(ep) | set(fs) | set(tpc)}
 
     def gathered(kind, per_layer, paths, ax):
         """(ranks, sums) of each of ``paths`` from one all-gather."""
@@ -183,7 +243,8 @@ def norm_layers(rcfg: RunConfig, mesh=None):
 
     def complete(per_layer):
         out = dict(per_layer)
-        for kind, cut in (("grad_norm_ep", ep), ("grad_norm_fsdp", fs)):
+        for kind, cut in (("grad_norm_ep", ep), ("grad_norm_fsdp", fs),
+                          ("grad_norm_tp", tpc)):
             for ax in sorted({a for axes in cut.values() for a in axes}):
                 paths = [p for p in out if ax in cut.get(p, ())]
                 out.update({p: v.sum(0) for p, v in gathered(
@@ -194,7 +255,12 @@ def norm_layers(rcfg: RunConfig, mesh=None):
                 "grad_norm", out, paths, ax).items()})
         return out
 
-    return layered, complete
+    return layered, complete, parts
+
+
+def _around(lo: int, hi: int, x):
+    """``x`` without its last dimension's range [lo, hi), in pieces."""
+    return [x[..., :lo], x[..., hi:]]
 
 
 def make_train_fn(rcfg: RunConfig, mesh=None):

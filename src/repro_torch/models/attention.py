@@ -55,12 +55,25 @@ def _proj(x, w, dt):
     return (x @ w.to(dt).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_qkv(params, x, xa, cfg: ModelConfig):
+def _project_qkv(params, x, xa, cfg: ModelConfig, sq=None):
+    """q from ``x``, k and v from ``x`` or ``xa``; under a heads split
+    ``sq`` column-parallel (:meth:`repro_torch.parallel.tp.Split.column`)."""
     dt = torch_dtype(cfg.dtype)
-    q = _proj(x, params["wq"], dt)
     src = x if xa is None else xa
-    k = _proj(src, params["wk"], dt)
-    v = _proj(src, params["wv"], dt)
+    if sq is None:
+        q = _proj(x, params["wq"], dt)
+        k = _proj(src, params["wk"], dt)
+        v = _proj(src, params["wv"], dt)
+    else:
+        w = {n: params[n].to(dt) for n in ("wq", "wk", "wv")}
+        flat = [w[n].reshape(w[n].shape[0], -1) for n in ("wq", "wk", "wv")]
+        if xa is None:
+            q, k, v = sq.column("tp_attn_in", x, *flat)
+        else:
+            (q,) = sq.column("tp_attn_in", x, flat[0])
+            k, v = sq.column("tp_attn_in", xa, *flat[1:])
+        q, k, v = (t.unflatten(-1, w[n].shape[1:])
+                   for t, n in zip((q, k, v), ("wq", "wk", "wv")))
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -164,10 +177,15 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
     cache (:func:`_cached_core`). Returns (y, new_cache), new_cache
     holding the same k/v tensors and ``index + S``.
 
-    Under :func:`repro_torch.parallel.tp.active` (the dense decode step
-    under a mesh, cross-attention included) each rank projects its query
-    heads and the KV heads they read, as the paged path does (``wo``
-    row-parallel). Where ``kv_seq`` cuts the cache along the sequence
+    Under a heads split (:func:`repro_torch.parallel.tp.split`: the dense
+    decode step under a mesh, and training under ``tp_sharding``,
+    cross-attention included) each rank projects its query heads and the
+    KV heads they read, as the paged path does (``wo`` row-parallel; q,
+    k and v column-parallel through
+    :meth:`repro_torch.parallel.tp.Split.column`, so that a backward sums
+    the cotangents of ``x`` and ``xa`` over the ranks; ``wk`` / ``wv``
+    stored whole where the KV heads do not divide, each rank reading its
+    group's head). Where ``kv_seq`` cuts the cache along the sequence
     (:func:`repro_torch.parallel.tp.seq_split`) the cache holds every KV
     head of this rank's slice of the rows instead: the new K/V rows of
     the heads cut over the ranks are gathered (``kv_seq_kv``), the query
@@ -184,7 +202,7 @@ def attention_apply(params, x, cfg: ModelConfig, *, causal: bool,
         params, sq = _tp_heads(params, cfg)
     else:
         sq = kv_split(cfg)[0]
-    q, k, v = _project_qkv(params, x, xa, cfg)
+    q, k, v = _project_qkv(params, x, xa, cfg, sq)
     if xa is None and rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)

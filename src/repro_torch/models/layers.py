@@ -102,11 +102,12 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *, device=None):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    """The token embeddings. Vocab-parallel under
-    :func:`repro_torch.parallel.tp.active`: each rank looks up the ids
+    """The token embeddings. Vocab-parallel under the active rules
+    (:func:`repro_torch.parallel.tp.split`): each rank looks up the ids
     of its own rows of the table (``params`` this rank's part; zeros
     elsewhere) and the ranks sum; one term of the sum is non-zero, so
-    the result is exact."""
+    the result is exact, and in a backward each rank's rows get only
+    their own tokens' cotangent."""
     emb = params["tok"].to(torch_dtype(cfg.dtype))
     sp = tp.split("vocab", cfg.vocab_size)
     if sp is None:
@@ -120,16 +121,52 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 
 
 def unembed(params, x, cfg: ModelConfig):
-    """Logits; under :func:`repro_torch.parallel.tp.active` this rank's
-    vocab columns only (:func:`gather_vocab` makes them whole)."""
+    """Logits; under a vocab split (:func:`repro_torch.parallel.tp.split`)
+    this rank's vocab columns only (:func:`gather_vocab` makes them
+    whole), column-parallel (:meth:`repro_torch.parallel.tp.Split.column`:
+    ``x``'s cotangent summed over the vocab's ranks)."""
     w = params.get("out", params["tok"]).to(torch_dtype(cfg.dtype))
-    return x @ w.t()
+    sp = tp.split("vocab", cfg.vocab_size)
+    if sp is None:
+        return x @ w.t()
+    return sp.column("tp_head_in", x, w.t())[0]
 
 
 def gather_vocab(logits, cfg: ModelConfig):
-    """:func:`unembed`'s logits over the whole vocab on every rank."""
+    """:func:`unembed`'s logits over the whole vocab on every rank (no
+    gradient flows through the gather: a training loss over a vocab
+    split is :func:`vocab_parallel_loss`)."""
     sp = tp.split("vocab", cfg.vocab_size)
-    return logits if sp is None else sp.all_gather("tp_logits", logits, -1)
+    if sp is None:
+        return logits
+    if torch.is_grad_enabled() and logits.requires_grad:
+        raise NotImplementedError(
+            "whole logits under a vocab split carry no gradient: "
+            "differentiate transformer.loss_fn")
+    return sp.mesh.all_gather("tp_logits", logits, sp.axis, dim=-1)
+
+
+def vocab_parallel_loss(logits, labels, sp: tp.Split):
+    """The mean token cross-entropy in float32 from this rank's vocab
+    columns ``logits`` (B, S, V/n) of ``sp``'s split, the whole (B, S,
+    V) never formed: the row maxima all-gathered (the shift carries no
+    gradient), each rank's sum of exp(logit - max) and its label logits
+    (zero where another rank owns the label) summed over the ranks in
+    one all-reduce, lse = log(sum) + max. Every rank returns the same
+    bits; in a backward each rank's columns get softmax - onehot of
+    their own entries."""
+    lg = logits.float()
+    n = lg.shape[-1]
+    with torch.no_grad():
+        m = sp.mesh.all_gather("tp_loss_max", lg.amax(-1, keepdim=True),
+                               sp.axis, dim=-1).amax(-1)
+    idx = labels.long() - sp.r * n
+    mine = (idx >= 0) & (idx < n)
+    ll = torch.where(mine, torch.gather(lg, -1, idx.clamp(0, n - 1)[
+        ..., None])[..., 0], torch.zeros((), device=lg.device))
+    se = torch.exp(lg - m[..., None]).sum(-1)
+    se, ll = sp.all_sum("tp_loss", torch.stack([se, ll], dim=-1)).unbind(-1)
+    return torch.mean(torch.log(se) + m - ll)
 
 
 # ---------------------------------------------------------------------------

@@ -27,17 +27,22 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int = 0, *,
 
 
 def mlp_apply(params, x, cfg: ModelConfig):
-    """Under :func:`repro_torch.parallel.tp.active` (``params`` this
-    rank's part) ``w_in`` / ``w_gate`` are column-parallel and ``w_out``
-    row-parallel, the partial outputs summed over the ranks in float32."""
+    """Under an mlp split (:func:`repro_torch.parallel.tp.split`;
+    ``params`` this rank's part) ``w_in`` / ``w_gate`` are
+    column-parallel (:meth:`repro_torch.parallel.tp.Split.column`) and
+    ``w_out`` row-parallel, the partial outputs summed over the ranks in
+    float32."""
     dt = torch_dtype(cfg.dtype)
     x = x.to(dt)
-    h = x @ params["w_in"].to(dt)
+    sp = tp.split("mlp", cfg.d_ff)
+    names = ("w_in", "w_gate") if cfg.act == "silu" else ("w_in",)
+    ws = [params[n].to(dt) for n in names]
+    hs = [x @ w for w in ws] if sp is None else \
+        sp.column("tp_mlp_in", x, *ws)
+    h = hs[0]
     if cfg.act == "silu":
-        g = x @ params["w_gate"].to(dt)
-        h = F.silu(g) * h
+        h = F.silu(hs[1]) * h
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch's to erf
         h = F.gelu(h, approximate="tanh")
-    return tp.row_parallel(tp.split("mlp", cfg.d_ff), "tp_mlp", h,
-                           params["w_out"].to(dt))
+    return tp.row_parallel(sp, "tp_mlp", h, params["w_out"].to(dt))

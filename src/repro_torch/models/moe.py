@@ -293,8 +293,6 @@ def expert_split(cfg: ModelConfig):
     another axis than the batch's."""
     mesh, rules = tp.current()
     if mesh is None:
-        mesh, rules = sharding.current_rules()
-    if mesh is None:
         return None
     ax = tp.axis_of(mesh, rules, "experts")
     if ax is None or cfg.moe.num_experts % mesh.shape[ax]:
@@ -363,6 +361,10 @@ def _moe_indexed(params, x, cfg: ModelConfig):
     E = cfg.moe.num_experts
     ep = expert_split(cfg)
     mp = tp.split("mlp", cfg.moe.d_ff or cfg.d_ff)
+    if mp is not None and torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "the expert d_ff cut over tensor-parallel ranks is a serving "
+            "layout: training rules map the MoE's mlp to no axis")
     plan = routing_plan(params, x, cfg)
     xe = _Dispatch.apply(x, plan.slot, plan.src).view(
         E, B * plan.capacity, D)

@@ -131,6 +131,22 @@ def inner_split(cfg: ModelConfig):
     return tp.split("mlp", unit)
 
 
+def _own(v, sp, blocks: tp.Blocks):
+    """This rank's part of a mamba2 mixer vector laid out in ``blocks``:
+    cut here where it is stored whole (training's spec keeps the per-row
+    vectors whole), as stored where serving's layout cut it (any other
+    length raises)."""
+    if sp is None:
+        return v
+    full = sum(size for size, _ in blocks)
+    if v.shape[-1] == full:
+        return tp.slice_blocks(v, -1, blocks, sp.n, sp.r)
+    if v.shape[-1] != tp.local_size(blocks, sp.n):
+        raise ValueError(f"a mixer vector of {v.shape[-1]}: neither whole "
+                         f"({full}) nor this rank's part of {sp.n}")
+    return v
+
+
 def init_paged_ssm_pool(cfg: ModelConfig, n_layers: int, n_pages: int,
                         version: int, *, device=None):
     """State-snapshot page pool stacked over layers (page axis 1, like
@@ -403,12 +419,18 @@ def mamba1_apply(params, x, cfg: ModelConfig, cache=None):
 
     Under :func:`repro_torch.parallel.tp.active` (the dense decode step
     under a mesh) each rank runs its di rows as the paged mixer does:
-    ``x_proj`` and ``out_proj`` row-parallel."""
+    ``x_proj`` and ``out_proj`` row-parallel. That split is serving's
+    layout: no training rules split a mamba1 mixer, and it raises under a
+    gradient."""
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
     dtr = _dt_rank(cfg)
     sp = inner_split(cfg)
+    if sp is not None and torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "a mamba1 mixer's rows cut over tensor-parallel ranks is a "
+            "serving layout: no training rules map its mlp to an axis")
 
     xin, z = (x @ params["in_proj"].to(dt_)).chunk(2, dim=-1)
     xc = F.silu(_causal_conv(xin, params["conv_w"].to(dt_),
@@ -443,8 +465,14 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
     layer's {"conv": (B, K-1, di + 2 d_state), "h": (B, heads, headdim,
     d_state)} (both updated in place) the recurrence continues from it
     (:func:`_cached_scan` over h viewed as rows, order "dxb"); returns
-    (out, cache). Under :func:`repro_torch.parallel.tp.active` each rank
-    runs its heads as :func:`mamba2_paged_apply` does."""
+    (out, cache). Under an inner split (:func:`inner_split`: the dense
+    decode step under a mesh, or zamba2's training under ``tp_sharding``)
+    each rank runs its heads as :func:`mamba2_paged_apply` does,
+    ``in_proj`` column-parallel
+    (:meth:`repro_torch.parallel.tp.Split.column`); B and C come whole
+    from the whole block of ``in_proj`` and the conv on every rank, and
+    the per-head ``dt_bias``, ``A_log`` and ``D`` (and ``conv_b``),
+    stored whole in training, are cut here."""
     s = cfg.ssm
     dt_ = torch_dtype(cfg.dtype)
     x = x.to(dt_)
@@ -452,28 +480,33 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
     sp = inner_split(cfg)
     di = s.expand * x.shape[-1] // (sp.n if sp else 1)
     nh = di // s.headdim
+    heads = tp.even(s.expand * x.shape[-1] // s.headdim)
 
-    z, xbc, dt = torch.split(x @ params["in_proj"].to(dt_),
-                             [di, di + 2 * s.d_state, nh], dim=-1)
+    w_in = params["in_proj"].to(dt_)
+    z, xbc, dt = torch.split(
+        x @ w_in if sp is None else sp.column("tp_ssm_in", x, w_in)[0],
+        [di, di + 2 * s.d_state, nh], dim=-1)
     xbc = F.silu(_causal_conv(xbc, params["conv_w"].to(dt_),
-                              params["conv_b"].to(dt_),
+                              _own(params["conv_b"], sp, pparams.mamba_blocks(
+                                  cfg, "conv")).to(dt_),
                               None if cache is None else cache["conv"]))
     xin, Bm, Cm = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(dt.float() + params["dt_bias"].float())   # (B, S, nh)
-    A = -torch.exp(params["A_log"].float())                   # (nh,)
+    dt = F.softplus(dt.float() + _own(params["dt_bias"], sp,
+                                      heads).float())        # (B, S, nh)
+    A = -torch.exp(_own(params["A_log"], sp, heads).float())  # (nh,)
+    D = _own(params["D"], sp, heads).float()
     dt_rows = dt.repeat_interleave(s.headdim, dim=-1)
     A_rows = A.repeat_interleave(s.headdim)[:, None].expand(di, s.d_state)
     if cache is None:
         y = kops.ssm_scan(
             dt_rows, xin.float(), A_rows, Bm.float(), Cm.float(),
-            params["D"].float().repeat_interleave(s.headdim),
-            heads=nh).to(dt_)
+            D.repeat_interleave(s.headdim), heads=nh).to(dt_)
     else:
         xh = xin.reshape(B, S, nh, s.headdim).float()
         ys = _cached_scan(dt_rows, xin.float(), Bm.float(), Cm.float(),
                           A_rows, cache["h"].view(B, di, s.d_state),
                           order="dxb").reshape(B, S, nh, s.headdim)
-        y = ys + params["D"].float()[None, None, :, None] * xh
+        y = ys + D[None, None, :, None] * xh
         y = y.reshape(B, S, di).to(dt_)
     y = y * F.silu(z)
     out = _gated_norm_out(params, y, sp, di, dt_)
@@ -482,8 +515,10 @@ def mamba2_apply(params, x, cfg: ModelConfig, cache=None):
 
 def _gated_norm_out(params, y, sp, di: int, dt_):
     """Mamba2's gated RMSNorm (over the whole di: under a split the rows
-    are gathered and each rank keeps its own columns) and ``out_proj``
-    (row-parallel under a split)."""
+    are gathered, normed whole on every rank, and each rank keeps its
+    own columns; in a backward each rank gets its columns of the
+    cotangent summed over the ranks) and ``out_proj`` (row-parallel
+    under a split)."""
     if sp is None:
         y = kops.rmsnorm(y, params["norm_scale"])             # gated RMSNorm
     else:

@@ -39,7 +39,7 @@ from repro_torch.models.blocks import (block_kind, block_step, init_block,
 from repro_torch.models.layers import (embed_tokens, gather_vocab,
                                        init_embedding, init_norm,
                                        norm_apply, rope_freqs, torch_dtype,
-                                       unembed)
+                                       unembed, vocab_parallel_loss)
 from repro_torch.parallel import fsdp, tp
 from repro_torch.parallel.sharding import current_rules
 from repro_torch.tree import leaves_with_paths, tree_map
@@ -294,13 +294,11 @@ def _encdec_trunks(params, batch, rcfg: RunConfig, mode: str):
     return yN, torch.cat([n1, n2])
 
 
-def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
-    """Returns (logits, diagnostics). batch: tokens (B, S) [+ mm_embeds
-    for the vision stub; + src_tokens, or src_embeds for the audio stub,
-    for the encoder-decoder family]."""
+def _hidden(params, batch, rcfg: RunConfig, mode: str):
+    """(the final-normed state (B, S, D) the head reads, diagnostics) of
+    params as :func:`train_params` gives them."""
     cfg = rcfg.model
     kind = block_kind(cfg)
-    params = train_params(params, rcfg)
     if cfg.family == "encdec":
         z, norms = _encdec_trunks(params, batch, rcfg, mode)
     elif cfg.family == "hybrid":
@@ -319,9 +317,24 @@ def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
                           rope=rope, mode=mode, n_layers=cfg.n_layers)
         z = _serial_buffer(params.get("close"), z, cfg, kind=kind,
                            causal=causal, rope=rope)
-    z = norm_apply(params["final_norm"], z, cfg)
-    logits = unembed(params["embed"], z, cfg)
-    return logits, {"fwd_norms": norms}
+    return norm_apply(params["final_norm"], z, cfg), {"fwd_norms": norms}
+
+
+def hidden_states(params, batch, rcfg: RunConfig, mode: str = "lp"):
+    """The state the head reads (after the final norm) and the
+    diagnostics: :func:`forward` without its head."""
+    return _hidden(train_params(params, rcfg), batch, rcfg, mode)
+
+
+def forward(params, batch, rcfg: RunConfig, mode: str = "lp"):
+    """Returns (logits, diagnostics). batch: tokens (B, S) [+ mm_embeds
+    for the vision stub; + src_tokens, or src_embeds for the audio stub,
+    for the encoder-decoder family]. Under a vocab split the logits are
+    gathered whole (:func:`repro_torch.models.layers.gather_vocab`)."""
+    params = train_params(params, rcfg)
+    z, diag = _hidden(params, batch, rcfg, mode)
+    return gather_vocab(unembed(params["embed"], z, rcfg.model),
+                        rcfg.model), diag
 
 
 def lm_loss(logits, labels):
@@ -333,11 +346,21 @@ def lm_loss(logits, labels):
 
 
 def loss_fn(params, batch, rcfg: RunConfig, mode: str = "lp"):
-    logits, diagnostics = forward(params, batch, rcfg, mode=mode)
+    """(the mean token cross-entropy, diagnostics). Under a vocab split
+    (the training rules' ``vocab`` over an axis that the vocab divides)
+    the head computes this rank's columns and the loss is
+    :func:`repro_torch.models.layers.vocab_parallel_loss`."""
+    cfg = rcfg.model
+    params = train_params(params, rcfg)
+    z, diagnostics = _hidden(params, batch, rcfg, mode)
+    logits = unembed(params["embed"], z, cfg)
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:  # vlm: mm positions carry no loss
         logits = logits[:, -labels.shape[1]:]
-    return lm_loss(logits, labels), diagnostics
+    sp = tp.split("vocab", cfg.vocab_size)
+    if sp is None:
+        return lm_loss(logits, labels), diagnostics
+    return vocab_parallel_loss(logits, labels, sp), diagnostics
 
 
 def prefill(params, batch, rcfg: RunConfig):

@@ -51,15 +51,23 @@ def global_norm(tree, layers=None):
     squares. ``layers`` (:func:`repro_torch.launch.steps.norm_layers`):
     ({key path: whether the leaf is stacked on a layer axis} of the
     leaves completed apart, a function that turns {path: this rank's
-    sums} into every layer's, in layer order). Such a leaf's sum of
-    squares is the sum of its layers' (one, unless stacked) in layer
-    order, one reduction a layer: the same bits whichever ranks hold
-    which layers."""
+    sums} into every layer's, in layer order, and {key path: a function
+    from the leaf to the pieces of it that this rank counts}). Such a
+    leaf's sum of squares is the sum of its layers' (one, unless
+    stacked) in layer order, one reduction a layer: the same bits
+    whichever ranks hold which layers."""
     leaves = leaves_with_paths(tree)
-    paths, complete = layers if layers is not None else ({}, None)
+    paths, complete, parts = layers if layers is not None else ({}, None,
+                                                                {})
+
+    def sq(p, x):
+        if p not in parts:
+            return _sum_sq(x)
+        return sum(_sum_sq(t) for t in parts[p](x))
+
     sums = {p: _sum_sq(x) for p, x in leaves if p not in paths}
-    per_layer = {p: torch.stack([_sum_sq(x[n]) for n in range(x.shape[0])])
-                 if paths[p] else _sum_sq(x).reshape(1)
+    per_layer = {p: torch.stack([sq(p, x[n]) for n in range(x.shape[0])])
+                 if paths[p] else sq(p, x).reshape(1)
                  for p, x in leaves if p in paths}
     if per_layer:
         sums.update({p: v.sum() for p, v in complete(per_layer).items()})

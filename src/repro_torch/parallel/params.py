@@ -16,11 +16,15 @@ for entry the reference's ``PartitionSpec``):
 
 What this port executes of them: :func:`shard_tree` slices a leaf along
 the logical axes its caller executes. Training executes ``layers``,
-``batch``, ``experts`` and ``fsdp`` (:data:`EXECUTED`); a leaf whose
-spec names a mesh axis for another logical axis is kept whole on every
-rank (its math is unchanged, only its storage differs from the
-reference's) and listed. ``fsdp`` is no logical axis of a leaf: it names
-the dimension :func:`build_spec`'s fallback storage-shards over
+``batch``, ``experts``, ``fsdp`` and the tensor-parallel axes ``heads``,
+``kv_heads``, ``mlp`` and ``vocab`` (:data:`EXECUTED`), on the
+reference's training spec (a Mamba mixer's per-row vectors whole); a
+leaf whose spec names a mesh axis that the port does not cut (the MoE
+router's experts, a Mamba split whose rows do not divide) is kept whole
+on every rank and listed. A whole leaf, or whole block of a cut leaf,
+that the ranks of a tensor-parallel axis read in part holds a partial
+gradient on each (:func:`tp_partial`). ``fsdp`` is no logical axis of a
+leaf: it names the dimension :func:`build_spec`'s fallback storage-shards over
 ``ShardingConfig.fsdp`` (:func:`fsdp_dim`), which the callers that cut
 it pass as ``sharding``. Such a leaf is stored in even contiguous
 pieces and rebuilt whole for each use (:mod:`repro_torch.parallel.fsdp`).
@@ -97,7 +101,8 @@ _FSDP_MIN_SIZE = 1 << 22  # only storage-shard leaves >= 4M elements
 
 # the logical axes training executes (slices storage and work along);
 # "fsdp" stands for the dimension fsdp_dim names
-EXECUTED = ("layers", "batch", "experts", "fsdp")
+EXECUTED = ("layers", "batch", "experts", "fsdp", "heads", "kv_heads",
+            "mlp", "vocab")
 # ... and serving: slots and pools over data, Megatron TP over model,
 # the experts where the rules map them
 SERVE_EXECUTED = ("batch", "pages", "heads", "kv_heads", "mlp", "vocab",
@@ -340,6 +345,9 @@ def model_blocks(path: Path, size: int, cfg: Optional[ModelConfig],
     model code runs does not divide (a Mamba mixer splits only where its
     rows, di for mamba1 and the heads for mamba2, divide). Without
     ``cfg`` every dimension is one even block."""
+    if cfg is None and "mixer" in path:
+        raise ValueError(f"{'.'.join(path)}: a Mamba mixer's leaf is cut "
+                         "block by block: pass the model config (cfg=)")
     if cfg is not None and cfg.ssm is not None and (
             "mixer" in path or path[-1] in ("conv", "h")):
         s = cfg.ssm
@@ -475,6 +483,80 @@ def expert_cut(tree, specs, mesh) -> Dict[Path, Tuple[str, ...]]:
             axes = tuple(a for a in axis_tuple(ax) if mesh.shape[a] > 1)
             if name == "experts" and axes:
                 out[path] = axes
+    return out
+
+
+def tp_cut(tree, specs, mesh, cfg: Optional[ModelConfig],
+           sharding: ShardingConfig) -> Dict[Path, Tuple[str, ...]]:
+    """The leaves of a params tree (full shapes; meta tensors will do)
+    that a spec of ``specs`` (made under ``sharding``, whose fsdp
+    dimension is no tensor-parallel cut) cuts over a tensor-parallel axis
+    of more than one rank (``heads``, ``kv_heads``, ``mlp``, ``vocab``),
+    each with those axes: every rank holds its own slice (``cfg``: the
+    model, for the Mamba block layouts)."""
+    out = {}
+    for path, leaf in leaves_with_paths(tree):
+        spec = leaf_at(specs, path)
+        if not spec:
+            continue
+        split, _ = _split_dims(path, leaf, spec, mesh, _TP_AXES, cfg,
+                               sharding=sharding)
+        axes = tuple(a for _, axs, _ in split for a in axs)
+        if axes:
+            out[path] = axes
+    return out
+
+
+def tp_partial(tree, mesh, rcfg: RunConfig
+               ) -> Dict[Path, Tuple[str, Optional[Tuple[int, int]]]]:
+    """The leaves of a training params tree (full shapes) whose gradient
+    each rank of a tensor-parallel axis holds in part, each with that
+    axis and the range of its last dimension (on this rank's slice) so
+    held, None for all of it: the leaves, and whole blocks of cut leaves,
+    that every rank stores whole and reads for its own heads or rows
+    only. Under a mamba2 inner split: the per-row vectors that serving's
+    layout cuts over ``mlp`` and training's keeps whole (``conv_b``,
+    ``dt_bias``, ``D``, ``A_log``: :func:`serve_logical_axes_for` against
+    :func:`logical_axes_for`), the gated norm's ``norm_scale`` (whole in
+    both: each rank keeps its own columns of the normed rows), and the B
+    C block of ``in_proj`` and of ``conv_w``. Under a heads split:
+    ``q_norm`` / ``k_norm``, and ``wk`` / ``wv`` where the KV heads do
+    not divide (each rank reads its group's head). Their sum over the
+    axis is the gradient. (A mamba1 mixer is split in serving only:
+    :func:`repro_torch.models.ssm.mamba1_apply` raises under a
+    gradient.)"""
+    cfg, rules = rcfg.model, rcfg.sharding
+
+    def axis(logical, full):
+        ax = tp.axis_of(mesh, rules, logical)
+        return None if ax is None or full % mesh.shape[ax] else ax
+
+    heads = axis("heads", cfg.n_heads)
+    kv_whole = heads is not None and cfg.n_kv_heads % mesh.shape[heads]
+    inner = None
+    if cfg.ssm is not None and mamba_version(cfg) == 2:
+        s = cfg.ssm
+        inner = axis("mlp", s.expand * cfg.d_model // s.headdim)
+    out = {}
+    for path, leaf in leaves_with_paths(tree):
+        name = path[-1]
+        if "mixer" in path and inner is not None:
+            if name == "norm_scale" or (
+                    "mlp" in serve_logical_axes_for(path, leaf.shape)
+                    and "mlp" not in logical_axes_for(path, leaf.shape)):
+                out[path] = (inner, None)
+            elif name in ("in_proj", "conv_w"):
+                blocks = mamba_blocks(cfg, "in_proj" if name == "in_proj"
+                                      else "conv")
+                # [z | x | B C | dt] or [x | B C]: B C after the x block
+                lo = tp.local_size(blocks[:2 if name == "in_proj" else 1],
+                                   mesh.shape[inner])
+                out[path] = (inner, (lo, lo + 2 * cfg.ssm.d_state))
+        elif len(path) > 1 and path[-2] in ("attn", "xattn") \
+                and heads is not None and (
+                    name in ("q_norm", "k_norm")
+                    or (kv_whole and name in ("wk", "wv"))):
+            out[path] = (heads, None)
     return out
 
 

@@ -1,24 +1,41 @@
-"""Tensor parallelism at run time: the serving slice's Megatron split.
+"""Tensor parallelism at run time: the Megatron split of serving and of
+training.
 
-The JAX package hands the serving rules
-(:func:`repro_torch.configs.registry.serve_sharding`) to GSPMD, which
-inserts the collectives. The port runs the split itself: inside
-:func:`active` (entered by the paged serve, verify and draft steps of a
-mesh engine) the model code asks :func:`split` whether a dimension
+The JAX package hands its rules (serving's
+:func:`repro_torch.configs.registry.serve_sharding`, training's
+``train_sharding`` / ``tp_sharding``) to GSPMD, which inserts the
+collectives. The port runs the split itself: under the active rules
+(:func:`active`, entered by the paged serve, verify and draft steps of a
+mesh engine and by the dense decode step under a mesh, or training's
+:func:`repro_torch.parallel.sharding.axis_rules`, entered by
+:func:`repro_torch.launch.steps.make_grad_fn`; :func:`current` reads
+serving's first) the model code asks :func:`split` whether a dimension
 named ``heads``, ``kv_heads``, ``mlp`` or ``vocab`` is cut over a mesh
 axis of more than one rank, runs on its rank's columns or rows of each
-weight (the serve backend cut the weights once, with
-:func:`repro_torch.parallel.params.shard_tree`), and sums or gathers
-over that axis through the mesh's counted collectives. The MoE's
-expert axis reads the same rules (:func:`current`;
-:func:`repro_torch.models.moe.expert_split`). The dense-cache decode
+weight (cut once, with :func:`repro_torch.parallel.params.shard_tree`),
+and sums or gathers over that axis through the mesh's counted
+collectives. The MoE's expert axis reads the same rules
+(:func:`repro_torch.models.moe.expert_split`). The dense-cache decode
 step under a mesh (:func:`repro_torch.launch.steps.make_serve_fn`)
-enters it too: there ``batch`` cuts the slots over the data ranks and
-``kv_seq`` may cut the cache along the sequence (:func:`seq_split`),
-each rank attending over its slice and the slices' partial softmaxes
-merged by their log-sum-exp (:func:`merge_partials`). Outside
-:func:`active` (training, an engine without a mesh) :func:`split` is
+cuts more: ``batch`` cuts its slots over the data ranks
+(:func:`local_rows`) and ``kv_seq`` may cut the cache along the
+sequence (:func:`seq_split`), each rank attending over its slice and the
+slices' partial softmaxes merged by their log-sum-exp
+(:func:`merge_partials`); both read serving's rules only (in training
+the batch is this rank's rows already). Without rules :func:`split` is
 None everywhere and the model code runs as it always did.
+
+The split differentiates (Megatron's pair, over the counted collectives):
+:meth:`Split.column` runs the column-parallel products of an input every
+rank holds whole and, in a backward, sums its cotangent over the ranks
+(each holds the part its own columns gave: Megatron's copy into the
+split, fused with the products); :meth:`Split.all_sum` sums the
+ranks' partial outputs and passes the cotangent through unchanged;
+:meth:`Split.all_gather` puts the ranks' pieces together and hands each
+rank its piece of the cotangent summed over the ranks (a
+reduce-scatter). Cotangents are summed in float32 and rounded once.
+Under ``torch.no_grad`` (serving, decode) they issue exactly the forward
+collectives.
 
 A dimension may be packed from several blocks that split apart (mamba1's
 ``in_proj`` is ``[x | z]``): a layout is a list of ``(size, split)``
@@ -38,7 +55,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.parallel.sharding import axis_tuple, resolve_axis
+from repro_torch.parallel.sharding import (axis_tuple, current_rules,
+                                           resolve_axis)
 
 Blocks = Sequence[Tuple[int, bool]]
 
@@ -57,6 +75,82 @@ def active(mesh, cfg):
         _ctx.rules = prev
 
 
+def _serving():
+    """(mesh, ShardingConfig) of the innermost :func:`active`, or None.
+    Serving's rules stay apart from training's: they cut the slots and
+    the cache (:func:`local_rows`, :func:`seq_split`), which training's
+    batch (this rank's rows already) must not be cut by, and training's
+    readers (the fsdp plan, the MGRIT layout) must not see serving's
+    ``fsdp`` or batch axes where serving runs an encoder trunk."""
+    return getattr(_ctx, "rules", None)
+
+
+def _wants_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllSum(torch.autograd.Function):
+    """The ranks' partials summed (``kind``); backward: the identity (every
+    rank reads the sum whole, so its cotangent is each partial's)."""
+
+    @staticmethod
+    def forward(ctx, t, sp, kind):
+        return sp.mesh.all_sum(kind, t.clone(
+            memory_format=torch.contiguous_format), (sp.axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' pieces concatenated along ``dim`` (``kind``); backward:
+    this rank's piece of the cotangent summed over the ranks
+    (``<kind>_grad``, a reduce-scatter: each rank used the whole in its
+    own way)."""
+
+    @staticmethod
+    def forward(ctx, t, sp, kind, dim):
+        ctx.sp, ctx.kind, ctx.dim = sp, kind, dim
+        return sp.mesh.all_gather(kind, t, sp.axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        g32 = g.to(torch.float32)
+        return sp.mesh.reduce_scatter(ctx.kind + "_grad", g32, sp.axis,
+                                      ctx.dim).to(g.dtype), None, None, None
+
+
+class _Column(torch.autograd.Function):
+    """``x @ w`` for each ``w`` (this rank's columns; ``x`` whole on every
+    rank); backward: each weight's gradient as one device's, and ``x``'s
+    cotangent from this rank's products in float32, summed over the
+    split's ranks (``<kind>_grad``) and rounded once: one device's
+    contraction over every column, split in the ranks' pieces."""
+
+    @staticmethod
+    def forward(ctx, sp, kind, x, *ws):
+        ctx.sp, ctx.kind = sp, kind
+        ctx.save_for_backward(x, *ws)
+        return tuple(x @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        sp = ctx.sp
+        x2 = x.reshape(-1, x.shape[-1])
+        dx, dws = None, []
+        for g, w in zip(gs, ws, strict=True):
+            g2 = g.reshape(-1, g.shape[-1])
+            part = partial_product(g2, w.t())
+            dx = part if dx is None else dx + part
+            dws.append(x2.t() @ g2 if ctx.needs_input_grad[3 + len(dws)]
+                       else None)
+        dx = sp.mesh.all_sum(ctx.kind + "_grad", dx, (sp.axis,))
+        return (None, None, dx.to(x.dtype).reshape(x.shape), *dws)
+
+
 @dataclasses.dataclass(frozen=True)
 class Split:
     """A dimension cut over ``axis`` of ``mesh``: ``n`` ranks, this one
@@ -66,12 +160,28 @@ class Split:
     n: int
     r: int
 
+    def column(self, kind: str, x: torch.Tensor,
+               *ws: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``x @ w`` for each of ``ws`` (2-d, this rank's columns), ``x``
+        held whole on every rank: column-parallel products sharing one
+        input. In a backward ``x``'s cotangent is this rank's products'
+        part summed over the ranks in float32 and rounded once, as one
+        device's single product over every column rounds once."""
+        if _wants_grad(x) or any(_wants_grad(w) for w in ws):
+            return _Column.apply(self, kind, x, *ws)
+        return tuple(x @ w for w in ws)
+
     def all_sum(self, kind: str, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t`` (in place without a gradient to
+        carry)."""
+        if _wants_grad(t):
+            return _AllSum.apply(t, self, kind)
         return self.mesh.all_sum(kind, t, (self.axis,))
 
     def all_gather(self, kind: str, t: torch.Tensor,
                    dim: int) -> torch.Tensor:
-        return self.mesh.all_gather(kind, t, self.axis, dim=dim)
+        return _AllGather.apply(t, self, kind, dim) if _wants_grad(t) \
+            else self.mesh.all_gather(kind, t, self.axis, dim=dim)
 
 
 def axis_of(mesh, cfg, logical: str) -> Optional[str]:
@@ -85,14 +195,17 @@ def axis_of(mesh, cfg, logical: str) -> Optional[str]:
 
 def split(logical: str, full: int) -> Optional[Split]:
     """The split of a ``full``-long dimension named ``logical`` under
-    :func:`active`, or None: outside it, where the name maps to no axis
-    of more than one rank, or where ``full`` does not divide over it
-    (then every rank runs the whole dimension, as the reference's spec
-    drops the mapping)."""
-    rules = getattr(_ctx, "rules", None)
-    if rules is None:
-        return None
+    the active rules (:func:`current`), or None: without rules, where
+    the name maps to no axis of more than one rank, or where ``full``
+    does not divide over it (then every rank runs the whole dimension,
+    as the reference's spec drops the mapping)."""
+    return _split(logical, full, current())
+
+
+def _split(logical: str, full: int, rules) -> Optional[Split]:
     mesh, cfg = rules
+    if mesh is None:
+        return None
     ax = axis_of(mesh, cfg, logical)
     if ax is None or full % mesh.shape[ax]:
         return None
@@ -122,7 +235,7 @@ def seq_split(rows: int, local: bool = False) -> Optional[SeqSplit]:
     one rank. A whole length that does not divide over those ranks
     raises (the reference's spec would keep it whole on every rank; the
     port cuts the sequence wherever the rules say)."""
-    rules = getattr(_ctx, "rules", None)
+    rules = _serving()
     if rules is None:
         return None
     mesh, cfg = rules
@@ -147,8 +260,9 @@ def seq_split(rows: int, local: bool = False) -> Optional[SeqSplit]:
 
 def local_rows(full: int) -> int:
     """This rank's share of ``full`` slots (the ``batch`` dimension)
-    under :func:`active`: ``full`` itself where it is not cut."""
-    sp = split("batch", full)
+    under :func:`active`: ``full`` itself where it is not cut (and under
+    training's rules, whose batch is this rank's rows already)."""
+    sp = _split("batch", full, _serving() or (None, None))
     return full // sp.n if sp else full
 
 
@@ -193,9 +307,28 @@ def merge_partials(out: torch.Tensor, lse: torch.Tensor,
 
 
 def current():
-    """(mesh, ShardingConfig) of the innermost :func:`active`, or (None,
-    None)."""
-    return getattr(_ctx, "rules", None) or (None, None)
+    """(mesh, ShardingConfig) of the innermost :func:`active`, else of
+    training's innermost :func:`repro_torch.parallel.sharding.axis_rules`,
+    or (None, None)."""
+    return _serving() or current_rules()
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``x @ w`` accumulated and returned in float32 from inputs in
+    ``x``'s type (the card's ``out_dtype`` product); backward: one
+    device's products in ``x``'s type."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        mm = torch.bmm if x.ndim == 3 else torch.mm
+        return mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.transpose(-1, -2), x.transpose(-1, -2) @ g
 
 
 def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -205,8 +338,7 @@ def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
-        mm = torch.bmm if x.ndim == 3 else torch.mm
-        return mm(x, w, out_dtype=torch.float32)
+        return _PartialProduct.apply(x, w)
     return x.float() @ w.float()
 
 
@@ -217,7 +349,9 @@ def row_parallel(sp: Optional[Split], kind: str, x: torch.Tensor,
     None: not cut): the partial products in float32, summed over the
     ranks and rounded once to ``x``'s type, as one device's product
     accumulates in float32 and rounds once (partials rounded each and
-    summed in ``x``'s type would round twice)."""
+    summed in ``x``'s type would round twice). The backward passes the
+    sum's cotangent to each rank's partial product
+    (:meth:`Split.all_sum`)."""
     if sp is None:
         return x @ w
     part = partial_product(x.reshape(-1, x.shape[-1]), w)

@@ -113,7 +113,7 @@ def save(ckpt_dir: str, step: int, params, opt_state,
         gathers = tuple(
             (lambda p, leaf, sp=sp: gather_leaf(
                 leaf, p, leaf_at(sp, p), mesh, kind="ckpt_gather",
-                sharding=rcfg.sharding))
+                cfg=rcfg.model, sharding=rcfg.sharding))
             for sp in _mesh_specs(mesh, rcfg, opt_state))
     if not writer:
         _write_npz(None, params, gathers[0])
@@ -227,6 +227,7 @@ def restore(ckpt_dir: str, params_template, opt_template,
         from repro_torch.parallel.params import local_slice
         cuts = tuple(
             (lambda p, a, sp=sp: local_slice(a, p, leaf_at(sp, p), mesh,
+                                             cfg=rcfg.model,
                                              sharding=rcfg.sharding))
             for sp in _mesh_specs(mesh, rcfg, opt_template))
     params = _load_npz(os.path.join(d, "params.npz"), params_template,

@@ -25,8 +25,9 @@ rank, the mesh's device type that of the params) every rank builds the
 full params from the seed and keeps its slices
 (:func:`repro_torch.parallel.params.shard_tree`: the trunk's chunks
 over the chunk axis, the MoE experts over theirs, the fsdp dimension of
-a big leaf over the fsdp axis; ``kept_whole`` lists the leaves whose
-other mesh axes the port does not execute, the MoE router among them),
+a big leaf over the fsdp axis, the heads, MLP columns, Mamba rows and
+vocab rows over the tensor-parallel axis; ``kept_whole`` lists the
+leaves whose spec names an axis the port does not cut, the MoE router),
 reads its rows of each batch, and
 steps through :func:`repro_torch.launch.steps.make_train_fn` under the
 mesh. The probe's residual norms are all-reduced, so every rank takes
@@ -93,7 +94,8 @@ class Trainer:
         if mesh is not None:
             specs = pparams.train_specs(self.params, rcfg, mesh)
             self.params, self.kept_whole = pparams.shard_tree(
-                self.params, specs, mesh, sharding=rcfg.sharding)
+                self.params, specs, mesh, cfg=rcfg.model,
+                sharding=rcfg.sharding)
         self.opt_state = optimizers.init_opt_state(rcfg.optimizer,
                                                    self.params)
         self.step = 0

@@ -46,6 +46,7 @@ from test_serve_backends import family_rcfg as j_family
 ARCH = "qwen3_moe_235b"
 MOE_TOL = 2e-5
 CROSS = 1e-6
+TP_REL = 5e-6       # the vocab cut over 'model' (measured: 1.12e-6 at (2, 2))
 LOSS_TOL = 1e-5
 LEAF_REL = 1e-4
 SPAWN_S = 240.0
@@ -241,7 +242,8 @@ def test_moe_module_and_cotangents_across_ranks(runs, n, shape):
 def test_expert_parallel_grads_match_one_rank_and_jax(runs, n, shape):
     """The loss, every gathered gradient leaf and the gradient norm of
     the reduced qwen3-moe (MGRIT forward and adjoint) within CROSS of
-    the one-rank port and within the float32 tolerances of JAX's
+    the one-rank port (TP_REL at (2, 2), where the vocab is cut over
+    'model') and within the float32 tolerances of JAX's
     ``value_and_grad(loss_fn, mode="lp")``; every rank the same loss.
     Each rank stores E/n experts of every expert leaf, the routers are
     kept whole (listed), and the data-parallel gradient mean moves
@@ -250,11 +252,14 @@ def test_expert_parallel_grads_match_one_rank_and_jax(runs, n, shape):
     ranks = at(runs, n, shape, "grads")
     res = ranks[0]
     one, mesh = res["one"], res["mesh"]
-    assert rel_err(mesh["loss"], one["loss"]) <= CROSS
-    assert rel_err(mesh["global_norm"], one["global_norm"]) <= CROSS
+    # at (2, 2) the training rules cut the vocab over 'model' too: the
+    # head's sums cross ranks (test_torch_mesh_train.py's TP_REL)
+    tol = CROSS if shape[1] == 1 else TP_REL
+    assert rel_err(mesh["loss"], one["loss"]) <= tol
+    assert rel_err(mesh["global_norm"], one["global_norm"]) <= tol
     assert set(mesh["grads"]) == set(one["grads"])
     for path, g in one["grads"].items():
-        assert rel_err(mesh["grads"][path], g) <= CROSS, path
+        assert rel_err(mesh["grads"][path], g) <= tol, path
     ref = runs["jax_grads"]
     np.testing.assert_allclose(mesh["loss"], ref["loss"], rtol=LOSS_TOL)
     for path, want in ref["grads"].items():

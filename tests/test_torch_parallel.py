@@ -172,12 +172,15 @@ def test_shardings_for_train_and_the_layer_sharded_count(ref_specs):
 
 def test_train_specs_and_shard_tree_execute_layers_and_batch_only():
     """The storage training executes: a trunk leaf's layer axis (where
-    the chunks divide over 'model'), a batch's rows, and an expert leaf's
-    experts (qwen3-moe's over 'data', with its layers over 'model'); a
-    leaf whose spec names 'model' for its vocab axis is kept whole and
-    listed, as is the router, whose experts dimension is never cut (the
-    fsdp dimension, executed too, is held in test_torch_mesh_fsdp.py)."""
-    assert tparams.EXECUTED == ("layers", "batch", "experts", "fsdp")
+    the chunks divide over 'model'), a batch's rows, an expert leaf's
+    experts (qwen3-moe's over 'data', with its layers over 'model') and
+    the tensor-parallel axes (a vocab over 'model' cut to this rank's
+    rows); the router, whose experts dimension is never cut, is kept
+    whole and listed (the fsdp dimension, executed too, is held in
+    test_torch_mesh_fsdp.py; the heads, MLP and Mamba2 rows in
+    test_torch_mesh_train.py)."""
+    assert tparams.EXECUTED == ("layers", "batch", "experts", "fsdp",
+                                "heads", "kv_heads", "mlp", "vocab")
     tr = registry.get_config("qwen3_1p7b")          # 32 mid layers, cf 2
     mesh = mesh_of((2, 4))
     mesh.index = {"data": 1, "model": 3}.get
@@ -211,8 +214,8 @@ def test_train_specs_and_shard_tree_execute_layers_and_batch_only():
         full, {"mid": {"gate": ("model",)},
                "embed": {"tok": ("model", None)}}, mesh)
     assert local["mid"]["gate"].tolist() == list(range(24, 32))
-    assert local["embed"]["tok"] is full["embed"]["tok"]
-    assert whole == [("embed", "tok")]
+    assert torch.equal(local["embed"]["tok"], full["embed"]["tok"][6:8])
+    assert whole == []
     rows = np.arange(12).reshape(6, 2)
     assert tparams.local_slice(rows, ("tokens",), ("data", None),
                                mesh).tolist() == [[6, 7], [8, 9], [10, 11]]
@@ -282,3 +285,25 @@ def test_compress_tree_error_feedback_within_an_ulp():
             want = np.asarray(want)
             ulp = np.spacing(np.abs(want).astype(np.float32))
             assert np.all(np.abs(got.numpy() - want) <= ulp), path
+
+
+def test_mamba1_rows_split_raises_under_a_gradient():
+    """A mamba1 mixer's rows cut over 'model' is serving's layout (no
+    training rules map its mlp): under training rules that would cut
+    them, the mixer raises where a gradient is to flow, before any
+    collective (serving's no-grad steps are held in
+    test_torch_mesh_serve.py and test_torch_mesh_dense.py)."""
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.models import ssm, transformer
+    rcfg = reduce_config(registry.get_config("falcon_mamba_7b"))
+    cfg = dataclasses.replace(rcfg.model, dtype="float32")
+    mesh = mesh_of((1, 2))
+    mesh.index = {"data": 0, "model": 0}.get
+    rules = ShardingConfig(batch="data", mlp="model", layers=None)
+    mixer = {k: v[0] for k, v in transformer.init_model(
+        rcfg, seed=0, device="cpu")["open"]["mixer"].items()}
+    x = torch.zeros(1, 4, cfg.d_model, requires_grad=True)
+    with tsharding.axis_rules(mesh, rules):
+        assert ssm.inner_split(cfg) is not None
+        with pytest.raises(NotImplementedError, match="serving layout"):
+            ssm.mamba1_apply(mixer, x, cfg)
